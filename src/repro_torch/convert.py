@@ -1,0 +1,56 @@
+"""Carry weights and state across from numpy into the port's tensors.
+
+JAX's threefry draws cannot be reproduced in PyTorch, so states and weights
+made by the reference are exported as numpy arrays and turned into port
+tensors here — that is how the parity tests feed both packages the same
+cluster and the same Q-net.  The dtypes are the port's contract (float32,
+int32 counts, bool flags), whatever the numpy input carried.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import ClusterState, PodSpec
+from repro_torch.device import resolve_device
+
+_INT_FIELDS = {"max_pods", "num_pods", "exp_pods"}
+_BOOL_FIELDS = {"healthy", "image_cached"}
+
+
+def _dtype(field: str) -> torch.dtype:
+    if field in _INT_FIELDS:
+        return torch.int32
+    if field in _BOOL_FIELDS:
+        return torch.bool
+    return torch.float32
+
+
+def qnet_from_numpy(params: Mapping[str, np.ndarray], device=None) -> dict:
+    """Table-4 Q-net params ``{w1 (6,32), b1 (32,), w2 (32,1), b2 (1,)}``."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(params[k], np.float32), device=device)
+            for k in ("w1", "b1", "w2", "b2")}
+
+
+def state_from_numpy(cols, device=None) -> ClusterState:
+    """A ``ClusterState`` given as numpy: a mapping or a sequence in field
+    order (a reference ``ClusterState`` mapped through ``np.asarray`` works
+    as it is)."""
+    device = resolve_device(device)
+    if not isinstance(cols, Mapping):
+        cols = dict(zip(ClusterState._fields, cols))
+    return ClusterState(**{
+        f: torch.tensor(np.asarray(cols[f]), device=device).to(_dtype(f))
+        for f in ClusterState._fields})
+
+
+def pods_from_numpy(cpu_request, cpu_demand, mem_request, mem_demand,
+                    device=None) -> PodSpec:
+    """A ``PodSpec`` of float32 tensors (scalars or (B,) arrays)."""
+    device = resolve_device(device)
+    return PodSpec(*(torch.tensor(np.asarray(x, np.float32), device=device)
+                     for x in (cpu_request, cpu_demand, mem_request,
+                               mem_demand)))

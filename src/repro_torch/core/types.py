@@ -1,0 +1,126 @@
+"""Tensor types for the cluster scheduling environment (PyTorch port).
+
+Counterpart of ``repro.core.types``: the same NamedTuples with the same
+field order and dtypes (int32 counts, bool ``healthy`` / ``image_cached``,
+float32 for the rest), and the same frozen ``EnvConfig``.  Scenario pools
+(heterogeneous node classes, pod catalogs) are not ported yet: only
+``scenario=None`` is accepted.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+# "no feasible target" sentinel: selectors return it when the filtering
+# phase leaves no candidate; ``env.place`` treats it as a no-op bind.
+NO_PLACEMENT = -1
+
+# width of the Table-2 afterstate feature row
+FEATURE_DIM = 6
+
+SCENARIO_QUEUE_ITEM = ("scenario pools are not ported yet: see ROADMAP.md, "
+                       "queue 1, 'Lifecycle and SDQN-n over time' (scenarios/)")
+
+
+class ClusterState(NamedTuple):
+    """Vectorized node state. All tensors have leading dim N (nodes)."""
+
+    cpu_capacity: torch.Tensor    # (N,) f32 millicores
+    mem_capacity: torch.Tensor    # (N,) f32 MiB
+    max_pods: torch.Tensor        # (N,) int32
+    healthy: torch.Tensor         # (N,) bool
+    uptime_hours: torch.Tensor    # (N,) f32
+    num_pods: torch.Tensor        # (N,) int32 — ALL pods (tenant + experiment)
+    exp_pods: torch.Tensor        # (N,) int32 — experiment pods (our image)
+    cpu_requested: torch.Tensor   # (N,) f32 millicores booked by requests
+    mem_requested: torch.Tensor   # (N,) f32 MiB booked by requests
+    pods_cpu: torch.Tensor        # (N,) f32 millicores of pod compute demand
+    mem_used: torch.Tensor        # (N,) f32 MiB actually used
+    base_cpu: torch.Tensor        # (N,) f32 pre-existing load
+    startup_cpu: torch.Tensor     # (N,) f32 transient startup/pull CPU
+    image_cached: torch.Tensor    # (N,) bool — experiment image on node
+    time_s: torch.Tensor          # () f32 seconds since episode start
+
+    @property
+    def n_nodes(self) -> int:
+        return self.cpu_capacity.shape[-1]
+
+
+class PodSpec(NamedTuple):
+    """One compute-intensive pod; fields are floats, 0-d or (B,) tensors."""
+
+    cpu_request: object   # millicores (scheduling request)
+    cpu_demand: object    # millicores actually burned while running
+    mem_request: object   # MiB
+    mem_demand: object    # MiB
+
+
+class PodTable(NamedTuple):
+    """Pre-sampled arrival stream (see ``env.sample_pod_table``)."""
+
+    specs: PodSpec                  # each field (n_pods,) f32
+    dt_s: torch.Tensor              # (n_pods,) f32 gap after each placement
+    type_idx: torch.Tensor          # (n_pods,) int32
+    lifetime_s: torch.Tensor        # (n_pods,) f32, inf = runs forever
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """Cluster simulation constants; field for field ``repro.core.types``."""
+
+    n_nodes: int = 4
+    cpu_capacity: float = 4000.0
+    mem_capacity: float = 16384.0
+    max_pods: int = 110
+    pod_cpu_request: float = 140.0
+    pod_cpu_demand: float = 20.0
+    pod_mem_request: float = 128.0
+    pod_mem_demand: float = 100.0
+    node_active_overhead: float = 500.0
+    image_pull_cost: float = 4200.0
+    warm_start_cost: float = 40.0
+    startup_decay: float = 0.88
+    pull_concurrency_coeff: float = 0.7
+    contention_knee: float = 0.68
+    contention_coeff: float = 120.0
+    crowd_knee: int = 26
+    crowd_coeff: float = 8.0
+    schedule_dt_s: float = 2.0
+    settle_steps: int = 20
+    idle_watts: float = 120.0
+    peak_watts: float = 350.0
+    consolidate_every_s: float = 0.0
+    base_cpu_profile: tuple = (720.0, 200.0, 120.0, 70.0)
+    base_cpu_jitter: float = 40.0
+    requested_frac_profile: tuple = (0.05, 0.12, 0.45, 0.80)
+    requested_frac_jitter: float = 0.03
+    init_uptime_range_h: tuple = (1.0, 200.0)
+    unhealthy_prob: float = 0.0
+    randomize_workload: bool = False
+    randomize_max_pods: int = 26
+    randomize_empty_prob: float = 0.45
+    randomize_cached_prob: float = 0.3
+    chaos_requeue_cap: int = 32
+    chaos_cycles: int = 4
+    scenario: Optional[object] = None
+
+    def __post_init__(self):
+        if self.scenario is not None:
+            raise NotImplementedError(SCENARIO_QUEUE_ITEM)
+
+
+def training_cluster() -> EnvConfig:
+    """Domain-randomized variant of the paper cluster for policy training."""
+    return dataclasses.replace(paper_cluster(), randomize_workload=True)
+
+
+def paper_cluster() -> EnvConfig:
+    """The paper's experimental cluster: 4 slave nodes, 50-pod batches."""
+    return EnvConfig()
+
+
+def fleet_cluster(n_nodes: int = 1024) -> EnvConfig:
+    """A fleet-scale cluster for the 1000+-node scheduling benchmarks."""
+    return dataclasses.replace(paper_cluster(), n_nodes=n_nodes, max_pods=110)

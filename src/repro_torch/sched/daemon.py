@@ -1,0 +1,584 @@
+"""Placement daemon (PyTorch port): continuously-serving, batched, optimistic.
+
+Counterpart of ``repro.sched.daemon`` for the pod->node cluster:
+
+  * **Batched one-launch scoring.**  Pending requests accumulate into
+    batches (cut by size OR by the oldest request's wait time); the whole
+    batch is scored by ONE launch of the hand-written afterstate kernel at
+    fleet scale (``schedulers.score_afterstates_batch``).  The kernel's
+    launch counter takes the place of the reference's compilation count.
+  * **Double-buffered fleet state.**  Admission and committed binds write
+    the *live* buffer, a host numpy mirror in the reference's dtypes
+    (float32 / int32 / bool), while scoring reads a device *snapshot*
+    published at batch cut (14 host->device column copies).
+  * **Optimistic concurrency.**  Every bind re-validates feasibility against
+    the live buffer; a request that loses the race re-queues
+    (``conflict_policy="requeue"``) or falls to its next-best snapshot
+    candidate (``"next-best"``).
+
+    sub = ClusterSubstrate(env.reset(gen, cfg), cfg)
+    d = PlacementDaemon(sub, qparams, DaemonConfig(batch_size=32))
+    d.submit(pod); ...; d.poll(); decisions = d.decisions
+
+Sharded layouts, policy classes and the job->host ``FleetSubstrate`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import env as kenv, schedulers
+from repro_torch.core.types import NO_PLACEMENT, ClusterState, EnvConfig, PodSpec
+from repro_torch.device import resolve_device
+from repro_torch.sched.api import DIVERGENCE_LIMIT as _DIVERGENCE_LIMIT
+
+__all__ = [
+    "ClusterSubstrate", "DaemonConfig", "DaemonMetrics", "DaemonStats",
+    "Decision", "LatencyReservoir", "PlacementDaemon", "replay_trace",
+]
+
+SUBSTRATE_QUEUE_ITEM = ("sharded layouts, policy classes and custom score_fn "
+                        "are not ported yet: see ROADMAP.md, queue 1, "
+                        "'Serving' and 'Policy registry'")
+
+
+@dataclasses.dataclass(frozen=True)
+class DaemonConfig:
+    """Serving-loop knobs (see the reference for the full story).
+
+    A batch is cut when ``batch_size`` requests are pending OR the oldest
+    has waited ``max_wait_s``.  ``max_retries`` bounds conflict re-queues;
+    ``conflict_policy`` picks what a lost optimistic bind does; ``fused``
+    threads to ``schedulers.score_afterstates_batch``.  ``queue_cap`` sheds
+    the oldest pending request past the cap (0 = unbounded);
+    ``backoff_base_s`` holds a conflicted request ``base * 2**(k-1)``;
+    ``score_deadline_s`` degrades to the kube heuristic for
+    ``degrade_batches`` batches when a launch runs late (NaN / diverged
+    scores always degrade); ``heuristic_only`` pins degraded mode on.
+    """
+
+    batch_size: int = 32
+    max_wait_s: float = 0.02
+    max_retries: int = 4
+    conflict_policy: str = "requeue"     # "requeue" | "next-best"
+    fused: object = "auto"
+    queue_cap: int = 0
+    backoff_base_s: float = 0.0
+    score_deadline_s: Optional[float] = None
+    degrade_batches: int = 8
+    heuristic_only: bool = False
+
+    def __post_init__(self):
+        if self.batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        if self.conflict_policy not in ("requeue", "next-best"):
+            raise ValueError(f"unknown conflict_policy "
+                             f"{self.conflict_policy!r}")
+        if self.queue_cap < 0:
+            raise ValueError("queue_cap must be >= 0 (0 = unbounded)")
+        if self.backoff_base_s < 0:
+            raise ValueError("backoff_base_s must be >= 0")
+        if self.degrade_batches < 0:
+            raise ValueError("degrade_batches must be >= 0")
+        if self.fused not in schedulers.FUSED_CHOICES:
+            raise ValueError(f"fused must be one of "
+                             f"{schedulers.FUSED_CHOICES}, got {self.fused!r}")
+
+
+class Decision(NamedTuple):
+    """One served placement decision (``node == NO_PLACEMENT`` = dropped)."""
+
+    req_id: int
+    node: int
+    latency_s: float       # decision time - submission time
+    attempts: int          # 1 + times the request lost an optimistic bind
+    shed: bool = False     # evicted from the admission queue (backpressure)
+
+
+class LatencyReservoir:
+    """Fixed-memory uniform sample of the decision-latency stream
+    (Algorithm R, deterministically seeded)."""
+
+    __slots__ = ("_buf", "_filled", "_seen", "_rng")
+
+    def __init__(self, capacity: int = 4096, seed: int = 0):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self._buf = np.zeros((capacity,), np.float64)
+        self._filled = 0
+        self._seen = 0
+        self._rng = np.random.default_rng(seed)
+
+    def append(self, x: float) -> None:
+        cap = self._buf.shape[0]
+        if self._filled < cap:
+            self._buf[self._filled] = x
+            self._filled += 1
+        else:
+            j = int(self._rng.integers(0, self._seen + 1))
+            if j < cap:
+                self._buf[j] = x
+        self._seen += 1
+
+    @property
+    def seen(self) -> int:
+        """Total latencies observed (not just the retained sample)."""
+        return self._seen
+
+    def __len__(self) -> int:
+        return self._filled
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self._buf[:self._filled]
+        return arr.astype(dtype) if dtype is not None else arr.copy()
+
+    def percentile(self, q: float) -> float:
+        if self._filled == 0:
+            return float("nan")
+        return float(np.percentile(self._buf[:self._filled], q))
+
+    def p50(self) -> float:
+        return self.percentile(50.0)
+
+    def p99(self) -> float:
+        return self.percentile(99.0)
+
+
+@dataclasses.dataclass
+class DaemonMetrics:
+    submitted: int = 0
+    bound: int = 0
+    dropped: int = 0
+    shed: int = 0           # evicted from the admission queue (backpressure)
+    conflicts: int = 0      # optimistic binds that failed live re-validation
+    requeued: int = 0       # conflicted requests sent back to the queue
+    evictions: int = 0      # bound pods auto-requeued off a failed node
+    batches: int = 0
+    device_launches: int = 0  # scoring calls (degraded batches skip)
+    fallback_batches: int = 0  # batches served by the kube heuristic
+    # latency of SERVED requests (bound or dropped); shed waits kept apart
+    bind_latencies_s: LatencyReservoir = dataclasses.field(
+        default_factory=LatencyReservoir)
+    shed_wait_s: LatencyReservoir = dataclasses.field(
+        default_factory=LatencyReservoir)
+
+
+# the public name the ops surface documents
+DaemonStats = DaemonMetrics
+
+
+class _Request:
+    __slots__ = ("req_id", "pod", "t_submit", "attempts", "not_before")
+
+    def __init__(self, req_id, pod, t_submit):
+        self.req_id = req_id
+        self.pod = pod
+        self.t_submit = t_submit
+        self.attempts = 0
+        self.not_before = t_submit   # conflict-backoff hold (poll honors it)
+
+
+# ---------------------------------------------------------------------------
+# substrate: live-buffer mirror + batched snapshot scorer
+# ---------------------------------------------------------------------------
+
+
+class Snapshot(NamedTuple):
+    """A published scoring snapshot: the device columns plus the global
+    pull-contention scalar, reduced on the host from the same live buffer
+    (so the kernel gets it by value and the batch needs no device sync
+    before its launch)."""
+
+    state: ClusterState
+    pull_cost: np.float32
+
+
+def host_pull_cost(live: ClusterState, cfg: EnvConfig) -> np.float32:
+    """``env.pull_cost_now`` over a numpy buffer, in float32 arithmetic as
+    the device reduction does it."""
+    in_flight = np.float32(np.sum(live.startup_cpu
+                                  > np.float32(0.25 * cfg.image_pull_cost)))
+    return np.float32(cfg.image_pull_cost) * (
+        np.float32(1.0) + np.float32(cfg.pull_concurrency_coeff) * in_flight)
+
+
+class ClusterSubstrate:
+    """The paper's pod->node cluster as a daemon substrate.
+
+    ``live`` is a ``ClusterState`` of *mutable numpy* arrays — the admission
+    buffer.  ``snapshot`` publishes it on ``device`` (``None`` = the CUDA
+    card) for the scoring launch.  ``bind``/``feasible_one`` mirror
+    ``env.place``/``env.feasible`` restricted to the touched row."""
+
+    def __init__(self, state: ClusterState, cfg: EnvConfig, device=None,
+                 score_fn: Optional[Callable] = None, policy=None,
+                 layout=None):
+        if score_fn is not None or policy is not None or layout is not None:
+            raise NotImplementedError(SUBSTRATE_QUEUE_ITEM)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.live = ClusterState(*(np.array(torch.as_tensor(x).cpu().numpy())
+                                   for x in state))
+
+    def snapshot(self) -> Snapshot:
+        state = ClusterState(*(torch.tensor(x, device=self.device)
+                               for x in self.live))
+        return Snapshot(state, host_pull_cost(self.live, self.cfg))
+
+    def pack(self, pods: Sequence[PodSpec], size: int) -> PodSpec:
+        """Stack + pad a request batch to (size,) columns (one host->device
+        copy; pad rows repeat the last pod and are never committed)."""
+        pods = list(pods) + [pods[-1]] * (size - len(pods))
+        cols = np.asarray([[float(x) for x in p] for p in pods],
+                          np.float32).T.copy()
+        t = torch.from_numpy(cols).to(self.device)
+        return PodSpec(*t)
+
+    def make_scorer(self, fused) -> Callable:
+        """``(params, snapshot, pod_batch) -> (scores, feasible)``, both
+        (B, N): the scores in ONE kernel launch on the fused path.  (The
+        reference threads a sequence policy's carry through this call; the
+        stateless MLP has none.)"""
+        cfg = self.cfg
+
+        def score(params, snap, pods):
+            q = schedulers.score_afterstates_batch(
+                params, snap.state, pods, cfg, fused=fused,
+                pull_cost=snap.pull_cost)
+            batch = PodSpec(*(x[:, None] for x in pods))
+            return q, kenv.feasible(snap.state, batch, cfg)
+
+        return score
+
+    def feasible_one(self, node: int, pod: PodSpec) -> bool:
+        """``env.feasible`` row ``node`` against the LIVE buffer."""
+        lv = self.live
+        return bool(
+            lv.healthy[node]
+            and lv.cpu_requested[node] + float(pod.cpu_request)
+            <= lv.cpu_capacity[node]
+            and lv.mem_requested[node] + float(pod.mem_request)
+            <= lv.mem_capacity[node]
+            and lv.num_pods[node] < lv.max_pods[node]
+        )
+
+    def bind(self, node: int, pod: PodSpec) -> None:
+        """Commit one bind to the live buffer: ``env.place`` restricted to
+        the chosen row, in numpy (no device op on the serving hot path)."""
+        lv, cfg = self.live, self.cfg
+        in_flight = float(np.sum(lv.startup_cpu > 0.25 * cfg.image_pull_cost))
+        pull = cfg.image_pull_cost * (1.0 + cfg.pull_concurrency_coeff
+                                      * in_flight)
+        start = cfg.warm_start_cost if lv.image_cached[node] else pull
+        lv.num_pods[node] += 1
+        lv.exp_pods[node] += 1
+        lv.cpu_requested[node] += float(pod.cpu_request)
+        lv.mem_requested[node] += float(pod.mem_request)
+        lv.pods_cpu[node] += float(pod.cpu_demand)
+        lv.mem_used[node] += float(pod.mem_demand)
+        lv.startup_cpu[node] += start
+        lv.image_cached[node] = True
+
+    def unbind(self, node: int, pod: PodSpec) -> None:
+        """Release one bound pod from the live buffer (startup transients
+        and the cached image stay)."""
+        lv = self.live
+        lv.num_pods[node] -= 1
+        lv.exp_pods[node] -= 1
+        lv.cpu_requested[node] -= float(pod.cpu_request)
+        lv.mem_requested[node] -= float(pod.mem_request)
+        lv.pods_cpu[node] -= float(pod.cpu_demand)
+        lv.mem_used[node] -= float(pod.mem_demand)
+
+    def set_health(self, node: int, healthy: bool) -> None:
+        """Flip one node's Ready condition in the live buffer."""
+        self.live.healthy[node] = bool(healthy)
+
+    def heuristic_batch(self, pods: Sequence[PodSpec]):
+        """(B, N) kube LeastRequested+Balanced scores + feasibility against
+        the LIVE buffer, pure numpy — the degraded-mode scorer."""
+        lv = self.live
+        creq = np.asarray([float(p.cpu_request) for p in pods])[:, None]
+        mreq = np.asarray([float(p.mem_request) for p in pods])[:, None]
+        cpu_free = (lv.cpu_capacity[None, :] - lv.cpu_requested[None, :]
+                    - creq) / lv.cpu_capacity[None, :]
+        mem_free = (lv.mem_capacity[None, :] - lv.mem_requested[None, :]
+                    - mreq) / lv.mem_capacity[None, :]
+        q = 10.0 * (cpu_free + mem_free) / 2.0 \
+            + 10.0 * (1.0 - np.abs(cpu_free - mem_free))
+        ok = (lv.healthy[None, :]
+              & (lv.cpu_requested[None, :] + creq <= lv.cpu_capacity[None, :])
+              & (lv.mem_requested[None, :] + mreq <= lv.mem_capacity[None, :])
+              & (lv.num_pods[None, :] < lv.max_pods[None, :]))
+        return q, ok
+
+
+# ---------------------------------------------------------------------------
+# the daemon
+# ---------------------------------------------------------------------------
+
+
+class PlacementDaemon:
+    """Continuously-serving placement loop over a substrate.
+
+    ``submit`` is admission: O(1) queue append, never touches the device.
+    ``poll`` cuts at most one batch when ready (size or max-wait), publishes
+    the live buffer as the scoring snapshot, scores the whole batch in one
+    launch, and commits binds with bind-time re-validation.
+    ``flush``/``drain`` force remaining work through.  ``clock`` and the
+    deadline stopwatch ``timer`` are injectable for deterministic tests."""
+
+    def __init__(self, substrate, params: dict,
+                 config: DaemonConfig = DaemonConfig(),
+                 clock: Callable[[], float] = time.monotonic,
+                 timer: Callable[[], float] = time.monotonic):
+        self._sub = substrate
+        self._params = params
+        self.config = config
+        self._clock = clock
+        self._timer = timer
+        self._pending: collections.deque = collections.deque()
+        self._scorer = substrate.make_scorer(config.fused)
+        self._next_id = 0
+        # req_id -> (node, pod) of every currently-bound placement
+        self._bound: dict = {}
+        # > 0: this many upcoming batches skip the Q-net and serve from the
+        # kube heuristic (set on a deadline breach / NaN scores)
+        self._degraded = 0
+        self.metrics = DaemonMetrics()
+        self.decisions: List[Decision] = []
+
+    # -- admission ----------------------------------------------------------
+
+    def submit(self, pod, now: Optional[float] = None) -> int:
+        """Enqueue one placement request; returns its request id.  With
+        ``queue_cap`` set, a full queue sheds its OLDEST pending request."""
+        now = self._clock() if now is None else now
+        cap = self.config.queue_cap
+        if cap > 0:
+            while len(self._pending) >= cap:
+                old = self._pending.popleft()
+                lat = max(now - old.t_submit, 0.0)
+                self.decisions.append(Decision(old.req_id, NO_PLACEMENT, lat,
+                                               old.attempts, shed=True))
+                self.metrics.shed_wait_s.append(lat)
+                self.metrics.shed += 1
+        req = _Request(self._next_id, pod, now)
+        self._next_id += 1
+        self._pending.append(req)
+        self.metrics.submitted += 1
+        return req.req_id
+
+    # -- health watchdog ----------------------------------------------------
+
+    def fail_node(self, node: int, now: Optional[float] = None) -> int:
+        """Mark ``node`` NotReady and auto-requeue every pod bound there as
+        a fresh submission; returns the number of evicted pods."""
+        now = self._clock() if now is None else now
+        self._sub.set_health(node, False)
+        evicted = [(rid, pod) for rid, (n, pod) in self._bound.items()
+                   if n == node]
+        for rid, pod in evicted:
+            del self._bound[rid]
+            self._sub.unbind(node, pod)
+            self.metrics.evictions += 1
+            self.submit(pod, now=now)
+        return len(evicted)
+
+    def recover_node(self, node: int) -> None:
+        """Mark ``node`` Ready again."""
+        self._sub.set_health(node, True)
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    # -- serving loop -------------------------------------------------------
+
+    def _cut_ready(self, now: float) -> bool:
+        if not self._pending:
+            return False
+        if len(self._pending) >= self.config.batch_size:
+            return True
+        return now - self._pending[0].t_submit >= self.config.max_wait_s
+
+    def poll(self, now: Optional[float] = None) -> int:
+        """Process at most one batch if the cut condition holds.  Returns
+        the number of requests decided (bound or dropped) this call."""
+        now = self._clock() if now is None else now
+        if not self._cut_ready(now):
+            return 0
+        return self._process_batch(now)
+
+    def flush(self, now: Optional[float] = None) -> int:
+        """Process one batch regardless of the cut condition (0 if idle);
+        backoff holds are overridden."""
+        now = self._clock() if now is None else now
+        if not self._pending:
+            return 0
+        return self._process_batch(now, force=True)
+
+    def drain(self, now: Optional[float] = None) -> int:
+        """Flush until the queue is empty (conflict re-queues included)."""
+        done = 0
+        while self._pending:
+            done += self.flush(now)
+        return done
+
+    def warmup(self) -> None:
+        """Build and load the kernel and run one scoring pass outside any
+        timing window."""
+        snap = self._sub.snapshot()
+        pods = self._sub.pack([kenv.default_pod(self._sub.cfg)],
+                              self.config.batch_size)
+        q, ok = self._scorer(self._params, snap, pods)
+        q.cpu()
+        ok.cpu()
+
+    # -- internals ----------------------------------------------------------
+
+    def _take_batch(self, now: float, force: bool) -> List[_Request]:
+        """Pop up to one batch of eligible requests (backoff holds honored
+        unless forced; held requests keep their queue order)."""
+        b = self.config.batch_size
+        take: List[_Request] = []
+        held: List[_Request] = []
+        while self._pending and len(take) < b:
+            req = self._pending.popleft()
+            if force or req.not_before <= now:
+                take.append(req)
+            else:
+                held.append(req)
+        for req in reversed(held):
+            self._pending.appendleft(req)
+        return take
+
+    def _process_batch(self, now: float, force: bool = False) -> int:
+        reqs = self._take_batch(now, force)
+        if not reqs:
+            return 0
+        scores = ok = None
+        degraded = self.config.heuristic_only or self._degraded > 0
+        if not degraded:
+            snap = self._sub.snapshot()
+            pods = self._sub.pack([r.pod for r in reqs],
+                                  self.config.batch_size)
+            t0 = self._timer()
+            q, okq = self._scorer(self._params, snap, pods)   # 1 launch
+            q = q.cpu().numpy()
+            elapsed = self._timer() - t0
+            self.metrics.device_launches += 1
+            deadline = self.config.score_deadline_s
+            real = q[:len(reqs)]
+            bad = (not np.all(np.isfinite(real))
+                   or float(np.max(np.abs(real))) > _DIVERGENCE_LIMIT)
+            if bad or (deadline is not None and elapsed > deadline):
+                # degrade: discard the launch and serve this + the next
+                # degrade_batches batches from the closed-form heuristic
+                self._degraded = self.config.degrade_batches
+                degraded = True
+            else:
+                scores, ok = q, okq.cpu().numpy()
+        if degraded:
+            if not self.config.heuristic_only and self._degraded > 0:
+                self._degraded -= 1
+            self.metrics.fallback_batches += 1
+            scores, ok = self._sub.heuristic_batch([r.pod for r in reqs])
+        self.metrics.batches += 1
+        decided = 0
+        for i, req in enumerate(reqs):
+            decided += self._commit(req, scores[i], ok[i], now)
+        return decided
+
+    def _decide(self, req: _Request, node: int) -> None:
+        lat = max(self._clock() - req.t_submit, 0.0)
+        self.decisions.append(Decision(req.req_id, node, lat, req.attempts))
+        self.metrics.bind_latencies_s.append(lat)
+        if node == NO_PLACEMENT:
+            self.metrics.dropped += 1
+        else:
+            self.metrics.bound += 1
+            self._bound[req.req_id] = (node, req.pod)
+
+    def _commit(self, req: _Request, row: np.ndarray, ok: np.ndarray,
+                now: float) -> int:
+        """Optimistic bind of one scored request; returns 1 if decided."""
+        req.attempts += 1
+        masked = np.where(ok, row, -np.inf)
+        if not ok.any():
+            # the snapshot offered no feasible node at all: a genuine drop
+            self._decide(req, NO_PLACEMENT)
+            return 1
+        choice = int(np.argmax(masked))
+        if self._sub.feasible_one(choice, req.pod):
+            self._sub.bind(choice, req.pod)
+            self._decide(req, choice)
+            return 1
+        # the snapshot's winner was taken by an earlier bind before this turn
+        self.metrics.conflicts += 1
+        if self.config.conflict_policy == "next-best":
+            for cand in np.argsort(-masked)[1:]:
+                if not np.isfinite(masked[cand]):
+                    break
+                if self._sub.feasible_one(int(cand), req.pod):
+                    self._sub.bind(int(cand), req.pod)
+                    self._decide(req, int(cand))
+                    return 1
+        return self._requeue_or_drop(req, now)
+
+    def _requeue_or_drop(self, req: _Request, now: float) -> int:
+        if req.attempts > self.config.max_retries:
+            self._decide(req, NO_PLACEMENT)
+            return 1
+        self.metrics.requeued += 1
+        if self.config.backoff_base_s > 0:
+            req.not_before = now + (self.config.backoff_base_s
+                                    * 2.0 ** (req.attempts - 1))
+        self._pending.appendleft(req)
+        return 0
+
+
+def replay_trace(daemon: PlacementDaemon, t_s: Sequence[float],
+                 pods: Sequence, speed: float = 1.0,
+                 events: Optional[Sequence] = None) -> float:
+    """Replay an arrival trace in real time through the daemon.
+
+    Each request's submission time is its *scheduled* arrival, so queueing
+    delay shows up in decision latency.  ``speed`` compresses the trace;
+    ``events`` is an optional sequence of ``(t_off, kind, node)`` with
+    ``kind`` in ``{"fail", "recover"}``.  Polls between arrivals, drains at
+    the end; returns the wall-clock serving duration."""
+    clock = daemon._clock
+    ev = sorted(events or [], key=lambda e: e[0])
+    ev_i = 0
+
+    def apply_events(up_to: float):
+        nonlocal ev_i
+        while ev_i < len(ev) and ev[ev_i][0] / speed <= up_to:
+            _, kind, node = ev[ev_i]
+            if kind == "fail":
+                daemon.fail_node(int(node))
+            elif kind == "recover":
+                daemon.recover_node(int(node))
+            else:
+                raise ValueError(f"unknown chaos event kind {kind!r}")
+            ev_i += 1
+
+    t0 = clock()
+    for t_off, pod in zip(t_s, pods):
+        due = t0 + t_off / speed
+        apply_events(due - t0)
+        while clock() < due:
+            if not daemon.poll():
+                time.sleep(0)        # yield; arrival gaps are sub-ms anyway
+        daemon.submit(pod, now=due)
+        daemon.poll()
+    apply_events(float("inf"))
+    daemon.drain()
+    return clock() - t0
