@@ -25,7 +25,33 @@ Phases (any failed check raises and the run exits nonzero):
 5. Breakdown: a 500-request replay at 4000/s with host-clock spans around
    each layer of a batch and torch.profiler's device time (busy share).
 
-The line before last is the JSON kernel table; the last line is
+The sharded and job->host paths (kernels 2-5), at N = 131,072 nodes or
+hosts in 8 shards with 8 candidates each:
+
+2b. Kernels 2-5 against their plain versions at the shapes of phase 2 and
+    k in {1, 4, 8}, unsharded and in 8 shards, on clusters with unhealthy
+    nodes and fleets with infeasible hosts; kernel 4 also against the
+    unfused oracle up to N = 1000; NaN weights must come out as NaN
+    candidates.  Top-k indices must agree wherever neighbouring candidate
+    values differ by more than the tolerance.
+6. Sharded cluster: ``PlacementDaemon`` over ``ClusterSubstrate(
+   fleet_cluster(131072), layout=plan_fleet_layout(131072, shards=8),
+   topk=8)`` replays 2,000 requests at 500/s and 4000/s; every batch is one
+   launch of kernel 4.  A deterministic replay with ``layout=None`` (flat,
+   kernel 1) must give the same decisions up to the first batch in which
+   a request's two best candidates lie within the tolerance.
+7. Job->host: ``FleetSubstrate(fresh_fleet(131072))``, flat (kernel 3) and
+   sharded (kernel 5), 2,000 jobs (cpu U(1, 10) %, mem U(0.5, 5) %) on the
+   trace's arrival times at 500/s; one launch per batch, no host past its
+   ceilings, flat and sharded deterministic replays agreeing likewise.
+   Then ``PlacementEngine.place_batch`` of 64 jobs and ``engine._score``
+   (kernel 2) against the delta scorer at zero delta.
+8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4), and
+   the breakdown of a sharded-cluster batch (as phase 5).
+
+Each path zeroes every kernel's launch count just before it runs and
+reads the counts just after.  The line before last is the JSON kernel
+table; the last line is
 ``{"ok": true, "device": {...}}``.  No CUDA device: exit 1, no result.
 """
 from __future__ import annotations
@@ -67,20 +93,60 @@ OPS_PER_NODE = 8
 BYTES_PER_NODE = 10 * 4 + 2 * 1
 WEIGHT_BYTES = (6 * 32 + 32 + 32 + 1) * 4
 
+# the sharded and job->host paths: 32 federated 4,096-node clusters (the
+# reference's fleet_scale top size), 8 shards, 8 candidates per shard
+SHARDED_N, SHARDS, TOPK = 131072, 8, 8
+K_SHAPES = (1, 4, 8)
+
+# Operation and byte counts of kernels 2-5, from their sources
+# (csrc/sdqn_score.cu, sdqn_score_cols.cu, sdqn_score_afterstate_topk.cu).
+# The Q-net on one row: 6 x 32 multiply-adds (384), 32 ReLUs, 32
+# multiply-adds into the output (64) and the b2 add.
+QNET_OPS = 384 + 32 + 64 + 1
+# kernel 2: the Q-net per row; 24 bytes read and 4 written per row
+SCORE_OPS_PER_ROW, SCORE_BYTES_PER_ROW = QNET_OPS, 6 * 4 + 4
+# kernel 3: 6 column + delta adds and the Q-net per (job, host); 24 bytes
+# read per host and per delta row, 4 written per (job, host); folding the
+# scale into w1 takes 6 x 32 divisions
+COLS_OPS_PER_PAIR = 6 + QNET_OPS
+COLS_BYTES_PER_HOST = DELTA_BYTES = 6 * 4
+# kernel 4: the k8s filter's request tests per (pod, node) (2 adds, 2
+# compares); per node the health test, the pod-slot compare and kernel 1's
+# pod-independent features (OPS_PER_NODE), counted once as for kernel 1;
+# per FEASIBLE pair kernel 1's pod-dependent work and one compare into the
+# list.  The filter's two request columns add 8 bytes per node.
+TOPK_FILTER_OPS_PER_PAIR = 4
+TOPK_OPS_PER_NODE = 2 + OPS_PER_NODE
+TOPK_OPS_PER_FEASIBLE = OPS_PER_POD_NODE + 1
+TOPK_BYTES_PER_NODE = BYTES_PER_NODE + 2 * 4
+# kernel 5: the ceilings per (job, host) (3 adds, 3 compares); the health
+# compare once per host; per feasible pair 3 more adds, the Q-net and one
+# compare into the list
+COLS_TOPK_FILTER_OPS_PER_PAIR = 6
+COLS_TOPK_OPS_PER_HOST = 1
+COLS_TOPK_OPS_PER_FEASIBLE = 3 + QNET_OPS + 1
+# one candidate written: a float32 value and an int32 index
+CAND_BYTES = 8
+
 
 def peaks(name: str):
     key = "pcie" if "PCIe" in name else "nvl" if "NVL" in name else "sxm"
     return key, PEAKS[key]
 
 
-def bound_ms(n: int, b: int, name: str):
-    """(ms, "bytes" | "operations"): the least time for one launch."""
+def roofline(nbytes, ops, name):
+    """(ms, "bytes" | "operations"): the least time for the work."""
     _, (flops, bw) = peaks(name)
-    nbytes = n * BYTES_PER_NODE + b * 8 + WEIGHT_BYTES + b * n * 4
-    ops = b * n * OPS_PER_POD_NODE + n * OPS_PER_NODE
     t_bytes, t_ops = nbytes / bw, ops / flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_ms(n: int, b: int, name: str):
+    """(ms, "bytes" | "operations"): the least time for one launch of the
+    afterstate kernel."""
+    return roofline(n * BYTES_PER_NODE + b * 8 + WEIGHT_BYTES + b * n * 4,
+                    b * n * OPS_PER_POD_NODE + n * OPS_PER_NODE, name)
 
 
 def cuda_time_ms(fn, iters: int, reps: int = 5) -> float:
@@ -224,7 +290,7 @@ def phase_main_path(device):
                               N_REQUESTS, rate_per_s=rate)
         runs.append((rate, d, trace))
 
-    ss.sdqn_score_afterstate.launches = 0          # the main path starts here
+    zero_counts()                                  # the main path starts here
     per_rate = []
     for rate, d, trace in runs:
         before = ss.sdqn_score_afterstate.launches
@@ -402,6 +468,550 @@ def phase_breakdown(device):
         print(f"device time {key}: total_us={dev_us[key]}")
 
 
+# ---------------------------------------------------------------------------
+# kernels 2-5: the sharded cluster path and the job->host path
+# ---------------------------------------------------------------------------
+
+
+def wrappers():
+    """{name: wrapper} of every kernel of the port, in table order."""
+    from repro_torch.kernels import sdqn_score as ss
+
+    return {fn.__name__: fn for fn in (
+        ss.sdqn_score_afterstate, ss.sdqn_score, ss.sdqn_score_cols,
+        ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk)}
+
+
+def zero_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def make_fleet(n, device, seed):
+    """A job fleet with infeasible hosts: unhealthy ones, cpu / mem near
+    their ceilings, job slots nearly full."""
+    from repro_torch import convert
+    from repro_torch.sched import placement as pl
+
+    rng = np.random.default_rng(seed)
+    jobs = rng.integers(0, 26, n)
+    return convert.fleet_from_numpy(dict(
+        cpu_pct=rng.uniform(2, 92, n), mem_pct=rng.uniform(2, 96, n),
+        job_util_pct=jobs * pl.JOB_UTIL_DELTA_PCT,
+        healthy=(rng.random(n) > 0.15).astype(np.float32),
+        uptime_hours=rng.uniform(1, 200, n), num_jobs=jobs), device=device)
+
+
+def make_jobs(n, seed):
+    """Job demands from a numpy seed: cpu U(1, 10) %, mem U(0.5, 5) %."""
+    from repro_torch.sched import placement as pl
+
+    rng = np.random.default_rng(seed)
+    return [pl.JobSpec(c, m) for c, m in zip(rng.uniform(1, 10, n).tolist(),
+                                             rng.uniform(0.5, 5, n).tolist())]
+
+
+def topk_err(got, want):
+    """Hold top-k candidates to the plain version's: finite values within
+    the tolerance, NaN where it has NaN, indices equal wherever neighbouring
+    candidate values differ by more than the tolerance, identical -inf / -1
+    tails.  Returns (max abs error, index slots that differ at near ties)."""
+    (gv, gi), (wv, wi) = ((v.cpu().numpy(), i.cpu().numpy())
+                          for v, i in (got, want))
+    assert gv.shape == wv.shape and gi.shape == wi.shape
+    fin = np.isfinite(wv)
+    assert np.array_equal(np.isfinite(gv), fin)
+    assert np.array_equal(np.isnan(gv), np.isnan(wv))
+    np.testing.assert_allclose(gv[fin], wv[fin], rtol=RTOL, atol=ATOL)
+    assert np.array_equal(gi[~fin], wi[~fin]) and bool((wi[~fin] == -1).all())
+    with np.errstate(invalid="ignore"):        # -inf - -inf in the tails
+        gap = (np.abs(np.diff(wv, axis=-1))
+               <= ATOL + RTOL * np.abs(wv[..., :-1]))
+    close = np.zeros_like(fin)
+    close[..., 1:] |= gap
+    close[..., :-1] |= gap
+    assert np.array_equal(gi[fin & ~close], wi[fin & ~close])
+    err = float(np.max(np.abs(gv[fin] - wv[fin]), initial=0.0))
+    return err, int((gi != wi).sum())
+
+
+def phase_new_kernels(device):
+    """Kernels 2-5 against their plain versions (and kernel 4 against the
+    unfused oracle up to N = 1000), then NaN weights into candidates."""
+    from repro_torch.core import env
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.sched import placement as pl
+
+    errs = dict.fromkeys(list(wrappers())[1:], 0.0)
+    near_tie_slots = 0
+    for n in SHAPES_N:
+        fleet = make_fleet(n, device, SEED + n)
+        cols = pl.fleet_cols(fleet)
+        for b in SHAPES_B:
+            cfg, state, params, pods = make_case(n, b, device, SEED + n + b)
+            if b == SHAPES_B[0]:
+                feats = env.normalize_features(fleet.features())
+                got = ops.sdqn_score(feats, params, mode="cuda")
+                want = ops.sdqn_score(feats, params, mode="plain")
+                torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+                errs["sdqn_score"] = max(errs["sdqn_score"],
+                                         float((got - want).abs().max()))
+            deltas = pl.job_deltas(make_jobs(b, SEED + n), device)
+            got = ops.sdqn_score_delta(cols, deltas, params, mode="cuda")
+            want = ops.sdqn_score_delta(cols, deltas, params, mode="plain")
+            assert got.shape == (b, n)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            errs["sdqn_score_cols"] = max(errs["sdqn_score_cols"],
+                                          float((got - want).abs().max()))
+            for shards in (1, SHARDS):
+                lay = plan_fleet_layout(n, shards=shards)
+                size = n if lay is None else lay.shard_size
+                for k in sorted({min(k, size) for k in K_SHAPES}):
+                    cases = (
+                        ("sdqn_score_afterstate_topk",
+                         lambda m: ops.sdqn_topk_afterstate(
+                             state, pods, cfg, params, k=k, layout=lay,
+                             mode=m)),
+                        ("sdqn_score_cols_topk",
+                         lambda m: ops.sdqn_topk_delta(
+                             cols, deltas, params, k=k, layout=lay, mode=m)))
+                    for key, run in cases:
+                        got = run("cuda")
+                        err, swaps = topk_err(got, run("plain"))
+                        errs[key] = max(errs[key], err)
+                        near_tie_slots += swaps
+                        if n <= 1000 and key == "sdqn_score_afterstate_topk":
+                            topk_err(got, run("ref"))
+            torch.cuda.synchronize()
+        print(f"kernels 2-5 vs plain N={n}: B={SHAPES_B} k={K_SHAPES} "
+              f"shards=(1, {SHARDS}) ok; max_abs_err so far {errs}")
+    # a diverged net reaches the candidates as NaN (the daemon's guard)
+    cfg, state, params, pods = make_case(5000, 4, device, SEED)
+    bad = dict(params, b1=torch.full_like(params["b1"], float("nan")))
+    lay = plan_fleet_layout(5000, shards=SHARDS)
+    vals, idx = ops.sdqn_topk_afterstate(state, pods, cfg, bad, k=TOPK,
+                                         layout=lay, mode="cuda")
+    assert bool(torch.isnan(vals).all()) and bool((idx == -1).all())
+    vals, _ = ops.sdqn_topk_delta(pl.fleet_cols(make_fleet(5000, device, 1)),
+                                  pl.job_deltas(make_jobs(4, 1), device), bad,
+                                  k=TOPK, layout=lay, mode="cuda")
+    assert bool(torch.isnan(vals).all())
+    print(f"NaN weights -> NaN candidates: ok; index slots that differ at "
+          f"near ties: {near_tie_slots}")
+    return errs
+
+
+def _sharded_setup(device):
+    from repro_torch.core import dqn, env
+    from repro_torch.core.types import fleet_cluster
+
+    cfg = fleet_cluster(SHARDED_N)
+    gen = torch.Generator().manual_seed(SEED)
+    state = env.reset(gen, cfg, device=device)
+    params = dqn.init_qnet(gen, device=device)
+    return cfg, state, params
+
+
+def _layout():
+    from repro_torch.launch.mesh import plan_fleet_layout
+
+    return plan_fleet_layout(SHARDED_N, shards=SHARDS)
+
+
+def phase_sharded_cluster(device):
+    """The sharded cluster path at 500/s and 4000/s: every batch is one
+    launch of kernel 4."""
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon, replay_trace)
+
+    cfg, state, params = _sharded_setup(device)
+    runs = []
+    for rate in RATES_PER_S:
+        d = PlacementDaemon(ClusterSubstrate(state, cfg, device=device,
+                                             layout=_layout(), topk=TOPK),
+                            params, DaemonConfig(batch_size=32,
+                                                 max_wait_s=0.005))
+        d.warmup()
+        trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                              N_REQUESTS, rate_per_s=rate)
+        runs.append((rate, d, trace))
+
+    zero_counts()                                   # the path starts here
+    per_rate = []
+    for rate, d, trace in runs:
+        before = read_counts()["sdqn_score_afterstate_topk"]
+        dur = replay_trace(d, trace.t_s, trace.pods)
+        per_rate.append((rate, d, dur, read_counts()[
+            "sdqn_score_afterstate_topk"] - before))
+    counts = read_counts()                          # ... and ends here
+
+    for rate, d, dur, n_launch in per_rate:
+        m = d.metrics
+        assert m.bound + m.dropped == m.submitted == N_REQUESTS, m
+        assert m.device_launches == m.batches == n_launch > 0, m
+        check_outcome(d, cfg)
+        lat = np.asarray(m.bind_latencies_s)
+        print(f"sharded serve N={SHARDED_N} shards={SHARDS} topk={TOPK} "
+              f"rate={int(rate)}/s: decisions/s={N_REQUESTS / dur} "
+              f"p50_ms={np.percentile(lat, 50) * 1e3} "
+              f"p99_ms={np.percentile(lat, 99) * 1e3} batches={m.batches} "
+              f"kernel_launches={n_launch} bound={m.bound} "
+              f"dropped={m.dropped} conflicts={m.conflicts}")
+    print(f"sharded cluster path launches: {counts}")
+    return counts["sdqn_score_afterstate_topk"]
+
+
+def _replay_deterministic(d, clock, t_s, reqs):
+    for t, req in zip(t_s, reqs):
+        clock.t = float(t)
+        d.submit(req, now=float(t))
+        d.poll()
+    clock.t = float(t_s[-1]) + 1.0
+    d.drain()
+
+
+def _spy_candidates(d, log):
+    """Log (decisions so far, candidate values) of every scored batch."""
+    inner = d._scorer
+
+    def spy(p, snap, pods):
+        vals, idx = inner(p, snap, pods)
+        log.append((len(d.decisions), vals.cpu().numpy()))
+        return vals, idx
+
+    d._scorer = spy
+
+
+def compare_flat_sharded(flat, sharded, cand_log, label):
+    """Flat and sharded decisions must agree, except from the first batch
+    where a request's two best candidates lie within the tolerance."""
+    near, first_near = 0, None
+    for done, vals in cand_log:
+        rows = np.unique(vals, axis=0)        # pad rows repeat a request
+        ties = [r for r in rows if np.isfinite(r[1])
+                and r[0] - r[1] <= ATOL + RTOL * abs(r[0])]
+        near += len(ties)
+        if ties and first_near is None:
+            first_near = done
+    f_dec = [(x.req_id, x.node) for x in flat.decisions]
+    s_dec = [(x.req_id, x.node) for x in sharded.decisions]
+    first_diff = next((i for i, (a, b) in enumerate(zip(f_dec, s_dec))
+                       if a != b), None)
+    if first_diff is None:
+        assert len(f_dec) == len(s_dec)
+    else:
+        assert first_near is not None and first_diff >= first_near, (
+            f"{label}: decision {first_diff} differs before any near tie")
+    print(f"{label} deterministic replay flat vs sharded: decisions="
+          f"{len(s_dec)} identical={first_diff is None} first_difference="
+          f"{first_diff} distinct_near_tie_rows={near} "
+          f"sharded_batches={len(cand_log)}")
+
+
+def phase_sharded_parity(device):
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon)
+
+    runs = {}
+    for layout in (None, _layout()):
+        cfg, state, params = _sharded_setup(device)
+        clock = StepClock()
+        d = PlacementDaemon(ClusterSubstrate(state, cfg, device=device,
+                                             layout=layout, topk=TOPK),
+                            params, DaemonConfig(batch_size=32,
+                                                 max_wait_s=0.005),
+                            clock=clock, timer=clock)
+        log = []
+        if layout is not None:
+            _spy_candidates(d, log)
+        trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                              N_REQUESTS, rate_per_s=RATES_PER_S[0])
+        _replay_deterministic(d, clock, trace.t_s, trace.pods)
+        check_outcome(d, cfg)
+        runs[layout is not None] = (d, log)
+    compare_flat_sharded(runs[False][0], runs[True][0], runs[True][1],
+                         "cluster")
+
+
+def check_fleet_outcome(d, n):
+    from repro_torch.core.types import NO_PLACEMENT
+    from repro_torch.sched import placement as pl
+
+    m = d.metrics
+    assert m.bound + m.dropped + m.shed == m.submitted, m
+    assert len(d.decisions) == m.submitted
+    for x in d.decisions:
+        assert x.node == NO_PLACEMENT or 0 <= x.node < n
+    lv = d._sub.live
+    assert np.all(lv.cpu_pct <= d._sub.max_host_cpu_pct)
+    assert np.all(lv.mem_pct <= pl.MEM_CEILING_PCT)
+    assert np.all(lv.job_util_pct <= pl.JOB_UTIL_CEILING_PCT)
+    assert int(lv.num_jobs.sum()) == m.bound
+    for col in lv:
+        assert np.all(np.isfinite(col))
+
+
+def _fleet_daemon(device, layout, clock=None):
+    from repro_torch.core import dqn
+    from repro_torch.sched import placement as pl
+    from repro_torch.sched.daemon import (DaemonConfig, FleetSubstrate,
+                                          PlacementDaemon)
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    fleet = pl.fresh_fleet(SHARDED_N, gen, device=device)
+    params = dqn.init_qnet(gen, device=device)
+    kw = {} if clock is None else dict(clock=clock, timer=clock)
+    return PlacementDaemon(FleetSubstrate(fleet, layout=layout, topk=TOPK,
+                                          device=device), params,
+                           DaemonConfig(batch_size=32, max_wait_s=0.005), **kw)
+
+
+def _job_trace():
+    from repro_torch.core.types import fleet_cluster
+    from repro_torch.scenarios import arrival_trace
+
+    t_s = arrival_trace(torch.Generator().manual_seed(SEED + 2),
+                        fleet_cluster(8), N_REQUESTS,
+                        rate_per_s=RATES_PER_S[0]).t_s
+    return t_s, make_jobs(N_REQUESTS, SEED + 5)
+
+
+def phase_fleet(device):
+    """The job->host path on fresh_fleet(131072) at 500/s: flat (kernel 3)
+    and sharded (kernel 5), one launch per batch; then both on a
+    deterministic clock, whose decisions must agree."""
+    from repro_torch.sched.daemon import replay_trace
+
+    t_s, jobs = _job_trace()
+    launches = {}
+    for label, layout, key in (("flat", None, "sdqn_score_cols"),
+                               ("sharded", _layout(),
+                                "sdqn_score_cols_topk")):
+        d = _fleet_daemon(device, layout)
+        d.warmup()
+        zero_counts()                               # the path starts here
+        dur = replay_trace(d, t_s, jobs)
+        counts = read_counts()                      # ... and ends here
+        m = d.metrics
+        assert m.bound + m.dropped == m.submitted == N_REQUESTS, m
+        assert m.device_launches == m.batches == counts[key] > 0, (m, counts)
+        check_fleet_outcome(d, SHARDED_N)
+        lat = np.asarray(m.bind_latencies_s)
+        print(f"job->host serve {label} N={SHARDED_N} rate=500/s: "
+              f"decisions/s={N_REQUESTS / dur} "
+              f"p50_ms={np.percentile(lat, 50) * 1e3} "
+              f"p99_ms={np.percentile(lat, 99) * 1e3} batches={m.batches} "
+              f"kernel_launches={counts[key]} bound={m.bound} "
+              f"dropped={m.dropped} conflicts={m.conflicts} counts={counts}")
+        launches[key] = counts[key]
+    runs = {}
+    for layout in (None, _layout()):
+        clock = StepClock()
+        d = _fleet_daemon(device, layout, clock)
+        log = []
+        if layout is not None:
+            _spy_candidates(d, log)
+        _replay_deterministic(d, clock, t_s, jobs)
+        check_fleet_outcome(d, SHARDED_N)
+        runs[layout is not None] = (d, log)
+    compare_flat_sharded(runs[False][0], runs[True][0], runs[True][1],
+                         "job->host")
+    return launches
+
+
+def phase_engine(device):
+    """PlacementEngine on the card: place_batch of 64 jobs (kernel 3 per
+    select), and ``_score`` of built rows through kernel 2."""
+    from repro_torch.core import dqn
+    from repro_torch.core.types import NO_PLACEMENT
+    from repro_torch.kernels import ops
+    from repro_torch.sched import placement as pl
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    fleet = pl.fresh_fleet(SHARDED_N, gen, device=device)
+    params = dqn.init_qnet(gen, device=device)
+    eng = pl.PlacementEngine(params)
+    zero_counts()                                   # the path starts here
+    placed, hosts = eng.place_batch(fleet, 64, pl.JobSpec())
+    q = eng._score(fleet.features())
+    counts = read_counts()                          # ... and ends here
+    assert counts["sdqn_score_cols"] == 64 and counts["sdqn_score"] == 1, (
+        counts)
+    zero = ops.sdqn_score_delta(pl.fleet_cols(fleet),
+                                torch.zeros(6, device=device), params)
+    torch.testing.assert_close(q, zero, rtol=RTOL, atol=ATOL)
+    assert np.all((hosts != NO_PLACEMENT) & (hosts < SHARDED_N))
+    assert int(placed.num_jobs.sum()) == 64
+    assert float(placed.job_util_pct.max()) <= pl.JOB_UTIL_CEILING_PCT
+    print(f"PlacementEngine: place_batch(64) distinct_hosts="
+          f"{len(set(hosts.tolist()))} _score vs delta scorer at zero delta "
+          f"max_abs_err={float((q - zero).abs().max())} counts={counts}")
+    return counts["sdqn_score"]
+
+
+def kernel_alone_ms(fn):
+    """Device time of a top-k wrapper's kernel launch alone: the graph is
+    captured with the wrapper's merge of each shard's tiles left out (the
+    wrapper's ``ms`` holds kernel and merge, the bound the function)."""
+    from repro_torch.kernels import sdqn_score as ss
+
+    merge = ss.merge_topk
+    ss.merge_topk = lambda vals, idx, k: (vals, idx)
+    try:
+        return graph_time_ms(fn, 100)
+    finally:
+        ss.merge_topk = merge
+
+
+def phase_new_timings(device, name):
+    """Kernels 2-5 at the main paths' shape (N = 131,072, B = 32, k = 8,
+    8 shards): device time from a CUDA graph, eager per-call time, the
+    plain version's device time and the bound from this run's inputs."""
+    from repro_torch.core import env
+    from repro_torch.kernels import ops, sdqn_score as ss
+    from repro_torch.sched import placement as pl
+
+    n, b, lay = SHARDED_N, MAIN_B, _layout()
+    cfg, state, params, pods = make_case(n, b, device, SEED + 7)
+    fleet = pl.fresh_fleet(n, torch.Generator().manual_seed(SEED + 8),
+                           device=device)
+    cols = pl.fleet_cols(fleet)
+    deltas = pl.job_deltas(make_jobs(b, SEED + 9), device)
+    w = (params["w1"], params["b1"], params["w2"], params["b2"])
+    feats = env.normalize_features(fleet.features())
+    a_inputs = ops._afterstate_inputs(state, pods, cfg, params)
+    t_cols = a_inputs[0] + (state.cpu_requested, state.mem_requested)
+    creq = ops._pod_column(pods.cpu_request, device)
+    mreq = ops._pod_column(pods.mem_request, device)
+    geo = dict(k=TOPK, shards=lay.shards, shard_size=lay.shard_size)
+    ceil = ops.DEFAULT_CEILINGS
+    batch = type(pods)(*(x[:, None] for x in pods))
+    feasible_pods = int(env.feasible(state, batch, cfg).sum())
+    feasible_jobs = int(pl.feasible_deltas(fleet, deltas).sum())
+    cand = b * lay.shards * TOPK * CAND_BYTES
+    cases = {
+        "sdqn_score": (
+            lambda: ss.sdqn_score(feats, *w),
+            lambda: ss.sdqn_score_plain(feats, *w),
+            n * SCORE_BYTES_PER_ROW + WEIGHT_BYTES, n * SCORE_OPS_PER_ROW),
+        "sdqn_score_cols": (
+            lambda: ss.sdqn_score_cols(cols, deltas, ops.FEATURE_SCALE, *w),
+            lambda: ss.sdqn_score_cols_plain(cols, deltas, ops.FEATURE_SCALE,
+                                             *w),
+            n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
+            + b * n * 4, b * n * COLS_OPS_PER_PAIR + 6 * 32),
+        "sdqn_score_afterstate_topk": (
+            lambda: ss.sdqn_score_afterstate_topk(
+                t_cols, a_inputs[1], a_inputs[2], creq, mreq, *a_inputs[3:],
+                **geo),
+            lambda: ss.sdqn_score_afterstate_topk_plain(
+                t_cols, a_inputs[1], a_inputs[2], creq, mreq, *a_inputs[3:],
+                **geo),
+            n * TOPK_BYTES_PER_NODE + b * 16 + WEIGHT_BYTES + cand,
+            b * n * TOPK_FILTER_OPS_PER_PAIR + n * TOPK_OPS_PER_NODE
+            + feasible_pods * TOPK_OPS_PER_FEASIBLE),
+        "sdqn_score_cols_topk": (
+            lambda: ss.sdqn_score_cols_topk(cols, deltas, ops.FEATURE_SCALE,
+                                            *w, ceil, **geo),
+            lambda: ss.sdqn_score_cols_topk_plain(
+                cols, deltas, ops.FEATURE_SCALE, *w, ceil, **geo),
+            n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES + cand,
+            b * n * COLS_TOPK_FILTER_OPS_PER_PAIR + n * COLS_TOPK_OPS_PER_HOST
+            + feasible_jobs * COLS_TOPK_OPS_PER_FEASIBLE + 6 * 32),
+    }
+    rows = {}
+    for key, (fn, plain, nbytes, n_ops) in cases.items():
+        saved = read_counts()
+        ms = graph_time_ms(fn, 100)
+        call_ms = cuda_time_ms(fn, 100)
+        for k, fnc in wrappers().items():     # timing launches don't count
+            fnc.launches = saved[k]
+        alone = ""
+        if key.endswith("_topk"):
+            alone = f"kernel_alone_ms={kernel_alone_ms(fn)} "
+            for k, fnc in wrappers().items():
+                fnc.launches = saved[k]
+        plain_ms = graph_time_ms(plain, 10)
+        b_ms, b_by = roofline(nbytes, n_ops, name)
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"timing {key} N={n} B={b if key != 'sdqn_score' else '-'} "
+              f"k={TOPK} shards={lay.shards}: kernel_ms={ms} {alone}"
+              f"plain_ms={plain_ms} (device time, CUDA graph) "
+              f"kernel_call_ms={call_ms} (eager call, host included) "
+              f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
+              f"{peaks(name)[0]} peaks) kernel/bound={ms / b_ms}")
+    print(f"feasible pairs in the timed inputs: pods x nodes={feasible_pods} "
+          f"of {b * n}, jobs x hosts={feasible_jobs} of {b * n}")
+    return rows
+
+
+def phase_sharded_breakdown(device):
+    """Where one sharded-cluster batch's time goes at 4000/s offered: host
+    spans (synchronizing) around snapshot publish, pack, the kernel
+    wrapper (kernel + each shard's tile merge), every merge, candidate
+    read-back and commit; torch.profiler's device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import sdqn_score as ss
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon, replay_trace)
+
+    cfg, state, params = _sharded_setup(device)
+    sub = ClusterSubstrate(state, cfg, device=device, layout=_layout(),
+                           topk=TOPK)
+    d = PlacementDaemon(sub, params, DaemonConfig(batch_size=32,
+                                                  max_wait_s=0.005))
+    d.warmup()
+    spans = Spans()
+    kernel, merge = ss.sdqn_score_afterstate_topk, ss.merge_topk
+    ss.sdqn_score_afterstate_topk = spans.wrap("kernel_and_tile_merge",
+                                               kernel, sync=True)
+    # the wrapper counts its launches on whatever its module name holds
+    ss.sdqn_score_afterstate_topk.launches = kernel.launches
+    ss.merge_topk = spans.wrap("merges_tile_and_shard", merge, sync=True)
+    try:
+        sub.snapshot = spans.wrap("snapshot_publish", sub.snapshot, sync=True)
+        sub.pack = spans.wrap("pack_pods", sub.pack, sync=True)
+        d._scorer = spans.wrap("score_total", d._scorer, sync=True)
+        d._fetch = spans.wrap("candidate_readback", d._fetch)
+        d._commit_candidates = spans.wrap("commit", d._commit_candidates)
+        d._process_batch = spans.wrap("batch_total", d._process_batch)
+        trace = arrival_trace(torch.Generator().manual_seed(SEED + 3), cfg,
+                              500, rate_per_s=RATES_PER_S[1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            replay_trace(d, trace.t_s, trace.pods)
+            wall = time.perf_counter() - t0
+    finally:
+        ss.sdqn_score_afterstate_topk, ss.merge_topk = kernel, merge
+    batches = d.metrics.batches
+    for key in sorted(spans.total, key=spans.total.get, reverse=True):
+        print(f"sharded span {key}: total_ms={spans.total[key] * 1e3} "
+              f"per_batch_ms={spans.total[key] * 1e3 / batches} "
+              f"calls={spans.count[key]}")
+    dev_us = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", 0.0)
+        if t > 0:
+            dev_us[evt.key] = t
+    busy = sum(dev_us.values()) / 1e6
+    print(f"sharded profiled replay: batches={batches} wall_s={wall} "
+          f"device_busy_s={busy} device_busy_share={busy / wall}")
+    for key in sorted(dev_us, key=dev_us.get, reverse=True)[:10]:
+        print(f"sharded device time {key}: total_us={dev_us[key]} "
+              f"per_batch_us={dev_us[key] / batches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -418,7 +1028,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    secs = _build.build([ss.KERNEL_SOURCE])
+    secs = _build.build(ss.SOURCES)         # one nvcc per source, together
     print(f"build: {secs} (wall {time.perf_counter() - t0:.2f} s)")
     for src, log in _build.BUILD_LOG.items():
         for line in log["ptxas"].splitlines():
@@ -426,21 +1036,41 @@ def main() -> int:
                 print(f"ptxas[{src}]: {line.strip()}")
 
     max_err = phase_kernels(device)
-    launches = phase_main_path(device)
+    errs = phase_new_kernels(device)
+    errs["sdqn_score_afterstate"] = max_err
+    launches = {"sdqn_score_afterstate": phase_main_path(device)}
     phase_decision_parity(device)
-    timing = phase_timings(device, name)[MAIN_N]
+    launches["sdqn_score_afterstate_topk"] = phase_sharded_cluster(device)
+    phase_sharded_parity(device)
+    launches.update(phase_fleet(device))
+    launches["sdqn_score"] = phase_engine(device)
+    timing = phase_new_timings(device, name)
+    timing["sdqn_score_afterstate"] = phase_timings(device, name)[MAIN_N]
     phase_breakdown(device)
+    phase_sharded_breakdown(device)
 
-    kernels = [{
-        "name": "sdqn_score_afterstate", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/sdqn_score_afterstate.cu",
-        "replaces": "src/repro/kernels/sdqn_score.py:171",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]
-    assert launches > 0
+    # (wrapper, CUDA source, the TPU kernel's function line); no single
+    # PyTorch call computes any of these fused functions: library_ms null
+    table = (
+        ("sdqn_score_afterstate", "sdqn_score_afterstate.cu", 171),
+        ("sdqn_score", "sdqn_score.cu", 51),
+        ("sdqn_score_cols", "sdqn_score_cols.cu", 249),
+        ("sdqn_score_afterstate_topk", "sdqn_score_afterstate_topk.cu", 386),
+        ("sdqn_score_cols_topk", "sdqn_score_cols.cu", 486),
+    )
+    kernels = []
+    for key, src, line in table:
+        t = timing[key]
+        assert launches[key] > 0, (key, launches)
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/sdqn_score.py:{line}",
+            "launches": launches[key], "max_abs_err": errs[key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

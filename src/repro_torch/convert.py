@@ -3,8 +3,9 @@
 JAX's threefry draws cannot be reproduced in PyTorch, so states and weights
 made by the reference are exported as numpy arrays and turned into port
 tensors here — that is how the parity tests feed both packages the same
-cluster and the same Q-net.  The dtypes are the port's contract (float32,
-int32 counts, bool flags), whatever the numpy input carried.
+cluster (or job fleet) and the same Q-net.  The dtypes are the port's
+contract (float32, int32 counts, bool flags), whatever the numpy input
+carried.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core.types import ClusterState, PodSpec
 from repro_torch.device import resolve_device
+from repro_torch.sched.placement import FleetState
 
 _INT_FIELDS = {"max_pods", "num_pods", "exp_pods"}
 _BOOL_FIELDS = {"healthy", "image_cached"}
@@ -45,6 +47,18 @@ def state_from_numpy(cols, device=None) -> ClusterState:
     return ClusterState(**{
         f: torch.tensor(np.asarray(cols[f]), device=device).to(_dtype(f))
         for f in ClusterState._fields})
+
+
+def fleet_from_numpy(cols, device=None):
+    """A ``sched.placement.FleetState`` given as numpy (a mapping, or a
+    sequence in field order): float32 columns, int32 ``num_jobs``."""
+    device = resolve_device(device)
+    if not isinstance(cols, Mapping):
+        cols = dict(zip(FleetState._fields, cols))
+    return FleetState(**{
+        f: torch.tensor(np.asarray(cols[f]), device=device).to(
+            torch.int32 if f == "num_jobs" else torch.float32)
+        for f in FleetState._fields})
 
 
 def pods_from_numpy(cpu_request, cpu_demand, mem_request, mem_demand,

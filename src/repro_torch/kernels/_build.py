@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C launch function and is compiled on
 first use into ``kernels/build/lib<name>-<hash>.so`` (``build/`` is git
-ignored); the content hash keeps a stale library from being loaded after an
-edit.  ``build(names)`` starts one ``nvcc`` per missing source, all at once,
-and waits for them together.  Nothing is built or imported when this module
+ignored); the hash covers the source and every ``csrc/*.cuh`` it includes,
+so a stale library is never loaded after an edit to either.
+``build(names)`` starts one ``nvcc`` per missing source, all at once, and
+waits for them together.  Nothing is built or imported when this module
 is imported: the CPU tests import every module of the port.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -35,10 +37,30 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/*.cuh`` it includes, directly or
+    through another header, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc.decode() for inc in _INCLUDE.findall(
+            path.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the headers it
+    includes and the target flags: an edit to any of them builds anew."""
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict:

@@ -1,16 +1,29 @@
-"""Fused SDQN afterstate scoring: raw ClusterState columns -> Q (B, N).
+"""Fused SDQN scoring kernels (port of ``repro.kernels.sdqn_score``).
 
-Counterpart of the Pallas ``sdqn_score_afterstate`` of
-``repro.kernels.sdqn_score``.  Two versions of one function:
+Five kernels, each in two versions of one function:
 
-* ``sdqn_score_afterstate_plain`` — plain PyTorch with the arithmetic of the
-  reference's ``_afterstate_norm_features`` + ``sdqn_score_afterstate_xla``
-  (broadcast multiply-accumulates, no GEMM), over an explicit batch of B
-  pods.  The CPU tests use it and ``chip_smoke.py`` holds the kernel to it.
-* ``sdqn_score_afterstate`` — the wrapper: on CUDA tensors it launches the
-  hand-written kernel ``csrc/sdqn_score_afterstate.cu`` once for the whole
-  batch and counts the launch in ``sdqn_score_afterstate.launches``; on CPU
-  tensors it runs the plain version.  Any other device raises.
+* ``<name>_plain`` — plain PyTorch with the arithmetic of the reference's
+  ``*_xla`` twin (broadcast multiply-accumulates, no GEMM) over an explicit
+  batch of B pods or deltas.  The CPU tests use it and ``chip_smoke.py``
+  holds the kernel to it.
+* ``<name>`` — the wrapper: on CUDA tensors it launches the hand-written
+  kernel under ``csrc/`` once for the whole batch and counts the launch in
+  ``<name>.launches``; on CPU tensors it runs the plain version.  Any other
+  device raises.
+
+| wrapper                      | reference (``repro.kernels.sdqn_score``) | source |
+| ---------------------------- | ---------------------------------------- | ------ |
+| ``sdqn_score_afterstate``      | ``sdqn_score_afterstate``                | ``sdqn_score_afterstate.cu`` |
+| ``sdqn_score``                 | ``sdqn_score``                           | ``sdqn_score.cu`` |
+| ``sdqn_score_cols``            | ``sdqn_score_cols``                      | ``sdqn_score_cols.cu`` |
+| ``sdqn_score_afterstate_topk`` | ``sdqn_score_afterstate_topk``           | ``sdqn_score_afterstate_topk.cu`` |
+| ``sdqn_score_cols_topk``       | ``sdqn_score_cols_topk``                 | ``sdqn_score_cols.cu`` |
+
+The top-k kernels take a shard geometry (``shards`` slices of
+``shard_size`` nodes, the last one ragged) and return each shard's top-k
+as ``(B, shards, k)`` values and GLOBAL node indices: sorted descending
+with NaN above every number, ties by ascending index, and ``-1`` for
+every slot that is not finite (``-inf`` = infeasible or exhausted).
 """
 from __future__ import annotations
 
@@ -19,27 +32,136 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 # scalar-pack layout (the reference's ``_S_*``).  On the card the per-pod
-# demands ride as (B,) columns instead of slots 0/1, and b2 is read from the
-# params tensor on the device, so slots 0, 1 and 11 of the host pack are
-# unused by the CUDA path.
+# demands and requests ride as (B,) columns instead of slots 0/1/12/13,
+# and b2 is read from the params tensor on the device, so slots 0, 1, 11,
+# 12 and 13 of the host pack are unused by the CUDA path.
 _S_CPU_DEMAND, _S_MEM_DEMAND, _S_PULL, _S_WARM, _S_OVERHEAD = 0, 1, 2, 3, 4
 _S_CROWD_KNEE, _S_CROWD_COEFF, _S_CONT_KNEE, _S_CONT_COEFF = 5, 6, 7, 8
 _S_UPTIME_SCALE, _S_EXP_SCALE, _S_B2 = 9, 10, 11
 _S_CPU_REQ, _S_MEM_REQ = 12, 13
 _N_SCALARS = 16
 
-# the 12 raw node columns, in kernel argument order, with their dtypes
+# the 12 raw node columns, in kernel argument order, with their dtypes; the
+# top-k kernel adds the two filtering-phase columns
 COLUMNS = ("base_cpu", "pods_cpu", "startup_cpu", "num_pods", "exp_pods",
            "mem_used", "image_cached", "healthy", "uptime_hours",
            "cpu_capacity", "mem_capacity", "max_pods")
 COLUMN_DTYPES = (torch.float32, torch.float32, torch.float32, torch.int32,
                  torch.int32, torch.float32, torch.bool, torch.bool,
                  torch.float32, torch.float32, torch.float32, torch.int32)
+TOPK_COLUMNS = COLUMNS + ("cpu_requested", "mem_requested")
+TOPK_COLUMN_DTYPES = COLUMN_DTYPES + (torch.float32, torch.float32)
 KERNEL_SOURCE = "sdqn_score_afterstate"
+SCORE_SOURCE = "sdqn_score"
+COLS_SOURCE = "sdqn_score_cols"
+TOPK_SOURCE = "sdqn_score_afterstate_topk"
+SOURCES = (KERNEL_SOURCE, SCORE_SOURCE, COLS_SOURCE, TOPK_SOURCE)
 HIDDEN = 32
+TOPK_MAX = 8        # candidates a thread of the top-k kernels keeps
+TOPK_TILE = 1024    # nodes one block of the top-k kernels reduces
+
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# shared plumbing: checks, the ctypes launch, the top-k merges
+# ---------------------------------------------------------------------------
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: want {dtype} {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_weights(w1, b1, w2, b2, device):
+    _check("w1", w1, _F32, (6, HIDDEN), device)
+    _check("b1", b1, _F32, (HIDDEN,), device)
+    _check("w2", w2, _F32, (HIDDEN, 1), device)
+    _check("b2", b2, _F32, (1,), device)
+
+
+def _on_card(name, device) -> bool:
+    """True for CUDA, False for the CPU (plain version); raises otherwise."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    return device.type == "cuda"
+
+
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+
+
+def _launch(name, source, argtypes, device, *args):
+    """Call ``<name>_launch`` of ``csrc/<source>.cu`` on the current
+    stream (tensors pass as device pointers); raise on a CUDA error."""
+    fn = getattr(_build.load(source), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [_P]     # + the stream
+        fn.restype = ctypes.c_int
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def merge_topk(vals, idx, k: int):
+    """Merge ``(..., G, k')`` candidate sets into ``(..., k)``: descending
+    value (NaN above every number), ties in ascending flat position.
+
+    A stable sort, not ``torch.topk``, which promises no order among ties:
+    groups cover ascending index ranges and list their ties lowest index
+    first, so ascending flat position is ascending node index and the
+    merged winner is the flat first-occurrence argmax."""
+    v = vals.flatten(-2)
+    v, pos = torch.sort(v, dim=-1, descending=True, stable=True)
+    return v[..., :k], torch.gather(idx.flatten(-2), -1, pos[..., :k])
+
+
+def shard_topk(masked, shards: int, shard_size: int, k: int):
+    """Each shard's top-k of masked (B, N) scores: ``(B, shards, k)``
+    values and global indices (``-1`` where not finite).  The ragged end
+    of the last shard fills with ``-inf``, so it never outranks a node."""
+    b, n = masked.shape
+    pad = shards * shard_size - n
+    if pad:
+        masked = torch.cat([masked, masked.new_full((b, pad), -torch.inf)],
+                           dim=1)
+    v, pos = torch.sort(masked.view(b, shards, shard_size), dim=-1,
+                        descending=True, stable=True)
+    v, pos = v[..., :k], pos[..., :k].to(torch.int32)
+    offs = (torch.arange(shards, dtype=torch.int32, device=masked.device)
+            * shard_size)[:, None]
+    return v, torch.where(torch.isfinite(v), pos + offs, -1)
+
+
+def check_k(k: int) -> int:
+    """``k`` candidates per shard, at most ``TOPK_MAX`` (the list a thread
+    of the top-k kernels keeps in registers).  Held on every device, so a
+    ``k`` the card would refuse fails on the CPU as well."""
+    if k > TOPK_MAX:
+        raise ValueError(f"k={k} candidates per shard: the top-k kernels "
+                         f"keep at most TOPK_MAX={TOPK_MAX}")
+    return k
+
+
+def _check_topk(name, n, k, shards, shard_size):
+    if not 1 <= k <= min(TOPK_MAX, shard_size):
+        raise ValueError(f"{name}: k={k} outside [1, min({TOPK_MAX}, "
+                         f"shard_size={shard_size})]")
+    if shards < 1 or shards > 65535 or shards * shard_size < n:
+        raise ValueError(f"{name}: {shards} shards of {shard_size} do not "
+                         f"cover N={n}")
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: afterstate scoring from raw ClusterState columns
+# ---------------------------------------------------------------------------
 
 
 def _afterstate_norm_features(base_cpu, pods_cpu, startup_cpu, num_pods,
@@ -74,7 +196,7 @@ def _afterstate_norm_features(base_cpu, pods_cpu, startup_cpu, num_pods,
 def sdqn_score_afterstate_plain(cols, cpu_demand, mem_demand, scalars,
                                 w1, b1, w2, b2) -> torch.Tensor:
     """Q-values (B, N) of every (pod, node) afterstate, plain PyTorch."""
-    cols = [c.to(torch.float32) for c in cols]
+    cols = [c.to(_F32) for c in cols]
 
     def s(i):
         return float(scalars[i])
@@ -87,23 +209,24 @@ def sdqn_score_afterstate_plain(cols, cpu_demand, mem_demand, scalars,
     return torch.sum(torch.clamp(hid, min=0.0) * w2[:, 0], dim=-1) + b2[0]
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"{name}: want {dtype} {shape} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _check_afterstate(names, dtypes, cols, pod_cols, w1, b1, w2, b2):
+    """Check the columns, the (B,) pod columns and the weights; (N, B)."""
+    device = cols[0].device
+    n = cols[0].shape[0]
+    b = pod_cols[0].shape[0]
+    if len(cols) != len(names):
+        raise ValueError(f"want {len(names)} columns, got {len(cols)}")
+    for name, col, dtype in zip(names, cols, dtypes):
+        _check(name, col, dtype, (n,), device)
+    for i, col in enumerate(pod_cols):
+        _check(f"pod column {i}", col, _F32, (b,), device)
+    _check_weights(w1, b1, w2, b2, device)
+    return n, b
 
 
-def _lib():
-    lib = _build.load(KERNEL_SOURCE)
-    fn = lib.sdqn_score_afterstate_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_float] * 9
-                       + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+def _scalar_args(scalars):
+    scalars = np.asarray(scalars, np.float32)
+    return [float(scalars[i]) for i in range(_S_PULL, _S_EXP_SCALE + 1)]
 
 
 def sdqn_score_afterstate(cols, cpu_demand, mem_demand, scalars, w1, b1, w2,
@@ -115,41 +238,215 @@ def sdqn_score_afterstate(cols, cpu_demand, mem_demand, scalars, w1, b1, w2,
     float32 host pack (numpy); ``w1 (6, 32)``, ``b1 (32,)``, ``w2 (32, 1)``,
     ``b2 (1,)`` float32 on the columns' device."""
     device = cols[0].device
-    if device.type == "cpu":
+    if not _on_card("sdqn_score_afterstate", device):
         return sdqn_score_afterstate_plain(cols, cpu_demand, mem_demand,
                                            scalars, w1, b1, w2, b2)
-    if device.type != "cuda":
-        raise ValueError(f"sdqn_score_afterstate runs on cuda or cpu, "
-                         f"not {device}")
-    n = cols[0].shape[0]
-    b = cpu_demand.shape[0]
-    if len(cols) != len(COLUMNS):
-        raise ValueError(f"want {len(COLUMNS)} columns, got {len(cols)}")
-    for name, col, dtype in zip(COLUMNS, cols, COLUMN_DTYPES):
-        _check(name, col, dtype, (n,), device)
-    _check("cpu_demand", cpu_demand, torch.float32, (b,), device)
-    _check("mem_demand", mem_demand, torch.float32, (b,), device)
-    _check("w1", w1, torch.float32, (6, HIDDEN), device)
-    _check("b1", b1, torch.float32, (HIDDEN,), device)
-    _check("w2", w2, torch.float32, (HIDDEN, 1), device)
-    _check("b2", b2, torch.float32, (1,), device)
+    n, b = _check_afterstate(COLUMNS, COLUMN_DTYPES, cols,
+                             (cpu_demand, mem_demand), w1, b1, w2, b2)
     if n < 1 or not 1 <= b <= 65535 or n * b >= 2 ** 31:   # grid.y = B
         raise ValueError(f"unsupported shape: N={n}, B={b}")
-    scalars = np.asarray(scalars, np.float32)
-    q = torch.empty((b, n), dtype=torch.float32, device=device)
-    fn = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(c.data_ptr() for c in cols), cpu_demand.data_ptr(),
-                 mem_demand.data_ptr(),
-                 *(float(scalars[i]) for i in range(_S_PULL, _S_EXP_SCALE + 1)),
-                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 q.data_ptr(), n, b, stream)
-    if err != 0:
-        raise RuntimeError(f"sdqn_score_afterstate launch failed: CUDA error "
-                           f"{err}")
+    q = torch.empty((b, n), dtype=_F32, device=device)
+    _launch("sdqn_score_afterstate", KERNEL_SOURCE,
+            [_P] * 14 + [_F] * 9 + [_P] * 5 + [_I, _I], device,
+            *cols, cpu_demand, mem_demand, *_scalar_args(scalars),
+            w1, b1, w2, b2, q, n, b)
     sdqn_score_afterstate.launches += 1
     return q
 
 
 sdqn_score_afterstate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: the Q-net on built, normalized (N, 6) feature rows
+# ---------------------------------------------------------------------------
+
+
+# the plain version is the reference's unfused oracle itself
+sdqn_score_plain = ref.sdqn_score_ref
+
+
+def sdqn_score(feats, w1, b1, w2, b2) -> torch.Tensor:
+    """Q (N,) of normalized (N, 6) float32 rows: one launch on CUDA."""
+    device = feats.device
+    if not _on_card("sdqn_score", device):
+        return sdqn_score_plain(feats, w1, b1, w2, b2)
+    n = feats.shape[0]
+    _check("feats", feats, _F32, (n, 6), device)
+    _check_weights(w1, b1, w2, b2, device)
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"unsupported shape: N={n}")
+    q = torch.empty((n,), dtype=_F32, device=device)
+    _launch("sdqn_score", SCORE_SOURCE, [_P] * 6 + [_I], device,
+            feats, w1, b1, w2, b2, q, n)
+    sdqn_score.launches += 1
+    return q
+
+
+sdqn_score.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: Q((cols + delta) / scale) for job->host fleets, B deltas
+# ---------------------------------------------------------------------------
+
+
+def sdqn_score_cols_plain(cols, deltas, scale, w1, b1, w2, b2) -> torch.Tensor:
+    """Q (B, N) for six raw (N,) columns and (B, 6) deltas; ``scale`` the
+    six normalizers (host floats), folded into ``w1`` as the reference
+    does.  No host->device copy, so a CUDA graph can capture it."""
+    w1n = torch.stack([w1[f] / float(scale[f]) for f in range(6)])
+    hid = b1                                         # (H,)
+    for f in range(6):
+        x = cols[f].to(_F32) + deltas[:, f:f + 1]    # (B, N)
+        hid = hid + x[..., None] * w1n[f]            # -> (B, N, H)
+    return torch.sum(torch.clamp(hid, min=0.0) * w2[:, 0], dim=-1) + b2[0]
+
+
+def _check_cols(name, cols, deltas, w1, b1, w2, b2):
+    device = cols[0].device
+    n = cols[0].shape[0]
+    b = deltas.shape[0]
+    if len(cols) != 6:
+        raise ValueError(f"{name}: want 6 columns, got {len(cols)}")
+    for i, col in enumerate(cols):
+        _check(f"column {i}", col, _F32, (n,), device)
+    _check("deltas", deltas, _F32, (b, 6), device)
+    _check_weights(w1, b1, w2, b2, device)
+    if n < 1 or not 1 <= b <= 65535 or n * b >= 2 ** 31:
+        raise ValueError(f"{name}: unsupported shape N={n}, B={b}")
+    return n, b
+
+
+def sdqn_score_cols(cols, deltas, scale, w1, b1, w2, b2) -> torch.Tensor:
+    """Q (B, N): one launch on CUDA for all B deltas.  ``cols`` six (N,)
+    float32 columns, ``deltas`` (B, 6) float32, ``scale`` six host
+    floats."""
+    device = cols[0].device
+    if not _on_card("sdqn_score_cols", device):
+        return sdqn_score_cols_plain(cols, deltas, scale, w1, b1, w2, b2)
+    n, b = _check_cols("sdqn_score_cols", cols, deltas, w1, b1, w2, b2)
+    q = torch.empty((b, n), dtype=_F32, device=device)
+    _launch("sdqn_score_cols", COLS_SOURCE,
+            [_P] * 7 + [_F] * 6 + [_P] * 5 + [_I, _I], device,
+            *cols, deltas, *(float(x) for x in scale), w1, b1, w2, b2, q,
+            n, b)
+    sdqn_score_cols.launches += 1
+    return q
+
+
+sdqn_score_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: afterstate scoring + k8s filter + per-shard top-k
+# ---------------------------------------------------------------------------
+
+
+def sdqn_score_afterstate_topk_plain(cols, cpu_demand, mem_demand,
+                                     cpu_request, mem_request, scalars, w1,
+                                     b1, w2, b2, *, k, shards, shard_size):
+    """((B, shards, k) values, indices): kernel 1's scores, masked by the
+    filtering phase (``env.feasible``), reduced per shard."""
+    q = sdqn_score_afterstate_plain(cols[:12], cpu_demand, mem_demand,
+                                    scalars, w1, b1, w2, b2)
+    c = [x.to(_F32) for x in cols]
+    ok = ((c[7] > 0.5)
+          & (c[12] + cpu_request[:, None] <= c[9])
+          & (c[13] + mem_request[:, None] <= c[10])
+          & (c[3] < c[11]))
+    return shard_topk(torch.where(ok, q, -torch.inf), shards, shard_size, k)
+
+
+def _tiled_topk(name, source, argtypes, device, args, n, b, k, shards,
+                shard_size):
+    """Launch a top-k kernel over (tiles, shards, B) blocks and merge each
+    shard's tile candidates."""
+    tiles = -(-shard_size // TOPK_TILE)
+    vals = torch.empty((b, shards, tiles, k), dtype=_F32, device=device)
+    idx = torch.empty((b, shards, tiles, k), dtype=torch.int32, device=device)
+    _launch(name, source, argtypes, device, *args, vals, idx, n, b, k,
+            shards, shard_size, tiles)
+    if tiles == 1:
+        return vals[:, :, 0], idx[:, :, 0]
+    return merge_topk(vals, idx, k)
+
+
+def sdqn_score_afterstate_topk(cols, cpu_demand, mem_demand, cpu_request,
+                               mem_request, scalars, w1, b1, w2, b2, *, k,
+                               shards, shard_size):
+    """Per-shard feasible top-k: one kernel launch on CUDA (then a merge of
+    each shard's tiles), the plain version on CPU.
+
+    ``cols``: the 14 (N,) columns of ``TOPK_COLUMNS`` in their native
+    dtypes; the four pod columns (B,) float32; the rest as for
+    ``sdqn_score_afterstate``.  ``k <= TOPK_MAX`` on every device."""
+    check_k(k)
+    device = cols[0].device
+    if not _on_card("sdqn_score_afterstate_topk", device):
+        return sdqn_score_afterstate_topk_plain(
+            cols, cpu_demand, mem_demand, cpu_request, mem_request, scalars,
+            w1, b1, w2, b2, k=k, shards=shards, shard_size=shard_size)
+    n, b = _check_afterstate(TOPK_COLUMNS, TOPK_COLUMN_DTYPES, cols,
+                             (cpu_demand, mem_demand, cpu_request,
+                              mem_request), w1, b1, w2, b2)
+    _check_topk("sdqn_score_afterstate_topk", n, k, shards, shard_size)
+    if not 1 <= b <= 65535 or n >= 2 ** 31 - TOPK_TILE:
+        raise ValueError(f"unsupported shape: N={n}, B={b}")
+    out = _tiled_topk(
+        "sdqn_score_afterstate_topk", TOPK_SOURCE,
+        [_P] * 18 + [_F] * 9 + [_P] * 6 + [_I] * 6, device,
+        [*cols, cpu_demand, mem_demand, cpu_request, mem_request,
+         *_scalar_args(scalars), w1, b1, w2, b2], n, b, k, shards,
+        shard_size)
+    sdqn_score_afterstate_topk.launches += 1
+    return out
+
+
+sdqn_score_afterstate_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: kernel 3 + PlacementEngine.feasible + per-shard top-k
+# ---------------------------------------------------------------------------
+
+
+def sdqn_score_cols_topk_plain(cols, deltas, scale, w1, b1, w2, b2,
+                               ceilings, *, k, shards, shard_size):
+    """((B, shards, k) values, indices) of kernel 3's scores masked by
+    healthy + the post-delta cpu / mem / job-util ceilings, each rounded
+    to float32 as the kernel receives it."""
+    q = sdqn_score_cols_plain(cols, deltas, scale, w1, b1, w2, b2)
+    cl = [float(np.float32(x)) for x in ceilings]
+    c = [x.to(_F32) for x in cols]
+    ok = ((c[3] > 0.5)
+          & (c[0] + deltas[:, 0:1] <= cl[0])
+          & (c[1] + deltas[:, 1:2] <= cl[1])
+          & (c[2] + deltas[:, 2:3] <= cl[2]))
+    return shard_topk(torch.where(ok, q, -torch.inf), shards, shard_size, k)
+
+
+def sdqn_score_cols_topk(cols, deltas, scale, w1, b1, w2, b2, ceilings, *,
+                         k, shards, shard_size):
+    """Per-shard feasible top-k of ``sdqn_score_cols``: one kernel launch
+    on CUDA for all B deltas, the plain version on CPU.  ``ceilings``:
+    three host floats (max cpu %, mem %, job-util %); ``k <= TOPK_MAX``."""
+    check_k(k)
+    device = cols[0].device
+    if not _on_card("sdqn_score_cols_topk", device):
+        return sdqn_score_cols_topk_plain(cols, deltas, scale, w1, b1, w2,
+                                          b2, ceilings, k=k, shards=shards,
+                                          shard_size=shard_size)
+    n, b = _check_cols("sdqn_score_cols_topk", cols, deltas, w1, b1, w2, b2)
+    _check_topk("sdqn_score_cols_topk", n, k, shards, shard_size)
+    out = _tiled_topk(
+        "sdqn_score_cols_topk", COLS_SOURCE,
+        [_P] * 7 + [_F] * 9 + [_P] * 6 + [_I] * 6, device,
+        [*cols, deltas, *(float(x) for x in scale),
+         *(float(x) for x in ceilings), w1, b1, w2, b2], n, b, k, shards,
+        shard_size)
+    sdqn_score_cols_topk.launches += 1
+    return out
+
+
+sdqn_score_cols_topk.launches = 0

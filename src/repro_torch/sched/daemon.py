@@ -1,16 +1,19 @@
 """Placement daemon (PyTorch port): continuously-serving, batched, optimistic.
 
-Counterpart of ``repro.sched.daemon`` for the pod->node cluster:
+Counterpart of ``repro.sched.daemon`` for the pod->node cluster
+(``ClusterSubstrate``) and job->host placement (``FleetSubstrate``):
 
   * **Batched one-launch scoring.**  Pending requests accumulate into
     batches (cut by size OR by the oldest request's wait time); the whole
-    batch is scored by ONE launch of the hand-written afterstate kernel at
-    fleet scale (``schedulers.score_afterstates_batch``).  The kernel's
-    launch counter takes the place of the reference's compilation count.
+    batch is scored by ONE launch of a hand-written kernel.  The kernels'
+    launch counters take the place of the reference's compilation count.
   * **Double-buffered fleet state.**  Admission and committed binds write
-    the *live* buffer, a host numpy mirror in the reference's dtypes
-    (float32 / int32 / bool), while scoring reads a device *snapshot*
-    published at batch cut (14 host->device column copies).
+    the *live* buffer, a host numpy mirror, while scoring reads a device
+    *snapshot* published at batch cut.
+  * **Two-stage candidates.**  With a ``launch.mesh.FleetLayout`` the
+    scorer returns each request's merged per-shard top-k, ``(B, shards·k)``
+    values and global indices (``sched.shard``): only those are read back
+    to the host, never a ``(B, N)`` row.
   * **Optimistic concurrency.**  Every bind re-validates feasibility against
     the live buffer; a request that loses the race re-queues
     (``conflict_policy="requeue"``) or falls to its next-best snapshot
@@ -20,7 +23,7 @@ Counterpart of ``repro.sched.daemon`` for the pod->node cluster:
     d = PlacementDaemon(sub, qparams, DaemonConfig(batch_size=32))
     d.submit(pod); ...; d.poll(); decisions = d.decisions
 
-Sharded layouts, policy classes and the job->host ``FleetSubstrate`` are not
+Policy classes, custom ``score_fn`` and the online-learning hook are not
 ported yet.
 """
 from __future__ import annotations
@@ -36,16 +39,28 @@ import torch
 from repro_torch.core import env as kenv, schedulers
 from repro_torch.core.types import NO_PLACEMENT, ClusterState, EnvConfig, PodSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import sdqn_score as _ss
+from repro_torch.launch.mesh import FleetLayout
+from repro_torch.sched import placement as _pl, shard as _shard
 from repro_torch.sched.api import DIVERGENCE_LIMIT as _DIVERGENCE_LIMIT
 
 __all__ = [
     "ClusterSubstrate", "DaemonConfig", "DaemonMetrics", "DaemonStats",
-    "Decision", "LatencyReservoir", "PlacementDaemon", "replay_trace",
+    "Decision", "FleetSubstrate", "LatencyReservoir", "PlacementDaemon",
+    "replay_trace",
 ]
 
-SUBSTRATE_QUEUE_ITEM = ("sharded layouts, policy classes and custom score_fn "
-                        "are not ported yet: see ROADMAP.md, queue 1, "
-                        "'Serving' and 'Policy registry'")
+SUBSTRATE_QUEUE_ITEM = ("policy classes and custom score_fn are not ported "
+                        "yet: see ROADMAP.md, queue 1, 'Policy registry'")
+
+
+def _check_layout(layout, topk: int) -> None:
+    """A ``FleetLayout`` or ``None``, and a ``topk`` the top-k kernels take
+    (checked when the substrate is built, not at its first batch)."""
+    if layout is not None and not isinstance(layout, FleetLayout):
+        raise TypeError(f"layout must be a launch.mesh.FleetLayout or None, "
+                        f"got {type(layout).__name__}")
+    _ss.check_k(topk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,11 +233,16 @@ class ClusterSubstrate:
 
     def __init__(self, state: ClusterState, cfg: EnvConfig, device=None,
                  score_fn: Optional[Callable] = None, policy=None,
-                 layout=None):
-        if score_fn is not None or policy is not None or layout is not None:
+                 layout: Optional[FleetLayout] = None, topk: int = 8):
+        if score_fn is not None or policy is not None:
             raise NotImplementedError(SUBSTRATE_QUEUE_ITEM)
+        _check_layout(layout, topk)
         self.cfg = cfg
         self.device = resolve_device(device)
+        # a FleetLayout switches the scorer to per-request candidate lists
+        # (two-stage top-k, ``topk`` per shard, merged) instead of (B, N) rows
+        self.layout = layout
+        self.topk = topk
         self.live = ClusterState(*(np.array(torch.as_tensor(x).cpu().numpy())
                                    for x in state))
 
@@ -244,8 +264,22 @@ class ClusterSubstrate:
         """``(params, snapshot, pod_batch) -> (scores, feasible)``, both
         (B, N): the scores in ONE kernel launch on the fused path.  (The
         reference threads a sequence policy's carry through this call; the
-        stateless MLP has none.)"""
+        stateless MLP has none.)
+
+        With a ``layout`` the contract is ``-> (cand_vals, cand_idx)``,
+        both (B, shards·topk): the two-stage candidate merge, in ONE launch
+        of the afterstate top-k kernel at fleet scale, with the snapshot's
+        global pull-contention scalar passed to every shard."""
         cfg = self.cfg
+        if self.layout is not None:
+            layout, k = self.layout, self.topk
+
+            def candidates(params, snap, pods):
+                return _shard.cluster_topk(params, snap.state, pods, cfg,
+                                           layout, k=k, fused=fused,
+                                           pull_cost=snap.pull_cost)
+
+            return candidates
 
         def score(params, snap, pods):
             q = schedulers.score_afterstates_batch(
@@ -255,6 +289,9 @@ class ClusterSubstrate:
             return q, kenv.feasible(snap.state, batch, cfg)
 
         return score
+
+    def dummy(self) -> PodSpec:
+        return kenv.default_pod(self.cfg)
 
     def feasible_one(self, node: int, pod: PodSpec) -> bool:
         """``env.feasible`` row ``node`` against the LIVE buffer."""
@@ -319,6 +356,112 @@ class ClusterSubstrate:
         return q, ok
 
 
+class FleetSubstrate:
+    """Job->host placement (``sched.placement``) as a daemon substrate.
+
+    ``live`` is a ``FleetState`` of float64 numpy arrays, as the reference
+    keeps it, so bind-time re-validation compares in the same precision.
+    Jobs are packed as (B, 6) afterstate-delta rows and scored in ONE launch
+    of the column kernel (flat: ``(B, N)`` scores) or of the column top-k
+    kernel (with a ``layout``: ``(B, shards·topk)`` candidates)."""
+
+    def __init__(self, fleet: _pl.FleetState, max_host_cpu_pct: float = 88.0,
+                 policy=None, layout: Optional[FleetLayout] = None,
+                 topk: int = 8, device=None):
+        if policy is not None:
+            raise NotImplementedError(SUBSTRATE_QUEUE_ITEM)
+        _check_layout(layout, topk)
+        self.device = resolve_device(device)
+        self.live = _pl.FleetState(*(np.array(torch.as_tensor(x).cpu().numpy(),
+                                              np.float64) for x in fleet))
+        self.max_host_cpu_pct = max_host_cpu_pct
+        self.layout = layout
+        self.topk = topk
+
+    def snapshot(self) -> _pl.FleetState:
+        """The live buffer as float32 device columns, in one host->device
+        copy of a (6, N) block (``num_jobs`` too is float32 here, as in the
+        reference's snapshot)."""
+        block = torch.from_numpy(np.stack(self.live).astype(np.float32))
+        return _pl.FleetState(*block.to(self.device))
+
+    def pack(self, jobs: Sequence[_pl.JobSpec], size: int) -> torch.Tensor:
+        jobs = list(jobs) + [jobs[-1]] * (size - len(jobs))
+        return _pl.job_deltas(jobs, self.device)
+
+    def dummy(self) -> _pl.JobSpec:
+        return _pl.JobSpec()
+
+    def make_scorer(self, fused) -> Callable:
+        """``(params, snap, deltas) -> (q, ok)`` (B, N), or with a layout
+        ``-> (cand_vals, cand_idx)`` (B, shards·topk); one launch either
+        way."""
+        from repro_torch.kernels import ops
+        from repro_torch.sched.api import _fleet_mode
+
+        max_cpu, mode = self.max_host_cpu_pct, _fleet_mode(fused)
+        if self.layout is not None:
+            layout, k = self.layout, self.topk
+
+            def candidates(params, snap, deltas):
+                return _shard.fleet_topk(params, snap, None, layout, k=k,
+                                         fused=fused, delta=deltas,
+                                         max_host_cpu_pct=max_cpu)
+
+            return candidates
+
+        def score(params, snap, deltas):
+            q = ops.sdqn_score_delta(_pl.fleet_cols(snap), deltas, params,
+                                     mode=mode)
+            return q, _pl.feasible_deltas(snap, deltas, max_cpu)
+
+        return score
+
+    def feasible_one(self, node: int, job: _pl.JobSpec) -> bool:
+        lv = self.live
+        return bool(
+            lv.healthy[node] > 0.5
+            and lv.cpu_pct[node] + job.cpu_pct_demand <= self.max_host_cpu_pct
+            and lv.mem_pct[node] + job.mem_pct_demand <= _pl.MEM_CEILING_PCT
+            and lv.job_util_pct[node] + _pl.JOB_UTIL_DELTA_PCT
+            <= _pl.JOB_UTIL_CEILING_PCT
+        )
+
+    def bind(self, node: int, job: _pl.JobSpec) -> None:
+        lv = self.live
+        lv.cpu_pct[node] += job.cpu_pct_demand
+        lv.mem_pct[node] += job.mem_pct_demand
+        lv.job_util_pct[node] += _pl.JOB_UTIL_DELTA_PCT
+        lv.num_jobs[node] += 1
+
+    def unbind(self, node: int, job: _pl.JobSpec) -> None:
+        lv = self.live
+        lv.cpu_pct[node] -= job.cpu_pct_demand
+        lv.mem_pct[node] -= job.mem_pct_demand
+        lv.job_util_pct[node] -= _pl.JOB_UTIL_DELTA_PCT
+        lv.num_jobs[node] -= 1
+
+    def set_health(self, node: int, healthy: bool) -> None:
+        self.live.healthy[node] = 1.0 if healthy else 0.0
+
+    def heuristic_batch(self, jobs: Sequence[_pl.JobSpec]):
+        """(B, N) percent-utilization LeastRequested+Balanced scores +
+        feasibility against the LIVE buffer, pure numpy."""
+        lv = self.live
+        dc = np.asarray([j.cpu_pct_demand for j in jobs])[:, None]
+        dm = np.asarray([j.mem_pct_demand for j in jobs])[:, None]
+        cpu_free = (100.0 - lv.cpu_pct[None, :] - dc) / 100.0
+        mem_free = (100.0 - lv.mem_pct[None, :] - dm) / 100.0
+        q = 10.0 * (cpu_free + mem_free) / 2.0 \
+            + 10.0 * (1.0 - np.abs(cpu_free - mem_free))
+        ok = ((lv.healthy[None, :] > 0.5)
+              & (lv.cpu_pct[None, :] + dc <= self.max_host_cpu_pct)
+              & (lv.mem_pct[None, :] + dm <= _pl.MEM_CEILING_PCT)
+              & (lv.job_util_pct[None, :] + _pl.JOB_UTIL_DELTA_PCT
+                 <= _pl.JOB_UTIL_CEILING_PCT))
+        return q, ok
+
+
 # ---------------------------------------------------------------------------
 # the daemon
 # ---------------------------------------------------------------------------
@@ -345,6 +488,9 @@ class PlacementDaemon:
         self._timer = timer
         self._pending: collections.deque = collections.deque()
         self._scorer = substrate.make_scorer(config.fused)
+        # sharded substrates score to (B, C) candidate lists instead of
+        # (B, N) rows; the commit path reads candidates in merged order
+        self._cand_mode = getattr(substrate, "layout", None) is not None
         self._next_id = 0
         # req_id -> (node, pod) of every currently-bound placement
         self._bound: dict = {}
@@ -435,13 +581,16 @@ class PlacementDaemon:
         """Build and load the kernel and run one scoring pass outside any
         timing window."""
         snap = self._sub.snapshot()
-        pods = self._sub.pack([kenv.default_pod(self._sub.cfg)],
-                              self.config.batch_size)
-        q, ok = self._scorer(self._params, snap, pods)
-        q.cpu()
-        ok.cpu()
+        pods = self._sub.pack([self._sub.dummy()], self.config.batch_size)
+        for out in self._scorer(self._params, snap, pods):
+            self._fetch(out)
 
     # -- internals ----------------------------------------------------------
+
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> np.ndarray:
+        """Read one scoring output back to the host (the batch's sync)."""
+        return t.cpu().numpy()
 
     def _take_batch(self, now: float, force: bool) -> List[_Request]:
         """Pop up to one batch of eligible requests (backoff holds honored
@@ -463,7 +612,7 @@ class PlacementDaemon:
         reqs = self._take_batch(now, force)
         if not reqs:
             return 0
-        scores = ok = None
+        scores = ok = cand_idx = None
         degraded = self.config.heuristic_only or self._degraded > 0
         if not degraded:
             snap = self._sub.snapshot()
@@ -471,29 +620,51 @@ class PlacementDaemon:
                                   self.config.batch_size)
             t0 = self._timer()
             q, okq = self._scorer(self._params, snap, pods)   # 1 launch
-            q = q.cpu().numpy()
+            q = self._fetch(q)
             elapsed = self._timer() - t0
             self.metrics.device_launches += 1
             deadline = self.config.score_deadline_s
             real = q[:len(reqs)]
-            bad = (not np.all(np.isfinite(real))
-                   or float(np.max(np.abs(real))) > _DIVERGENCE_LIMIT)
+            if self._cand_mode:
+                # candidate lists legitimately carry -inf (infeasible or
+                # exhausted slots): divergence is NaN, or a FINITE candidate
+                # beyond the limit
+                finite = np.isfinite(real)
+                bad = bool(np.isnan(real).any()
+                           or (np.where(finite, np.abs(real), 0.0)
+                               > _DIVERGENCE_LIMIT).any())
+            else:
+                bad = (not np.all(np.isfinite(real))
+                       or float(np.max(np.abs(real))) > _DIVERGENCE_LIMIT)
             if bad or (deadline is not None and elapsed > deadline):
                 # degrade: discard the launch and serve this + the next
                 # degrade_batches batches from the closed-form heuristic
                 self._degraded = self.config.degrade_batches
                 degraded = True
+            elif self._cand_mode:
+                scores, cand_idx = q, self._fetch(okq)
             else:
-                scores, ok = q, okq.cpu().numpy()
+                scores, ok = q, self._fetch(okq)
         if degraded:
             if not self.config.heuristic_only and self._degraded > 0:
                 self._degraded -= 1
             self.metrics.fallback_batches += 1
             scores, ok = self._sub.heuristic_batch([r.pod for r in reqs])
+            if self._cand_mode:
+                # degraded mode is host-side numpy by design, so the full-N
+                # heuristic rows are sorted here into the candidate
+                # contract; the stable sort keeps the lowest-index tie rule
+                masked = np.where(ok, scores, -np.inf)
+                cand_idx = np.argsort(-masked, axis=1, kind="stable")
+                scores = np.take_along_axis(masked, cand_idx, axis=1)
         self.metrics.batches += 1
         decided = 0
         for i, req in enumerate(reqs):
-            decided += self._commit(req, scores[i], ok[i], now)
+            if self._cand_mode:
+                decided += self._commit_candidates(req, scores[i],
+                                                   cand_idx[i], now)
+            else:
+                decided += self._commit(req, scores[i], ok[i], now)
         return decided
 
     def _decide(self, req: _Request, node: int) -> None:
@@ -525,6 +696,32 @@ class PlacementDaemon:
         if self.config.conflict_policy == "next-best":
             for cand in np.argsort(-masked)[1:]:
                 if not np.isfinite(masked[cand]):
+                    break
+                if self._sub.feasible_one(int(cand), req.pod):
+                    self._sub.bind(int(cand), req.pod)
+                    self._decide(req, int(cand))
+                    return 1
+        return self._requeue_or_drop(req, now)
+
+    def _commit_candidates(self, req: _Request, vals: np.ndarray,
+                           idx: np.ndarray, now: float) -> int:
+        """Optimistic bind from a merged candidate list (sharded
+        substrates): ``vals`` descending with global ``idx``, ``-inf`` past
+        the feasible set.  Element 0 is exactly the flat argmax winner;
+        ``next-best`` walks the remaining candidates (depth shards·topk)."""
+        req.attempts += 1
+        if not np.isfinite(vals[0]):
+            self._decide(req, NO_PLACEMENT)
+            return 1
+        choice = int(idx[0])
+        if self._sub.feasible_one(choice, req.pod):
+            self._sub.bind(choice, req.pod)
+            self._decide(req, choice)
+            return 1
+        self.metrics.conflicts += 1
+        if self.config.conflict_policy == "next-best":
+            for v, cand in zip(vals[1:], idx[1:]):
+                if not np.isfinite(v):
                     break
                 if self._sub.feasible_one(int(cand), req.pod):
                     self._sub.bind(int(cand), req.pod)

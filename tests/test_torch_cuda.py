@@ -1,9 +1,10 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 They skip where no CUDA device is visible.  This file imports no JAX, so it
-also runs on a machine that has only PyTorch:
+also runs on a machine that has only PyTorch (``--noconftest`` skips
+``tests/conftest.py``, which imports JAX):
 
-    python -m pytest -q -m cuda tests/test_torch_cuda.py
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
 
@@ -92,3 +93,188 @@ def test_daemon_batch_is_one_kernel_launch(cuda_device):
     assert m.bound + m.dropped == m.submitted == 70
     assert m.device_launches == m.batches >= 3
     assert ss.sdqn_score_afterstate.launches - before == m.device_launches
+
+
+# ---------------------------------------------------------------------------
+# kernels 2-5 and the sharded / job->host serving paths
+# ---------------------------------------------------------------------------
+
+
+def _fleet(n, device, seed):
+    """A job fleet with infeasible hosts (unhealthy, near the ceilings)."""
+    from repro_torch.sched import placement as pl
+
+    rng = np.random.default_rng(seed)
+    jobs = rng.integers(0, 26, n)
+    return convert.fleet_from_numpy(dict(
+        cpu_pct=rng.uniform(2, 92, n), mem_pct=rng.uniform(2, 96, n),
+        job_util_pct=jobs * pl.JOB_UTIL_DELTA_PCT,
+        healthy=(rng.random(n) > 0.15).astype(np.float32),
+        uptime_hours=rng.uniform(1, 200, n), num_jobs=jobs), device=device)
+
+
+def _deltas(b, device, seed):
+    from repro_torch.sched import placement as pl
+
+    rng = np.random.default_rng(seed)
+    return pl.job_deltas([pl.JobSpec(c, m) for c, m in
+                          zip(rng.uniform(1, 10, b), rng.uniform(0.5, 5, b))],
+                         device)
+
+
+def _same_candidates(got, want, tol=1e-5):
+    """Finite values within ``tol``; indices equal wherever neighbouring
+    candidate values differ by more than it; identical -inf / -1 tails."""
+    (gv, gi), (wv, wi) = ((v.cpu().numpy(), i.cpu().numpy()) for v, i in
+                          (got, want))
+    fin = np.isfinite(wv)
+    np.testing.assert_array_equal(np.isfinite(gv), fin)
+    np.testing.assert_allclose(gv[fin], wv[fin], rtol=tol, atol=tol)
+    np.testing.assert_array_equal(gi[~fin], wi[~fin])
+    close = np.zeros_like(fin)
+    gap = np.abs(np.diff(wv, axis=-1)) <= tol
+    close[..., 1:] |= gap
+    close[..., :-1] |= gap
+    np.testing.assert_array_equal(gi[fin & ~close], wi[fin & ~close])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 1000, 131072])
+@pytest.mark.parametrize("shards", [1, 8])
+def test_topk_kernels_match_plain_on_card(cuda_device, n, shards):
+    from repro_torch.launch.mesh import plan_fleet_layout
+
+    cfg, state, params, pods = _case(n, 32, cuda_device, n + shards)
+    lay = plan_fleet_layout(n, shards=shards)
+    size = n if lay is None else lay.shard_size
+    fleet = _fleet(n, cuda_device, n)
+    deltas = _deltas(32, cuda_device, n)
+    from repro_torch.sched import placement as pl
+
+    for k in (1, 4, 8):
+        k = min(k, size)
+        before = ss.sdqn_score_afterstate_topk.launches
+        got = ops.sdqn_topk_afterstate(state, pods, cfg, params, k=k,
+                                       layout=lay)
+        assert ss.sdqn_score_afterstate_topk.launches == before + 1
+        _same_candidates(got, ops.sdqn_topk_afterstate(
+            state, pods, cfg, params, k=k, layout=lay, mode="plain"))
+        before = ss.sdqn_score_cols_topk.launches
+        got = ops.sdqn_topk_delta(pl.fleet_cols(fleet), deltas, params, k=k,
+                                  layout=lay)
+        assert ss.sdqn_score_cols_topk.launches == before + 1
+        _same_candidates(got, ops.sdqn_topk_delta(
+            pl.fleet_cols(fleet), deltas, params, k=k, layout=lay,
+            mode="plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 1000, 131072])
+def test_column_kernels_match_plain_on_card(cuda_device, n):
+    from repro_torch.core import env as tenv
+    from repro_torch.sched import placement as pl
+
+    params = dqn.init_qnet(torch.Generator().manual_seed(n),
+                           device=cuda_device)
+    fleet = _fleet(n, cuda_device, n)
+    deltas = _deltas(32, cuda_device, n)
+    before = ss.sdqn_score_cols.launches
+    got = ops.sdqn_score_delta(pl.fleet_cols(fleet), deltas, params)
+    assert ss.sdqn_score_cols.launches == before + 1
+    torch.testing.assert_close(got, ops.sdqn_score_delta(
+        pl.fleet_cols(fleet), deltas, params, mode="plain"),
+        rtol=1e-5, atol=1e-5)
+    feats = tenv.normalize_features(fleet.features())
+    before = ss.sdqn_score.launches
+    got = ops.sdqn_score(feats, params)
+    assert ss.sdqn_score.launches == before + 1
+    torch.testing.assert_close(got, ops.sdqn_score(feats, params,
+                                                   mode="plain"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_new_kernels_propagate_nan(cuda_device):
+    from repro_torch.core import env as tenv
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.sched import placement as pl
+
+    cfg, state, params, pods = _case(3000, 4, cuda_device, 3)
+    params = dict(params, b1=torch.full_like(params["b1"], float("nan")))
+    lay = plan_fleet_layout(3000, shards=3)
+    vals, idx = ops.sdqn_topk_afterstate(state, pods, cfg, params, k=4,
+                                         layout=lay)
+    assert bool(torch.isnan(vals).all()) and bool((idx == -1).all())
+    fleet = _fleet(3000, cuda_device, 3)
+    vals, _ = ops.sdqn_topk_delta(pl.fleet_cols(fleet),
+                                  _deltas(4, cuda_device, 3), params, k=4,
+                                  layout=lay)
+    assert bool(torch.isnan(vals).all())
+    assert bool(torch.isnan(ops.sdqn_score_delta(
+        pl.fleet_cols(fleet), _deltas(2, cuda_device, 3), params)).all())
+    assert bool(torch.isnan(ops.sdqn_score(
+        tenv.normalize_features(fleet.features()), params)).all())
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_bad_inputs(cuda_device):
+    from repro_torch.sched import placement as pl
+
+    params = dqn.init_qnet(torch.Generator().manual_seed(0),
+                           device=cuda_device)
+    w = (params["w1"], params["b1"], params["w2"], params["b2"])
+    fleet = _fleet(64, cuda_device, 0)
+    cols = list(pl.fleet_cols(fleet))
+    d = _deltas(2, cuda_device, 0)
+    with pytest.raises(ValueError, match="feats"):
+        ss.sdqn_score(torch.zeros(64, 5, device=cuda_device), *w)
+    with pytest.raises(ValueError, match="deltas"):
+        ss.sdqn_score_cols(cols, d.double(), ops.FEATURE_SCALE, *w)
+    bad = cols[:2] + [torch.zeros(128, device=cuda_device)[::2]] + cols[3:]
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.sdqn_score_cols(bad, d, ops.FEATURE_SCALE, *w)
+    with pytest.raises(ValueError, match="k="):
+        ss.sdqn_score_cols_topk(cols, d, ops.FEATURE_SCALE, *w,
+                                (88.0, 95.0, 100.0), k=9, shards=1,
+                                shard_size=64)
+    with pytest.raises(ValueError, match="cover"):
+        ss.sdqn_score_cols_topk(cols, d, ops.FEATURE_SCALE, *w,
+                                (88.0, 95.0, 100.0), k=4, shards=2,
+                                shard_size=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substrate", ["cluster-sharded", "fleet-flat",
+                                       "fleet-sharded"])
+def test_new_daemon_batches_are_one_kernel_launch(cuda_device, substrate):
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.sched import placement as pl
+
+    n = 40000          # 8 shards of 5,000: the fused path from 4,096 up
+    gen = torch.Generator().manual_seed(0)
+    params = dqn.init_qnet(gen, device=cuda_device)
+    lay = plan_fleet_layout(n, shards=8)
+    if substrate == "cluster-sharded":
+        cfg = fleet_cluster(n)
+        sub = daemon.ClusterSubstrate(env.reset(gen, cfg, device=cuda_device),
+                                      cfg, device=cuda_device, layout=lay)
+        kernel, reqs = ss.sdqn_score_afterstate_topk, [env.default_pod(cfg)]
+    else:
+        sub = daemon.FleetSubstrate(
+            pl.fresh_fleet(n, gen, device=cuda_device), device=cuda_device,
+            layout=lay if substrate == "fleet-sharded" else None)
+        kernel = (ss.sdqn_score_cols_topk if substrate == "fleet-sharded"
+                  else ss.sdqn_score_cols)
+        reqs = [pl.JobSpec()]
+    d = daemon.PlacementDaemon(sub, params,
+                               daemon.DaemonConfig(batch_size=32,
+                                                   max_wait_s=1e9))
+    d.warmup()
+    before = kernel.launches
+    for _ in range(70):
+        d.submit(reqs[0])
+    d.drain()
+    m = d.metrics
+    assert m.bound + m.dropped == m.submitted == 70
+    assert m.device_launches == m.batches >= 3
+    assert kernel.launches - before == m.device_launches

@@ -296,6 +296,11 @@ def test_daemon_config_validation(bad):
 def test_unported_substrate_options_raise(kw):
     cfg = fleet_cluster(8)
     state = tenv.reset(torch.Generator().manual_seed(0), cfg, device="cpu")
+    if "layout" in kw:
+        # sharded layouts are ported: what is not a FleetLayout is rejected
+        with pytest.raises(TypeError, match="FleetLayout"):
+            tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
 
