@@ -17,8 +17,8 @@ Phases (any failed check raises and the run exits nonzero):
    launch counters are zeroed just before and read just after; every batch
    must be exactly one kernel launch.  Then the same trace, on a
    deterministic clock, through the kernel and through ``fused="plain"``:
-   the decisions must agree except after a batch row whose two best
-   feasible scores lie within the tolerance (such rows are counted).
+   the decisions must agree up to the first batch with a row whose two
+   best feasible scores lie within the tolerance.
 4. Timings: kernel and plain-version device time (CUDA events around a
    CUDA graph of many calls) and eager per-call time, beside the least
    time the card could take (``bound_ms``), at N = 5000 and 131072, B = 32.
@@ -48,6 +48,28 @@ hosts in 8 shards with 8 candidates each:
    (kernel 2) against the delta scorer at zero delta.
 8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4), and
    the breakdown of a sharded-cluster batch (as phase 5).
+
+The attention and Mamba policy classes (kernels 7 and 6):
+
+2c. Kernel 7 (``flash_attention``) against its plain version at the
+    reference's fp32 sweep shapes, S in {1, 37, 1000} and the attention
+    class's main-path shape (32, 5000, 2 heads, D = 8), causal and not
+    (tolerance 3e-5); kernel 6 (``mamba_scan``) at the sweep shapes, the
+    mamba class's (1, 32, 8, 4) and (2, 256, 1024, 16) (tolerance 4e-5).
+9.  ``PlacementDaemon`` over ``ClusterSubstrate(fleet_cluster(5000),
+    policy=...)`` for "attention" and for "mamba", 2,000 requests at 500/s:
+    every batch is one launch of kernel 7, resp. kernel 6, and no other.
+10. Both classes on a deterministic clock (the 4000/s trace), through the
+    kernels and through their plain versions (``fused="plain"``): the
+    decisions agree up to the first batch with a near tie.  The same for
+    their FleetSubstrate (flat and 8 shards) and sharded cluster arms at
+    N = 16,384 (96 requests), each arm one launch of its class's kernel
+    per batch, its scores held to the plain run's.
+11. Timings of kernels 7 and 6 (as phase 4), kernel 7 beside
+    ``scaled_dot_product_attention`` on the same tensors (``library_ms``).
+12. Breakdown of an attention and a mamba batch (as phase 5, 400 requests
+    at 500/s), the scorer split into encoder, afterstate rows, score_set,
+    the kernel's wrapper and the feasibility mask.
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -127,6 +149,34 @@ COLS_TOPK_OPS_PER_HOST = 1
 COLS_TOPK_OPS_PER_FEASIBLE = 3 + QNET_OPS + 1
 # one candidate written: a float32 value and an int32 index
 CAND_BYTES = 8
+
+# kernels 6 and 7: the Mamba and attention policy classes.  Kernel 7 at the
+# reference's fp32 sweep shapes (tests/test_kernels.py), ragged lengths, and
+# the attention class's main-path shape: a batch of 32 pods as 32 sets of
+# 5,000 nodes, 2 heads of width 8 (ATTN_DMODEL = 16, ATTN_HEADS = 2).
+FA_SHAPES = ((1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32),
+             (2, 64, 128, 8, 1, 16), (1, 256, 256, 2, 2, 64),
+             (3, 1, 1, 2, 2, 8), (3, 37, 37, 2, 2, 8),
+             (3, 1000, 1000, 2, 2, 8))
+FA_PATH = (MAIN_B, MAIN_N, MAIN_N, 2, 2, 8)
+FA_TOL = 3e-5                       # the reference's (tests/test_kernels.py)
+# kernel 6 at the sweep shapes, the mamba class's main-path shape (one
+# batch of 32 workloads, MAMBA_DI = 8, MAMBA_STATE = 4) and a wide shape
+# where the roofline bound means something
+SCAN_SHAPES = ((1, 32, 8, 4), (2, 64, 16, 8), (1, 128, 32, 16))
+SCAN_PATH = (1, MAIN_B, 8, 4)
+SCAN_WIDE = (2, 256, 1024, 16)
+SCAN_TOL = 4e-5
+# the policy classes' FleetSubstrate and sharded arms, held cuda vs plain
+# at a reduced N: block-local attention over 131,072 nodes in 8 shards
+# would cost ~4 TFLOP per batch in the plain version
+POLICY_ARMS_N, POLICY_ARM_REQUESTS = 16384, 96
+# Operation counts, from the sources.  Kernel 7 per visible (query, key)
+# pair: the QK and PV multiply-adds (4 D) and the scale, max, subtract,
+# exp and sum (5); per query row D divisions.  Kernel 6 per (batch, step,
+# channel, state): dt·a, exp, ·h, (dt·x)·B, +, ·C, + (7); per (batch,
+# step, channel): dt·x, x·D, + (3).
+SCAN_OPS_PER_STATE, SCAN_OPS_PER_CHANNEL = 7, 3
 
 
 def peaks(name: str):
@@ -325,57 +375,34 @@ def _deterministic_run(device, fused):
                         DaemonConfig(batch_size=32, max_wait_s=0.005,
                                      fused=fused), clock=clock, timer=clock)
     log = []
-    inner = d._scorer
-
-    def spy(p, snap, pods):
-        q, ok = inner(p, snap, pods)
-        log.append((q.cpu().numpy(), ok.cpu().numpy()))
-        return q, ok
-
-    d._scorer = spy
+    _spy_scores(d, log)
     trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
                           N_REQUESTS, rate_per_s=RATES_PER_S[0])
-    for t, pod in zip(trace.t_s, trace.pods):
-        clock.t = float(t)
-        d.submit(pod, now=float(t))
-        d.poll()
-    clock.t = float(trace.t_s[-1]) + 1.0
-    d.drain()
+    _replay_deterministic(d, clock, trace.t_s, trace.pods)
     check_outcome(d, cfg)
     return d, log
+
+
+def scores_agree(k_log, p_log, label):
+    """The batches two runs cut alike (same decisions before them, same
+    feasibility or candidate indices) score within the tolerance."""
+    worst = 0.0
+    for (kd, kq, kok), (pd, pq, pok) in zip(k_log, p_log):
+        if kd != pd or kq.shape != pq.shape or not np.array_equal(kok, pok):
+            break
+        np.testing.assert_allclose(kq, pq, rtol=RTOL, atol=ATOL)
+        fin = np.isfinite(pq)
+        worst = max(worst, float(np.max(np.abs(kq[fin] - pq[fin]),
+                                        initial=0.0)))
+    print(f"{label} scores, cuda vs plain, batches cut alike: "
+          f"max_abs_err={worst}")
 
 
 def phase_decision_parity(device):
     kern, k_log = _deterministic_run(device, "auto")
     plain, p_log = _deterministic_run(device, "plain")
-    near_ties = 0
-    for q, ok in k_log:
-        # distinct rows only: pad rows repeat the batch's last pod (and in
-        # this trace every pod is the default pod)
-        rows = np.unique(np.concatenate([q, ok.astype(q.dtype)], axis=1),
-                         axis=0)
-        for row in rows:
-            n = q.shape[1]
-            score, okr = row[:n], row[n:] > 0.5
-            top = np.sort(score[okr])[::-1][:2]
-            if top.size == 2 and top[0] - top[1] <= ATOL + RTOL * abs(top[0]):
-                near_ties += 1
-    k_dec = [(x.req_id, x.node) for x in kern.decisions]
-    p_dec = [(x.req_id, x.node) for x in plain.decisions]
-    first_diff = next((i for i, (a, b) in enumerate(zip(k_dec, p_dec))
-                       if a != b), None)
-    if first_diff is None:
-        assert len(k_dec) == len(p_dec)
-    else:
-        assert near_ties > 0, f"decision {first_diff} differs without a tie"
-    # the batches both runs scored alike agree within the tolerance
-    for (kq, kok), (pq, pok) in zip(k_log, p_log):
-        if kq.shape != pq.shape or not np.array_equal(kok, pok):
-            break
-        np.testing.assert_allclose(kq, pq, rtol=RTOL, atol=ATOL)
-    print(f"deterministic replay: decisions={len(k_dec)} identical="
-          f"{first_diff is None} first_difference={first_diff} "
-          f"distinct_near_tie_rows={near_ties} batches={len(k_log)}")
+    compare_runs(kern, plain, k_log, False, "flat cluster cuda vs plain")
+    scores_agree(k_log, p_log, "flat cluster")
 
 
 def phase_timings(device, name):
@@ -423,15 +450,48 @@ class Spans:
         return timed
 
 
+def profiled_replay(d, trace, spans, label):
+    """Replay ``trace`` through ``d`` under torch.profiler, then print each
+    span's total and per-batch time, the device's busy share and the top
+    device operations.  Busy time sums the device's own events (kernels
+    and copies) only: a PyTorch op's device time is the time of the
+    kernels it launched, which are listed as events of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sched.daemon import replay_trace
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay_trace(d, trace.t_s, trace.pods)
+        wall = time.perf_counter() - t0
+    batches = d.metrics.batches
+    for key in sorted(spans.total, key=spans.total.get, reverse=True):
+        print(f"{label} span {key}: total_ms={spans.total[key] * 1e3} "
+              f"per_batch_ms={spans.total[key] * 1e3 / batches} "
+              f"calls={spans.count[key]}")
+    dev = {evt.key: (evt.self_device_time_total, evt.count)
+           for evt in prof.key_averages()
+           if evt.device_type != torch.autograd.DeviceType.CPU
+           and evt.self_device_time_total > 0}
+    busy = sum(t for t, _ in dev.values()) / 1e6
+    ops = sum(c for _, c in dev.values())
+    print(f"{label} profiled replay: batches={batches} wall_s={wall} "
+          f"device_busy_s={busy} device_busy_share={busy / wall} "
+          f"device_ops_per_batch={ops / batches}")
+    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:10]:
+        t, c = dev[key]
+        print(f"{label} device time {key[:120]}: total_us={t} "
+              f"per_batch_us={t / batches} calls={c}")
+
+
 def phase_breakdown(device):
     """Where a batch's time goes at 4000/s offered: host spans around each
     layer (the scorer span synchronizes, so it holds the device work), and
     the device's busy share from torch.profiler over the same run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.scenarios import arrival_trace
     from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
-                                          PlacementDaemon, replay_trace)
+                                          PlacementDaemon)
 
     cfg, state, params = _serving_setup(device)
     sub = ClusterSubstrate(state, cfg, device=device)
@@ -447,25 +507,7 @@ def phase_breakdown(device):
     d._process_batch = spans.wrap("batch_total", d._process_batch)
     trace = arrival_trace(torch.Generator().manual_seed(SEED + 3), cfg, 500,
                           rate_per_s=RATES_PER_S[1])
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        replay_trace(d, trace.t_s, trace.pods)
-        wall = time.perf_counter() - t0
-    batches = d.metrics.batches
-    for name in sorted(spans.total, key=spans.total.get, reverse=True):
-        print(f"span {name}: total_ms={spans.total[name] * 1e3} "
-              f"per_batch_ms={spans.total[name] * 1e3 / batches} "
-              f"calls={spans.count[name]}")
-    dev_us = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", 0.0)
-        if t > 0:
-            dev_us[evt.key] = t
-    busy = sum(dev_us.values()) / 1e6
-    print(f"profiled replay: batches={batches} wall_s={wall} "
-          f"device_busy_s={busy} device_busy_share={busy / wall}")
-    for key in sorted(dev_us, key=dev_us.get, reverse=True)[:8]:
-        print(f"device time {key}: total_us={dev_us[key]}")
+    profiled_replay(d, trace, spans, "flat")
 
 
 # ---------------------------------------------------------------------------
@@ -475,11 +517,13 @@ def phase_breakdown(device):
 
 def wrappers():
     """{name: wrapper} of every kernel of the port, in table order."""
-    from repro_torch.kernels import sdqn_score as ss
+    from repro_torch.kernels import (flash_attention as fa, mamba_scan as ms,
+                                     sdqn_score as ss)
 
     return {fn.__name__: fn for fn in (
         ss.sdqn_score_afterstate, ss.sdqn_score, ss.sdqn_score_cols,
-        ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk)}
+        ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk,
+        ms.mamba_scan, fa.flash_attention)}
 
 
 def zero_counts():
@@ -547,7 +591,9 @@ def phase_new_kernels(device):
     from repro_torch.launch.mesh import plan_fleet_layout
     from repro_torch.sched import placement as pl
 
-    errs = dict.fromkeys(list(wrappers())[1:], 0.0)
+    errs = dict.fromkeys(("sdqn_score", "sdqn_score_cols",
+                          "sdqn_score_afterstate_topk",
+                          "sdqn_score_cols_topk"), 0.0)
     near_tie_slots = 0
     for n in SHAPES_N:
         fleet = make_fleet(n, device, SEED + n)
@@ -676,31 +722,40 @@ def _replay_deterministic(d, clock, t_s, reqs):
     d.drain()
 
 
-def _spy_candidates(d, log):
-    """Log (decisions so far, candidate values) of every scored batch."""
+def _spy_scores(d, log):
+    """Log (decisions so far, scores or candidate values, feasibility or
+    candidate indices) of every scored batch's real rows."""
     inner = d._scorer
 
-    def spy(p, snap, pods):
-        vals, idx = inner(p, snap, pods)
-        log.append((len(d.decisions), vals.cpu().numpy()))
-        return vals, idx
+    def spy(p, snap, pods, carry, n_real):
+        a, b, carry = inner(p, snap, pods, carry, n_real)
+        log.append((len(d.decisions), a[:n_real].cpu().numpy(),
+                    b[:n_real].cpu().numpy()))
+        return a, b, carry
 
     d._scorer = spy
 
 
-def compare_flat_sharded(flat, sharded, cand_log, label):
-    """Flat and sharded decisions must agree, except from the first batch
-    where a request's two best candidates lie within the tolerance."""
+def _near_tie(row, other, candidates):
+    """True if the two best (feasible) values of a row lie within the
+    tolerance."""
+    top = row[np.isfinite(row)] if candidates else row[other]
+    top = np.sort(top)[::-1][:2]
+    return top.size == 2 and top[0] - top[1] <= ATOL + RTOL * abs(top[0])
+
+
+def compare_runs(first, second, log, candidates, label):
+    """Two runs' decisions must agree, except from the first batch (of
+    ``log``, the scored batches of one run) where a request's two best
+    candidates lie within the tolerance."""
     near, first_near = 0, None
-    for done, vals in cand_log:
-        rows = np.unique(vals, axis=0)        # pad rows repeat a request
-        ties = [r for r in rows if np.isfinite(r[1])
-                and r[0] - r[1] <= ATOL + RTOL * abs(r[0])]
-        near += len(ties)
+    for done, a, b in log:
+        ties = sum(_near_tie(r, o, candidates) for r, o in zip(a, b))
+        near += ties
         if ties and first_near is None:
             first_near = done
-    f_dec = [(x.req_id, x.node) for x in flat.decisions]
-    s_dec = [(x.req_id, x.node) for x in sharded.decisions]
+    f_dec = [(x.req_id, x.node) for x in first.decisions]
+    s_dec = [(x.req_id, x.node) for x in second.decisions]
     first_diff = next((i for i, (a, b) in enumerate(zip(f_dec, s_dec))
                        if a != b), None)
     if first_diff is None:
@@ -708,10 +763,9 @@ def compare_flat_sharded(flat, sharded, cand_log, label):
     else:
         assert first_near is not None and first_diff >= first_near, (
             f"{label}: decision {first_diff} differs before any near tie")
-    print(f"{label} deterministic replay flat vs sharded: decisions="
-          f"{len(s_dec)} identical={first_diff is None} first_difference="
-          f"{first_diff} distinct_near_tie_rows={near} "
-          f"sharded_batches={len(cand_log)}")
+    print(f"{label} deterministic replay: decisions={len(s_dec)} identical="
+          f"{first_diff is None} first_difference={first_diff} "
+          f"near_tie_rows={near} batches={len(log)}")
 
 
 def phase_sharded_parity(device):
@@ -730,14 +784,14 @@ def phase_sharded_parity(device):
                             clock=clock, timer=clock)
         log = []
         if layout is not None:
-            _spy_candidates(d, log)
+            _spy_scores(d, log)
         trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
                               N_REQUESTS, rate_per_s=RATES_PER_S[0])
         _replay_deterministic(d, clock, trace.t_s, trace.pods)
         check_outcome(d, cfg)
         runs[layout is not None] = (d, log)
-    compare_flat_sharded(runs[False][0], runs[True][0], runs[True][1],
-                         "cluster")
+    compare_runs(runs[False][0], runs[True][0], runs[True][1], True,
+                 "cluster flat vs sharded")
 
 
 def check_fleet_outcome(d, n):
@@ -817,12 +871,12 @@ def phase_fleet(device):
         d = _fleet_daemon(device, layout, clock)
         log = []
         if layout is not None:
-            _spy_candidates(d, log)
+            _spy_scores(d, log)
         _replay_deterministic(d, clock, t_s, jobs)
         check_fleet_outcome(d, SHARDED_N)
         runs[layout is not None] = (d, log)
-    compare_flat_sharded(runs[False][0], runs[True][0], runs[True][1],
-                         "job->host")
+    compare_runs(runs[False][0], runs[True][0], runs[True][1], True,
+                 "job->host flat vs sharded")
     return launches
 
 
@@ -958,12 +1012,10 @@ def phase_sharded_breakdown(device):
     spans (synchronizing) around snapshot publish, pack, the kernel
     wrapper (kernel + each shard's tile merge), every merge, candidate
     read-back and commit; torch.profiler's device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import sdqn_score as ss
     from repro_torch.scenarios import arrival_trace
     from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
-                                          PlacementDaemon, replay_trace)
+                                          PlacementDaemon)
 
     cfg, state, params = _sharded_setup(device)
     sub = ClusterSubstrate(state, cfg, device=device, layout=_layout(),
@@ -987,29 +1039,344 @@ def phase_sharded_breakdown(device):
         d._process_batch = spans.wrap("batch_total", d._process_batch)
         trace = arrival_trace(torch.Generator().manual_seed(SEED + 3), cfg,
                               500, rate_per_s=RATES_PER_S[1])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            replay_trace(d, trace.t_s, trace.pods)
-            wall = time.perf_counter() - t0
+        profiled_replay(d, trace, spans, "sharded")
     finally:
         ss.sdqn_score_afterstate_topk, ss.merge_topk = kernel, merge
-    batches = d.metrics.batches
-    for key in sorted(spans.total, key=spans.total.get, reverse=True):
-        print(f"sharded span {key}: total_ms={spans.total[key] * 1e3} "
-              f"per_batch_ms={spans.total[key] * 1e3 / batches} "
-              f"calls={spans.count[key]}")
-    dev_us = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", 0.0)
-        if t > 0:
-            dev_us[evt.key] = t
-    busy = sum(dev_us.values()) / 1e6
-    print(f"sharded profiled replay: batches={batches} wall_s={wall} "
-          f"device_busy_s={busy} device_busy_share={busy / wall}")
-    for key in sorted(dev_us, key=dev_us.get, reverse=True)[:10]:
-        print(f"sharded device time {key}: total_us={dev_us[key]} "
-              f"per_batch_us={dev_us[key] / batches}")
+
+
+# ---------------------------------------------------------------------------
+# kernels 6 and 7: the attention and Mamba policy classes
+# ---------------------------------------------------------------------------
+
+
+def fa_bound(shape, causal, name):
+    """(ms, by, bytes, ops) of one attention call: q, k, v read once, the
+    output written once; the operations of every visible pair."""
+    b, sq, skv, hq, hkv, d = shape
+    rows = np.arange(sq)
+    pairs = (int(np.minimum(skv, rows + skv - sq + 1).sum()) if causal
+             else sq * skv)
+    ops = b * hq * (pairs * (4 * d + 5) + sq * d)
+    nbytes = 4 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    return (*roofline(nbytes, ops, name), nbytes, ops)
+
+
+def scan_bound(shape, name):
+    """(ms, by, bytes, ops) of one selective scan: every input read once
+    (x, dt, A, B, C, D, h0), y and hT written once."""
+    b, s, di, n = shape
+    nbytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + di
+                  + 2 * b * di * n)
+    ops = b * s * di * (n * SCAN_OPS_PER_STATE + SCAN_OPS_PER_CHANNEL)
+    return (*roofline(nbytes, ops, name), nbytes, ops)
+
+
+def _qkv(shape, device, seed):
+    b, sq, skv, hq, hkv, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(x, generator=gen).to(device) for x in
+                 ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def _scan_args(shape, device, seed):
+    """The reference's sweep distributions (tests/test_kernels.py)."""
+    b, s, di, n = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*dims):
+        return torch.randn(dims, generator=gen)
+
+    args = (r(b, s, di) * 0.5,
+            torch.nn.functional.softplus(r(b, s, di) * 0.3 - 1.0),
+            -torch.exp(r(di, n) * 0.3), r(b, s, n) * 0.5, r(b, s, n) * 0.5,
+            torch.ones(di), r(b, di, n) * 0.1)
+    return tuple(a.to(device) for a in args)
+
+
+def phase_seq_kernels(device):
+    """Kernels 7 and 6 against their plain versions on the card."""
+    from repro_torch.kernels import ops
+
+    errs = {"flash_attention": 0.0, "mamba_scan": 0.0}
+    for shape in FA_SHAPES + (FA_PATH,):
+        for causal in (False, True):
+            q, k, v = _qkv(shape, device, sum(shape))
+            got = ops.flash_attention(q, k, v, causal=causal, mode="cuda")
+            torch.cuda.synchronize()
+            want = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+            assert got.shape == q.shape and bool(torch.isfinite(got).all())
+            err = float((got - want).abs().max())
+            print(f"flash_attention vs plain (B, Sq, Skv, Hq, Hkv, D)={shape} "
+                  f"causal={causal}: max_abs_err={err} (tolerance {FA_TOL})")
+            torch.testing.assert_close(got, want, rtol=FA_TOL, atol=FA_TOL)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+    for shape in SCAN_SHAPES + (SCAN_PATH, SCAN_WIDE):
+        args = _scan_args(shape, device, sum(shape))
+        y, h = ops.mamba_scan(*args, mode="cuda")
+        torch.cuda.synchronize()
+        wy, wh = ops.mamba_scan(*args, mode="plain")
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+        err = max(float((y - wy).abs().max()), float((h - wh).abs().max()))
+        print(f"mamba_scan vs plain (B, S, di, N)={shape}: max_abs_err={err} "
+              f"(tolerance {SCAN_TOL})")
+        torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+        torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+        errs["mamba_scan"] = max(errs["mamba_scan"], err)
+    return errs
+
+
+POLICY_KERNEL = {"attention": "flash_attention", "mamba": "mamba_scan"}
+
+
+def _policy_daemon(device, name, fused="auto", clock=None):
+    """``PlacementDaemon`` over ``ClusterSubstrate(fleet_cluster(5000),
+    policy=name)``, params from the class's ``init`` and a seed."""
+    from repro_torch.core import policy
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon)
+
+    cfg, state, _ = _serving_setup(device)
+    spec = policy.get(name)
+    params = spec.init(torch.Generator().manual_seed(SEED + 1), device=device)
+    kw = {} if clock is None else dict(clock=clock, timer=clock)
+    return cfg, PlacementDaemon(
+        ClusterSubstrate(state, cfg, device=device, policy=spec), params,
+        DaemonConfig(batch_size=32, max_wait_s=0.005, fused=fused), **kw)
+
+
+def phase_policy_paths(device):
+    """The attention and mamba daemons at 5,000 nodes, 2,000 requests at
+    500/s: every batch is ONE launch of kernel 7 (attention) or of kernel 6
+    (mamba), and no other kernel runs."""
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import replay_trace
+
+    launches = {}
+    for name, key in POLICY_KERNEL.items():
+        cfg, d = _policy_daemon(device, name)
+        d.warmup()
+        trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                              N_REQUESTS, rate_per_s=RATES_PER_S[0])
+        zero_counts()                               # the path starts here
+        dur = replay_trace(d, trace.t_s, trace.pods)
+        counts = read_counts()                      # ... and ends here
+        m = d.metrics
+        assert m.bound + m.dropped == m.submitted == N_REQUESTS, m
+        assert m.device_launches == m.batches == counts[key] > 0, (m, counts)
+        assert sum(counts.values()) == counts[key], counts
+        check_outcome(d, cfg)
+        lat = np.asarray(m.bind_latencies_s)
+        print(f"{name} serve N={MAIN_N} rate={int(RATES_PER_S[0])}/s: "
+              f"decisions/s={N_REQUESTS / dur} "
+              f"p50_ms={np.percentile(lat, 50) * 1e3} "
+              f"p99_ms={np.percentile(lat, 99) * 1e3} batches={m.batches} "
+              f"kernel_launches={counts[key]} bound={m.bound} "
+              f"dropped={m.dropped} conflicts={m.conflicts} counts={counts}")
+        launches[key] = counts[key]
+    return launches
+
+
+def phase_policy_parity(device):
+    """Both classes on a deterministic clock, the 2,000 requests of the
+    4000/s trace (batches of ~20), through the kernels and through their
+    plain versions (``fused="plain"``): the decisions must agree up to the
+    first batch with a near tie, and the scores of the batches both runs
+    cut alike within the tolerance."""
+    from repro_torch.scenarios import arrival_trace
+
+    for name in POLICY_KERNEL:
+        runs = {}
+        for fused in ("auto", "plain"):
+            clock = StepClock()
+            cfg, d = _policy_daemon(device, name, fused=fused, clock=clock)
+            log = []
+            _spy_scores(d, log)
+            trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                                  N_REQUESTS, rate_per_s=RATES_PER_S[1])
+            _replay_deterministic(d, clock, trace.t_s, trace.pods)
+            check_outcome(d, cfg)
+            runs[fused] = (d, log)
+        (kern, k_log), (plain, p_log) = runs["auto"], runs["plain"]
+        compare_runs(kern, plain, k_log, False, f"{name} cuda vs plain")
+        scores_agree(k_log, p_log, name)
+
+
+def phase_policy_arms(device):
+    """The classes' FleetSubstrate (flat and 8 shards) and sharded cluster
+    arms at N = 16,384, 96 requests on a deterministic clock, through the
+    kernels and through their plain versions: decisions agree up to the
+    first near tie, the scores of the batches both runs cut alike within
+    the tolerance; the kernel run is one launch of its class's kernel per
+    batch and of no other, the plain run launches none."""
+    from repro_torch.core import env, policy
+    from repro_torch.core.types import fleet_cluster
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched import placement as pl
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          FleetSubstrate, PlacementDaemon)
+
+    n = POLICY_ARMS_N
+    lay = plan_fleet_layout(n, shards=SHARDS)
+    cfg = fleet_cluster(n)
+    state = env.reset(torch.Generator().manual_seed(SEED), cfg, device=device)
+    fleet = pl.fresh_fleet(n, torch.Generator().manual_seed(SEED + 12),
+                           device=device)
+    trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                          POLICY_ARM_REQUESTS, rate_per_s=RATES_PER_S[1])
+    jobs = make_jobs(POLICY_ARM_REQUESTS, SEED + 5)
+    for name, key in POLICY_KERNEL.items():
+        spec = policy.get(name)
+        params = spec.init(torch.Generator().manual_seed(SEED + 1),
+                           device=device)
+        arms = (
+            ("job->host flat", lambda: FleetSubstrate(
+                fleet, policy=spec, device=device), jobs, False),
+            ("job->host sharded", lambda: FleetSubstrate(
+                fleet, policy=spec, layout=lay, topk=TOPK, device=device),
+             jobs, True),
+            ("cluster sharded", lambda: ClusterSubstrate(
+                state, cfg, device=device, policy=spec, layout=lay,
+                topk=TOPK), trace.pods, True))
+        for label, make, reqs, candidates in arms:
+            runs = {}
+            for fused in ("auto", "plain"):
+                clock = StepClock()
+                d = PlacementDaemon(make(), params, DaemonConfig(
+                    batch_size=32, max_wait_s=0.005, fused=fused),
+                    clock=clock, timer=clock)
+                log = []
+                _spy_scores(d, log)
+                zero_counts()                       # the arm starts here
+                _replay_deterministic(d, clock, trace.t_s, reqs)
+                counts = read_counts()              # ... and ends here
+                if isinstance(d._sub, FleetSubstrate):
+                    check_fleet_outcome(d, n)
+                else:
+                    check_outcome(d, cfg)
+                assert d.metrics.device_launches == len(log) > 0
+                want = len(log) if fused == "auto" else 0
+                assert counts[key] == want == sum(counts.values()), (
+                    label, fused, counts)
+                runs[fused] = (d, log)
+            (kern, k_log), (plain, p_log) = runs["auto"], runs["plain"]
+            arm = f"{name} {label} N={n}"
+            compare_runs(kern, plain, k_log, candidates, f"{arm} cuda vs plain")
+            scores_agree(k_log, p_log, arm)
+            print(f"{arm}: {key} launches={len(k_log)} (one per batch, no "
+                  f"other kernel)")
+
+
+POLICY_BREAKDOWN_REQUESTS = 400
+
+
+def phase_policy_breakdown(device):
+    """Where an attention batch's and a mamba batch's time goes on their
+    main path (5,000 nodes, 500/s offered, 400 requests): the spans of
+    phase 5 (``score_total`` is the whole scorer) and inside the scorer
+    the encoder (mamba: projections and kernel 6), the afterstate rows
+    (``hypothetical_place``, ``normalize_features``), ``score_set``
+    (attention: projections, kernel 7 and the head; mamba: the embed and
+    the Q-head), the kernel's wrapper alone and the feasibility mask.
+    Every span synchronizes, and spans nest."""
+    from repro_torch.core import env as kenv, policy
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import arrival_trace
+
+    for name, key in POLICY_KERNEL.items():
+        spec = policy.get(name)
+        spans = Spans()
+        traced = dataclasses.replace(spec, score_set=spans.wrap(
+            "score_set", spec.score_set, sync=True))
+        if spec.encode_sequence is not None:
+            traced = dataclasses.replace(traced, encode_sequence=spans.wrap(
+                "encoder", spec.encode_sequence, sync=True))
+        patched = [(kenv, "hypothetical_place"), (kenv, "normalize_features"),
+                   (kenv, "feasible"), (ops, key)]
+        saved = [getattr(m, a) for m, a in patched]
+        policy.register(traced)               # the daemon serves the traced
+        try:                                  # spec; restored below
+            for m, a in patched:
+                setattr(m, a, spans.wrap(
+                    f"kernel_wrapper_{a}" if m is ops else a, getattr(m, a),
+                    sync=True))
+            cfg, d = _policy_daemon(device, name)
+            d.warmup()
+            sub = d._sub
+            sub.snapshot = spans.wrap("snapshot_publish", sub.snapshot,
+                                      sync=True)
+            sub.pack = spans.wrap("pack_pods", sub.pack, sync=True)
+            d._scorer = spans.wrap("score_total", d._scorer, sync=True)
+            sub.feasible_one = spans.wrap("bind_revalidate", sub.feasible_one)
+            sub.bind = spans.wrap("bind_commit", sub.bind)
+            d._process_batch = spans.wrap("batch_total", d._process_batch)
+            spans.total.clear()
+            spans.count.clear()
+            trace = arrival_trace(torch.Generator().manual_seed(SEED + 3),
+                                  cfg, POLICY_BREAKDOWN_REQUESTS,
+                                  rate_per_s=RATES_PER_S[0])
+            profiled_replay(d, trace, spans, name)
+        finally:
+            policy.register(spec)
+            for (m, a), fn in zip(patched, saved):
+                setattr(m, a, fn)
+        m = d.metrics
+        assert m.bound + m.dropped == m.submitted == POLICY_BREAKDOWN_REQUESTS
+
+
+def phase_seq_timings(device, name):
+    """Kernels 7 and 6 at their main paths' shapes: device time from a CUDA
+    graph, the plain versions' likewise, the bound from these inputs, and
+    for kernel 7 ``torch.nn.functional.scaled_dot_product_attention`` on
+    the same tensors in PyTorch's (B, H, S, D) layout (``library_ms``,
+    eager calls between CUDA events; the port never calls it)."""
+    from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
+
+    rows = {}
+    saved = read_counts()
+    q, k, v = _qkv(FA_PATH, device, SEED + 11)
+    kernel_ms = graph_time_ms(lambda: fa.flash_attention(q, k, v,
+                                                         causal=False), 20)
+    call_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+                           20)
+    plain_ms = graph_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=False), 3, reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = cuda_time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        20)
+    lib_err = float((torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt).transpose(1, 2) - fa.flash_attention(
+            q, k, v, causal=False)).abs().max())
+    b_ms, b_by, nbytes, n_ops = fa_bound(FA_PATH, False, name)
+    rows["flash_attention"] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=library_ms)
+    print(f"timing flash_attention (B, Sq, Skv, Hq, Hkv, D)={FA_PATH}: "
+          f"kernel_ms={kernel_ms} plain_ms={plain_ms} (device time, CUDA "
+          f"graph) kernel_call_ms={call_ms} library_ms={library_ms} (SDPA, "
+          f"eager calls; max_abs_diff to the kernel {lib_err}) "
+          f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
+          f"{peaks(name)[0]} peaks) kernel/bound={kernel_ms / b_ms}")
+    for shape, iters in ((SCAN_PATH, 200), (SCAN_WIDE, 50)):
+        args = _scan_args(shape, device, SEED + 13)
+        kernel_ms = graph_time_ms(lambda: ms.mamba_scan(*args), iters)
+        call_ms = cuda_time_ms(lambda: ms.mamba_scan(*args), iters)
+        plain_ms = graph_time_ms(lambda: ms.mamba_scan_plain(*args), 3,
+                                 reps=3)
+        b_ms, b_by, nbytes, n_ops = scan_bound(shape, name)
+        if shape == SCAN_PATH:
+            rows["mamba_scan"] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=None)
+        print(f"timing mamba_scan (B, S, di, N)={shape}: kernel_ms="
+              f"{kernel_ms} plain_ms={plain_ms} (device time, CUDA graph) "
+              f"kernel_call_ms={call_ms} bound_ms={b_ms} ({b_by}; "
+              f"bytes={nbytes} ops={n_ops}, {peaks(name)[0]} peaks) "
+              f"kernel/bound={kernel_ms / b_ms}")
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    return rows
 
 
 def main() -> int:
@@ -1017,7 +1384,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device is visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build, sdqn_score as ss
+    from repro_torch.kernels import _build
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1028,7 +1395,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    secs = _build.build(ss.SOURCES)         # one nvcc per source, together
+    secs = _build.build(_build.all_sources())  # one nvcc per source, together
     print(f"build: {secs} (wall {time.perf_counter() - t0:.2f} s)")
     for src, log in _build.BUILD_LOG.items():
         for line in log["ptxas"].splitlines():
@@ -1044,19 +1411,30 @@ def main() -> int:
     phase_sharded_parity(device)
     launches.update(phase_fleet(device))
     launches["sdqn_score"] = phase_engine(device)
+    errs.update(phase_seq_kernels(device))
+    launches.update(phase_policy_paths(device))
+    phase_policy_parity(device)
+    phase_policy_arms(device)
     timing = phase_new_timings(device, name)
     timing["sdqn_score_afterstate"] = phase_timings(device, name)[MAIN_N]
+    timing.update(phase_seq_timings(device, name))
     phase_breakdown(device)
     phase_sharded_breakdown(device)
+    phase_policy_breakdown(device)
 
-    # (wrapper, CUDA source, the TPU kernel's function line); no single
-    # PyTorch call computes any of these fused functions: library_ms null
+    # (wrapper, CUDA source, the TPU kernel's function line).  No single
+    # PyTorch call computes the fused SDQN functions or a selective scan
+    # (library_ms null); kernel 7's is scaled_dot_product_attention.
     table = (
-        ("sdqn_score_afterstate", "sdqn_score_afterstate.cu", 171),
-        ("sdqn_score", "sdqn_score.cu", 51),
-        ("sdqn_score_cols", "sdqn_score_cols.cu", 249),
-        ("sdqn_score_afterstate_topk", "sdqn_score_afterstate_topk.cu", 386),
-        ("sdqn_score_cols_topk", "sdqn_score_cols.cu", 486),
+        ("sdqn_score_afterstate", "sdqn_score_afterstate.cu",
+         "sdqn_score.py:171"),
+        ("sdqn_score", "sdqn_score.cu", "sdqn_score.py:51"),
+        ("sdqn_score_cols", "sdqn_score_cols.cu", "sdqn_score.py:249"),
+        ("sdqn_score_afterstate_topk", "sdqn_score_afterstate_topk.cu",
+         "sdqn_score.py:386"),
+        ("sdqn_score_cols_topk", "sdqn_score_cols.cu", "sdqn_score.py:486"),
+        ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:61"),
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:77"),
     )
     kernels = []
     for key, src, line in table:
@@ -1065,11 +1443,11 @@ def main() -> int:
         kernels.append({
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": f"src/repro/kernels/sdqn_score.py:{line}",
+            "replaces": f"src/repro/kernels/{line}",
             "launches": launches[key], "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t.get("library_ms"),
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -37,6 +37,16 @@ def qnet_from_numpy(params: Mapping[str, np.ndarray], device=None) -> dict:
             for k in ("w1", "b1", "w2", "b2")}
 
 
+def policy_params_from_numpy(tree, device=None):
+    """A policy class's params (``core.policy``: nested dicts of arrays, e.g.
+    mamba's ``{"enc": {...}, "head": {...}}``) as float32 tensors, with the
+    same nesting and keys."""
+    device = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: policy_params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
 def state_from_numpy(cols, device=None) -> ClusterState:
     """A ``ClusterState`` given as numpy: a mapping or a sequence in field
     order (a reference ``ClusterState`` mapped through ``np.asarray`` works

@@ -7,6 +7,12 @@ so a stale library is never loaded after an edit to either.
 ``build(names)`` starts one ``nvcc`` per missing source, all at once, and
 waits for them together.  Nothing is built or imported when this module
 is imported: the CPU tests import every module of the port.
+
+The wrappers of every kernel module share the checks and the launch
+below: ``check`` (dtype, shape, device, contiguity), ``on_card`` (CUDA
+launches the kernel, a CPU tensor runs the plain version, any other device
+raises) and ``launch`` (the C function on PyTorch's current stream,
+raising on a nonzero ``cudaGetLastError()``).
 """
 from __future__ import annotations
 
@@ -23,8 +29,15 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+
 _LOADED: dict = {}        # name -> ctypes.CDLL, loaded once per process
 BUILD_LOG: dict = {}      # name -> {"seconds": s, "ptxas": text}
+
+
+def all_sources() -> tuple:
+    """The stem of every ``csrc/*.cu``: one library each."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 
 def _nvcc() -> str:
@@ -97,3 +110,36 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def check(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_card(name, device) -> bool:
+    """True for CUDA, False for the CPU (plain version); raises otherwise."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
+    return device.type == "cuda"
+
+
+def launch(name, source, argtypes, device, *args):
+    """Call ``<name>_launch`` of ``csrc/<source>.cu`` on the current stream
+    (tensors pass as device pointers); raise on a CUDA error."""
+    import torch
+
+    fn = getattr(load(source), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [P]      # + the stream
+        fn.restype = ctypes.c_int
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

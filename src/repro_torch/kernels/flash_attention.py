@@ -1,0 +1,119 @@
+"""Blocked online-softmax attention forward (port of
+``repro.kernels.flash_attention``), kernel 7 of ROADMAP queue 2.
+
+Two versions of one function, in the reference's layout: q (B, Sq, Hq, D),
+k and v (B, Skv, Hkv, D), float32, GQA groups of ``Hq / Hkv`` query heads
+per key/value head, scale ``1/sqrt(D)``, and under ``causal`` the diagonal
+at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
+
+* ``flash_attention_plain`` — plain PyTorch: walks the keys in blocks of
+  ``PLAIN_BLOCK_K`` with the online-softmax update of the TPU kernel (running
+  max, rescaled sum and accumulator), so its memory is (B, H, Sq, block_k)
+  and never (B, H, Sq, Skv).  The CPU tests use it and ``chip_smoke.py``
+  holds the kernel to it.
+* ``flash_attention`` — the wrapper: on CUDA tensors ONE launch of the
+  hand-written kernel ``csrc/flash_attention.cu``, counted in
+  ``flash_attention.launches``; on CPU tensors the plain version.  Any
+  other device raises.
+
+Both refuse what the kernel does not take, on every device: another dtype
+than float32, a head width outside ``HEAD_DIMS``, mismatched shapes, and
+``causal`` with Sq > Skv.  The last leaves the first ``Sq - Skv`` query
+rows no key at all; the reference's output for them depends on its block
+sizes, so it has no single value to port.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = "flash_attention"
+HEAD_DIMS = (8, 16, 32, 64)      # the kernel's template instances
+BLOCK_Q = 128                    # query rows (threads) per block of the kernel
+PLAIN_BLOCK_K = 256              # keys per step of the plain version
+
+_F32 = torch.float32
+
+
+def _dims(q, k, v, causal):
+    """(B, Sq, Hq, Skv, Hkv, D), raising on what the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or t.dtype != _F32:
+            raise ValueError(f"flash_attention: {name} must be a 4-D float32 "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    b, sq, hq, d = q.shape
+    bk, skv, hkv, dk = k.shape
+    if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {d} not in {HEAD_DIMS}")
+    if min(b, sq, skv, hkv) < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: unsupported shape B={b} Sq={sq} "
+                         f"Skv={skv} Hq={hq} Hkv={hkv}")
+    if causal and sq > skv:
+        raise ValueError(f"flash_attention: causal with Sq={sq} > Skv={skv} "
+                         f"leaves query rows without a key")
+    return b, sq, hq, skv, hkv, d
+
+
+def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
+    """(B, Sq, Hq, D) attention output, plain PyTorch, ``PLAIN_BLOCK_K``
+    keys at a time (online softmax; masked scores are ``-inf`` and key 0 is
+    always visible, so the running max is finite after the first block)."""
+    b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    # (B, Hkv, g, Sq, D): the g query heads of a group share one k/v head
+    qh = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kh = k.permute(0, 2, 1, 3)[:, :, None]           # (B, Hkv, 1, Skv, D)
+    vh = v.permute(0, 2, 1, 3)[:, :, None]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    m = torch.full((b, hkv, g, sq, 1), -torch.inf, dtype=_F32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=_F32, device=q.device)
+    block_k = PLAIN_BLOCK_K
+    for j0 in range(0, skv, block_k):
+        kb, vb = kh[..., j0:j0 + block_k, :], vh[..., j0:j0 + block_k, :]
+        s = (qh @ kb.transpose(-1, -2)) * scale       # (B, Hkv, g, Sq, bk)
+        if causal:
+            kpos = torch.arange(j0, j0 + kb.shape[-2], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p @ vb
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)             # (B, Hkv, g, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+
+def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """(B, Sq, Hq, D) attention output: one kernel launch on CUDA, the
+    plain version on CPU.  q, k, v contiguous float32 in the layout above
+    (16-byte aligned on the card: the kernel reads rows as float4)."""
+    b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
+    device = q.device
+    if not _build.on_card("flash_attention", device):
+        return flash_attention_plain(q, k, v, causal=causal)
+    for name, t, shape in (("q", q, q.shape), ("k", k, k.shape),
+                           ("v", v, k.shape)):
+        _build.check(name, t, _F32, shape, device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+    if b * hq >= 2 ** 31 or -(-sq // BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
+                         f"Sq={sq}")
+    out = torch.empty_like(q)
+    _build.launch("flash_attention", SOURCE,
+                  [_build.P] * 4 + [_build.I] * 7, device,
+                  q, k, v, out, b, sq, skv, hq, hkv, d, int(causal))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

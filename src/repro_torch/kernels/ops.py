@@ -9,6 +9,10 @@ Modes of every entry point:
     a stacked feature matrix + ``dqn.qvalues``, ``env.feasible``, and a
     stable sort for the top-k).
 
+``flash_attention`` and ``mamba_scan`` take the reference's arguments
+and layouts (``repro.kernels.ops``); their ``ref`` mode is the direct
+oracle of ``kernels.ref``.
+
 The top-k entry points return per-shard candidates ``(B, shards, k)``
 with a ``layout`` (``launch.mesh.FleetLayout``) and ``(B, k)`` without
 (the whole fleet as one shard); a scalar pod or a (6,) delta drops the B
@@ -23,7 +27,8 @@ import torch
 
 from repro_torch.core import dqn, env as kenv
 from repro_torch.core.types import FEATURE_DIM, ClusterState, EnvConfig, PodSpec
-from repro_torch.kernels import ref, sdqn_score as _ss
+from repro_torch.kernels import (flash_attention as _fa, mamba_scan as _ms,
+                                 ref, sdqn_score as _ss)
 
 MODES = ("cuda", "plain", "ref")
 
@@ -207,3 +212,25 @@ def sdqn_topk_delta(cols, deltas: torch.Tensor, params, *, k: int = 4,
         vals, idx = fn(tuple(cols), d, FEATURE_SCALE, w1, b1, w2, b2,
                        ceilings, k=k, shards=shards, shard_size=size)
     return _squeeze(vals, idx, layout, deltas.dim() == 1)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    mode: Optional[str] = None) -> torch.Tensor:
+    """q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) -> (B, Sq, Hq, D):
+    blocked online-softmax attention (kernel 7), one launch per call."""
+    mode = _mode(mode, q.device)
+    if mode == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    fn = _fa.flash_attention if mode == "cuda" else _fa.flash_attention_plain
+    return fn(q, k, v, causal=causal)
+
+
+def mamba_scan(x, dt, a, bmat, cmat, d_skip, h0, *,
+               mode: Optional[str] = None):
+    """The Mamba-1 selective scan (kernel 6), one launch per call:
+    ``(y (B, S, di), hT (B, di, N))``."""
+    mode = _mode(mode, x.device)
+    if mode == "ref":
+        return ref.mamba_scan_ref(x, dt, a, bmat, cmat, d_skip, h0)
+    fn = _ms.mamba_scan if mode == "cuda" else _ms.mamba_scan_plain
+    return fn(x, dt, a, bmat, cmat, d_skip, h0)

@@ -27,8 +27,6 @@ every slot that is not finite (``-inf`` = infeasible or exhausted).
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -58,7 +56,6 @@ KERNEL_SOURCE = "sdqn_score_afterstate"
 SCORE_SOURCE = "sdqn_score"
 COLS_SOURCE = "sdqn_score_cols"
 TOPK_SOURCE = "sdqn_score_afterstate_topk"
-SOURCES = (KERNEL_SOURCE, SCORE_SOURCE, COLS_SOURCE, TOPK_SOURCE)
 HIDDEN = 32
 TOPK_MAX = 8        # candidates a thread of the top-k kernels keeps
 TOPK_TILE = 1024    # nodes one block of the top-k kernels reduces
@@ -67,16 +64,12 @@ _F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
-# shared plumbing: checks, the ctypes launch, the top-k merges
+# shared plumbing (checks and the launch live in ``_build``), top-k merges
 # ---------------------------------------------------------------------------
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"{name}: want {dtype} {shape} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_check, _on_card, _launch = _build.check, _build.on_card, _build.launch
+_P, _F, _I = _build.P, _build.F, _build.I
 
 
 def _check_weights(w1, b1, w2, b2, device):
@@ -84,30 +77,6 @@ def _check_weights(w1, b1, w2, b2, device):
     _check("b1", b1, _F32, (HIDDEN,), device)
     _check("w2", w2, _F32, (HIDDEN, 1), device)
     _check("b2", b2, _F32, (1,), device)
-
-
-def _on_card(name, device) -> bool:
-    """True for CUDA, False for the CPU (plain version); raises otherwise."""
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
-    return device.type == "cuda"
-
-
-_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-
-
-def _launch(name, source, argtypes, device, *args):
-    """Call ``<name>_launch`` of ``csrc/<source>.cu`` on the current
-    stream (tensors pass as device pointers); raise on a CUDA error."""
-    fn = getattr(_build.load(source), f"{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes) + [_P]     # + the stream
-        fn.restype = ctypes.c_int
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def merge_topk(vals, idx, k: int):

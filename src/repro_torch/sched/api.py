@@ -19,6 +19,9 @@
 
 ``fused``: ``"auto"`` / ``True`` take the kernel path (plain twin on the
 CPU), ``"plain"`` forces the plain twin, ``False`` the unfused reference.
+``policy`` (a registered ``core.policy.PolicySpec``) swaps in a policy
+class on either fleet type, ``embed`` is its history embedding for
+sequence specs.
 ``shard``: ``"auto"`` resolves to the unsharded program on one card; an
 int forces that shard count (two-stage selection, ``sched.shard``); a
 ``launch.mesh.FleetLayout`` pins a layout; ``False`` disables it.
@@ -101,6 +104,28 @@ def _fleet_mode(fused) -> Optional[str]:
                      f"got {fused!r}")
 
 
+def _fleet_policy_score(fleet: FleetState, deltas: torch.Tensor, params: dict,
+                        policy, embed=None, fused="auto") -> torch.Tensor:
+    """FleetState scoring through a non-fusable policy class: the (B, N, 6)
+    afterstate rows the column kernel builds in-kernel, with ``embed``
+    appended for sequence specs, through ``policy.score_set`` — (6,) delta
+    -> (N,), (B, 6) deltas -> (B, N), one ``score_set`` call."""
+    feats = _pl.afterstate_rows(fleet, deltas.reshape(-1, 6))
+    q = policy.score_set(params, schedulers.with_embed(feats, embed),
+                         mode=schedulers.policy_mode(fused))
+    return q[0] if deltas.dim() == 1 else q
+
+
+def _fleet_scores(fleet: FleetState, deltas: torch.Tensor, params: dict,
+                  fused, policy, embed) -> torch.Tensor:
+    """The FleetState arm of ``score`` / ``score_batch``."""
+    spec = schedulers.check_scorer(fused, None, policy, embed)
+    if spec is not None:
+        return _fleet_policy_score(fleet, deltas, params, spec, embed, fused)
+    return ops.sdqn_score_delta(_pl.fleet_cols(fleet), deltas, params,
+                                mode=_fleet_mode(fused))
+
+
 def _fleet_size(fleet: Fleet) -> int:
     if isinstance(fleet, ClusterState):
         return fleet.n_nodes
@@ -110,52 +135,59 @@ def _fleet_size(fleet: Fleet) -> int:
 
 
 def _score_raw(fleet: Fleet, pod: Workload, *, params: dict,
-               cfg: Optional[EnvConfig] = None, fused="auto") -> torch.Tensor:
+               cfg: Optional[EnvConfig] = None, fused="auto", policy=None,
+               embed=None) -> torch.Tensor:
     if isinstance(fleet, ClusterState):
         _need_cfg(cfg)
         return schedulers.score_afterstates(params, fleet, pod, cfg,
-                                            fused=fused)
+                                            fused=fused, policy=policy,
+                                            embed=embed)
     if isinstance(fleet, FleetState):
-        return ops.sdqn_score_delta(
-            _pl.fleet_cols(fleet), _pl.job_delta(pod, fleet.cpu_pct.device),
-            params, mode=_fleet_mode(fused))
+        return _fleet_scores(fleet, _pl.job_delta(pod, fleet.cpu_pct.device),
+                             params, fused, policy, embed)
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
 
 
 def score(fleet: Fleet, pod: Workload, *, params: dict,
           cfg: Optional[EnvConfig] = None, fused="auto", shard="auto",
-          guard: bool = False) -> torch.Tensor:
+          policy=None, embed=None, guard: bool = False) -> torch.Tensor:
     """(N,) Q-scores of placing ``pod`` on each target in ``fleet``.
 
     With a resolved ``shard`` layout the vector is computed shard by
-    shard.  ``guard=True`` swaps the WHOLE vector for ``heuristic_score``
-    when any score is NaN/inf or beyond ``DIVERGENCE_LIMIT``."""
+    shard (for the "attention" class that is attention within each
+    shard, as in the reference).  ``guard=True`` swaps the WHOLE vector
+    for ``heuristic_score`` when any score is NaN/inf or beyond
+    ``DIVERGENCE_LIMIT``."""
     from repro_torch.sched import shard as _shard
 
     layout = _shard.resolve_layout(shard, _fleet_size(fleet))
     if layout is None:
-        q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused)
+        q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused,
+                       policy=policy, embed=embed)
     else:
         q = _shard.sharded_scores(fleet, pod, params=params, cfg=cfg,
-                                  layout=layout, fused=fused)
+                                  layout=layout, fused=fused, policy=policy,
+                                  embed=embed)
     if not guard:
         return q
     return torch.where(scores_valid(q), q, heuristic_score(fleet, pod, cfg=cfg))
 
 
 def score_batch(fleet: Fleet, pods, *, params: dict,
-                cfg: Optional[EnvConfig] = None, fused="auto") -> torch.Tensor:
+                cfg: Optional[EnvConfig] = None, fused="auto", policy=None,
+                embed=None) -> torch.Tensor:
     """(B, N) Q-scores for a batch of workloads against ONE fleet: a
     ``PodSpec`` of (B,) fields (ClusterState) or a sequence of B
-    ``JobSpec``s (FleetState) — one kernel launch for the batch."""
+    ``JobSpec``s (FleetState) — one kernel launch for the batch.
+    ``embed``: (E,) or (B, E) for a sequence policy."""
     if isinstance(fleet, ClusterState):
         _need_cfg(cfg)
-        return schedulers.score_afterstates_batch(params, fleet, pods, cfg,
-                                                  fused=fused)
+        return schedulers.score_afterstates_batch(
+            params, fleet, pods, cfg, fused=fused, policy=policy,
+            embed=embed)
     if isinstance(fleet, FleetState):
-        return ops.sdqn_score_delta(
-            _pl.fleet_cols(fleet), _pl.job_deltas(pods, fleet.cpu_pct.device),
-            params, mode=_fleet_mode(fused))
+        return _fleet_scores(fleet, _pl.job_deltas(pods, fleet.cpu_pct.device),
+                             params, fused, policy, embed)
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
 
 
@@ -167,7 +199,7 @@ def _feasible(fleet: Fleet, pod: Workload, cfg, params: dict) -> torch.Tensor:
 
 def topk(fleet: Fleet, pod: Workload, *, params: dict,
          cfg: Optional[EnvConfig] = None, k: int = 4, fused="auto",
-         shard="auto"):
+         shard="auto", policy=None, embed=None):
     """The ``k`` best feasible targets: ``(values, indices)`` sorted
     descending, ties by ascending index, ``-inf`` / ``-1`` on infeasible
     slots.  With a resolved shard layout this is the two-stage path and
@@ -178,8 +210,9 @@ def topk(fleet: Fleet, pod: Workload, *, params: dict,
     layout = _shard.resolve_layout(shard, n)
     if layout is not None:
         return _shard.topk(fleet, pod, params=params, cfg=cfg, layout=layout,
-                           k=k, fused=fused)
-    q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused)
+                           k=k, fused=fused, policy=policy, embed=embed)
+    q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused,
+                   policy=policy, embed=embed)
     ok = _feasible(fleet, pod, cfg, params)
     masked = torch.where(ok, q, -torch.inf)
     vals, pos = torch.sort(masked, descending=True, stable=True)
@@ -190,7 +223,7 @@ def topk(fleet: Fleet, pod: Workload, *, params: dict,
 
 def select(fleet: Fleet, pod: Workload, *, params: dict,
            cfg: Optional[EnvConfig] = None, fused="auto", shard="auto",
-           guard: bool = False) -> torch.Tensor:
+           policy=None, embed=None, guard: bool = False) -> torch.Tensor:
     """Greedy feasible argmax over ``score``; ``NO_PLACEMENT`` if none fit
     (int32 0-d tensor; ties break to the lowest index).  With a resolved
     ``shard`` layout selection goes through the two-stage candidate merge
@@ -201,8 +234,9 @@ def select(fleet: Fleet, pod: Workload, *, params: dict,
     if layout is not None:
         return _shard.select_candidates(fleet, pod, params=params, cfg=cfg,
                                         layout=layout, fused=fused,
+                                        policy=policy, embed=embed,
                                         guard=guard)
     q = score(fleet, pod, params=params, cfg=cfg, fused=fused, shard=False,
-              guard=guard)
+              policy=policy, embed=embed, guard=guard)
     return schedulers.masked_argmax(None, q, _feasible(fleet, pod, cfg,
                                                        params))

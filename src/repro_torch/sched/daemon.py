@@ -18,13 +18,21 @@ Counterpart of ``repro.sched.daemon`` for the pod->node cluster
     the live buffer; a request that loses the race re-queues
     (``conflict_policy="requeue"``) or falls to its next-best snapshot
     candidate (``"next-best"``).
+  * **Policy classes.**  ``policy=`` (a registered ``core.policy``
+    spec) scores through the class's ``score_set``: for "attention" one
+    launch of kernel 7 per batch.  A sequence class ("mamba") carries its
+    arrival-history state across batches (``PlacementDaemon._carry``):
+    each batch's B workloads are encoded by ONE launch of its sequence
+    encoder (kernel 6) from that carry, pad rows with ``dt = 0`` so they
+    leave it bit-exact.  The reference scans ``encode_step`` over the
+    batch inside its one jitted launch; the carries agree, the pad rows'
+    embeds (never committed) do not.
 
     sub = ClusterSubstrate(env.reset(gen, cfg), cfg)
     d = PlacementDaemon(sub, qparams, DaemonConfig(batch_size=32))
     d.submit(pod); ...; d.poll(); decisions = d.decisions
 
-Policy classes, custom ``score_fn`` and the online-learning hook are not
-ported yet.
+A custom ``score_fn`` and the online-learning hook are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import env as kenv, schedulers
+from repro_torch.core import env as kenv, policy as pol, schedulers
 from repro_torch.core.types import NO_PLACEMENT, ClusterState, EnvConfig, PodSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import sdqn_score as _ss
@@ -50,8 +58,29 @@ __all__ = [
     "replay_trace",
 ]
 
-SUBSTRATE_QUEUE_ITEM = ("policy classes and custom score_fn are not ported "
-                        "yet: see ROADMAP.md, queue 1, 'Policy registry'")
+def _init_carry(policy, params):
+    """The daemon-lifetime arrival-history carry of a sequence policy class
+    (``None`` for stateless scorers)."""
+    if policy is not None and policy.embed_dim > 0:
+        return policy.carry_init(params)
+    return None
+
+
+def _encoder(policy, fused, workloads: Callable) -> Callable:
+    """``encode(params, batch, carry, n_real) -> (embeds (B, E) or None,
+    carry)``: ONE launch of a sequence class's encoder per batch over
+    ``workloads(batch)`` (B, ENCODER_IN), rows from ``n_real`` on (the pad
+    rows) leaving the carry as it was; stateless classes pass the carry
+    through and compute nothing."""
+    if policy is None or policy.embed_dim == 0:
+        return lambda params, batch, carry, n_real: (None, carry)
+    mode = schedulers.policy_mode(fused)
+
+    def encode(params, batch, carry, n_real):
+        return policy.encode_sequence(params, workloads(batch), h0=carry,
+                                      mode=mode, n_real=n_real)
+
+    return encode
 
 
 def _check_layout(layout, topk: int) -> None:
@@ -234,9 +263,10 @@ class ClusterSubstrate:
     def __init__(self, state: ClusterState, cfg: EnvConfig, device=None,
                  score_fn: Optional[Callable] = None, policy=None,
                  layout: Optional[FleetLayout] = None, topk: int = 8):
-        if score_fn is not None or policy is not None:
-            raise NotImplementedError(SUBSTRATE_QUEUE_ITEM)
+        if score_fn is not None:
+            raise NotImplementedError(schedulers.SCORE_FN_QUEUE_ITEM)
         _check_layout(layout, topk)
+        self.policy = pol.checked(policy)
         self.cfg = cfg
         self.device = resolve_device(device)
         # a FleetLayout switches the scorer to per-request candidate lists
@@ -260,33 +290,44 @@ class ClusterSubstrate:
         t = torch.from_numpy(cols).to(self.device)
         return PodSpec(*t)
 
-    def make_scorer(self, fused) -> Callable:
-        """``(params, snapshot, pod_batch) -> (scores, feasible)``, both
-        (B, N): the scores in ONE kernel launch on the fused path.  (The
-        reference threads a sequence policy's carry through this call; the
-        stateless MLP has none.)
+    def init_carry(self, params: dict):
+        """The arrival-history carry of a sequence policy (else ``None``)."""
+        return _init_carry(self.policy, params)
 
-        With a ``layout`` the contract is ``-> (cand_vals, cand_idx)``,
-        both (B, shards·topk): the two-stage candidate merge, in ONE launch
-        of the afterstate top-k kernel at fleet scale, with the snapshot's
-        global pull-contention scalar passed to every shard."""
-        cfg = self.cfg
+    def make_scorer(self, fused) -> Callable:
+        """``(params, snapshot, pod_batch, carry, n_real) -> (scores,
+        feasible, carry)``, scores and feasible (B, N): ONE kernel launch
+        for the scores (kernel 1 for the Table-4 net at fleet scale, kernel
+        7 for "attention"), and for a sequence class one launch of its
+        encoder (kernel 6 for "mamba") that advances ``carry`` over the
+        batch's first ``n_real`` rows.
+
+        With a ``layout`` the contract is ``-> (cand_vals, cand_idx,
+        carry)``, both (B, shards·topk): the two-stage candidate merge,
+        in ONE launch of the afterstate top-k kernel at fleet scale, with
+        the snapshot's global pull-contention scalar passed to every
+        shard."""
+        cfg, policy = self.cfg, self.policy
+        encode = _encoder(policy, fused, pol.pod_workload_features)
         if self.layout is not None:
             layout, k = self.layout, self.topk
 
-            def candidates(params, snap, pods):
-                return _shard.cluster_topk(params, snap.state, pods, cfg,
-                                           layout, k=k, fused=fused,
-                                           pull_cost=snap.pull_cost)
+            def candidates(params, snap, pods, carry, n_real):
+                embed, carry = encode(params, pods, carry, n_real)
+                vals, idx = _shard.cluster_topk(
+                    params, snap.state, pods, cfg, layout, k=k, fused=fused,
+                    policy=policy, embed=embed, pull_cost=snap.pull_cost)
+                return vals, idx, carry
 
             return candidates
 
-        def score(params, snap, pods):
+        def score(params, snap, pods, carry, n_real):
+            embed, carry = encode(params, pods, carry, n_real)
             q = schedulers.score_afterstates_batch(
                 params, snap.state, pods, cfg, fused=fused,
-                pull_cost=snap.pull_cost)
+                pull_cost=snap.pull_cost, policy=policy, embed=embed)
             batch = PodSpec(*(x[:, None] for x in pods))
-            return q, kenv.feasible(snap.state, batch, cfg)
+            return q, kenv.feasible(snap.state, batch, cfg), carry
 
         return score
 
@@ -363,14 +404,19 @@ class FleetSubstrate:
     keeps it, so bind-time re-validation compares in the same precision.
     Jobs are packed as (B, 6) afterstate-delta rows and scored in ONE launch
     of the column kernel (flat: ``(B, N)`` scores) or of the column top-k
-    kernel (with a ``layout``: ``(B, shards·topk)`` candidates)."""
+    kernel (with a ``layout``: ``(B, shards·topk)`` candidates).  A policy
+    class other than "mlp" scores the (B, N, 6) afterstate rows through its
+    ``score_set``; a sequence class encodes each job's normalized demand
+    (``(delta / FEATURE_SCALE)[:ENCODER_IN]``, the job-stream analogue of
+    ``pod_workload_features``)."""
 
     def __init__(self, fleet: _pl.FleetState, max_host_cpu_pct: float = 88.0,
                  policy=None, layout: Optional[FleetLayout] = None,
                  topk: int = 8, device=None):
-        if policy is not None:
-            raise NotImplementedError(SUBSTRATE_QUEUE_ITEM)
         _check_layout(layout, topk)
+        policy = pol.checked(policy)
+        # "mlp": the column kernels ARE its score_set
+        self.policy = None if policy is None or policy.fused_kernel else policy
         self.device = resolve_device(device)
         self.live = _pl.FleetState(*(np.array(torch.as_tensor(x).cpu().numpy(),
                                               np.float64) for x in fleet))
@@ -392,28 +438,46 @@ class FleetSubstrate:
     def dummy(self) -> _pl.JobSpec:
         return _pl.JobSpec()
 
-    def make_scorer(self, fused) -> Callable:
-        """``(params, snap, deltas) -> (q, ok)`` (B, N), or with a layout
-        ``-> (cand_vals, cand_idx)`` (B, shards·topk); one launch either
-        way."""
-        from repro_torch.kernels import ops
-        from repro_torch.sched.api import _fleet_mode
+    def init_carry(self, params: dict):
+        """The arrival-history carry of a sequence policy (else ``None``)."""
+        return _init_carry(self.policy, params)
 
-        max_cpu, mode = self.max_host_cpu_pct, _fleet_mode(fused)
+    def make_scorer(self, fused) -> Callable:
+        """``(params, snap, deltas, carry, n_real) -> (q, ok, carry)``
+        (B, N), or with a layout ``-> (cand_vals, cand_idx, carry)``
+        (B, shards·topk); one scoring launch either way, plus one encoder
+        launch for a sequence class (as ``ClusterSubstrate.make_scorer``)."""
+        from repro_torch.kernels import ops
+        from repro_torch.sched.api import _fleet_mode, _fleet_policy_score
+
+        max_cpu, mode, policy = (self.max_host_cpu_pct, _fleet_mode(fused),
+                                 self.policy)
+        scale = kenv.FEATURE_SCALE[:pol.ENCODER_IN].to(self.device)
+        encode = _encoder(policy, fused,
+                          lambda deltas: deltas[:, :pol.ENCODER_IN] / scale)
+
         if self.layout is not None:
             layout, k = self.layout, self.topk
 
-            def candidates(params, snap, deltas):
-                return _shard.fleet_topk(params, snap, None, layout, k=k,
-                                         fused=fused, delta=deltas,
-                                         max_host_cpu_pct=max_cpu)
+            def candidates(params, snap, deltas, carry, n_real):
+                embed, carry = encode(params, deltas, carry, n_real)
+                vals, idx = _shard.fleet_topk(
+                    params, snap, None, layout, k=k, fused=fused,
+                    policy=policy, embed=embed, delta=deltas,
+                    max_host_cpu_pct=max_cpu)
+                return vals, idx, carry
 
             return candidates
 
-        def score(params, snap, deltas):
-            q = ops.sdqn_score_delta(_pl.fleet_cols(snap), deltas, params,
-                                     mode=mode)
-            return q, _pl.feasible_deltas(snap, deltas, max_cpu)
+        def score(params, snap, deltas, carry, n_real):
+            embed, carry = encode(params, deltas, carry, n_real)
+            if policy is None:
+                q = ops.sdqn_score_delta(_pl.fleet_cols(snap), deltas, params,
+                                         mode=mode)
+            else:
+                q = _fleet_policy_score(snap, deltas, params, policy, embed,
+                                        fused)
+            return q, _pl.feasible_deltas(snap, deltas, max_cpu), carry
 
         return score
 
@@ -491,6 +555,9 @@ class PlacementDaemon:
         # sharded substrates score to (B, C) candidate lists instead of
         # (B, N) rows; the commit path reads candidates in merged order
         self._cand_mode = getattr(substrate, "layout", None) is not None
+        # a sequence policy's arrival-history carry, advanced by every
+        # batch whose scores are used (a degraded batch discards it)
+        self._carry = substrate.init_carry(params)
         self._next_id = 0
         # req_id -> (node, pod) of every currently-bound placement
         self._bound: dict = {}
@@ -578,11 +645,12 @@ class PlacementDaemon:
         return done
 
     def warmup(self) -> None:
-        """Build and load the kernel and run one scoring pass outside any
-        timing window."""
+        """Build and load the kernels and run one scoring pass outside any
+        timing window.  ``n_real = 0``: every row is a pad row, and the
+        advanced carry is discarded anyway."""
         snap = self._sub.snapshot()
         pods = self._sub.pack([self._sub.dummy()], self.config.batch_size)
-        for out in self._scorer(self._params, snap, pods):
+        for out in self._scorer(self._params, snap, pods, self._carry, 0)[:2]:
             self._fetch(out)
 
     # -- internals ----------------------------------------------------------
@@ -619,7 +687,8 @@ class PlacementDaemon:
             pods = self._sub.pack([r.pod for r in reqs],
                                   self.config.batch_size)
             t0 = self._timer()
-            q, okq = self._scorer(self._params, snap, pods)   # 1 launch
+            q, okq, carry = self._scorer(self._params, snap, pods,
+                                         self._carry, len(reqs))   # 1 launch
             q = self._fetch(q)
             elapsed = self._timer() - t0
             self.metrics.device_launches += 1
@@ -637,14 +706,17 @@ class PlacementDaemon:
                 bad = (not np.all(np.isfinite(real))
                        or float(np.max(np.abs(real))) > _DIVERGENCE_LIMIT)
             if bad or (deadline is not None and elapsed > deadline):
-                # degrade: discard the launch and serve this + the next
-                # degrade_batches batches from the closed-form heuristic
+                # degrade: discard the launch (scores AND its carry advance)
+                # and serve this + the next degrade_batches batches from
+                # the closed-form heuristic
                 self._degraded = self.config.degrade_batches
                 degraded = True
-            elif self._cand_mode:
-                scores, cand_idx = q, self._fetch(okq)
             else:
-                scores, ok = q, self._fetch(okq)
+                self._carry = carry
+                if self._cand_mode:
+                    scores, cand_idx = q, self._fetch(okq)
+                else:
+                    scores, ok = q, self._fetch(okq)
         if degraded:
             if not self.config.heuristic_only and self._degraded > 0:
                 self._degraded -= 1

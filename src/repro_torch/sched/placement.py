@@ -87,6 +87,14 @@ def job_deltas(jobs, device=None) -> torch.Tensor:
     return torch.from_numpy(rows).to(device)
 
 
+def afterstate_rows(fleet: FleetState, deltas: torch.Tensor) -> torch.Tensor:
+    """(B, N, 6) normalized afterstate rows ``(cols + delta) / FEATURE_SCALE``
+    for (B, 6) deltas: what the column kernel builds in-kernel, for the
+    policy classes that score whole rows."""
+    return ((torch.stack(fleet_cols(fleet), dim=-1)[None] + deltas[:, None, :])
+            / kenv.FEATURE_SCALE.to(deltas.device))
+
+
 def feasible_deltas(fleet: FleetState, deltas: torch.Tensor,
                     max_host_cpu_pct: float = 88.0) -> torch.Tensor:
     """``PlacementEngine.feasible`` for (6,) or (B, 6) deltas: (N,) or

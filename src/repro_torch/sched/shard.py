@@ -20,8 +20,15 @@ unsharded program.
 
 Candidates are sorted descending (NaN above every number, so a diverged
 net shows among them); slots that are not finite carry index ``-1``.
-Policy classes, custom ``score_fn`` and history embeddings are not ported
-yet and raise.
+
+Registered policy classes (``core.policy``) other than the fused-capable
+"mlp" score each shard's rows with ``score_set`` (one call for every pod
+and shard: one kernel-7 launch for "attention") and reduce them with the
+same stable-sort contract.  Their shards ARE padded, with the reference's
+infeasible filler (``_pad_cluster`` / ``_pad_fleet``): the "attention" class
+mixes context over each shard's node set, block-local by construction as
+in the reference, and the filler rows of the last shard are among its
+keys there too.  A custom ``score_fn`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -44,14 +51,47 @@ __all__ = [
 # |Q| beyond this is a diverged net, not a preference (sched.api's limit)
 _DIVERGENCE_LIMIT = 1e6
 
-UNPORTED_SCORER = ("policy classes, custom score_fn and history embeddings "
-                   "are not ported yet: see ROADMAP.md, queue 1, 'Policy "
-                   "registry' and 'Paper baselines'")
+# the reference's filler for ClusterState columns past N: unit capacities
+# keep the filler's afterstate finite, healthy = False makes it infeasible
+_CLUSTER_PAD = {"cpu_capacity": 1, "mem_capacity": 1, "max_pods": 1}
 
 
-def _check_unported(score_fn=None, policy=None, embed=None) -> None:
-    if score_fn is not None or policy is not None or embed is not None:
-        raise NotImplementedError(UNPORTED_SCORER)
+def _pad_cluster(state: ClusterState, layout: FleetLayout) -> ClusterState:
+    """Each (N,) column padded to ``layout.padded`` with the reference's
+    infeasible filler (``time_s`` passes through)."""
+    pad = layout.padded - state.n_nodes
+    if pad == 0:
+        return state
+    return ClusterState(*(
+        torch.cat([c, c.new_full((pad,), _CLUSTER_PAD.get(name, 0))])
+        if c.dim() == 1 else c for name, c in zip(state._fields, state)))
+
+
+def _pad_fleet(fleet: _pl.FleetState, layout: FleetLayout) -> _pl.FleetState:
+    """FleetState analogue of :func:`_pad_cluster`: zero filler, so
+    ``healthy == 0`` makes the padded hosts infeasible."""
+    pad = layout.padded - fleet.cpu_pct.shape[0]
+    return _pl.FleetState(*(torch.cat([c, c.new_zeros((pad,))])
+                            for c in fleet)) if pad else fleet
+
+
+def _shard_score_set(params, feats, layout: FleetLayout, spec, embed, fused):
+    """(B, padded, F) normalized rows of a padded fleet -> (B, padded)
+    scores: ``spec.score_set`` over every shard's rows as one (B, shards,
+    shard_size, F) call, so set attention mixes context within a shard."""
+    feats = schedulers.with_embed(feats, embed)
+    b = feats.shape[0]
+    q = spec.score_set(params, feats.reshape(b, layout.shards,
+                                             layout.shard_size, -1),
+                       mode=schedulers.policy_mode(fused))
+    return q.reshape(b, layout.padded)
+
+
+def _cluster_rows(st: ClusterState, rows: PodSpec, cfg, pull_cost):
+    """(B, padded, 6) normalized afterstate rows of the padded cluster
+    ``st`` for (B, 1) pod columns ``rows``."""
+    return kenv.normalize_features(
+        kenv.hypothetical_place(st, rows, cfg, pull_cost=pull_cost))
 
 
 def resolve_layout(shard, n_nodes: int) -> Optional[FleetLayout]:
@@ -102,18 +142,28 @@ def cluster_topk(params: dict, state: ClusterState, pod, cfg,
     sorted descending (ties by ascending node index), so element 0 is
     exactly the flat masked argmax; infeasible or exhausted slots carry
     ``-inf`` / ``-1``.  ``heuristic=True`` scores with the kube formula
-    instead of the Q-net (the degraded-mode arm, same two-stage shape)."""
-    _check_unported(score_fn, policy, embed)
+    instead of the Q-net (the degraded-mode arm, same two-stage shape).
+    ``policy`` / ``embed``: a registered policy class ((E,) or (B, E)
+    embeds for sequence specs), scored per shard (module docstring)."""
+    spec = schedulers.check_scorer(fused, score_fn, policy, embed)
     k = max(1, min(_ss.check_k(k), layout.shard_size))
     if pull_cost is None:
         pull_cost = kenv.pull_cost_now(state, cfg)
-    use_fused = not heuristic and (
+    use_fused = not heuristic and spec is None and (
         fused in (True, "plain")
         or (fused == "auto"
             and layout.shard_size >= schedulers.FUSED_SCORE_MIN_NODES))
     device = state.base_cpu.device
     pods, single = _batch(pod, device)
-    if use_fused:
+    if spec is not None and not heuristic:
+        st, rows = _pad_cluster(state, layout), PodSpec(*(x[:, None]
+                                                          for x in pods))
+        q = _shard_score_set(params, _cluster_rows(st, rows, cfg, pull_cost),
+                             layout, spec, embed, fused)
+        vals, idx = _ss.shard_topk(
+            torch.where(kenv.feasible(st, rows, cfg), q, -torch.inf),
+            layout.shards, layout.shard_size, k)
+    elif use_fused:
         mode = "plain" if fused == "plain" else None
         vals, idx = ops.sdqn_topk_afterstate(
             state, pods, cfg, params, k=k, mode=mode, pull_cost=pull_cost,
@@ -152,7 +202,7 @@ def fleet_topk(params: dict, fleet: _pl.FleetState, job, layout: FleetLayout,
     ceilings), in-kernel on the fused path.  ``job`` is a ``JobSpec`` or a
     sequence of them; ``delta`` overrides it with pre-packed (6,) or
     (B, 6) afterstate delta rows (the daemon's batched path)."""
-    _check_unported(None, policy, embed)
+    spec = schedulers.check_scorer(fused, None, policy, embed)
     from repro_torch.sched.api import _fleet_mode, heuristic_delta_scores
 
     k = max(1, min(_ss.check_k(k), layout.shard_size))
@@ -162,7 +212,14 @@ def fleet_topk(params: dict, fleet: _pl.FleetState, job, layout: FleetLayout,
     d = d.reshape(-1, 6)
     ceilings = (max_host_cpu_pct, _pl.MEM_CEILING_PCT,
                 _pl.JOB_UTIL_CEILING_PCT)
-    if not heuristic:
+    if spec is not None and not heuristic:
+        ft = _pad_fleet(fleet, layout)
+        q = _shard_score_set(params, _pl.afterstate_rows(ft, d), layout,
+                             spec, embed, fused)
+        ok = _pl.feasible_deltas(ft, d, max_host_cpu_pct)
+        vals, idx = _ss.shard_topk(torch.where(ok, q, -torch.inf),
+                                   layout.shards, layout.shard_size, k)
+    elif not heuristic:
         vals, idx = ops.sdqn_topk_delta(_pl.fleet_cols(fleet), d, params, k=k,
                                         mode=_fleet_mode(fused),
                                         ceilings=ceilings, layout=layout)
@@ -227,14 +284,21 @@ def sharded_scores(fleet, pod, *, params: dict, cfg=None,
                    layout: FleetLayout, fused="auto", score_fn=None,
                    policy=None, embed=None) -> torch.Tensor:
     """The (N,) score vector computed shard by shard (chunked evaluation
-    on the card: the same scores as the flat program)."""
-    _check_unported(score_fn, policy, embed)
+    on the card: the same scores as the flat program for pointwise
+    scorers; block-local attention for the "attention" class)."""
     size = layout.shard_size
     if isinstance(fleet, ClusterState):
         if cfg is None:
             raise ValueError("cfg (EnvConfig) is required to score a "
                              "ClusterState fleet")
+        spec = schedulers.check_scorer(fused, score_fn, policy, embed)
         pull = kenv.pull_cost_now(fleet, cfg)
+        if spec is not None:
+            pods, _ = _batch(pod, fleet.base_cpu.device)
+            rows = PodSpec(*(x[:, None] for x in pods))
+            feats = _cluster_rows(_pad_cluster(fleet, layout), rows, cfg, pull)
+            return _shard_score_set(params, feats, layout, spec, embed,
+                                    fused)[0, :fleet.n_nodes]
 
         def one(lo):
             sub = ClusterState(*(c[lo:lo + size] if c.dim() == 1 else c
@@ -244,6 +308,16 @@ def sharded_scores(fleet, pod, *, params: dict, cfg=None,
         n = fleet.n_nodes
     elif isinstance(fleet, _pl.FleetState):
         from repro_torch.sched import api as _api
+
+        if score_fn is not None:
+            raise ValueError("score_fn is not supported on the FleetState "
+                             "column-kernel path")
+        spec = schedulers.check_scorer(fused, None, policy, embed)
+        if spec is not None:
+            d = _pl.job_delta(pod, fleet.cpu_pct.device)[None]
+            feats = _pl.afterstate_rows(_pad_fleet(fleet, layout), d)
+            return _shard_score_set(params, feats, layout, spec, embed,
+                                    fused)[0, :fleet.cpu_pct.shape[0]]
 
         def one(lo):
             sub = _pl.FleetState(*(c[lo:lo + size] for c in fleet))

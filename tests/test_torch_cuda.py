@@ -278,3 +278,139 @@ def test_new_daemon_batches_are_one_kernel_launch(cuda_device, substrate):
     assert m.bound + m.dropped == m.submitted == 70
     assert m.device_launches == m.batches >= 3
     assert kernel.launches - before == m.device_launches
+
+
+# ---------------------------------------------------------------------------
+# kernels 6 and 7 and the policy classes' serving paths
+# ---------------------------------------------------------------------------
+
+
+def _qkv(b, sq, skv, hq, hkv, d, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen).to(device) for s in
+                 ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def _scan(b, s, di, n, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen)
+
+    args = (r(b, s, di) * 0.5,
+            torch.nn.functional.softplus(r(b, s, di) * 0.3 - 1.0),
+            -torch.exp(r(di, n) * 0.3), r(b, s, n) * 0.5, r(b, s, n) * 0.5,
+            torch.ones(di), r(b, di, n) * 0.1)
+    return tuple(a.to(device) for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32), (2, 64, 128, 8, 1, 16),
+    (1, 256, 256, 2, 2, 64), (3, 37, 37, 2, 2, 8), (2, 1, 1, 2, 1, 8),
+    (32, 5000, 5000, 2, 2, 8)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_matches_plain_on_card(cuda_device, shape, causal):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _qkv(*shape, cuda_device, sum(shape))
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, ops.flash_attention(
+        q, k, v, causal=causal, mode="plain"), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32, 8, 4), (2, 64, 16, 8),
+                                   (1, 128, 32, 16), (3, 37, 200, 4),
+                                   (2, 256, 1024, 16)])
+def test_mamba_scan_matches_plain_on_card(cuda_device, shape):
+    from repro_torch.kernels import mamba_scan as ms
+
+    args = _scan(*shape, cuda_device, sum(shape))
+    before = ms.mamba_scan.launches
+    y, h = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    wy, wh = ops.mamba_scan(*args, mode="plain")
+    torch.testing.assert_close(y, wy, rtol=4e-5, atol=4e-5)
+    torch.testing.assert_close(h, wh, rtol=4e-5, atol=4e-5)
+
+
+@pytest.mark.cuda
+def test_sequence_kernels_propagate_nan(cuda_device):
+    q, k, v = _qkv(2, 300, 300, 2, 2, 8, cuda_device, 0)
+    q[0, 5, 1, 3] = float("nan")                 # one query row of one head
+    k[1, 17, 0, 0] = float("nan")                # one key of batch 1, head 0
+    out = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q, k, v, causal=False, mode="plain")
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert bool(torch.isnan(out[0, 5, 1]).all())
+    assert bool(torch.isnan(out[1, :, 0]).all())
+    assert not bool(torch.isnan(out[0, :5]).any())
+    x, dt, a, bm, cm, d, h0 = _scan(1, 32, 8, 4, cuda_device, 1)
+    dt[0, 10, 2] = float("nan")
+    y, h = ops.mamba_scan(x, dt, a, bm, cm, d, h0)
+    assert bool(torch.isnan(y[0, 10:, 2]).all())
+    assert not bool(torch.isnan(y[0, :10]).any())
+    assert bool(torch.isnan(h[0, 2]).all()) and not bool(
+        torch.isnan(h[0, 3]).any())
+
+
+@pytest.mark.cuda
+def test_sequence_kernels_reject_bad_inputs(cuda_device):
+    from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
+
+    q, k, v = _qkv(1, 64, 64, 2, 2, 8, cuda_device, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, causal=False)
+    shifted = torch.empty(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    shifted.copy_(q)                     # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, k, v, causal=False)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention(q.half(), k, v, causal=False)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention(*_qkv(1, 64, 64, 2, 2, 12, cuda_device, 2),
+                           causal=False)
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_attention(q, k.cpu(), v, causal=False)
+    args = list(_scan(1, 32, 8, 4, cuda_device, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan(*args[:3], args[3].transpose(1, 2).contiguous()
+                      .transpose(1, 2), *args[4:])
+    with pytest.raises(ValueError, match="state size"):
+        ms.mamba_scan(*_scan(1, 32, 8, 5, cuda_device, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attention", "mamba"])
+def test_policy_daemon_batch_is_one_kernel_launch(cuda_device, name):
+    """Every batch of the attention daemon is one launch of kernel 7, of
+    the mamba daemon one launch of kernel 6 (its Q-head is no kernel)."""
+    from repro_torch.core import policy
+    from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
+
+    cfg = fleet_cluster(5000)
+    gen = torch.Generator().manual_seed(0)
+    spec = policy.get(name)
+    d = daemon.PlacementDaemon(
+        daemon.ClusterSubstrate(env.reset(gen, cfg, device=cuda_device), cfg,
+                                device=cuda_device, policy=spec),
+        spec.init(gen, device=cuda_device),
+        daemon.DaemonConfig(batch_size=32, max_wait_s=1e9))
+    d.warmup()
+    kernel = fa.flash_attention if name == "attention" else ms.mamba_scan
+    other = ms.mamba_scan if name == "attention" else fa.flash_attention
+    before, before_other = kernel.launches, other.launches
+    for _ in range(70):
+        d.submit(env.default_pod(cfg))
+    d.drain()
+    m = d.metrics
+    assert m.bound + m.dropped == m.submitted == 70
+    assert m.device_launches == m.batches >= 3
+    assert kernel.launches - before == m.device_launches
+    assert other.launches == before_other

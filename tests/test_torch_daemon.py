@@ -80,13 +80,14 @@ def _spy_reference(daemon, log):
 
 
 def _spy_port(daemon, log):
-    """The port's scorer takes no carry and logs the pad rows too."""
+    """The port's scorer has the reference's contract; this spy logs the
+    pad rows too."""
     inner = daemon._scorer
 
-    def scorer(params, snap, pods):
-        q, ok = inner(params, snap, pods)
+    def scorer(params, snap, pods, carry, n_real):
+        q, ok, c = inner(params, snap, pods, carry, n_real)
         log.append((q.numpy(), ok.numpy()))
-        return q, ok
+        return q, ok, c
 
     daemon._scorer = scorer
 
@@ -294,11 +295,17 @@ def test_daemon_config_validation(bad):
 @pytest.mark.parametrize("kw", [dict(layout=object()), dict(policy=object()),
                                 dict(score_fn=lambda p, f: f)])
 def test_unported_substrate_options_raise(kw):
+    """Layouts and registered policy classes are ported: what is not a
+    FleetLayout or a registered PolicySpec is rejected; a custom score_fn
+    (the paper baselines) is not ported yet."""
     cfg = fleet_cluster(8)
     state = tenv.reset(torch.Generator().manual_seed(0), cfg, device="cpu")
     if "layout" in kw:
-        # sharded layouts are ported: what is not a FleetLayout is rejected
         with pytest.raises(TypeError, match="FleetLayout"):
+            tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
+        return
+    if "policy" in kw:
+        with pytest.raises(TypeError, match="PolicySpec"):
             tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -248,10 +248,10 @@ def test_flat_fleet_daemon_matches_reference(conflict_policy):
         timer=BreachTimer(2))
     tinner = td._scorer
 
-    def tspy(params, snap, deltas):
-        q, ok = tinner(params, snap, deltas)
+    def tspy(params, snap, deltas, carry, n_real):
+        q, ok, c = tinner(params, snap, deltas, carry, n_real)
         t_log.append((q.numpy(), ok.numpy()))
-        return q, ok
+        return q, ok, c
 
     td._scorer = tspy
     drive(td, t_clock, t_s, [tpl.JobSpec(*j) for j in jobs], 30)
@@ -276,5 +276,5 @@ def test_fleet_substrate_rejects_other_layouts_and_policies():
     fleet = convert.fleet_from_numpy(fleet_np(8, 0), device="cpu")
     with pytest.raises(TypeError, match="FleetLayout"):
         tdaemon.FleetSubstrate(fleet, layout=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="PolicySpec"):
         tdaemon.FleetSubstrate(fleet, policy=object(), device="cpu")

@@ -19,7 +19,8 @@ from repro.core import types as jtypes
 from repro.kernels import ops as jops, ref as jref
 from repro.sched import api as japi
 from repro_torch import convert
-from repro_torch.core import dqn as tdqn, env as tenv, schedulers as tsched
+from repro_torch.core import dqn as tdqn, env as tenv, policy as tpolicy
+from repro_torch.core import schedulers as tsched
 from repro_torch.core import types as ttypes
 from repro_torch.kernels import _build, ops as tops, ref as tref
 from repro_torch.kernels import sdqn_score as tss
@@ -174,12 +175,23 @@ def test_score_afterstates_matches_reference(fused):
 
 
 def test_unported_scorers_raise():
+    """A custom score_fn (the paper baselines) is not ported yet; a policy
+    that is not a registered PolicySpec is rejected, and so is a fused-only
+    request for a class the kernels cannot score (registered classes are
+    served: tests/test_torch_policy.py)."""
     _, _, _, ts, tp, tcfg = _setup(8)
     pod = tenv.default_pod(tcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsched.score_afterstates(tp, ts, pod, tcfg, policy=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsched.score_afterstates(tp, ts, pod, tcfg, score_fn=tdqn.qvalues)
+    with pytest.raises(TypeError, match="PolicySpec"):
+        tsched.score_afterstates(tp, ts, pod, tcfg, policy=object())
+    attention = tpolicy.get("attention")
+    with pytest.raises(ValueError, match="not registered"):
+        tsched.score_afterstates(tp, ts, pod, tcfg,
+                                 policy=dataclasses.replace(attention))
+    with pytest.raises(ValueError, match="fused"):
+        tsched.score_afterstates(tp, ts, pod, tcfg, policy=attention,
+                                 fused=True)
     with pytest.raises(ValueError, match="fused"):
         tsched.score_afterstates(tp, ts, pod, tcfg, fused="interpret")
     assert tsched.FUSED_SCORE_MIN_NODES == jsched.FUSED_SCORE_MIN_NODES == 4096

@@ -22,7 +22,7 @@ from repro.kernels import ops as jops
 from repro.launch import mesh as jmesh
 from repro.sched import api as japi, daemon as jdaemon, placement as jpl
 from repro_torch import convert
-from repro_torch.core import env as tenv
+from repro_torch.core import env as tenv, policy as tpolicy
 from repro_torch.core import types as ttypes
 from repro_torch.core.types import NO_PLACEMENT
 from repro_torch.kernels import ops as tops
@@ -325,12 +325,19 @@ def test_nan_candidates_and_the_guard():
 
 
 def test_unported_scorers_raise():
+    """A custom score_fn is not ported yet; a policy that is not a
+    registered PolicySpec, and an embed without a sequence policy, are
+    rejected (registered classes are served: tests/test_torch_policy.py)."""
     _, _, _, ts, tp, tcfg = _cluster()
     lay = plan_fleet_layout(N, shards=SHARDS)
     pod = tenv.default_pod(tcfg)
-    for kw in (dict(policy=object()), dict(score_fn=lambda p, f: f),
-               dict(embed=torch.zeros(4))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tshard.cluster_topk(tp, ts, pod, tcfg, lay, score_fn=lambda p, f: f)
+    unregistered = dataclasses.replace(tpolicy.get("attention"))
+    for kw, err in ((dict(policy=object()), TypeError),
+                    (dict(policy=unregistered), ValueError),
+                    (dict(embed=torch.zeros(4)), ValueError)):
+        with pytest.raises(err):
             tshard.cluster_topk(tp, ts, pod, tcfg, lay, **kw)
 
 
@@ -406,10 +413,10 @@ def _spy(daemon, log, reference):
             log.append((np.asarray(a)[:n_real], np.asarray(b)[:n_real]))
             return a, b, c
     else:
-        def scorer(params, snap, pods):
-            a, b = inner(params, snap, pods)
+        def scorer(params, snap, pods, carry, n_real):
+            a, b, c = inner(params, snap, pods, carry, n_real)
             log.append((a.numpy(), b.numpy()))
-            return a, b
+            return a, b, c
     daemon._scorer = scorer
 
 
