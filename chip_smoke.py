@@ -71,6 +71,32 @@ The attention and Mamba policy classes (kernels 7 and 6):
     at 500/s), the scorer split into encoder, afterstate rows, score_set,
     the kernel's wrapper and the feasibility mask.
 
+The LM serving path (kernels 8 and 7 in bfloat16 at head width 128, and
+kernel 3 for the routing):
+
+2d. Kernel 8 (``decode_attention``) against its plain version at the
+    reference's sweep shapes, kv_len in {1, 17, full} and a ragged (B,)
+    kv_len, float32 and bfloat16; at the serving path's cache seen as a
+    (B, S, Hkv, D) view; at OLMo-1B's (8, 16, 16, 32768, 128) and
+    granite-8b's GQA (8, 32, 8, 32768, 128) in bfloat16.  Kernel 7 in
+    bfloat16 at the sweep shapes and OLMo-1B's prefill (8, 512, 16, 128),
+    causal.  Tolerances the reference's: 3e-5 float32, 2e-2 bfloat16.
+13. ``repro_torch.launch.serve.main`` with full-width, full-depth OLMo-1B
+    (random bf16 weights from seed 0), 4 replicas, 32 requests in waves of
+    8, prompts of 512 tokens, 32 generated: every wave routed and served,
+    kernel 8 launched 16 layers x 31 steps x 4 waves = 1,984 times,
+    kernel 7 16 x 4 = 64, kernel 3 once per daemon batch and once for the
+    warm-up, no plain attention call; tok/s, prefill ms per wave, decode
+    ms per step.  Then wave 0 again through the plain versions, same
+    weights and prompts: prefill logits within ``LOGIT_TOL``, tokens
+    identical up to the first step with a near tie.  The decode-step
+    breakdown (host ms per step, device busy share, kernel 8's and the
+    matrix products' shares, device operations per step).
+14. Timings of kernel 8 at the path's shape and the two 32k caches, and of
+    kernel 7 at the prefill shape (as phase 4), each beside its bound and
+    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
+    with the backend's kernel).
+
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
 table; the last line is
@@ -517,13 +543,14 @@ def phase_breakdown(device):
 
 def wrappers():
     """{name: wrapper} of every kernel of the port, in table order."""
-    from repro_torch.kernels import (flash_attention as fa, mamba_scan as ms,
+    from repro_torch.kernels import (decode_attention as da,
+                                     flash_attention as fa, mamba_scan as ms,
                                      sdqn_score as ss)
 
     return {fn.__name__: fn for fn in (
         ss.sdqn_score_afterstate, ss.sdqn_score, ss.sdqn_score_cols,
         ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk,
-        ms.mamba_scan, fa.flash_attention)}
+        ms.mamba_scan, fa.flash_attention, da.decode_attention)}
 
 
 def zero_counts():
@@ -1379,6 +1406,439 @@ def phase_seq_timings(device, name):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# kernels 8 and 7 (bfloat16, D = 128): the LM serving path
+# ---------------------------------------------------------------------------
+
+# kernel 8 at the reference's sweep (tests/test_kernels.py: (B, Hq, Hkv, S,
+# D)) and at long context in bfloat16: OLMo-1B's (16 heads of 128, MHA,
+# 2.1 GB of K/V) and granite-8b's GQA (32 query heads on 8 key/value heads)
+DECODE_SWEEP = ((1, 4, 4, 128, 32), (2, 8, 2, 256, 64), (3, 4, 1, 512, 16))
+DECODE_LONG = ((8, 16, 16, 32768, 128), (8, 32, 8, 32768, 128))
+LM_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+# kernel 7 at OLMo-1B's prefill: 8 prompts of 512 tokens, 16 heads of 128
+FA_LM_PREFILL = (8, 512, 512, 16, 16, 128)
+# the LM serving path: full-width, full-depth OLMo-1B, 4 waves of 8
+# requests, prompts of 512 tokens, 32 generated tokens each
+SERVE_ARGS = ["--arch", "olmo-1b", "--replicas", "4", "--requests", "32",
+              "--wave-size", "8", "--prompt-len", "512", "--gen-tokens", "32",
+              "--seed", "0"]
+SERVE_WAVES, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+# OLMo-1B's published widths: name, layers, d_model, heads, head width,
+# d_ff, padded vocab
+OLMO_1B = ("olmo-1b", 16, 2048, 16, 128, 8192, 50304)
+# kernel vs plain run of one wave on the card.  In bfloat16 they differ in
+# the attention kernels' order of float32 sums, so an output may round to
+# a neighbouring bfloat16 value, and that carries through 16 layers of
+# bfloat16 roundings: the prefill logits of both are held to a float32 run
+# of the same weights, each within LOGIT_TOL plus the plain run's own
+# distance from it.  In float32 the two differ by the order of sums alone:
+# within F32_LOGIT_TOL (the CPU tests' float32 tolerance on logits).  Each
+# row's tokens identical up to its first step whose two best logits lie
+# within twice the tolerance.
+LOGIT_TOL = 5e-2
+F32_LOGIT_TOL = 1e-4
+DECODE_PROFILE_STEPS = 8
+# bf16 tensor-core peaks, dense (NVIDIA data sheets), for the products of
+# kernels 7 and 8 in bfloat16
+BF16_PEAK = {"sxm": 989e12, "pcie": 756e12, "nvl": 835e12}
+
+
+def attention_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
+    """(ms, by, bytes, ops) of one attention call: q, k, v read once, the
+    output written once; the two products (4·D operations per visible
+    (query, key) pair and head) at the tensor-core peak in bfloat16, and
+    with the softmax's 5 per pair on the float32 cores in float32."""
+    nbytes = itemsize * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    ops = b * hq * pairs * (4 * d + (5 if itemsize == 4 else 0))
+    key, (f32_peak, bw) = peaks(name)
+    peak = f32_peak if itemsize == 4 else BF16_PEAK[key]
+    t_bytes, t_ops = nbytes / bw, ops / peak
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def _decode_case(shape, dtype, device, seed, cache_layout=False):
+    """q (B, Hq, D) and k, v (B, Hkv, S, D); with ``cache_layout`` the
+    model's (B, S, Hkv, D) cache seen through ``permute`` (no copy)."""
+    b, hq, hkv, s, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*dims):
+        return torch.randn(dims, generator=gen, device=device).to(dtype)
+
+    q = r(b, hq, d)
+    if cache_layout:
+        return q, r(b, s, hkv, d).permute(0, 2, 1, 3), r(b, s, hkv, d).permute(
+            0, 2, 1, 3)
+    return q, r(b, hkv, s, d), r(b, hkv, s, d)
+
+
+def _ragged(b, s, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(1, s + 1, (b,), generator=gen).to(torch.int32).to(
+        device)
+
+
+def phase_lm_kernels(device):
+    """Kernel 8 against its plain version (sweep x kv_len in {1, 17, full,
+    ragged (B,)} x {float32, bfloat16}, a strided (B, S, Hkv, D) cache
+    view, OLMo-1B's and granite-8b's 32k-token caches in bfloat16), and
+    kernel 7 in bfloat16 at the sweep shapes and OLMo-1B's prefill."""
+    from repro_torch.kernels import ops
+
+    errs = {"decode_attention": {}, "flash_attention": {}}
+
+    def check(key, label, got, want, dtype):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        assert bool(torch.isfinite(got.float()).all())
+        err = float((got.float() - want.float()).abs().max())
+        print(f"{key} vs plain {label} {str(dtype)[6:]}: max_abs_err={err} "
+              f"(tolerance {LM_TOL[dtype]})")
+        torch.testing.assert_close(got, want, rtol=LM_TOL[dtype],
+                                   atol=LM_TOL[dtype])
+        name = str(dtype)[6:]
+        errs[key][name] = max(errs[key].get(name, 0.0), err)
+
+    cases = [(shape, dtype, n, False) for shape in DECODE_SWEEP
+             for dtype in (torch.float32, torch.bfloat16)
+             for n in (1, 17, shape[3], "ragged")]
+    cases += [((8, 16, 16, SERVE_PROMPT + SERVE_GEN, 128), torch.bfloat16,
+               SERVE_PROMPT + 9, True)]
+    cases += [(shape, torch.bfloat16, n, False) for shape in DECODE_LONG
+              for n in (shape[3], "ragged")]
+    for shape, dtype, n, view in cases:
+        q, k, v = _decode_case(shape, dtype, device, sum(shape), view)
+        if n == "ragged":
+            n = _ragged(shape[0], shape[3], device, sum(shape))
+        got = ops.decode_attention(q, k, v, n, mode="cuda")
+        want = ops.decode_attention(q, k, v, n, mode="plain")
+        label = (f"(B, Hq, Hkv, S, D)={shape} kv_len="
+                 f"{n.tolist() if torch.is_tensor(n) else n}"
+                 f"{' (B, S, Hkv, D) cache view' if view else ''}")
+        check("decode_attention", label, got, want, dtype)
+        del q, k, v
+    for shape in FA_SHAPES + (FA_LM_PREFILL,):
+        for causal in ((True,) if shape == FA_LM_PREFILL else (False, True)):
+            q, k, v = (t.to(torch.bfloat16)
+                       for t in _qkv(shape, device, sum(shape)))
+            got = ops.flash_attention(q, k, v, causal=causal, mode="cuda")
+            want = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+            check("flash_attention", f"(B, Sq, Skv, Hq, Hkv, D)={shape} "
+                  f"causal={causal}", got, want, torch.bfloat16)
+    torch.cuda.empty_cache()
+    return errs
+
+
+class _PlainSpy:
+    """Counts calls of the plain attention versions while in place."""
+
+    def __init__(self):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+
+        self.calls = 0
+        self._saved = [(fa, "flash_attention_plain"),
+                       (da, "decode_attention_plain")]
+        self._fns = [getattr(m, a) for m, a in self._saved]
+
+    def __enter__(self):
+        for (m, a), fn in zip(self._saved, self._fns):
+            def spy(*args, _fn=fn, **kwargs):
+                self.calls += 1
+                return _fn(*args, **kwargs)
+            setattr(m, a, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), fn in zip(self._saved, self._fns):
+            setattr(m, a, fn)
+
+
+def phase_lm_serve(device):
+    """``repro_torch.launch.serve.main`` at full OLMo-1B width and depth on
+    the card: every wave routed and served, one launch of kernel 7 per
+    layer per wave, one of kernel 8 per layer per decode step, one of
+    kernel 3 per daemon batch (and the daemon's warm-up pass), no plain
+    attention call.  Then wave 0 again through the plain versions, on the
+    same weights and prompts."""
+    from repro_torch.launch import serve
+
+    with _PlainSpy() as spy:
+        zero_counts()                                  # the path starts here
+        res = serve.main(SERVE_ARGS)
+        counts = read_counts()                         # ... and ends here
+    cfg, m = res.cfg, res.daemon.metrics
+    layers, steps = cfg.num_layers, SERVE_GEN - 1
+    assert (cfg.name, layers, cfg.d_model, cfg.num_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == OLMO_1B, cfg
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    # param_count() counts two norms a layer, which OLMo's non-parametric
+    # LayerNorm does not have
+    assert n_params == cfg.param_count() - 2 * layers * cfg.d_model, (
+        n_params, cfg.param_count())
+    assert counts["decode_attention"] == layers * steps * SERVE_WAVES, counts
+    assert counts["flash_attention"] == layers * SERVE_WAVES, counts
+    assert m.device_launches == m.batches > 0, m
+    assert counts["sdqn_score_cols"] == m.batches + 1, (counts, m)  # + warm-up
+    others = {k: v for k, v in counts.items() if k not in (
+        "decode_attention", "flash_attention", "sdqn_score_cols")}
+    assert not any(others.values()), counts
+    assert spy.calls == 0, spy.calls
+    assert len(res.assignments) == len(res.waves) == SERVE_WAVES
+    assert all(0 <= a < 4 for a in res.assignments), res.assignments
+    assert int(res.counts.sum()) == SERVE_WAVES, res.counts
+    assert m.bound == SERVE_WAVES and m.dropped == 0, m
+    for w in res.waves:
+        assert w.tokens.shape == (8, SERVE_GEN)
+        assert bool(((w.tokens >= 0) & (w.tokens < cfg.padded_vocab)).all())
+        assert bool(torch.isfinite(w.prefill_logits).all())
+    prefill_ms = 1e3 * sum(w.prefill_s for w in res.waves) / SERVE_WAVES
+    step_ms = 1e3 * sum(w.decode_s for w in res.waves) / (SERVE_WAVES * steps)
+    print(f"LM serve olmo-1b (params={n_params}, bf16) waves={SERVE_WAVES} "
+          f"x 8 requests, prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: "
+          f"tok_per_s={res.generated / res.seconds} seconds={res.seconds} "
+          f"prefill_ms_per_wave={prefill_ms} decode_ms_per_step={step_ms} "
+          f"(8 tokens a step) replicas={res.counts.tolist()} "
+          f"daemon_batches={m.batches} counts={counts} plain_calls=0")
+
+    for w, r in enumerate(res.waves):
+        print(f"LM wave {w}: prefill_ms={1e3 * r.prefill_s} decode_ms_per_step="
+              f"{1e3 * r.decode_s / steps}")
+
+    # wave 0 again: bf16 through the plain versions; and both ways in
+    # float32 (the same weights cast up), where kernel and plain differ by
+    # their float32 sums alone
+    wave = res.waves[0]
+    plain = serve.serve_wave(res.params, cfg, wave.prompts, SERVE_GEN,
+                             attn_mode="plain")
+    p32 = _cast(res.params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                              cache_dtype="float32")
+    k32 = serve.serve_wave(p32, c32, wave.prompts, SERVE_GEN)
+    f32 = serve.serve_wave(p32, c32, wave.prompts, SERVE_GEN,
+                           attn_mode="plain")
+    del p32
+    torch.cuda.empty_cache()
+    dev_plain = _max_diff(plain.prefill_logits, f32.prefill_logits)
+    dev_kernel = _max_diff(wave.prefill_logits, f32.prefill_logits)
+    err = _max_diff(wave.prefill_logits, plain.prefill_logits)
+    tol_bf16 = LOGIT_TOL + dev_plain
+    err32 = _max_diff(k32.prefill_logits, f32.prefill_logits)
+    same, pairs = _tokens_agree(wave, plain, tol_bf16)
+    same32, pairs32 = _tokens_agree(k32, f32, F32_LOGIT_TOL)
+    print(f"LM wave 0 kernels vs plain, bf16: prefill logits max_abs_err={err} "
+          f"(tolerance {tol_bf16} = {LOGIT_TOL} + the plain run's own bf16 "
+          f"deviation {dev_plain} from float32; the kernel run's is "
+          f"{dev_kernel}); tokens identical={same} over {pairs} of "
+          f"{8 * SERVE_GEN} (row, step) pairs before each row's first top-2 "
+          f"gap <= {2 * tol_bf16}")
+    print(f"LM wave 0 kernels vs plain, float32: prefill logits max_abs_err="
+          f"{err32} (tolerance {F32_LOGIT_TOL}); tokens identical={same32} "
+          f"over {pairs32} of {8 * SERVE_GEN} (row, step) pairs before each "
+          f"row's first top-2 gap <= {2 * F32_LOGIT_TOL}")
+    assert err <= tol_bf16 and dev_kernel <= tol_bf16, (err, dev_kernel)
+    assert err32 <= F32_LOGIT_TOL, err32
+    assert same and same32
+    return counts, res
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _tokens_agree(run, other, tol):
+    """Rows are independent: each row's greedy tokens must agree up to its
+    first step whose two best logits (``other``'s) lie within 2 * tol.
+    Returns (agree, (row, step) pairs compared)."""
+    pairs, same = 0, True
+    for row in range(run.tokens.shape[0]):
+        near = (other.top2_gap[row] <= 2 * tol).nonzero()
+        upto = int(near[0]) if len(near) else run.tokens.shape[1]
+        same &= bool(torch.equal(run.tokens[row, :upto],
+                                 other.tokens[row, :upto]))
+        pairs += upto
+    return same, pairs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _library_attention(q, k, v, mask=None, causal=False):
+    """``scaled_dot_product_attention`` on (B, H, S, D) tensors, GQA on,
+    and the name of the device kernel that did the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(attn_mask=mask, is_causal=causal,
+              enable_gqa=q.shape[1] != k.shape[1])
+    call = lambda: sdpa(q, k, v, **kw)     # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type != torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    top = max(dev, key=lambda e: e.self_device_time_total).key if dev else "?"
+    return call, top
+
+
+def phase_lm_timings(device, name):
+    """Kernels 8 and 7 at the LM path's shapes: device time from a CUDA
+    graph, the plain versions' likewise, the bound from these inputs, and
+    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
+    eager calls; the backend's kernel recorded)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = read_counts()
+    rows = {}
+    decode_cases = (("path", (8, 16, 16, SERVE_PROMPT + SERVE_GEN, 128),
+                     SERVE_PROMPT + SERVE_GEN - 1, 200),
+                    ("olmo_32k", DECODE_LONG[0], DECODE_LONG[0][3], 50),
+                    ("granite_32k", DECODE_LONG[1], DECODE_LONG[1][3], 50))
+    for label, shape, n, iters in decode_cases:
+        b, hq, hkv, s, d = shape
+        q, k, v = _decode_case(shape, torch.bfloat16, device, SEED + 21,
+                               cache_layout=True)
+        ms = graph_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
+        call_ms = cuda_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
+        plain_ms = graph_time_ms(lambda: da.decode_attention_plain(q, k, v, n),
+                                 3, reps=3)
+        mask = (torch.arange(s, device=device) < n)[None, None, None, :]
+        lib, backend = _library_attention(q[:, :, None], k, v, mask=mask)
+        library_ms = cuda_time_ms(lib, iters)
+        lib_err = float((lib()[:, :, 0].float() - da.decode_attention(
+            q, k, v, n).float()).abs().max())
+        b_ms, b_by, nbytes, n_ops = attention_bound(b, hq, hkv, 1, n, d,
+                                                    n, 2, name)
+        gc, splits, split_len = da.plan(b, hq, hkv, s, n,
+                                        da._sm_count(device))
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library_ms,
+                           shape=list(shape), kv_len=n,
+                           library_kernel=backend)
+        print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)={shape} "
+              f"kv_len={n} bf16 (B, S, Hkv, D) cache view: kernel_ms={ms} "
+              f"plain_ms={plain_ms} (device time, CUDA graph) "
+              f"kernel_call_ms={call_ms} library_ms={library_ms} (SDPA with "
+              f"a kv_len mask, eager; kernel {backend[:90]}; max_abs_diff "
+              f"{lib_err}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
+              f"ops={n_ops}, {peaks(name)[0]} peaks) kernel/bound="
+              f"{ms / b_ms} plan=(heads per block {gc}, splits {splits}, "
+              f"keys per split {split_len})")
+        del q, k, v
+    b, sq, skv, hq, hkv, d = FA_LM_PREFILL
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(FA_LM_PREFILL, device,
+                                                   SEED + 22))
+    ms = graph_time_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    call_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                           20)
+    plain_ms = graph_time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, causal=True), 3, reps=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib, backend = _library_attention(qt, kt, vt, causal=True)
+    library_ms = cuda_time_ms(lib, 20)
+    lib_err = float((lib().transpose(1, 2).float() - fa.flash_attention(
+        q, k, v, causal=True).float()).abs().max())
+    pairs = sq * (sq + 1) // 2
+    b_ms, b_by, nbytes, n_ops = attention_bound(b, hq, hkv, sq, skv, d, pairs,
+                                                2, name)
+    rows["prefill"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library_ms,
+                           shape=list(FA_LM_PREFILL), library_kernel=backend)
+    print(f"timing flash_attention LM prefill (B, Sq, Skv, Hq, Hkv, D)="
+          f"{FA_LM_PREFILL} bf16 causal: kernel_ms={ms} plain_ms={plain_ms} "
+          f"(device time, CUDA graph) kernel_call_ms={call_ms} "
+          f"library_ms={library_ms} (SDPA, eager; kernel {backend[:90]}; "
+          f"max_abs_diff {lib_err}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
+          f"ops={n_ops}, {peaks(name)[0]} peaks) kernel/bound={ms / b_ms}")
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    return rows
+
+
+def phase_lm_breakdown(device, res):
+    """Where a decode step goes at the serving path's shape (8 requests,
+    position 512 + i of OLMo-1B): host time per step (synchronized), and
+    under torch.profiler the device's busy share, kernel 8's and the
+    matrix products' shares of device time and device operations per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as mdl
+
+    cfg, params, prompts = res.cfg, res.params, res.waves[0].prompts
+    with torch.no_grad():
+        logits, pcache = mdl.prefill(params, cfg, prompts)
+        cache = mdl.init_cache(cfg, prompts.shape[0], SERVE_PROMPT + SERVE_GEN,
+                               device=device)
+        for key, sub in cache.items():
+            sub["k"][:, :, :SERVE_PROMPT] = pcache[key]["k"]
+            sub["v"][:, :, :SERVE_PROMPT] = pcache[key]["v"]
+        del pcache
+        tok = torch.argmax(logits, -1)[:, None]
+        for i in range(2):                               # warm
+            logits, cache = mdl.decode_step(params, cfg, tok, cache,
+                                            SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DECODE_PROFILE_STEPS):
+            logits, cache = mdl.decode_step(params, cfg, tok, cache,
+                                            SERVE_PROMPT + 2 + i)
+            tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / DECODE_PROFILE_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(DECODE_PROFILE_STEPS):
+                logits, cache = mdl.decode_step(
+                    params, cfg, tok, cache,
+                    SERVE_PROMPT + 2 + DECODE_PROFILE_STEPS + i)
+                tok = torch.argmax(logits, -1)[:, None]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    dev = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type != torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0}
+    busy = sum(t for t, _ in dev.values()) / 1e6
+    n_ops = sum(c for _, c in dev.values())
+    k8 = sum(t for key, (t, _) in dev.items() if "decode_attention" in key)
+    mm_words = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
+    mm = sum(t for key, (t, _) in dev.items()
+             if any(w in key.lower() for w in mm_words))
+    total = sum(t for t, _ in dev.values())
+    assert total > 0, "the profiler saw no device time"
+    steps = DECODE_PROFILE_STEPS
+    print(f"LM decode step breakdown (olmo-1b, B=8, position ~{SERVE_PROMPT}"
+          f"): host_ms_per_step={host_ms} (synchronized, unprofiled) "
+          f"profiled wall_ms_per_step={1e3 * wall / steps} "
+          f"device_busy_ms_per_step={1e3 * busy / steps} "
+          f"device_busy_share={busy / wall} "
+          f"kernel8_share_of_device={k8 / total} "
+          f"matmul_share_of_device={mm / total} "
+          f"device_ops_per_step={n_ops / steps}")
+    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:12]:
+        t, c = dev[key]
+        print(f"LM decode device time {key[:110]}: per_step_us={t / steps} "
+              f"calls_per_step={c / steps}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -1415,16 +1875,38 @@ def main() -> int:
     launches.update(phase_policy_paths(device))
     phase_policy_parity(device)
     phase_policy_arms(device)
+    lm_errs = phase_lm_kernels(device)
+    lm_counts, res = phase_lm_serve(device)
+    phase_lm_breakdown(device, res)
+    del res
+    torch.cuda.empty_cache()
+    paths = {"flash_attention": {"attention policy class":
+                                 launches["flash_attention"],
+                                 "LM prefill": lm_counts["flash_attention"]},
+             "decode_attention": {"LM decode": lm_counts["decode_attention"]},
+             "sdqn_score_cols": {"flat job->host": launches["sdqn_score_cols"],
+                                 "LM wave routing":
+                                 lm_counts["sdqn_score_cols"]}}
+    for key, per_path in paths.items():
+        launches[key] = sum(per_path.values())
+    errs["decode_attention"] = max(lm_errs["decode_attention"].values())
     timing = phase_new_timings(device, name)
     timing["sdqn_score_afterstate"] = phase_timings(device, name)[MAIN_N]
     timing.update(phase_seq_timings(device, name))
+    lm_timing = phase_lm_timings(device, name)
+    timing["decode_attention"] = dict(lm_timing["path"], other_shapes=[
+        lm_timing["olmo_32k"], lm_timing["granite_32k"]])
+    timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
     phase_breakdown(device)
     phase_sharded_breakdown(device)
     phase_policy_breakdown(device)
 
     # (wrapper, CUDA source, the TPU kernel's function line).  No single
     # PyTorch call computes the fused SDQN functions or a selective scan
-    # (library_ms null); kernel 7's is scaled_dot_product_attention.
+    # (library_ms null); kernels 7's and 8's is scaled_dot_product_attention.
+    # A kernel on more than one path reports their launches summed, per
+    # path under "paths"; its timing at the first path's shape, the others'
+    # under "other_shapes".
     table = (
         ("sdqn_score_afterstate", "sdqn_score_afterstate.cu",
          "sdqn_score.py:171"),
@@ -1435,6 +1917,7 @@ def main() -> int:
         ("sdqn_score_cols_topk", "sdqn_score_cols.cu", "sdqn_score.py:486"),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:61"),
         ("flash_attention", "flash_attention.cu", "flash_attention.py:77"),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:69"),
     )
     kernels = []
     for key, src, line in table:
@@ -1449,6 +1932,15 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"),
         })
+        if key in paths:
+            kernels[-1]["paths"] = paths[key]
+        if key in lm_errs:
+            kernels[-1]["max_abs_err_by_dtype"] = dict(
+                lm_errs[key], **({"float32": errs[key]}
+                                 if key == "flash_attention" else {}))
+        for extra in ("other_shapes", "shape", "kv_len", "library_kernel"):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,27 @@
+"""llama3-405b [dense] — 126L d_model=16384 128H (GQA kv=8) d_ff=53248 vocab=128256.
+
+GQA, 128k vocab, RoPE theta 500000. [arXiv:2407.21783; unverified]
+"""
+from repro_torch.configs.base import ModelConfig, register, smoke_reduce
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-405b",
+        family="dense",
+        num_layers=126,
+        d_model=16384,
+        num_heads=128,
+        num_kv_heads=8,
+        d_ff=53248,
+        vocab_size=128256,
+        head_dim=128,
+        rope_theta=500000.0,
+    )
+
+
+def smoke() -> ModelConfig:
+    return smoke_reduce(full(), num_kv_heads=2)
+
+
+register("llama3-405b", full, smoke)

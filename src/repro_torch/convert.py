@@ -47,6 +47,29 @@ def policy_params_from_numpy(tree, device=None):
     return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
+def _array_to_tensor(a, dtype, device) -> torch.Tensor:
+    """One numpy array (bfloat16 arrays, as JAX exports them, included) as a
+    tensor of ``dtype``, or of the array's own dtype when ``dtype`` is None."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: exact through float32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))        # a writable copy
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def lm_params_from_numpy(tree, dtype=None, device=None):
+    """The reference LM's ``init_params`` tree (nested dicts of numpy
+    arrays, leaves stacked over blocks) as the port's: the same keys and
+    shapes, each leaf a tensor in ``dtype`` (None keeps each array's own:
+    bfloat16 stays bfloat16).  Also carries a decode cache across."""
+    device = resolve_device(device)
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v, dtype, device)
+                for k, v in tree.items()}
+    return _array_to_tensor(tree, dtype, device)
+
+
 def state_from_numpy(cols, device=None) -> ClusterState:
     """A ``ClusterState`` given as numpy: a mapping or a sequence in field
     order (a reference ``ClusterState`` mapped through ``np.asarray`` works

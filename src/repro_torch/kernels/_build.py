@@ -30,6 +30,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 P, F, I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+L = ctypes.c_longlong     # element strides
 
 _LOADED: dict = {}        # name -> ctypes.CDLL, loaded once per process
 BUILD_LOG: dict = {}      # name -> {"seconds": s, "ptxas": text}

@@ -2,7 +2,8 @@
 ``repro.kernels.flash_attention``), kernel 7 of ROADMAP queue 2.
 
 Two versions of one function, in the reference's layout: q (B, Sq, Hq, D),
-k and v (B, Skv, Hkv, D), float32, GQA groups of ``Hq / Hkv`` query heads
+k and v (B, Skv, Hkv, D), float32 or bfloat16 (scores, exp and sums in
+float32, the output in q's dtype), GQA groups of ``Hq / Hkv`` query heads
 per key/value head, scale ``1/sqrt(D)``, and under ``causal`` the diagonal
 at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
 
@@ -16,8 +17,9 @@ at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
   ``flash_attention.launches``; on CPU tensors the plain version.  Any
   other device raises.
 
-Both refuse what the kernel does not take, on every device: another dtype
-than float32, a head width outside ``HEAD_DIMS``, mismatched shapes, and
+Both refuse what the kernel does not take, on every device: a dtype other
+than float32 and bfloat16, mixed dtypes, a head width outside
+``HEAD_DIMS``, mismatched shapes, and
 ``causal`` with Sq > Skv.  The last leaves the first ``Sq - Skv`` query
 rows no key at all; the reference's output for them depends on its block
 sizes, so it has no single value to port.
@@ -31,19 +33,30 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (8, 16, 32, 64)      # the kernel's template instances
-BLOCK_Q = 128                    # query rows (threads) per block of the kernel
+HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's template instances
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+THREADS = 128                    # threads per block of the kernel
 PLAIN_BLOCK_K = 256              # keys per step of the plain version
 
 _F32 = torch.float32
 
 
+def rows_per_block(d: int) -> int:
+    """Query rows a block of the kernel holds: a thread per row up to
+    D = 64, four threads per row at D = 128."""
+    return THREADS // (4 if d == 128 else 1)
+
+
 def _dims(q, k, v, causal):
     """(B, Sq, Hq, Skv, Hkv, D), raising on what the kernel does not take."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dim() != 4 or t.dtype != _F32:
+        if t.dim() != 4 or t.dtype not in DTYPES:
             raise ValueError(f"flash_attention: {name} must be a 4-D float32 "
-                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+                             f"or bfloat16 tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"flash_attention: mixed dtypes q {q.dtype}, k "
+                         f"{k.dtype}, v {v.dtype}")
     b, sq, hq, d = q.shape
     bk, skv, hkv, dk = k.shape
     if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
@@ -61,12 +74,15 @@ def _dims(q, k, v, causal):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
-    """(B, Sq, Hq, D) attention output, plain PyTorch, ``PLAIN_BLOCK_K``
-    keys at a time (online softmax; masked scores are ``-inf`` and key 0 is
-    always visible, so the running max is finite after the first block)."""
+    """(B, Sq, Hq, D) attention output, plain PyTorch in float32,
+    ``PLAIN_BLOCK_K`` keys at a time (online softmax; masked scores are
+    ``-inf`` and key 0 is always visible, so the running max is finite
+    after the first block)."""
     b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
+    dtype = q.dtype
+    q, k, v = (t.to(_F32) for t in (q, k, v))        # no copy for float32
     # (B, Hkv, g, Sq, D): the g query heads of a group share one k/v head
     qh = q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
     kh = k.permute(0, 2, 1, 3)[:, :, None]           # (B, Hkv, 1, Skv, D)
@@ -89,29 +105,31 @@ def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
         acc = acc * corr + p @ vb
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)             # (B, Hkv, g, Sq, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     """(B, Sq, Hq, D) attention output: one kernel launch on CUDA, the
-    plain version on CPU.  q, k, v contiguous float32 in the layout above
-    (16-byte aligned on the card: the kernel reads rows as float4)."""
+    plain version on CPU.  q, k, v contiguous, of one dtype, in the layout
+    above (16-byte aligned on the card: the kernel reads rows 16 bytes at a
+    time)."""
     b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
     device = q.device
     if not _build.on_card("flash_attention", device):
         return flash_attention_plain(q, k, v, causal=causal)
     for name, t, shape in (("q", q, q.shape), ("k", k, k.shape),
                            ("v", v, k.shape)):
-        _build.check(name, t, _F32, shape, device)
+        _build.check(name, t, q.dtype, shape, device)
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
-    if b * hq >= 2 ** 31 or -(-sq // BLOCK_Q) > 65535:
+    if b * hq >= 2 ** 31 or -(-sq // rows_per_block(d)) > 65535:
         raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
                          f"Sq={sq}")
     out = torch.empty_like(q)
     _build.launch("flash_attention", SOURCE,
-                  [_build.P] * 4 + [_build.I] * 7, device,
-                  q, k, v, out, b, sq, skv, hq, hkv, d, int(causal))
+                  [_build.P] * 4 + [_build.I] * 8, device,
+                  q, k, v, out, b, sq, skv, hq, hkv, d, int(causal),
+                  DTYPES[q.dtype])
     flash_attention.launches += 1
     return out
 

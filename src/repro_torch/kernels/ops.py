@@ -9,9 +9,9 @@ Modes of every entry point:
     a stacked feature matrix + ``dqn.qvalues``, ``env.feasible``, and a
     stable sort for the top-k).
 
-``flash_attention`` and ``mamba_scan`` take the reference's arguments
-and layouts (``repro.kernels.ops``); their ``ref`` mode is the direct
-oracle of ``kernels.ref``.
+``flash_attention``, ``decode_attention`` and ``mamba_scan`` take the
+reference's arguments and layouts (``repro.kernels.ops``); their ``ref``
+mode is the direct oracle of ``kernels.ref``.
 
 The top-k entry points return per-shard candidates ``(B, shards, k)``
 with a ``layout`` (``launch.mesh.FleetLayout``) and ``(B, k)`` without
@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core import dqn, env as kenv
 from repro_torch.core.types import FEATURE_DIM, ClusterState, EnvConfig, PodSpec
-from repro_torch.kernels import (flash_attention as _fa, mamba_scan as _ms,
+from repro_torch.kernels import (decode_attention as _da,
+                                 flash_attention as _fa, mamba_scan as _ms,
                                  ref, sdqn_score as _ss)
 
 MODES = ("cuda", "plain", "ref")
@@ -223,6 +224,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return ref.flash_attention_ref(q, k, v, causal=causal)
     fn = _fa.flash_attention if mode == "cuda" else _fa.flash_attention_plain
     return fn(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, kv_len, *,
+                     mode: Optional[str] = None) -> torch.Tensor:
+    """q (B, Hq, D), k and v (B, Hkv, S, D), ``kv_len`` () or (B,) ->
+    (B, Hq, D): one query token per head against a KV cache (kernel 8),
+    one call per decode step and attention layer."""
+    mode = _mode(mode, q.device)
+    if mode == "ref":
+        return ref.decode_attention_ref(q, k, v, kv_len)
+    fn = _da.decode_attention if mode == "cuda" else _da.decode_attention_plain
+    return fn(q, k, v, kv_len)
 
 
 def mamba_scan(x, dt, a, bmat, cmat, d_skip, h0, *,

@@ -36,6 +36,23 @@ def flash_attention_ref(q, k, v, *, causal=True):
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
+def decode_attention_ref(q, k, v, kv_len):
+    """q: (B, Hq, D); k, v: (B, Hkv, S, D); kv_len: () or (B,) -> (B, Hq, D).
+    Masked scores are -1e30, so a row with kv_len = 0 gets the mean of V,
+    as the reference's oracle does (the kernel gives zeros there)."""
+    b, hq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    k = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    v = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    s = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32), k) / math.sqrt(d)
+    lens = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(b)
+    mask = torch.arange(skv, device=q.device)[None, None, :] < lens[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+
+
 def mamba_scan_ref(x, dt, a, bmat, cmat, d_skip, h0):
     """Sequential selective scan; shapes as in ``kernels.mamba_scan``.
     Returns ``(y (B, S, di) in x's dtype, hT (B, di, N) float32)``."""

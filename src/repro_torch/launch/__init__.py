@@ -1,1 +1,1 @@
-"""Layout planning (port)."""
+"""Entry points (port): layout planning and LM serving."""

@@ -1,0 +1,240 @@
+"""Batched LM serving with SDQN request routing (port of
+``repro.launch.serve``).
+
+Requests arrive in waves; the SDQN placement daemon (``sched.daemon``)
+routes each wave to one of several model-server replicas on their load
+features (every wave submitted as a placement request, a batch of them
+scored in one launch of the column kernel and bound with optimistic
+concurrency), then the wave is served: prefill of its prompts (kernel 7 in
+every attention layer), the prompt's K/V copied into a cache of
+``prompt_len + gen_tokens`` positions, and a greedy decode loop (kernel 8
+in every attention layer of every step).  The model's weights are random,
+drawn from ``--seed``; the replicas share them.
+
+    python -m repro_torch.launch.serve --arch olmo-1b --replicas 4 \\
+        --requests 32 --wave-size 8 --prompt-len 512 --gen-tokens 32
+
+runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions
+on the CPU (``--smoke`` for a reduced model).  ``main`` returns a
+``ServeResult`` with every wave's tokens; ``serve_wave`` is one wave.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core import policy as policy_mod
+from repro_torch.device import resolve_device
+from repro_torch.models import model as mdl
+from repro_torch.sched.daemon import (DaemonConfig, FleetSubstrate,
+                                      PlacementDaemon)
+from repro_torch.sched.placement import JobSpec, fresh_fleet
+
+SERVING_REST = "ROADMAP queue 1, 'Serving, rest'"
+
+
+def seed_generator(seed: int, stream: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` for sub-stream ``stream`` of ``seed`` (the
+    port's ``fold_in``: 0 the model, 1 the routing policy, 2 the fleet,
+    100 + w the prompts of wave w)."""
+    state = np.random.SeedSequence([seed, stream]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def sample_requests(gen: torch.Generator, n: int, vocab: int,
+                    prompt_len: int) -> torch.Tensor:
+    """(n, prompt_len) int64 token ids, uniform below ``vocab``, on the
+    generator's device."""
+    return torch.randint(0, vocab, (n, prompt_len), generator=gen,
+                         device=gen.device)
+
+
+def load_policy(path: str, gen: torch.Generator, policy: str = "mlp",
+                device=None):
+    """SDQN routing params and their policy class: ``(params, PolicySpec)``.
+
+    Empty ``path``: a fresh init of ``policy``; a ``.npz``: the Table-4 MLP
+    (the reference's legacy flat file).  A checkpoint directory needs
+    ``checkpoint/ckpt.py``, which is not ported yet."""
+    if not path:
+        spec = policy_mod.get(policy)
+        return spec.init(gen, device=device), spec
+    if path.endswith(".npz"):
+        device = resolve_device(device)
+        loaded = np.load(path)
+        return ({k: torch.tensor(np.asarray(loaded[k], np.float32),
+                                 device=device) for k in loaded.files},
+                policy_mod.get("mlp"))
+    raise NotImplementedError(
+        f"--qnet-path {path!r}: loading a checkpoint directory needs "
+        f"checkpoint/ckpt.py, not ported yet: {SERVING_REST}")
+
+
+def load_qnet(path: str, gen: torch.Generator, device=None) -> dict:
+    """Just the params (MLP default); prefer ``load_policy``."""
+    params, _ = load_policy(path, gen, device=device)
+    return params
+
+
+@dataclasses.dataclass
+class WaveResult:
+    prompts: torch.Tensor          # (B, prompt_len)
+    tokens: torch.Tensor           # (B, gen_tokens) greedy tokens
+    prefill_logits: torch.Tensor   # (B, Vp) float32
+    top2_gap: torch.Tensor         # (B, gen_tokens): best minus second logit
+    prefill_s: float               # prefill and cache copy, synchronized
+    decode_s: float                # the gen_tokens - 1 decode steps
+
+
+def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def serve_wave(params, cfg: ModelConfig, prompts: torch.Tensor,
+               gen_tokens: int, *, attn_mode: Optional[str] = None
+               ) -> WaveResult:
+    """Prefill ``prompts`` (B, P), copy their K/V into a cache of P +
+    ``gen_tokens`` positions, and decode ``gen_tokens`` greedy tokens (the
+    first from the prefill's logits).  ``attn_mode`` is that of
+    ``kernels.ops`` (None: the kernels on the card, the plain versions on
+    the CPU)."""
+    device = prompts.device
+    b, plen = prompts.shape
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, pcache = mdl.prefill(params, cfg, prompts, {},
+                                     attn_mode=attn_mode)
+        cache = mdl.init_cache(cfg, b, plen + gen_tokens, device=device)
+        for name, sub in cache.items():
+            sub["k"][:, :, :plen] = pcache[name]["k"]
+            sub["v"][:, :, :plen] = pcache[name]["v"]
+        del pcache
+        sync()
+        t1 = time.perf_counter()
+        prefill_logits = logits
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out, gaps = [tok], [_top2_gap(logits)]
+        for i in range(gen_tokens - 1):
+            logits, cache = mdl.decode_step(params, cfg, tok, cache, plen + i,
+                                            attn_mode=attn_mode)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok)
+            gaps.append(_top2_gap(logits))
+        sync()
+        t2 = time.perf_counter()
+    return WaveResult(prompts, torch.cat(out, dim=1), prefill_logits,
+                      torch.stack(gaps, dim=1), t1 - t0, t2 - t1)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    counts: np.ndarray             # waves per replica
+    assignments: List[int]         # replica of each wave (-1: unplaced)
+    waves: List[WaveResult]
+    params: dict
+    cfg: ModelConfig
+    daemon: PlacementDaemon
+    seconds: float                 # serving the waves, routing excluded
+    generated: int                 # tokens generated
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--replicas", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--wave-size", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--qnet-path", default="",
+                    help="trained SDQN params: a legacy .npz (the Table-4 "
+                         "MLP); fresh init if empty")
+    ap.add_argument("--policy", default="mlp",
+                    help="policy class (core.policy registry) when "
+                         "--qnet-path is empty")
+    ap.add_argument("--online", action="store_true",
+                    help="fine-tune the routing policy on realized rewards "
+                         "(not ported yet)")
+    ap.add_argument("--online-steps", type=int, default=4)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the CUDA card (raises "
+                         "without one)")
+    return ap
+
+
+def main(argv=None) -> ServeResult:
+    args = build_parser().parse_args(argv)
+    if args.online:
+        raise NotImplementedError(
+            f"--online needs sched/online.py, not ported yet: {SERVING_REST}")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = mdl.init_params(seed_generator(args.seed, 0, device), cfg, device)
+
+    # SDQN routing across replicas, served by the placement daemon: waves
+    # are submitted as requests, batch-scored in one launch, bound
+    # optimistically
+    qparams, qspec = load_policy(args.qnet_path, seed_generator(args.seed, 1),
+                                 policy=args.policy, device=device)
+    fleet = fresh_fleet(args.replicas, seed_generator(args.seed, 2),
+                        device=device)
+    waves = args.requests // args.wave_size
+    sub = FleetSubstrate(fleet, policy=qspec, device=device)
+    daemon = PlacementDaemon(
+        sub, qparams,
+        DaemonConfig(batch_size=max(min(waves, 8), 1), max_wait_s=0.0))
+    daemon.warmup()
+    job = JobSpec(cpu_pct_demand=100.0 / max(waves, 1), kind="serve")
+    for _ in range(waves):
+        daemon.submit(job)
+    daemon.drain()
+    assignments = [d.node for d in sorted(daemon.decisions)]
+
+    t0 = time.perf_counter()
+    results = []
+    for w, _replica in enumerate(assignments):
+        prompts = sample_requests(seed_generator(args.seed, 100 + w, device),
+                                  args.wave_size, cfg.vocab_size,
+                                  args.prompt_len)
+        results.append(serve_wave(params, cfg, prompts, args.gen_tokens))
+    dt = time.perf_counter() - t0
+    generated = len(results) * args.wave_size * args.gen_tokens
+
+    placed = [a for a in assignments if a >= 0]
+    counts = np.bincount(np.asarray(placed, np.int64), minlength=args.replicas)
+    steps = len(results) * max(args.gen_tokens - 1, 0)
+    prefill_ms = 1e3 * sum(r.prefill_s for r in results) / max(len(results), 1)
+    step_ms = 1e3 * sum(r.decode_s for r in results) / max(steps, 1)
+    print(f"[serve] {args.requests} requests, {generated} tokens in {dt:.1f}s "
+          f"({generated / dt:.1f} tok/s) on {device}")
+    print(f"[serve] prefill {prefill_ms:.2f} ms per wave of {args.wave_size} "
+          f"x {args.prompt_len} tokens; decode {step_ms:.3f} ms per step "
+          f"({args.wave_size} tokens)")
+    print(f"[serve] SDQN routing ({qspec.name}) across replicas: "
+          f"{counts.tolist()} "
+          f"({daemon.metrics.batches} daemon batches, "
+          f"{daemon.metrics.device_launches} scoring launches, "
+          f"{daemon.metrics.conflicts} bind conflicts)")
+    print(f"[serve] replica load (cpu%): "
+          f"{np.round(np.asarray(sub.live.cpu_pct), 1).tolist()}")
+    return ServeResult(counts, assignments, results, params, cfg, daemon, dt,
+                       generated)
+
+
+if __name__ == "__main__":
+    main()

@@ -414,3 +414,128 @@ def test_policy_daemon_batch_is_one_kernel_launch(cuda_device, name):
     assert m.device_launches == m.batches >= 3
     assert kernel.launches - before == m.device_launches
     assert other.launches == before_other
+
+
+# ---------------------------------------------------------------------------
+# kernel 8 and kernel 7 in bfloat16 / D = 128: the LM serving path
+# ---------------------------------------------------------------------------
+
+
+def _decode_qkv(b, hq, hkv, s, d, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(x, generator=gen).to(dtype).to(device) for x in
+                 ((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+
+def _tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(
+        rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 4, 128, 32), (2, 8, 2, 256, 64),
+                                   (3, 4, 1, 512, 16), (8, 16, 16, 544, 128),
+                                   (8, 32, 8, 4096, 128)])
+@pytest.mark.parametrize("kv_len", [0, 1, 17, "full", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain_on_card(cuda_device, shape, kv_len,
+                                                dtype):
+    from repro_torch.kernels import decode_attention as da
+
+    b, hq, hkv, s, d = shape
+    q, k, v = _decode_qkv(*shape, dtype, cuda_device, sum(shape))
+    n = (s if kv_len == "full" else torch.randint(
+        0, s + 1, (b,), generator=torch.Generator().manual_seed(b)).to(
+            cuda_device) if kv_len == "ragged" else kv_len)
+    before = da.decode_attention.launches
+    got = ops.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, d)
+    torch.testing.assert_close(got, ops.decode_attention(q, k, v, n,
+                                                         mode="plain"),
+                               **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_decode_attention_reads_the_cache_in_place_on_card(cuda_device):
+    """The model's (B, S, Hkv, D) cache permuted to (B, Hkv, S, D)."""
+    gen = torch.Generator().manual_seed(5)
+    cache_k, cache_v = (torch.randn((4, 300, 2, 64), generator=gen)
+                        .to(torch.bfloat16).to(cuda_device) for _ in range(2))
+    q = torch.randn((4, 8, 64), generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    kview, vview = cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3)
+    got = ops.decode_attention(q, kview, vview, 257)
+    torch.testing.assert_close(got, ops.decode_attention(
+        q, kview.contiguous(), vview.contiguous(), 257, mode="plain"),
+        **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_on_card(cuda_device):
+    from repro_torch.kernels import decode_attention as da
+
+    q, k, v = _decode_qkv(2, 4, 2, 64, 32, torch.float32, cuda_device, 6)
+    k8 = k.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="float8"):
+        da.decode_attention(q, k8, k8, 10)
+    with pytest.raises(ValueError, match="cuda"):
+        ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), 10, mode="cuda")
+    shifted = torch.empty(k.numel() + 1, device=cuda_device)[1:].view(k.shape)
+    shifted.copy_(k)                     # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        da.decode_attention(q, shifted, v, 10)
+    with pytest.raises(ValueError, match="on cpu"):
+        da.decode_attention(q, k.cpu(), v, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32), (2, 64, 128, 8, 1, 16),
+    (1, 256, 256, 2, 2, 64), (3, 37, 37, 2, 2, 8), (2, 100, 130, 4, 2, 128),
+    (8, 512, 512, 16, 16, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_and_d128_match_plain_on_card(cuda_device, shape,
+                                                           causal):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, skv, hq, hkv, d = shape
+    for dtype in (torch.bfloat16,) + ((torch.float32,) if d == 128 else ()):
+        q, k, v = (t.to(dtype) for t in _qkv(*shape, cuda_device, sum(shape)))
+        before = fa.flash_attention.launches
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, ops.flash_attention(
+            q, k, v, causal=causal, mode="plain"), **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_lm_wave_goes_through_kernels_7_and_8(cuda_device):
+    """A smoke-size olmo-1b wave on the card: one launch of kernel 7 per
+    layer for the prefill, one of kernel 8 per layer and decode step, and
+    the tokens of the plain versions' run on the same card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+
+    cfg = get_config("olmo-1b", smoke=True)
+    params = mdl.init_params(serve.seed_generator(0, 0, cuda_device), cfg,
+                             cuda_device)
+    prompts = serve.sample_requests(serve.seed_generator(0, 100, cuda_device),
+                                    4, cfg.vocab_size, 32)
+    f0, d0 = fa.flash_attention.launches, da.decode_attention.launches
+    wave = serve.serve_wave(params, cfg, prompts, 8)
+    assert fa.flash_attention.launches - f0 == cfg.num_layers
+    assert da.decode_attention.launches - d0 == cfg.num_layers * 7
+    plain = serve.serve_wave(params, cfg, prompts, 8, attn_mode="plain")
+    assert fa.flash_attention.launches - f0 == cfg.num_layers
+    torch.testing.assert_close(wave.prefill_logits, plain.prefill_logits,
+                               rtol=2e-2, atol=2e-2)
+    near = (plain.top2_gap <= 4e-2).any(dim=0).nonzero()
+    upto = int(near[0]) if len(near) else 8
+    torch.testing.assert_close(wave.tokens[:, :upto], plain.tokens[:, :upto])

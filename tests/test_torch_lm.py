@@ -1,0 +1,486 @@
+"""The port's LM (configs, layers, model, serve loop) against the JAX
+reference.
+
+Weights come from the reference's ``init_params`` (JAX's threefry draws
+cannot be reproduced in PyTorch) and are carried across with
+``convert.lm_params_from_numpy``; tokens and activations are made with
+numpy from a seed.  On the CPU the attention kernels' plain versions run.
+Tolerances: in float32 (the configs' dtypes replaced) 1e-4 on logits
+against the reference's float32 run.  In bfloat16 the two packages round
+at different points (the reference casts attention probabilities to
+bfloat16 before the PV product, kernels 7 and 8 keep them in float32), and
+the reference's own bfloat16 logits lie up to ~0.04 from its float32
+logits at the smoke size; so the port's bfloat16 logits are held to the
+reference's float32 run on the same bfloat16 weights, within the
+reference's bfloat16 tolerance (2e-2) plus the reference's own bfloat16
+deviation on the same prompts.  Greedy tokens must agree up to the first
+step whose two best reference logits lie within twice the tolerance (where
+logits each within the tolerance can swap).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.models import layers as jlayers, model as jmdl
+from repro_torch import convert
+from repro_torch.configs import base as tbase
+from repro_torch.launch import serve
+from repro_torch.models import layers as tlayers, model as tmdl
+
+ARCHS = list(jbase.list_archs())
+PORTED = ["olmo-1b", "granite-8b", "llama3-405b", "command-r-plus-104b",
+          "internvl2-76b"]                # the dense and vlm families
+NOT_PORTED = ["qwen2-moe-a2.7b", "dbrx-132b", "falcon-mamba-7b",
+              "jamba-1.5-large-398b", "whisper-medium"]
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+F32 = dict(dtype="float32", param_dtype="float32", cache_dtype="float32")
+
+
+def _to_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _cfgs(arch, dtype):
+    jc, tc = jbase.get_config(arch, smoke=True), tbase.get_config(arch,
+                                                                 smoke=True)
+    if dtype == "float32":
+        jc, tc = dataclasses.replace(jc, **F32), dataclasses.replace(tc, **F32)
+    return jc, tc
+
+
+def _params(jc, seed=0):
+    jp = jmdl.init_params(jax.random.PRNGKey(seed), jc)
+    return jp, convert.lm_params_from_numpy(_to_np(jp), device="cpu")
+
+
+def _tokens(cfg, b, s, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s),
+                                                dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_registry_and_shapes_match_the_reference():
+    assert tbase.list_archs() == jbase.list_archs()
+    assert {k: dataclasses.asdict(v) for k, v in tbase.SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+    for arch in ARCHS:
+        for name in jbase.SHAPES:
+            assert tbase.shape_applicable(
+                tbase.get_config(arch), tbase.SHAPES[name]) == \
+                jbase.shape_applicable(jbase.get_config(arch),
+                                       jbase.SHAPES[name])
+    with pytest.raises(KeyError):
+        tbase.get_config("gpt-2")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_matches_the_reference_field_by_field(arch, smoke):
+    jc, tc = jbase.get_config(arch, smoke), tbase.get_config(arch, smoke)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    for prop in ("resolved_head_dim", "padded_vocab", "d_inner", "dt_rank",
+                 "attention_free", "sub_quadratic"):
+        assert getattr(tc, prop) == getattr(jc, prop), prop
+    assert tc.param_count() == jc.param_count()
+    assert tc.active_param_count() == jc.active_param_count()
+    assert tmdl.block_spec(tc) == [tmdl.SubLayer(**dataclasses.asdict(s))
+                                   for s in jmdl.block_spec(jc)]
+
+
+def test_olmo_1b_full_size():
+    """The configuration served on the card: ~1.18 B parameters."""
+    cfg = tbase.get_config("olmo-1b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) == (
+        16, 2048, 16, 16, 128, 8192, 50304)
+    assert 1.17e9 < cfg.param_count() < 1.19e9
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm", "layernorm_np"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_matches_the_reference(norm, dtype):
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((2, 5, 64)) * 3 + 1).astype(np.float32)
+    params = {} if norm == "layernorm_np" else {
+        "scale": rng.uniform(0.5, 1.5, 64).astype(np.float32),
+        "bias": rng.standard_normal(64).astype(np.float32)}
+    if norm == "rmsnorm":
+        params.pop("bias")
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jlayers.apply_norm(norm, {k: jnp.asarray(v, jd)
+                                     for k, v in params.items()},
+                              jnp.asarray(x, jd))
+    got = tlayers.apply_norm(norm, {k: torch.tensor(v).to(td)
+                                    for k, v in params.items()},
+                             torch.tensor(x).to(td))
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    init = tlayers.init_norm(norm, 64, td)
+    assert {k: tuple(v.shape) for k, v in init.items()} == {
+        k: tuple(v.shape) for k, v in jlayers.init_norm(norm, 64, jd).items()}
+
+
+@pytest.mark.parametrize("positions", ["prefill", "decode"])
+def test_rope_matches_the_reference(positions):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 7 if positions == "prefill" else 1, 4,
+                             16)).astype(np.float32)
+    pos = np.arange(7) if positions == "prefill" else np.array([300])
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    got = tlayers.apply_rope(torch.tensor(x), torch.tensor(pos), 10000.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        tlayers.rope_frequencies(16, 500000.0).numpy(),
+        np.asarray(jlayers.rope_frequencies(16, 500000.0)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_matches_the_reference(act):
+    jp = jlayers.init_mlp(jax.random.PRNGKey(3), 32, 64, act, jnp.float32, 2)
+    tp = convert.lm_params_from_numpy(_to_np(jp), device="cpu")
+    x = np.random.default_rng(3).standard_normal((2, 5, 32)).astype(np.float32)
+    want = jlayers.apply_mlp(jp, jnp.asarray(x), act)
+    got = tlayers.apply_mlp(tp, torch.tensor(x), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    assert {k: tuple(v.shape) for k, v in tlayers.init_mlp(
+        gen, 32, 64, act, torch.float32, 2).items()} == {
+        k: v.shape for k, v in jp.items()}
+
+
+@pytest.mark.parametrize("case", ["causal", "full", "decode", "decode_gqa"])
+def test_attention_dispatch_matches_the_reference(case):
+    """Self-attention (kernel 7's plain version) and one token against a
+    cache (kernel 8's), GQA included, against the reference's XLA path."""
+    rng = np.random.default_rng(4)
+    b, s, hkv, d = 2, 24, 2, 16
+    hq = 4 if case == "decode_gqa" else 2
+    sq = 1 if case.startswith("decode") else s
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=case == "causal")
+    if sq == 1:
+        kw = dict(causal=False, kv_len=13, q_offset=12)
+    want = jlayers.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             q_chunk=8, **kw)
+    got = tlayers.attention(torch.tensor(q), torch.tensor(k),
+                            torch.tensor(v), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
+                               atol=3e-5)
+
+
+@pytest.mark.parametrize("case", ["cross", "kv_len_prefill", "float8"])
+def test_attention_refuses_what_no_ported_path_runs(case):
+    q = torch.zeros(1, 4 if case != "cross" else 3, 2, 16)
+    k = v = torch.zeros(1, 4, 2, 16)
+    if case == "cross":
+        with pytest.raises(NotImplementedError):
+            tlayers.attention(q, k, v, causal=False)
+    elif case == "kv_len_prefill":
+        with pytest.raises(NotImplementedError):
+            tlayers.attention(q, k, v, causal=False, kv_len=3)
+    else:
+        k8 = k.to(torch.float8_e4m3fn)
+        with pytest.raises(ValueError, match="float8"):
+            tlayers.attention(q[:, :1], k8, k8, causal=False, kv_len=3)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-8b"])
+def test_init_params_and_cache_keep_the_reference_tree(arch):
+    jc, tc = _cfgs(arch, "bfloat16")
+    want = jax.eval_shape(lambda: jmdl.init_params(jax.random.PRNGKey(0), jc))
+    got = tmdl.init_params(torch.Generator().manual_seed(0), tc, "cpu")
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {kk: vv for k, v in tree.items()
+                    for kk, vv in leaves(v, f"{prefix}/{k}").items()}
+        return {prefix: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
+
+    assert leaves(got) == leaves(want)
+    cache = tmdl.init_cache(tc, 3, 40)
+    jcache = jax.eval_shape(lambda: jmdl.init_cache(jc, 3, 40))
+    assert leaves(cache) == leaves(jcache)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_params_from_numpy(dtype):
+    jc, _ = _cfgs("granite-8b", dtype)
+    jp = jmdl.init_params(jax.random.PRNGKey(5), jc)
+    tp = convert.lm_params_from_numpy(_to_np(jp), device="cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(flat_j) == len(jax.tree.leaves(tp))
+    for path, leaf in flat_j:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == getattr(torch, dtype) and tuple(t.shape) == leaf.shape
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+    f32 = convert.lm_params_from_numpy(_to_np(jp), dtype=torch.float32,
+                                       device="cpu")
+    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(f32))
+
+
+def _patches(cfg, b, seed):
+    if not cfg.num_vision_tokens:
+        return None
+    return (0.02 * np.random.default_rng(seed).standard_normal(
+        (b, cfg.num_vision_tokens, cfg.d_model))).astype(np.float32)
+
+
+def _reference_generate(jp, jc, prompts, gen_tokens, patches=None):
+    """The reference serve loop (``launch/serve.py:148-166``): prefill, the
+    cache padded to prompt + gen_tokens, greedy decode.  Returns the
+    prefill logits, the per-step logits and the tokens."""
+    plen = prompts.shape[1]
+    extra = {} if patches is None else {"patch_embeds": jnp.asarray(patches)}
+    logits, cache = jax.jit(lambda p, t: jmdl.prefill(p, jc, t, extra,
+                                                      q_chunk=64))(
+        jp, jnp.asarray(prompts))
+
+    def pad(leaf):
+        if leaf.ndim == 5 and leaf.shape[2] == plen:
+            width = [(0, 0)] * 5
+            width[2] = (0, gen_tokens)
+            return jnp.pad(leaf, width)
+        return leaf
+
+    cache = jax.tree.map(pad, cache)
+    decode = jax.jit(lambda p, t, c, i: jmdl.decode_step(p, jc, t, c, i))
+    steps, tokens = [np.asarray(logits)], []
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    tokens.append(np.asarray(tok))
+    for i in range(gen_tokens - 1):
+        logits, cache = decode(jp, tok, cache, jnp.int32(plen + i))
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        steps.append(np.asarray(logits))
+        tokens.append(np.asarray(tok))
+    return np.stack(steps, 1), np.concatenate(tokens, 1)
+
+
+def _want(jp, jc, dtype, prompts, gen_tokens, patches=None):
+    """(reference logits, tokens, tolerance) to hold the port's run to: the
+    reference in float32, and in bfloat16 the tolerance widened by the
+    reference's own bfloat16 deviation (module docstring)."""
+    if dtype == "float32":
+        return (*_reference_generate(jp, jc, prompts, gen_tokens, patches),
+                TOL[dtype])
+    jc32 = dataclasses.replace(jc, **F32)
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    logits, tokens = _reference_generate(jp32, jc32, prompts, gen_tokens,
+                                         patches)
+    own, _ = _reference_generate(jp, jc, prompts, 1, patches)
+    return logits, tokens, TOL[dtype] + float(np.abs(own[:, 0]
+                                                     - logits[:, 0]).max())
+
+
+def _top2_gap(logits):
+    top = np.sort(logits, axis=-1)
+    return top[..., -1] - top[..., -2]
+
+
+def _first_near_tie(want_logits, tol):
+    """The first step at which some row's two best reference logits lie
+    within 2·tol (logits each within tol can swap there), else the number
+    of steps."""
+    near = np.nonzero((_top2_gap(want_logits) <= 2 * tol).any(axis=0))[0]
+    return int(near[0]) if len(near) else want_logits.shape[1]
+
+
+def _agree(got_logits, got_tokens, want_logits, want_tokens, tol):
+    """Logits within ``tol`` at every step up to and including the first
+    near tie (its inputs are still the same), identical tokens before it;
+    returns the number of steps whose tokens were compared."""
+    upto = _first_near_tie(want_logits, tol)
+    last = min(upto + 1, want_logits.shape[1])
+    np.testing.assert_allclose(got_logits[:, :last], want_logits[:, :last],
+                               rtol=tol, atol=tol)
+    np.testing.assert_array_equal(got_tokens[:, :upto], want_tokens[:, :upto])
+    return upto
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("olmo-1b", "float32"), ("granite-8b", "float32"),
+    ("internvl2-76b", "float32"), ("olmo-1b", "bfloat16"),
+    ("granite-8b", "bfloat16")])
+def test_prefill_and_decode_match_the_reference(arch, dtype):
+    """MHA (olmo-1b), GQA (granite-8b) and the vlm prefix (internvl2):
+    prefill logits (and in float32 the prefill's K/V), then greedy decode
+    steps, step by step."""
+    jc, tc = _cfgs(arch, dtype)
+    jp, tp = _params(jc)
+    b, plen, gen = 2, 12, 5
+    prompts = _tokens(jc, b, plen, seed=6)
+    patches = _patches(jc, b, 7)
+    want_logits, want_tokens, tol = _want(jp, jc, dtype, prompts, gen,
+                                          patches)
+    extra = None if patches is None else {
+        "patch_embeds": torch.tensor(patches)}
+    logits, pcache = tmdl.prefill(tp, tc, torch.tensor(prompts).long(), extra)
+    assert logits.dtype == torch.float32
+    _, jcache = jmdl.prefill(jp, jc, jnp.asarray(prompts),
+                             {} if patches is None else
+                             {"patch_embeds": jnp.asarray(patches)})
+    if dtype == "float32":     # bfloat16 K/V differ by roundings inside
+        for part in ("k", "v"):
+            np.testing.assert_allclose(
+                pcache["sub0"][part].numpy(),
+                np.asarray(jcache["sub0"][part]), rtol=TOL[dtype],
+                atol=TOL[dtype])
+    cache = tmdl.init_cache(tc, b, plen + gen)
+    for part in ("k", "v"):
+        cache["sub0"][part][:, :, :plen] = pcache["sub0"][part]
+    steps, tokens = [logits.numpy()], []
+    tok = torch.argmax(logits, -1)[:, None]
+    tokens.append(tok.numpy())
+    for i in range(gen - 1):
+        logits, same = tmdl.decode_step(tp, tc, tok, cache, plen + i)
+        assert same is cache                       # written in place
+        tok = torch.argmax(logits, -1)[:, None]
+        steps.append(logits.numpy())
+        tokens.append(tok.numpy())
+    compared = _agree(np.stack(steps, 1), np.concatenate(tokens, 1),
+                      want_logits, want_tokens, tol)
+    if dtype == "float32":
+        assert compared == gen
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_decode_consistency_on_the_port(arch):
+    """``tests/test_models_smoke.py:48`` on the port: prefill's last logits
+    equal the full forward pass's, and one decode step from the prefill
+    cache gives finite logits and keeps the cache's structure."""
+    cfg = tbase.get_config(arch, smoke=True)
+    params = tmdl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    b, s = 2, 16
+    tokens = torch.tensor(_tokens(cfg, b, s, seed=8)).long()
+    patches = _patches(cfg, b, 9)
+    extra = None if patches is None else {
+        "patch_embeds": torch.tensor(patches).to(torch.bfloat16)}
+    logits_pre, pcache = tmdl.prefill(params, cfg, tokens, extra)
+    assert logits_pre.shape == (b, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits_pre).all())
+    x, _, _ = tmdl.forward(params, cfg, tokens, extra, mode="train")
+    logits_full = tmdl.logits_from_hidden(params, cfg, x[:, -1:])[:, 0]
+    torch.testing.assert_close(logits_pre, logits_full, rtol=2e-2, atol=2e-2)
+    cache = tmdl.init_cache(cfg, b, s + 4)
+    for part in ("k", "v"):
+        cache["sub0"][part][:, :, :s] = pcache["sub0"][part]
+    shapes = {p: tuple(cache["sub0"][p].shape) for p in ("k", "v")}
+    nxt = torch.argmax(logits_pre, -1)[:, None]
+    logits_dec, cache2 = tmdl.decode_step(params, cfg, nxt, cache, s)
+    assert logits_dec.shape == (b, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits_dec).all())
+    assert {p: tuple(cache2["sub0"][p].shape) for p in ("k", "v")} == shapes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_wave_matches_the_reference_loop(dtype):
+    """One wave of the port's serve loop (``serve.serve_wave``) against the
+    reference's prefill / decode_step loop on the same prompts."""
+    jc, tc = _cfgs("olmo-1b", dtype)
+    jp, tp = _params(jc)
+    prompts = _tokens(jc, 4, 16, seed=10)     # no near tie in float32
+    want_logits, want_tokens, tol = _want(jp, jc, dtype, prompts, 6)
+    wave = serve.serve_wave(tp, tc, torch.tensor(prompts).long(), 6)
+    assert wave.tokens.shape == wave.top2_gap.shape == (4, 6)
+    assert wave.prefill_s > 0 and wave.decode_s > 0
+    assert bool((wave.top2_gap >= 0).all())
+    torch.testing.assert_close(
+        wave.top2_gap[:, 0], torch.topk(wave.prefill_logits, 2).values
+        .diff(dim=-1)[:, 0].neg())
+    np.testing.assert_allclose(wave.prefill_logits.numpy(),
+                               want_logits[:, 0], rtol=tol, atol=tol)
+    upto = _first_near_tie(want_logits, tol)
+    if dtype == "float32":
+        assert upto == 6
+    np.testing.assert_array_equal(wave.tokens.numpy()[:, :upto],
+                                  want_tokens[:, :upto])
+
+
+# ---------------------------------------------------------------------------
+# entry points and what is not ported
+# ---------------------------------------------------------------------------
+
+
+def test_serve_main_on_the_cpu_routes_and_serves_every_wave(capsys):
+    res = serve.main(["--arch", "olmo-1b", "--smoke", "--replicas", "3",
+                      "--requests", "12", "--wave-size", "4",
+                      "--prompt-len", "8", "--gen-tokens", "3",
+                      "--device", "cpu"])
+    assert len(res.waves) == len(res.assignments) == 3
+    assert int(res.counts.sum()) == 3 and res.generated == 36
+    assert all(w.tokens.shape == (4, 3) for w in res.waves)
+    assert res.daemon.metrics.bound == 3
+    out = capsys.readouterr().out
+    assert "[serve] 12 requests, 36 tokens" in out and "SDQN routing" in out
+    # the prompts are a function of the seed and the wave alone
+    again = serve.sample_requests(serve.seed_generator(0, 101), 4,
+                                  res.cfg.vocab_size, 8)
+    torch.testing.assert_close(res.waves[1].prompts, again)
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_families_not_ported_raise(arch):
+    cfg = tbase.get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="LM scaffolding"):
+        tmdl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="LM scaffolding"):
+        tmdl.init_cache(cfg, 1, 8)
+    with pytest.raises(NotImplementedError):
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("case", ["checkpoint_dir", "online", "no_card"])
+def test_serve_refuses_what_is_not_here(case, tmp_path):
+    if case == "checkpoint_dir":
+        with pytest.raises(NotImplementedError, match="Serving, rest"):
+            serve.load_policy(str(tmp_path), torch.Generator(), device="cpu")
+    elif case == "online":
+        with pytest.raises(NotImplementedError, match="Serving, rest"):
+            serve.main(["--smoke", "--online", "--device", "cpu"])
+    else:
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is visible")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--smoke", "--requests", "4", "--wave-size", "4"])
+
+
+def test_load_policy_reads_a_legacy_npz(tmp_path):
+    rng = np.random.default_rng(11)
+    arrays = {"w1": rng.standard_normal((6, 32)), "b1": np.zeros(32),
+              "w2": rng.standard_normal((32, 1)), "b2": np.zeros(1)}
+    path = tmp_path / "q.npz"
+    np.savez(path, **arrays)
+    params, spec = serve.load_policy(str(path), torch.Generator(),
+                                     device="cpu")
+    assert spec.name == "mlp"
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(params[k].numpy(), v.astype(np.float32))
+    fresh = serve.load_qnet("", torch.Generator().manual_seed(0), device="cpu")
+    assert set(fresh) == set(arrays)

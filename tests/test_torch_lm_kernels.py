@@ -1,0 +1,213 @@
+"""Kernels 8 and 7 of the port on the LM path, against the JAX reference.
+
+Kernel 8 (decode attention) and kernel 7 (flash attention) in bfloat16 and
+at head width 128: the plain PyTorch versions (what the wrappers run on CPU
+tensors, and what ``chip_smoke.py`` holds the CUDA kernels to on the card)
+against the reference's Pallas kernels in interpret mode and its oracles,
+on inputs made with numpy from a seed, at the reference's tolerances
+(``tests/test_kernels.py``: 3e-5 in float32, 2e-2 in bfloat16).
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops, ref as jref
+from repro_torch.kernels import (decode_attention as tda,
+                                 flash_attention as tfa, ops as tops)
+
+DTYPES = {"float32": (jnp.float32, torch.float32, np.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, ml_dtypes.bfloat16)}
+
+
+def tol(name):
+    return (dict(rtol=2e-2, atol=2e-2) if name == "bfloat16"
+            else dict(rtol=3e-5, atol=3e-5))
+
+
+def _arrays(shapes, dtype, seed):
+    """Normal draws from a numpy seed, rounded to ``dtype`` once, so both
+    packages see the same values."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 .astype(DTYPES[dtype][2]) for s in shapes)
+
+
+def _torch(a, dtype):
+    return torch.tensor(np.asarray(a, np.float32)).to(DTYPES[dtype][1])
+
+
+def _np(t):
+    return t.to(torch.float32).numpy()
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: decode attention
+# ---------------------------------------------------------------------------
+
+# the reference's sweep (tests/test_kernels.py): (B, Hq, Hkv, S, D)
+DECODE_SWEEP = [(1, 4, 4, 128, 32), (2, 8, 2, 256, 64), (3, 4, 1, 512, 16)]
+
+
+def _decode_inputs(b, hq, hkv, s, d, dtype, seed=0):
+    return _arrays(((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)), dtype, seed)
+
+
+def _reference(q, k, v, kv_len, dtype):
+    jd = DTYPES[dtype][0]
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    n = jnp.asarray(kv_len, jnp.int32)
+    pallas = jops.decode_attention(jq, jk, jv, n, mode="interpret", block_k=64)
+    return (np.asarray(pallas, np.float32),
+            np.asarray(jref.decode_attention_ref(jq, jk, jv, n), np.float32))
+
+
+@pytest.mark.parametrize("shape", DECODE_SWEEP)
+@pytest.mark.parametrize("kv_len", [1, 17, -1, "ragged"])   # -1 = full
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_matches_pallas_interpret(shape, kv_len, dtype):
+    """The reference's sweep, plus a (B,) kv_len per row."""
+    b, hq, hkv, s, d = shape
+    q, k, v = _decode_inputs(*shape, dtype)
+    if kv_len == "ragged":
+        n = np.random.default_rng(b).integers(1, s + 1, b).astype(np.int32)
+        tn = torch.tensor(n)
+    else:
+        n = tn = s if kv_len == -1 else kv_len
+    pallas, oracle = _reference(q, k, v, n, dtype)
+    tq, tk, tv = (_torch(a, dtype) for a in (q, k, v))
+    got = tops.decode_attention(tq, tk, tv, tn)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (b, hq, d)
+    np.testing.assert_allclose(_np(got), pallas, **tol(dtype))
+    np.testing.assert_allclose(_np(got), oracle, **tol(dtype))
+    np.testing.assert_allclose(
+        _np(tops.decode_attention(tq, tk, tv, tn, mode="ref")), oracle,
+        **tol(dtype))
+
+
+def test_decode_attention_reads_a_strided_cache_view():
+    """The model's (B, S, Hkv, D) cache, permuted to (B, Hkv, S, D) without
+    a copy, gives what the contiguous copy gives."""
+    b, s, hkv, hq, d = 2, 128, 2, 4, 32
+    q, ck, cv = _arrays(((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)),
+                        "float32", 3)
+    kview = torch.tensor(ck).permute(0, 2, 1, 3)
+    vview = torch.tensor(cv).permute(0, 2, 1, 3)
+    assert not kview.is_contiguous()
+    got = tda.decode_attention(torch.tensor(q), kview, vview, 50)
+    want, _ = _reference(q, ck.transpose(0, 2, 1, 3), cv.transpose(0, 2, 1, 3),
+                         50, "float32")
+    np.testing.assert_allclose(got.numpy(), want, **tol("float32"))
+
+
+def test_decode_attention_kv_len_zero_gives_zeros_as_the_pallas_kernel():
+    """kv_len = 0: the TPU kernel's acc / max(l, 1e-30) is 0; the
+    reference's oracle gives the mean of V.  The port follows the kernel."""
+    q, k, v = _decode_inputs(2, 4, 2, 64, 16, "float32", seed=4)
+    pallas, oracle = _reference(q, k, v, 0, "float32")
+    got = tda.decode_attention(*(torch.tensor(a) for a in (q, k, v)), 0)
+    np.testing.assert_array_equal(got.numpy(), np.zeros_like(pallas))
+    np.testing.assert_array_equal(pallas, np.zeros_like(pallas))
+    np.testing.assert_allclose(
+        oracle, np.broadcast_to(v.mean(axis=2).repeat(2, axis=1), oracle.shape),
+        rtol=1e-5, atol=1e-5)
+    # one row empty, one full, in one call
+    got = tda.decode_attention(*(torch.tensor(a) for a in (q, k, v)),
+                               torch.tensor([0, 64], dtype=torch.int32))
+    np.testing.assert_array_equal(got[0].numpy(), np.zeros((4, 16), np.float32))
+    np.testing.assert_allclose(got[1].numpy(),
+                               _reference(q, k, v, 64, "float32")[0][1],
+                               **tol("float32"))
+
+
+def test_decode_attention_wrapper_on_cpu_is_the_plain_version():
+    q, k, v = (torch.tensor(a) for a in _decode_inputs(2, 4, 2, 64, 16,
+                                                        "float32"))
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, 40)
+    assert tda.decode_attention.launches == before    # no kernel on the CPU
+    torch.testing.assert_close(got, tda.decode_attention_plain(q, k, v, 40))
+
+
+@pytest.mark.parametrize("bad", ["float8", "mixed", "head_width", "kv_heads",
+                                 "shapes", "kv_len", "mode"])
+def test_decode_attention_refuses_what_the_kernel_does_not_take(bad):
+    """Refused on every device, so the CPU sees what the card would."""
+    q, k, v = (torch.tensor(a) for a in _decode_inputs(1, 4, 2, 32, 16,
+                                                        "float32"))
+    n = 8
+    if bad == "float8":
+        k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    elif bad == "mixed":
+        k = k.to(torch.bfloat16)
+    elif bad == "head_width":
+        q, k, v = q[..., :12], k[..., :12], v[..., :12]
+    elif bad == "kv_heads":
+        k, v = k[:, :1].expand(1, 3, 32, 16), v[:, :1].expand(1, 3, 32, 16)
+    elif bad == "shapes":
+        v = v[:, :, :16]
+    elif bad == "kv_len":
+        n = torch.tensor([1.0])
+    else:
+        with pytest.raises(ValueError, match="mode"):
+            tops.decode_attention(q, k, v, n, mode="pallas")
+        with pytest.raises(ValueError, match="cuda"):
+            tops.decode_attention(q, k, v, n, mode="cuda")
+        return
+    for fn in (tda.decode_attention, tda.decode_attention_plain):
+        with pytest.raises(ValueError):
+            fn(q, k, v, n)
+
+
+@pytest.mark.parametrize("case", [
+    ((8, 16, 16, 544, 544), (1, 3, 182)),       # OLMo decode, this slice
+    ((8, 16, 16, 32768, 32768), (1, 5, 6554)),  # OLMo, 32k context
+    ((8, 32, 8, 32768, 32768), (4, 9, 3641)),   # granite-8b's GQA
+    ((8, 16, 16, 544, 0), (1, 1, 1)),           # nothing to attend to
+    ((1, 4, 4, 128, 17), (1, 1, 17)),
+])
+def test_decode_attention_launch_plan(case):
+    """Query heads per block, key splits and keys per split on 132 SMs."""
+    (b, hq, hkv, s, n), want = case
+    assert tda.plan(b, hq, hkv, s, n, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# kernel 7 in bfloat16 and at D = 128
+# ---------------------------------------------------------------------------
+
+# the reference's sweep (tests/test_kernels.py) in bfloat16, and head width
+# 128 (the LM prefill's) in both dtypes: (B, Sq, Skv, Hq, Hkv, D), dtype.
+# The float32 sweep is in tests/test_torch_seqkernels.py.
+SWEEP = [(1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32),
+         (2, 64, 128, 8, 1, 16), (1, 256, 256, 2, 2, 64)]
+D128 = (2, 64, 96, 4, 2, 128)
+FLASH_CASES = ([(shape, "bfloat16") for shape in SWEEP]
+               + [(D128, "bfloat16"), (D128, "float32")])
+
+
+@pytest.mark.parametrize("shape,dtype", FLASH_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_bf16_and_d128_match_pallas_interpret(
+        shape, dtype, causal):
+    b, sq, skv, hq, hkv, d = shape
+    q, k, v = _arrays(((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)),
+                      dtype, sum(shape))
+    jd = DTYPES[dtype][0]
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    want = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal,
+                                           mode="interpret", block_q=32,
+                                           block_k=32), np.float32)
+    got = tfa.flash_attention(*(_torch(a, dtype) for a in (q, k, v)),
+                              causal=causal)
+    assert got.dtype == DTYPES[dtype][1]
+    np.testing.assert_allclose(_np(got), want, **tol(dtype))
+    oracle = np.asarray(jref.flash_attention_ref(jq, jk, jv, causal=causal),
+                        np.float32)
+    np.testing.assert_allclose(_np(got), oracle, **tol(dtype))
+
+
+def test_flash_attention_rows_per_block():
+    """A thread per query row up to D = 64, four at D = 128."""
+    assert [tfa.rows_per_block(d) for d in tfa.HEAD_DIMS] == [128] * 4 + [32]
