@@ -6,7 +6,10 @@
 Phases (any failed check raises and the run exits nonzero):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
-   every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``.
+   every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``,
+   ptxas's registers and spills per kernel, and the SASS of kernel 7's ten
+   instances: each must hold tensor-core products (HMMA) and cp.async
+   copies (LDGSTS), the bfloat16 ones ldmatrix loads (LDSM).
 2. Kernels against their plain PyTorch versions on the card, at
    N in {1, 37, 1000, 5000, 131072} nodes x B in {1, 32} pods, on resets
    with unhealthy nodes and randomized workloads (rtol = atol = 1e-5), and
@@ -52,8 +55,10 @@ hosts in 8 shards with 8 candidates each:
 The attention and Mamba policy classes (kernels 7 and 6):
 
 2c. Kernel 7 (``flash_attention``) against its plain version at the
-    reference's fp32 sweep shapes, S in {1, 37, 1000} and the attention
-    class's main-path shape (32, 5000, 2 heads, D = 8), causal and not
+    reference's fp32 sweep shapes, S in {1, 37, 1000}, two shapes across
+    the 64-row tile edges ((63, 65) at D = 16, (17, 130) GQA 4:1 at
+    D = 128) and the attention class's main-path shape (32, 5000, 2
+    heads, D = 8), causal and not
     (tolerance 3e-5); kernel 6 (``mamba_scan``) at the sweep shapes, the
     mamba class's (1, 32, 8, 4) and (2, 256, 1024, 16) (tolerance 4e-5).
 9.  ``PlacementDaemon`` over ``ClusterSubstrate(fleet_cluster(5000),
@@ -66,7 +71,15 @@ The attention and Mamba policy classes (kernels 7 and 6):
     N = 16,384 (96 requests), each arm one launch of its class's kernel
     per batch, its scores held to the plain run's.
 11. Timings of kernels 7 and 6 (as phase 4), kernel 7 beside
-    ``scaled_dot_product_attention`` on the same tensors (``library_ms``).
+    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
+    device time from a CUDA graph like the kernels': eager calls measure
+    the host's dispatch at the small shapes).
+    An attention kernel's bound is the largest of four times: bytes at the
+    memory rate, its products at the tensor-core rate of the precision
+    that holds the tolerance (bf16, or float32 as 3xTF32), one
+    exponential a visible pair at the SFU rate (16 a clock an SM at
+    ``clocks.max.sm``) and the softmax's other operations at the float32
+    rate; each is printed.
 12. Breakdown of an attention and a mamba batch (as phase 5, 400 requests
     at 500/s), the scorer split into encoder, afterstate rows, score_set,
     the kernel's wrapper and the feasibility mask.
@@ -105,6 +118,7 @@ table; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import pathlib
 import statistics
@@ -183,7 +197,8 @@ CAND_BYTES = 8
 FA_SHAPES = ((1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32),
              (2, 64, 128, 8, 1, 16), (1, 256, 256, 2, 2, 64),
              (3, 1, 1, 2, 2, 8), (3, 37, 37, 2, 2, 8),
-             (3, 1000, 1000, 2, 2, 8))
+             (3, 1000, 1000, 2, 2, 8), (2, 63, 65, 4, 2, 16),
+             (1, 17, 130, 8, 2, 128))
 FA_PATH = (MAIN_B, MAIN_N, MAIN_N, 2, 2, 8)
 FA_TOL = 3e-5                       # the reference's (tests/test_kernels.py)
 # kernel 6 at the sweep shapes, the mamba class's main-path shape (one
@@ -197,12 +212,21 @@ SCAN_TOL = 4e-5
 # at a reduced N: block-local attention over 131,072 nodes in 8 shards
 # would cost ~4 TFLOP per batch in the plain version
 POLICY_ARMS_N, POLICY_ARM_REQUESTS = 16384, 96
-# Operation counts, from the sources.  Kernel 7 per visible (query, key)
-# pair: the QK and PV multiply-adds (4 D) and the scale, max, subtract,
-# exp and sum (5); per query row D divisions.  Kernel 6 per (batch, step,
+# Operation counts, from the sources.  Kernel 6 per (batch, step,
 # channel, state): dt·a, exp, ·h, (dt·x)·B, +, ·C, + (7); per (batch,
-# step, channel): dt·x, x·D, + (3).
+# step, channel): dt·x, x·D, + (3).  Kernels 7 and 8: attention_bound.
 SCAN_OPS_PER_STATE, SCAN_OPS_PER_CHANNEL = 7, 3
+# Attention per visible (query, key) pair and query head: the QK and PV
+# products (2·2·D operations) on the tensor cores, at the bf16 peak
+# (NVIDIA data sheets, dense) in bfloat16 and as 3xTF32 (three products,
+# TF32 at half the bf16 peak) in float32, the precision that holds the
+# reference's 3e-5; one exponential on the special-function units, 16 a
+# clock on each SM; and the scale, max, subtraction and sum (4) at the
+# float32 peak.
+BF16_PEAK = {"sxm": 989e12, "pcie": 756e12, "nvl": 835e12}
+TF32_PRODUCTS = 3
+SFU_PER_CLOCK_PER_SM = 16
+SOFTMAX_OPS_PER_PAIR = 4
 
 
 def peaks(name: str):
@@ -1076,16 +1100,46 @@ def phase_sharded_breakdown(device):
 # ---------------------------------------------------------------------------
 
 
-def fa_bound(shape, causal, name):
-    """(ms, by, bytes, ops) of one attention call: q, k, v read once, the
-    output written once; the operations of every visible pair."""
-    b, sq, skv, hq, hkv, d = shape
-    rows = np.arange(sq)
-    pairs = (int(np.minimum(skv, rows + skv - sq + 1).sum()) if causal
-             else sq * skv)
-    ops = b * hq * (pairs * (4 * d + 5) + sq * d)
-    nbytes = 4 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
-    return (*roofline(nbytes, ops, name), nbytes, ops)
+@functools.cache
+def sfu_rate():
+    """Exponentials a second: 16 a clock on each SM at the card's maximum
+    SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    print(f"bound: exponentials at {SFU_PER_CLOCK_PER_SM} a clock x {sms} "
+          f"SMs x {mhz} MHz (clocks.max.sm) = {rate}/s")
+    return rate
+
+
+def attention_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
+    """(ms, by, bytes, ops, terms) of one attention call with ``pairs``
+    visible (query, key) pairs per (batch, query head): the largest of
+    q, k, v read once and the output written once at the memory rate, the
+    products, the exponentials and the softmax's other operations, each
+    at its rate (above).  ``terms`` holds the four times in ms."""
+    nbytes = itemsize * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    n = b * hq * pairs
+    key, (f32_peak, bw) = peaks(name)
+    if itemsize == 2:
+        products, mma_peak = 4 * d * n, BF16_PEAK[key]
+    else:
+        products, mma_peak = TF32_PRODUCTS * 4 * d * n, BF16_PEAK[key] / 2
+    terms = {"bytes": nbytes / bw * 1e3,
+             "products": products / mma_peak * 1e3,
+             "exponentials": n / sfu_rate() * 1e3,
+             "softmax": SOFTMAX_OPS_PER_PAIR * n / f32_peak * 1e3}
+    by = max(terms, key=terms.get)
+    return (terms[by], "bytes" if by == "bytes" else "operations", nbytes,
+            products + (SOFTMAX_OPS_PER_PAIR + 1) * n, terms)
+
+
+def causal_pairs(sq, skv):
+    """Visible (query, key) pairs of one head under causal."""
+    return int(np.minimum(skv, np.arange(sq) + skv - sq + 1).sum())
 
 
 def scan_bound(shape, name):
@@ -1355,8 +1409,8 @@ def phase_seq_timings(device, name):
     """Kernels 7 and 6 at their main paths' shapes: device time from a CUDA
     graph, the plain versions' likewise, the bound from these inputs, and
     for kernel 7 ``torch.nn.functional.scaled_dot_product_attention`` on
-    the same tensors in PyTorch's (B, H, S, D) layout (``library_ms``,
-    eager calls between CUDA events; the port never calls it)."""
+    the same tensors in PyTorch's (B, H, S, D) layout (``library_ms``, a
+    CUDA graph likewise; the port never calls it)."""
     from repro_torch.kernels import flash_attention as fa, mamba_scan as ms
 
     rows = {}
@@ -1369,22 +1423,26 @@ def phase_seq_timings(device, name):
     plain_ms = graph_time_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=False), 3, reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = cuda_time_ms(
+    library_ms = graph_time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
         20)
     lib_err = float((torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt).transpose(1, 2) - fa.flash_attention(
             q, k, v, causal=False)).abs().max())
-    b_ms, b_by, nbytes, n_ops = fa_bound(FA_PATH, False, name)
+    b, sq, skv, hq, hkv, d = FA_PATH
+    b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+        b, hq, hkv, sq, skv, d, sq * skv, 4, name)
     rows["flash_attention"] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                    bound_ms=b_ms, bound_by=b_by,
-                                   library_ms=library_ms)
+                                   library_ms=library_ms,
+                                   bound_terms_ms=terms)
     print(f"timing flash_attention (B, Sq, Skv, Hq, Hkv, D)={FA_PATH}: "
           f"kernel_ms={kernel_ms} plain_ms={plain_ms} (device time, CUDA "
           f"graph) kernel_call_ms={call_ms} library_ms={library_ms} (SDPA, "
-          f"eager calls; max_abs_diff to the kernel {lib_err}) "
+          f"CUDA graph; max_abs_diff to the kernel {lib_err}) "
           f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
-          f"{peaks(name)[0]} peaks) kernel/bound={kernel_ms / b_ms}")
+          f"{peaks(name)[0]} peaks; terms_ms {terms}) "
+          f"kernel/bound={kernel_ms / b_ms}")
     for shape, iters in ((SCAN_PATH, 200), (SCAN_WIDE, 50)):
         args = _scan_args(shape, device, SEED + 13)
         kernel_ms = graph_time_ms(lambda: ms.mamba_scan(*args), iters)
@@ -1439,23 +1497,6 @@ OLMO_1B = ("olmo-1b", 16, 2048, 16, 128, 8192, 50304)
 LOGIT_TOL = 5e-2
 F32_LOGIT_TOL = 1e-4
 DECODE_PROFILE_STEPS = 8
-# bf16 tensor-core peaks, dense (NVIDIA data sheets), for the products of
-# kernels 7 and 8 in bfloat16
-BF16_PEAK = {"sxm": 989e12, "pcie": 756e12, "nvl": 835e12}
-
-
-def attention_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
-    """(ms, by, bytes, ops) of one attention call: q, k, v read once, the
-    output written once; the two products (4·D operations per visible
-    (query, key) pair and head) at the tensor-core peak in bfloat16, and
-    with the softmax's 5 per pair on the float32 cores in float32."""
-    nbytes = itemsize * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
-    ops = b * hq * pairs * (4 * d + (5 if itemsize == 4 else 0))
-    key, (f32_peak, bw) = peaks(name)
-    peak = f32_peak if itemsize == 4 else BF16_PEAK[key]
-    t_bytes, t_ops = nbytes / bw, ops / peak
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops)
 
 
 def _decode_case(shape, dtype, device, seed, cache_layout=False):
@@ -1700,7 +1741,7 @@ def phase_lm_timings(device, name):
     """Kernels 8 and 7 at the LM path's shapes: device time from a CUDA
     graph, the plain versions' likewise, the bound from these inputs, and
     ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
-    eager calls; the backend's kernel recorded)."""
+    a CUDA graph likewise; the backend's kernel recorded)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
@@ -1720,25 +1761,25 @@ def phase_lm_timings(device, name):
                                  3, reps=3)
         mask = (torch.arange(s, device=device) < n)[None, None, None, :]
         lib, backend = _library_attention(q[:, :, None], k, v, mask=mask)
-        library_ms = cuda_time_ms(lib, iters)
+        library_ms = graph_time_ms(lib, iters)
         lib_err = float((lib()[:, :, 0].float() - da.decode_attention(
             q, k, v, n).float()).abs().max())
-        b_ms, b_by, nbytes, n_ops = attention_bound(b, hq, hkv, 1, n, d,
-                                                    n, 2, name)
+        b_ms, b_by, nbytes, n_ops, terms = attention_bound(b, hq, hkv, 1, n,
+                                                           d, n, 2, name)
         gc, splits, split_len = da.plan(b, hq, hkv, s, n,
                                         da._sm_count(device))
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=library_ms,
                            shape=list(shape), kv_len=n,
-                           library_kernel=backend)
+                           library_kernel=backend, bound_terms_ms=terms)
         print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)={shape} "
               f"kv_len={n} bf16 (B, S, Hkv, D) cache view: kernel_ms={ms} "
               f"plain_ms={plain_ms} (device time, CUDA graph) "
               f"kernel_call_ms={call_ms} library_ms={library_ms} (SDPA with "
-              f"a kv_len mask, eager; kernel {backend[:90]}; max_abs_diff "
+              f"a kv_len mask, CUDA graph; kernel {backend[:90]}; max_abs_diff "
               f"{lib_err}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
-              f"ops={n_ops}, {peaks(name)[0]} peaks) kernel/bound="
-              f"{ms / b_ms} plan=(heads per block {gc}, splits {splits}, "
+              f"ops={n_ops}, {peaks(name)[0]} peaks; terms_ms {terms}) "
+              f"kernel/bound={ms / b_ms} plan=(heads per block {gc}, splits {splits}, "
               f"keys per split {split_len})")
         del q, k, v
     b, sq, skv, hq, hkv, d = FA_LM_PREFILL
@@ -1751,21 +1792,22 @@ def phase_lm_timings(device, name):
         q, k, v, causal=True), 3, reps=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib, backend = _library_attention(qt, kt, vt, causal=True)
-    library_ms = cuda_time_ms(lib, 20)
+    library_ms = graph_time_ms(lib, 20)
     lib_err = float((lib().transpose(1, 2).float() - fa.flash_attention(
         q, k, v, causal=True).float()).abs().max())
-    pairs = sq * (sq + 1) // 2
-    b_ms, b_by, nbytes, n_ops = attention_bound(b, hq, hkv, sq, skv, d, pairs,
-                                                2, name)
+    b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+        b, hq, hkv, sq, skv, d, causal_pairs(sq, skv), 2, name)
     rows["prefill"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=library_ms,
-                           shape=list(FA_LM_PREFILL), library_kernel=backend)
+                           shape=list(FA_LM_PREFILL), library_kernel=backend,
+                           bound_terms_ms=terms)
     print(f"timing flash_attention LM prefill (B, Sq, Skv, Hq, Hkv, D)="
           f"{FA_LM_PREFILL} bf16 causal: kernel_ms={ms} plain_ms={plain_ms} "
           f"(device time, CUDA graph) kernel_call_ms={call_ms} "
-          f"library_ms={library_ms} (SDPA, eager; kernel {backend[:90]}; "
+          f"library_ms={library_ms} (SDPA, CUDA graph; kernel {backend[:90]}; "
           f"max_abs_diff {lib_err}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
-          f"ops={n_ops}, {peaks(name)[0]} peaks) kernel/bound={ms / b_ms}")
+          f"ops={n_ops}, {peaks(name)[0]} peaks; terms_ms {terms}) "
+          f"kernel/bound={ms / b_ms}")
     for key, fn in wrappers().items():          # timing launches don't count
         fn.launches = saved[key]
     return rows
@@ -1839,6 +1881,42 @@ def phase_lm_breakdown(device, res):
               f"calls_per_step={c / steps}")
 
 
+def sass_counts(source):
+    """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
+    library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
+    copies (LDGSTS) and ldmatrix loads (LDSM)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_build._lib_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(("HMMA", "LDGSTS", "LDSM"), 0)
+        elif fn:
+            for op in re.findall(r"\b(HMMA|LDGSTS|LDSM)\b", line):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_kernel7_sass():
+    """Every instance of kernel 7 runs its products on the tensor cores
+    (HMMA) and loads K/V tiles with cp.async (LDGSTS); the bfloat16 ones
+    read their fragments with ldmatrix (LDSM)."""
+    counts = sass_counts("flash_attention")
+    kernels = {fn: c for fn, c in counts.items()
+               if "flash_attention_" in fn}
+    assert len(kernels) == 10, sorted(counts)
+    for fn, c in sorted(kernels.items()):
+        print(f"sass[flash_attention] {fn}: {c}")
+        assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
+        assert "bf16" not in fn or c["LDSM"] > 0, (fn, c)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -1859,8 +1937,10 @@ def main() -> int:
     print(f"build: {secs} (wall {time.perf_counter() - t0:.2f} s)")
     for src, log in _build.BUILD_LOG.items():
         for line in log["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"ptxas[{src}]: {line.strip()}")
+    check_kernel7_sass()
 
     max_err = phase_kernels(device)
     errs = phase_new_kernels(device)
@@ -1938,7 +2018,8 @@ def main() -> int:
             kernels[-1]["max_abs_err_by_dtype"] = dict(
                 lm_errs[key], **({"float32": errs[key]}
                                  if key == "flash_attention" else {}))
-        for extra in ("other_shapes", "shape", "kv_len", "library_kernel"):
+        for extra in ("other_shapes", "shape", "kv_len", "library_kernel",
+                      "bound_terms_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(smi)

@@ -1,4 +1,5 @@
-// Blocked online-softmax attention forward for Hopper (sm_90a).
+// Blocked online-softmax attention forward for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` of
 // src/repro/kernels/flash_attention.py (function at :77, pallas_call at
@@ -6,236 +7,589 @@
 // k, v (B, Skv, Hkv, D) in that layout, float32 or bfloat16, GQA groups of
 // Hq / Hkv query heads per key/value head, under `causal` the diagonal at
 // Skv - Sq, and the output acc / max(l, 1e-30) in q's dtype.  Scores,
-// exponentials and sums are float32 in both dtypes.  Its callers are the
-// "attention" policy class (one launch scores a whole daemon batch,
-// (B pods, N candidate nodes, 2 heads, D = 8), float32) and the LM prefill
-// (one launch per attention layer, (B, S, Hq, 128), bfloat16).
+// exponentials and sums are float32 in both dtypes.  In bfloat16 the
+// probabilities are rounded to bfloat16 for the PV product on the tensor
+// cores, where the TPU kernel keeps them in float32 (its v is float32 by
+// :64); the outputs differ by about one bfloat16 step, inside the 2e-2
+// tolerance.  Its callers are the "attention" policy class (one launch
+// scores a whole daemon batch, (B pods, N candidate nodes, 2 heads, D = 8),
+// float32) and the LM prefill (one launch per attention layer,
+// (B, S, Hq, 128), bfloat16).
 //
-// Design.  The TPU kernel walks key blocks in the sequential last grid
-// axis and carries (m, l, acc) in VMEM scratch.  Here a block of 128
-// threads holds 128 / LANES query rows of one (batch, head): LANES threads
-// per row, each with D / LANES dims of q and acc, m and l in registers
-// (LANES = 1 up to D = 64; at D = 128 four lanes, so q and acc stay at 32
-// floats a thread and do not spill, and the partial dot products are summed
-// by two __shfl_xor_sync).  The key loop runs inside the block: tiles of
-// k and v are staged in shared memory in the input's dtype with 16-byte
-// loads (every row group reads the same key, so the loads broadcast),
-// scored 16 keys at a time into registers, and folded into the running
-// softmax once per 16 keys.  The kernel computes its own offsets, so no
-// transpose precedes it; ragged Sq and Skv are masked by index (no
-// block-size divisibility, unlike the TPU kernel's assert); under
-// `causal`, tiles wholly above the block's last diagonal are skipped, as
-// the TPU kernel's `run` guard does.  Scores are kept in base 2 (q k^T
-// scaled by log2(e) / sqrt(D), exp2f), which is the same softmax up to
-// rounding.  Everything is float32 FMAs on CUDA cores, no TF32.  With
-// LANES = 1 and float32 the instructions, and so the results, are those of
-// the float32-only kernel this one grew from.
+// Design (FlashAttention-2's structure on mma.sync).  The TPU kernel walks
+// key blocks in the sequential last grid axis and carries (m, l, acc) in
+// VMEM scratch.  Here a block of 4 warps holds FA_ROWS = 64 query rows of
+// one (batch, query head), 16 a warp, and walks the keys itself in tiles
+// of KEYS (32 in bfloat16, 64 in float32; Tiles below).  The Q tile and a
+// ring of FA_STAGES = 2 K/V tiles live in dynamic shared memory, filled by
+// 16-byte cp.async.cg copies: the next tile's copy is in flight while this
+// tile is computed.  A warp computes its 16 x KEYS scores S = Q K^T with
+// mma.sync, runs the online softmax on the accumulator fragments in
+// registers (row max and row sum across the 4 lanes of a quad by
+// __shfl_xor_sync; base 2 with log2(e) / sqrt(D) folded into one FFMA),
+// and adds P V into its 16 x D output fragments with mma.sync, P taken
+// straight from the score fragments.  The output is staged through the
+// warp's rows of the Q tile and written with 16-byte stores.  Under
+// `causal` a block stops at the last tile its rows can see and masks only
+// the tiles that cross the diagonal or the ragged end of Skv; query
+// blocks run heaviest-first (the block index along Sq is reversed), so the
+// causal tail of the grid is short.  Ragged Sq and Skv are masked by index
+// (cp.async zero-fills rows past the end).  The running max starts at
+// -1e30, not -inf, so a fully masked tile row gives exp2(-inf) = 0 and not
+// NaN; a NaN score is dropped by fmaxf but reaches l and acc through
+// exp2(NaN), so a NaN input still gives NaN rows.
 //
-// What bounds it.  Per (query, key) pair 4D + 5 operations (QK, PV, the
-// scale, max, subtract, exp and sum): at the policy path's shape
-// (32, 5000, 2, 8) 1.6e9 pairs and ~59 GFLOP, ~0.88 ms at 67 TFLOP/s,
-// against ~41 MB moved (~0.012 ms): operations bound.  At the LM prefill
-// (8, 512, 16, 128) bfloat16, causal, the two products are ~34 GFLOP,
-// ~0.035 ms on the bf16 tensor cores, against 33.6 MB (~0.010 ms).  The
-// design issues float32 FMAs (and, in bfloat16, a conversion per element
-// read from shared memory) on CUDA cores; tensor cores (mma.sync / wgmma)
-// would lift that ceiling and are later work.  Rows where Sq is not a
-// multiple of the block's rows leave threads idle in the last block of
-// each (batch, head).
+// bfloat16: mma.sync.m16n8k16 with float32 accumulators.  Q's and K's
+// fragments are read with ldmatrix, V's with ldmatrix.trans; Q's again
+// each tile, which keeps the D = 128 instance at 128 registers (4 blocks
+// an SM).  P is rounded to bfloat16 and packed in registers as the A
+// operand of the PV product: the m16n8k16 accumulator layout of two 8-key
+// score tiles is the A layout of one 16-key step.  D = 8 is one k-step of
+// 16 with the upper 8 dims zero in registers.  Rows of a tile are padded
+// to an odd number of 16-byte chunks, so ldmatrix is free of bank
+// conflicts.
+//
+// float32: mma.sync.m16n8k8 in TF32 with 3xTF32 split precision.  Each
+// operand x becomes hi (x with the low 13 mantissa bits cleared) and
+// lo = x - hi, and a product is lo·hi + hi·lo + hi·hi, which keeps the
+// 3e-5 tolerance (TF32 alone gives 4e-5 to 5e-4 at the path's values).
+// The split is two full-rate operations: cvt.rna.tf32.f32 runs at a
+// quarter of the rate, and at ~4 splits an exponential it set the pace
+// (1.86 ms at the policy path).  The m16n8k8 accumulator layout (a lane
+// holds keys 2t, 2t + 1 of a row) is not its A layout (keys t, t + 4);
+// instead of shuffles, V's rows are read in the matching order (PV
+// k-index t is key 2t, t + 4 is key 2t + 1), so P's repack costs no
+// shuffle.  Each tile's PV product is summed from zero on the tensor
+// cores and added to the output on the CUDA cores: the tensor core's
+// float32 sums round toward zero, and over 5,000 keys in one accumulator
+// that bias reached 2e-5 of the 3e-5 tolerance.  Rows of a tile are padded
+// by 4 floats, so the fragment reads are free of bank conflicts.
+//
+// What bounds it (chip_smoke.py's attention_bound: the largest of bytes,
+// the products, the exponentials and the other softmax operations, each
+// at its rate).  At the LM prefill (8, 512, 16, 128), bfloat16, causal:
+// 16.8 M visible pairs, 8.6 GFLOP in the two products (0.0087 ms at 989
+// TFLOP/s) against 67 MB of q, k, v and o (0.020 ms at 3.35 TB/s): bytes.
+// At the policy path (32, 5000, 2, 8), float32: 1.6e9 pairs, one
+// exponential each (0.38 ms at 16 a clock an SM on 132 SMs at 1.98 GHz),
+// three TF32 products (0.31 ms at 495 TFLOP/s), 41 MB (0.012 ms): the
+// exponentials.  mma.sync reaches a fraction of the tensor-core peak that
+// wgmma reaches; the next step for the prefill is wgmma with TMA and warp
+// specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define FA_THREADS 128   // threads per block
-#define FA_CHUNK 16      // keys scored into registers per softmax update
-#define FA_TILE_BYTES 16384   // bytes of k (and as many of v) per tile
+#define FA_THREADS 128   // 4 warps
+#define FA_ROWS 64       // query rows a block, 16 a warp
+#define FA_STAGES 2      // K/V tiles in the cp.async ring
+#define FA_NEG -1e30f    // the running max before any key (finite: no NaN)
 
-// 16 bytes of T as floats
-__device__ __forceinline__ void unpack(const uint4& t, float* x, float) {
-  const float4 f = *reinterpret_cast<const float4*>(&t);
-  x[0] = f.x;
-  x[1] = f.y;
-  x[2] = f.z;
-  x[3] = f.w;
+typedef __nv_bfloat16 bf16;
+
+// The tiling of an instance: KEYS keys a K/V tile (bf16 32: at D = 128 the
+// lane then holds 16 score and 64 output floats in 128 registers, 4
+// blocks an SM; float32 64), PITCH bytes a tile row in shared memory (bf16
+// an odd number of 16-byte chunks, float32 D + 4 floats), SMEM the dynamic
+// shared bytes of the Q tile and the K/V ring.  plan() in
+// kernels/flash_attention.py mirrors it.
+template <typename T, int D>
+struct Tiles {
+  static constexpr bool BF16 = sizeof(T) == 2;
+  static constexpr int KEYS = BF16 ? 32 : 64;
+  static constexpr int PITCH = BF16 ? 16 * ((D / 8) | 1) : 4 * (D + 4);
+  static constexpr int SMEM = PITCH * (FA_ROWS + 2 * FA_STAGES * KEYS);
+  static_assert(SMEM <= 232448, "past a block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void unpack(const uint4& t, float* x,
-                                       __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
+// 16 bytes global -> shared; zero-filled when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of one head (rows `stride` elements apart)
+// into a shared tile of row pitch PITCH; rows at or past `limit` are zeros
+template <typename T, int D, int PITCH, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* base,
+                                          size_t stride, int r0, int limit) {
+  constexpr int CH = D * (int)sizeof(T) / 16;   // 16-byte chunks per row
+  constexpr int VEC = 16 / (int)sizeof(T);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * CH; i += FA_THREADS) {
+    const int r = i / CH, c = i - r * CH;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * PITCH + c * 16,
+               base + (size_t)(ok ? r0 + r : 0) * stride + c * VEC, ok);
   }
 }
 
-// floats as 16 bytes of T
-__device__ __forceinline__ uint4 pack(const float* x, float) {
-  const float4 f = make_float4(x[0], x[1], x[2], x[3]);
-  return *reinterpret_cast<const uint4*>(&f);
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
+                                          uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
 }
 
-__device__ __forceinline__ uint4 pack(const float* x, __nv_bfloat16) {
-  uint4 t;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+// c (16 x 8, float32) += a (16 x 16, bf16) b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16 x 8, float32) += a (16 x 8, tf32) b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x with the low 13 mantissa bits cleared (a TF32
+// value) and lo = x - hi, exact in float32, of which the tensor core reads
+// the TF32 part (it ignores the low 13 bits): the product keeps ~2^-20 of
+// x.  Two full-rate operations; cvt.rna.tf32.f32 runs at a quarter of
+// the rate, and at ~4 splits an exponential it set the pace.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b in 3xTF32: the two small cross terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float ex2(float x) {   // ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fragment rows of a lane: g = lane / 4 and g + 8 of the warp's 16; the
+// accumulator element e of an 8-column tile is row g + 8 (e / 2), column
+// 2 (lane % 4) + e % 2.
+
+// Mask the scores of keys a row does not see (key >= kend[row]).
+template <int NT>
+__device__ __forceinline__ void mask_tile(float (&s)[NT][4], int t0,
+                                          const int (&kend)[2]) {
+  const int c0 = t0 + 2 * (threadIdx.x & 3);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  return t;
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + j * 8 + (e & 1) >= kend[e >> 1]) s[j][e] = -INFINITY;
 }
 
-template <typename T, int D, int LANES>
-__global__ void __launch_bounds__(FA_THREADS) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int sq, int skv, int hq,
-    int hkv, int causal, float scale_log2) {
-  constexpr int VEC = 16 / sizeof(T);            // elements per 16 bytes
-  constexpr int ROW16 = D / VEC;                 // 16-byte words per row
-  constexpr int DL = D / LANES;                  // dims a lane owns
-  constexpr int NV = DL / VEC;                   // its 16-byte words
-  constexpr int ROWS = FA_THREADS / LANES;       // query rows per block
-  constexpr int TILE_RAW = FA_TILE_BYTES / (D * (int)sizeof(T));
-  constexpr int TILE_K = TILE_RAW < 64 ? TILE_RAW : 64;
-  static_assert(NV >= 1 && DL % VEC == 0, "a lane owns whole 16-byte words");
-  static_assert(TILE_K % FA_CHUNK == 0, "tile is whole chunks");
-  __shared__ uint4 s_k[TILE_K][ROW16];
-  __shared__ uint4 s_v[TILE_K][ROW16];
-  const int b = blockIdx.x / hq;
-  const int h = blockIdx.x - b * hq;
+// One tile of the online softmax for the lane's two rows: s becomes p
+// (float32) in place; m, l (the lane's partial row sums) and acc are
+// rescaled to the new running max.
+template <int NT, int DT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2], float (&acc)[DT][4],
+                                             float scale) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float corr = ex2((m[h] - mx) * scale);   // 0 on the first key
+    const float off = -mx * scale;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const float p = ex2(fmaf(s[j][e], scale, off));   // NaN stays NaN
+        s[j][e] = p;
+        sum += p;
+      }
+    l[h] = l[h] * corr + sum;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      acc[n][2 * h] *= corr;
+      acc[n][2 * h + 1] *= corr;
+    }
+    m[h] = mx;
+  }
+}
+
+// The block's query rows q0 .. q0 + 63, heaviest first; the K/V tiles any
+// of them sees; and the key ends of the lane's two rows.
+template <int KEYS>
+struct Rows {
+  int q0, n_tiles, kend[2];
+  __device__ __forceinline__ Rows(int sq, int skv, int causal) {
+    q0 = (gridDim.y - 1 - blockIdx.y) * FA_ROWS;
+    const int diag = skv - sq;
+    const int n_keys =
+        causal ? min(skv, min(sq, q0 + FA_ROWS) + diag) : skv;
+    n_tiles = (n_keys + KEYS - 1) / KEYS;
+    const int r = q0 + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+    kend[0] = causal ? min(skv, r + diag + 1) : skv;
+    kend[1] = causal ? min(skv, r + 8 + diag + 1) : skv;
+  }
+};
+
+// acc / max(l, 1e-30) of the warp's 16 rows, through its own rows of the
+// Q tile at `stage`, to rows q0 + 16 warp .. of the output, 16 bytes at a
+// time.
+template <typename T, int D, int PITCH>
+__device__ __forceinline__ void store_out(float (&acc)[D / 8][4],
+                                          float (&l)[2], unsigned char* stage,
+                                          T* o, int q0, int sq,
+                                          size_t ostride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  unsigned char* rows = stage + warp * 16 * PITCH;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float den = l[h];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = acc[n][2 * h] / den, x1 = acc[n][2 * h + 1] / den;
+      unsigned char* p =
+          rows + (g + 8 * h) * PITCH + (n * 8 + 2 * tig) * (int)sizeof(T);
+      if constexpr (sizeof(T) == 2)
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(x0, x1);
+      else
+        *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  constexpr int VEC = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i - r * CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < sq)
+      *reinterpret_cast<uint4*>(o + (size_t)row * ostride + c * VEC) =
+          *reinterpret_cast<const uint4*>(rows + r * PITCH + c * 16);
+  }
+}
+
+// 4 blocks an SM: at D = 128 that caps a lane at 128 registers, which the
+// instance fits without spilling
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS, 4) flash_attention_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int skv, int hq,
+    int hkv, int causal, float scale) {
+  using TL = Tiles<bf16, D>;
+  constexpr int KEYS = TL::KEYS, PITCH = TL::PITCH;
+  constexpr int TILE = KEYS * PITCH;
+  constexpr int KS = D < 16 ? 1 : D / 16;   // k-steps of Q K^T
+  constexpr int NT = KEYS / 8;              // 8-key score tiles
+  constexpr int DT = D / 8;                 // 8-wide output tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s_q = smem_addr(smem);
+  const uint32_t s_kv = s_q + FA_ROWS * PITCH;
+  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
   const int hk = h / (hq / hkv);
-  const int row0 = blockIdx.y * ROWS;
-  const int row = row0 + threadIdx.x / LANES;
-  const int part = threadIdx.x % LANES;          // the lane's slice of D
-  const bool live = row < sq;
-  const int diag = skv - sq;
-  // keys this row sees; and keys any row of the block sees (the loop bound)
-  const int my_end = !live ? 0 : causal ? min(skv, row + diag + 1) : skv;
-  const int blk_end =
-      causal ? min(skv, min(sq, row0 + ROWS) - 1 + diag + 1) : skv;
-  // the lanes of one row: they share my_end, so they run the same chunks
-  const unsigned gmask =
-      LANES == 1 ? 1u
-                 : ((1u << LANES) - 1u) << ((threadIdx.x & 31) & ~(LANES - 1));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Rows<KEYS> rows(sq, skv, causal);
+  const size_t qstride = (size_t)hq * D, kstride = (size_t)hkv * D;
+  const bf16* kb = k + ((size_t)b * skv * hkv + hk) * D;
+  const bf16* vb = v + ((size_t)b * skv * hkv + hk) * D;
 
-  float qr[DL], acc[DL];
-  const size_t qoff =
-      (((size_t)b * sq + (live ? row : 0)) * hq + h) * D + part * DL;
-  const T zero_t = T();
-#pragma unroll
-  for (int c = 0; c < NV; ++c)
-    unpack(reinterpret_cast<const uint4*>(q + qoff)[c], qr + c * VEC, zero_t);
-#pragma unroll
-  for (int d = 0; d < DL; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  load_tile<bf16, D, PITCH, FA_ROWS>(s_q, q + ((size_t)b * sq * hq + h) * D,
+                                     qstride, rows.q0, sq);
+  load_tile<bf16, D, PITCH, KEYS>(s_kv, kb, kstride, 0, skv);
+  load_tile<bf16, D, PITCH, KEYS>(s_kv + TILE, vb, kstride, 0, skv);
+  cp_async_commit();
 
-  const size_t kstride = (size_t)hkv * D;       // between consecutive keys
-  const T* kb = k + ((size_t)b * skv * hkv + hk) * D;
-  const T* vb = v + ((size_t)b * skv * hkv + hk) * D;
-  for (int t0 = 0; t0 < blk_end; t0 += TILE_K) {
-    __syncthreads();                            // the last tile is consumed
-    for (int i = threadIdx.x; i < TILE_K * ROW16; i += FA_THREADS) {
-      const int j = i / ROW16, c = i - j * ROW16;
-      const int key = t0 + j;
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = kk;
-      if (key < skv) {
-        kk = reinterpret_cast<const uint4*>(kb + key * kstride)[c];
-        vv = reinterpret_cast<const uint4*>(vb + key * kstride)[c];
-      }
-      s_k[j][c] = kk;
-      s_v[j][c] = vv;
+  float acc[DT][4], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int mi = lane >> 3, r8 = lane & 7;   // ldmatrix: matrix, its row
+  const uint32_t qrow = s_q + warp * 16 * PITCH;
+
+  for (int t = 0; t < rows.n_tiles; ++t) {
+    if (t + 1 < rows.n_tiles) {
+      const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
+      load_tile<bf16, D, PITCH, KEYS>(next, kb, kstride, (t + 1) * KEYS, skv);
+      load_tile<bf16, D, PITCH, KEYS>(next + TILE, vb, kstride,
+                                      (t + 1) * KEYS, skv);
     }
+    cp_async_commit();              // maybe empty: keeps the count uniform
+    cp_async_wait<1>();             // tile t (and Q) have landed
     __syncthreads();
-    const int nk = min(TILE_K, my_end - t0);     // <= 0: nothing visible
-    for (int c0 = 0; c0 < nk; c0 += FA_CHUNK) {
-      float s[FA_CHUNK];
-      float cmax = -INFINITY;
+    const uint32_t sk = s_kv + (t & 1) * 2 * TILE, sv = sk + TILE;
+    float s[NT][4];
 #pragma unroll
-      for (int j = 0; j < FA_CHUNK; ++j) {
-        float dot = 0.f;
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    // S = Q K^T.  Q's fragments are read again each tile (ldmatrix): held
+    // in registers they would cost 4 KS more a lane.
 #pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          float kf[VEC];
-          unpack(s_k[c0 + j][part * NV + c], kf, zero_t);
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (D == 8) {       // K rows are one 16-byte chunk; dims
+        ldsm_x2(qa[0], qa[1], qrow + (lane & 15) * PITCH);   // 8..15 zero
+        qa[2] = qa[3] = 0u;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) dot = fmaf(qr[c * VEC + e], kf[e], dot);
+        for (int j = 0; j < NT; j += 4) {
+          uint32_t kf[4];
+          ldsm_x4(kf, sk + (j * 8 + lane) * PITCH);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_bf16(s[j + i], qa, kf[i], 0u);
         }
+      } else {
+        ldsm_x4(qa, qrow + ((mi & 1) * 8 + r8) * PITCH +
+                        (ks * 16 + (mi >> 1) * 8) * 2);
 #pragma unroll
-        for (int off = 1; off < LANES; off <<= 1)
-          dot += __shfl_xor_sync(gmask, dot, off);
-        s[j] = (c0 + j < nk) ? dot * scale_log2 : -INFINITY;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = exp2f(m - m_new);      // 0 on the first update
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < DL; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < FA_CHUNK; ++j) {
-        const float p = exp2f(s[j] - m_new);     // NaN scores stay NaN
-        l += p;
-#pragma unroll
-        for (int c = 0; c < NV; ++c) {
-          float vf[VEC];
-          unpack(s_v[c0 + j][part * NV + c], vf, zero_t);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[c * VEC + e] = fmaf(p, vf[e], acc[c * VEC + e]);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kf[4];
+          ldsm_x4(kf, sk + ((j + (mi >> 1)) * 8 + r8) * PITCH +
+                          (ks * 16 + (mi & 1) * 8) * 2);
+          mma_bf16(s[j], qa, kf[0], kf[1]);
+          mma_bf16(s[j + 1], qa, kf[2], kf[3]);
         }
       }
-      m = m_new;
     }
-  }
-  if (!live) return;
-  const float den = fmaxf(l, 1e-30f);
+    const int t0 = t * KEYS;
+    if (t0 + KEYS > rows.kend[0]) mask_tile(s, t0, rows.kend);
+    softmax_tile(s, m, l, acc, scale);
 #pragma unroll
-  for (int c = 0; c < NV; ++c) {
-    float out[VEC];
+    for (int kk = 0; kk < NT / 2; ++kk) {  // O += P V, 16 keys a step
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      if constexpr (DT == 1) {
+        uint32_t v0, v1;
+        ldsm_x2_t(v0, v1, sv + (kk * 16 + (lane & 15)) * PITCH);
+        mma_bf16(acc[0], a, v0, v1);
+      } else {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) out[e] = acc[c * VEC + e] / den;
-    reinterpret_cast<uint4*>(o + qoff)[c] = pack(out, zero_t);
+        for (int n = 0; n < DT; n += 2) {
+          uint32_t vf[4];
+          ldsm_x4_t(vf, sv + (kk * 16 + (mi & 1) * 8 + r8) * PITCH +
+                            (n + (mi >> 1)) * 16);
+          mma_bf16(acc[n], a, vf[0], vf[1]);
+          mma_bf16(acc[n + 1], a, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();                // stage t & 1 is free for tile t + 2
   }
+  cp_async_wait<0>();
+  store_out<bf16, D, PITCH>(acc, l, smem, o + ((size_t)b * sq * hq + h) * D,
+                            rows.q0, sq, qstride);
 }
 
-template <typename T, int D, int LANES>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  int b, int sq, int skv, int hq, int hkv, int causal,
-                  float scale_log2, cudaStream_t stream) {
-  constexpr int ROWS = FA_THREADS / LANES;
-  const dim3 grid(b * hq, (sq + ROWS - 1) / ROWS);
-  flash_attention_kernel<T, D, LANES><<<grid, FA_THREADS, 0, stream>>>(
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS) flash_attention_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
+    int hq, int hkv, int causal, float scale) {
+  using TL = Tiles<float, D>;
+  constexpr int KEYS = TL::KEYS, PITCH = TL::PITCH;
+  constexpr int PF = PITCH / 4;             // floats a tile row
+  constexpr int TILE = KEYS * PITCH;
+  constexpr int KS = D / 8;                 // k-steps of Q K^T
+  constexpr int NT = KEYS / 8;
+  constexpr int DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t s_q = smem_addr(smem);
+  const uint32_t s_kv = s_q + FA_ROWS * PITCH;
+  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
+  const int hk = h / (hq / hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const Rows<KEYS> rows(sq, skv, causal);
+  const size_t qstride = (size_t)hq * D, kstride = (size_t)hkv * D;
+  const float* kb = k + ((size_t)b * skv * hkv + hk) * D;
+  const float* vb = v + ((size_t)b * skv * hkv + hk) * D;
+
+  load_tile<float, D, PITCH, FA_ROWS>(s_q, q + ((size_t)b * sq * hq + h) * D,
+                                      qstride, rows.q0, sq);
+  load_tile<float, D, PITCH, KEYS>(s_kv, kb, kstride, 0, skv);
+  load_tile<float, D, PITCH, KEYS>(s_kv + TILE, vb, kstride, 0, skv);
+  cp_async_commit();
+
+  float acc[DT][4], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* fs = reinterpret_cast<const float*>(smem);
+  // Q's A fragment: rows g, g + 8 of the warp's 16; dims 8 ks + tig, + 4
+  const float* qr = fs + (warp * 16 + g) * PF + tig;
+
+  for (int t = 0; t < rows.n_tiles; ++t) {
+    if (t + 1 < rows.n_tiles) {
+      const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
+      load_tile<float, D, PITCH, KEYS>(next, kb, kstride, (t + 1) * KEYS, skv);
+      load_tile<float, D, PITCH, KEYS>(next + TILE, vb, kstride,
+                                       (t + 1) * KEYS, skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* sk = fs + (FA_ROWS * PITCH + (t & 1) * 2 * TILE) / 4;
+    const float* sv = sk + TILE / 4;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[4], al[4];
+      split(qr[ks * 8], ah[0], al[0]);
+      split(qr[8 * PF + ks * 8], ah[1], al[1]);
+      split(qr[ks * 8 + 4], ah[2], al[2]);
+      split(qr[8 * PF + ks * 8 + 4], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {   // B: key 8 j + g, dims 8 ks + tig, + 4
+        const float* kr = sk + (j * 8 + g) * PF + ks * 8 + tig;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(kr[0], bh0, bl0);
+        split(kr[4], bh1, bl1);
+        mma_3xtf32(s[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+    const int t0 = t * KEYS;
+    if (t0 + KEYS > rows.kend[0]) mask_tile(s, t0, rows.kend);
+    softmax_tile(s, m, l, acc, scale);
+    // O += P V.  The tile's product is summed apart from acc and added on
+    // the CUDA cores: the tensor core's float32 sums round toward zero,
+    // which over thousands of keys would bias acc past the tolerance.
+    float pv[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {     // 8 keys a step
+      // A: PV k-index tig is key 2 tig, tig + 4 is key 2 tig + 1, which is
+      // where the score fragment already holds them
+      uint32_t ah[4], al[4];
+      split(s[j][0], ah[0], al[0]);
+      split(s[j][2], ah[1], al[1]);
+      split(s[j][1], ah[2], al[2]);
+      split(s[j][3], ah[3], al[3]);
+      const float* vr = sv + (j * 8 + 2 * tig) * PF + g;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(vr[n * 8], bh0, bl0);
+        split(vr[PF + n * 8], bh1, bl1);
+        mma_3xtf32(pv[n], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_out<float, D, PITCH>(acc, l, smem, o + ((size_t)b * sq * hq + h) * D,
+                             rows.q0, sq, qstride);
+}
+
+template <typename T, int D, typename Kernel>
+static int launch(Kernel kernel, const void* q, const void* k, const void* v,
+                  void* o, int b, int sq, int skv, int hq, int hkv, int causal,
+                  int rows, int smem, float scale, cudaStream_t stream) {
+  using TL = Tiles<T, D>;
+  if (rows != FA_ROWS || smem != TL::SMEM)   // plan() disagrees
+    return (int)cudaErrorInvalidValue;
+  // once per instance (and process); the launch needs it above 48 KB
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(b * hq, (sq + FA_ROWS - 1) / FA_ROWS);
+  kernel<<<grid, FA_THREADS, TL::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, hq, hkv, causal,
-      scale_log2);
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int by_dim(const void* q, const void* k, const void* v, void* o, int b,
-                  int sq, int skv, int hq, int hkv, int d, int causal,
-                  float sl, cudaStream_t st) {
-  switch (d) {
-    case 8: return launch<T, 8, 1>(q, k, v, o, b, sq, skv, hq, hkv, causal, sl, st);
-    case 16: return launch<T, 16, 1>(q, k, v, o, b, sq, skv, hq, hkv, causal, sl, st);
-    case 32: return launch<T, 32, 1>(q, k, v, o, b, sq, skv, hq, hkv, causal, sl, st);
-    case 64: return launch<T, 64, 1>(q, k, v, o, b, sq, skv, hq, hkv, causal, sl, st);
-    case 128: return launch<T, 128, 4>(q, k, v, o, b, sq, skv, hq, hkv, causal, sl, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+#define FA_CASE(T, KERNEL, DIM)                                             \
+  case DIM:                                                                 \
+    return launch<T, DIM>(KERNEL<DIM>, q, k, v, o, b, sq, skv, hq, hkv,     \
+                          causal, rows, smem, scale, st);
 
-// dtype 0: float32, 1: bfloat16.  Rows per block: 128 up to D = 64, 32 at
-// D = 128 (rows_per_block() in kernels/flash_attention.py).
+// dtype 0: float32 (3xTF32), 1: bfloat16.  `rows` and `smem` are
+// plan(d, dtype)'s query rows a block and dynamic shared bytes in
+// kernels/flash_attention.py; a launch whose plan disagrees with this file
+// is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int skv, int hq, int hkv, int d,
-                                      int causal, int dtype, void* stream) {
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+                                      int causal, int dtype, int rows,
+                                      int smem, void* stream) {
+  const float scale = (float)(1.4426950408889634 / sqrt((double)d));
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return by_dim<float>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, scale_log2, st);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, scale_log2, st);
+  if (dtype == 0) {
+    switch (d) {
+      FA_CASE(float, flash_attention_f32, 8)
+      FA_CASE(float, flash_attention_f32, 16)
+      FA_CASE(float, flash_attention_f32, 32)
+      FA_CASE(float, flash_attention_f32, 64)
+      FA_CASE(float, flash_attention_f32, 128)
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      FA_CASE(bf16, flash_attention_bf16, 8)
+      FA_CASE(bf16, flash_attention_bf16, 16)
+      FA_CASE(bf16, flash_attention_bf16, 32)
+      FA_CASE(bf16, flash_attention_bf16, 64)
+      FA_CASE(bf16, flash_attention_bf16, 128)
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

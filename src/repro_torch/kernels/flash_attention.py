@@ -13,9 +13,16 @@ at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
   and never (B, H, Sq, Skv).  The CPU tests use it and ``chip_smoke.py``
   holds the kernel to it.
 * ``flash_attention`` — the wrapper: on CUDA tensors ONE launch of the
-  hand-written kernel ``csrc/flash_attention.cu``, counted in
+  hand-written tensor-core kernel ``csrc/flash_attention.cu`` (bfloat16 on
+  ``mma.sync`` m16n8k16, float32 as 3xTF32 on m16n8k8), counted in
   ``flash_attention.launches``; on CPU tensors the plain version.  Any
-  other device raises.
+  other device raises.  ``plan(d, dtype)`` is the kernel's launch plan.
+
+The plain version keeps the probabilities in float32 for the PV product,
+as the TPU kernel does (its ``p.astype(v.dtype)`` casts to float32: v was
+cast to float32 when its tile was read).  In bfloat16 the CUDA kernel
+rounds them to bfloat16, the A operand of its tensor-core product; the two
+differ by that rounding, well inside the bfloat16 tolerance (2e-2).
 
 Both refuse what the kernel does not take, on every device: a dtype other
 than float32 and bfloat16, mixed dtypes, a head width outside
@@ -27,6 +34,7 @@ sizes, so it has no single value to port.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,16 +43,45 @@ from repro_torch.kernels import _build
 SOURCE = "flash_attention"
 HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's template instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-THREADS = 128                    # threads per block of the kernel
 PLAIN_BLOCK_K = 256              # keys per step of the plain version
+SMEM_LIMIT = 232_448             # shared bytes a block may use (H100)
 
 _F32 = torch.float32
 
 
-def rows_per_block(d: int) -> int:
-    """Query rows a block of the kernel holds: a thread per row up to
-    D = 64, four threads per row at D = 128."""
-    return THREADS // (4 if d == 128 else 1)
+class Plan(NamedTuple):
+    """One launch of the kernel (``csrc/flash_attention.cu``, whose
+    ``Tiles`` this mirrors; it refuses a launch whose ``rows`` or
+    ``smem_bytes`` differ from its own)."""
+    threads: int      # 4 warps
+    rows: int         # query rows per block, 16 a warp
+    keys: int         # keys per K/V tile
+    stages: int       # K/V tiles in the cp.async ring
+    pitch: int        # bytes per tile row in shared memory
+    smem_bytes: int   # dynamic shared memory per block: Q tile and ring
+
+
+KEYS = {torch.bfloat16: 32, torch.float32: 64}   # keys per K/V tile
+
+
+def plan(d: int, dtype: torch.dtype) -> Plan:
+    """The launch plan at head width ``d``.  A bfloat16 tile row is padded
+    to an odd number of 16-byte chunks (ldmatrix without bank conflicts),
+    a float32 one by 4 floats (fragment reads without bank conflicts)."""
+    if d not in HEAD_DIMS or dtype not in DTYPES:
+        raise ValueError(f"flash_attention: no kernel instance for {dtype} "
+                         f"at head width {d}")
+    threads, rows, stages, keys = 128, 64, 2, KEYS[dtype]
+    pitch = 16 * ((d // 8) | 1) if dtype == torch.bfloat16 else 4 * (d + 4)
+    return Plan(threads, rows, keys, stages, pitch,
+                pitch * (rows + 2 * stages * keys))
+
+
+def query_block_order(n_blocks: int) -> list:
+    """The query block that the kernel's blocks take, in launch order
+    (``blockIdx.y`` 0, 1, ...): reversed, so under ``causal`` the blocks
+    with the most keys start first."""
+    return [n_blocks - 1 - y for y in range(n_blocks)]
 
 
 def _dims(q, k, v, causal):
@@ -122,14 +159,15 @@ def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
         _build.check(name, t, q.dtype, shape, device)
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
-    if b * hq >= 2 ** 31 or -(-sq // rows_per_block(d)) > 65535:
+    p = plan(d, q.dtype)
+    if b * hq >= 2 ** 31 or -(-sq // p.rows) > 65535:
         raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
                          f"Sq={sq}")
     out = torch.empty_like(q)
     _build.launch("flash_attention", SOURCE,
-                  [_build.P] * 4 + [_build.I] * 8, device,
+                  [_build.P] * 4 + [_build.I] * 10, device,
                   q, k, v, out, b, sq, skv, hq, hkv, d, int(causal),
-                  DTYPES[q.dtype])
+                  DTYPES[q.dtype], p.rows, p.smem_bytes)
     flash_attention.launches += 1
     return out
 

@@ -304,11 +304,19 @@ def _scan(b, s, di, n, device, seed):
     return tuple(a.to(device) for a in args)
 
 
+# Sq and Skv across the kernel's 64-row tiles (15, 17, 63, 65), causal
+# with Sq < Skv, and GQA 4:1 at D = 128
+FA_EDGES = [(2, 15, 15, 2, 2, 8), (2, 17, 17, 2, 2, 8), (2, 63, 63, 2, 2, 8),
+            (2, 65, 65, 2, 2, 8), (2, 15, 65, 4, 2, 16), (2, 17, 63, 4, 1, 32),
+            (1, 65, 130, 2, 2, 64), (2, 63, 65, 8, 2, 128),
+            (2, 65, 130, 8, 2, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32), (2, 64, 128, 8, 1, 16),
     (1, 256, 256, 2, 2, 64), (3, 37, 37, 2, 2, 8), (2, 1, 1, 2, 1, 8),
-    (32, 5000, 5000, 2, 2, 8)])
+    (32, 5000, 5000, 2, 2, 8)] + FA_EDGES)
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_matches_plain_on_card(cuda_device, shape, causal):
     from repro_torch.kernels import flash_attention as fa
@@ -494,7 +502,7 @@ def test_decode_attention_refuses_on_card(cuda_device):
 @pytest.mark.parametrize("shape", [
     (1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32), (2, 64, 128, 8, 1, 16),
     (1, 256, 256, 2, 2, 64), (3, 37, 37, 2, 2, 8), (2, 100, 130, 4, 2, 128),
-    (8, 512, 512, 16, 16, 128)])
+    (8, 512, 512, 16, 16, 128)] + FA_EDGES)
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_bf16_and_d128_match_plain_on_card(cuda_device, shape,
                                                            causal):
@@ -510,6 +518,27 @@ def test_flash_attention_bf16_and_d128_match_plain_on_card(cuda_device, shape,
         assert got.dtype == dtype
         torch.testing.assert_close(got, ops.flash_attention(
             q, k, v, causal=causal, mode="plain"), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 300, 2, 2, 8),
+                                   (2, 100, 130, 4, 2, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_nan_in_q_gives_the_plain_versions_nan_rows(
+        cuda_device, dtype, shape, causal):
+    """A NaN in one query row makes that (row, head) NaN and nothing else,
+    in both dtypes (the daemon's NaN guard relies on it)."""
+    d = shape[-1]
+    q, k, v = (t.to(dtype) for t in _qkv(*shape, cuda_device, 5))
+    q[0, 5, 1, 3] = float("nan")
+    q[1, -1, 0, 0] = float("nan")
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert bool(torch.isnan(out[0, 5, 1]).all())
+    assert bool(torch.isnan(out[1, -1, 0]).all())
+    assert int(torch.isnan(out).sum()) == 2 * d
 
 
 @pytest.mark.cuda

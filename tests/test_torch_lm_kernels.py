@@ -185,6 +185,12 @@ SWEEP = [(1, 64, 64, 4, 4, 32), (2, 128, 128, 4, 2, 32),
 D128 = (2, 64, 96, 4, 2, 128)
 FLASH_CASES = ([(shape, "bfloat16") for shape in SWEEP]
                + [(D128, "bfloat16"), (D128, "float32")])
+# The plain version against the Pallas kernel: both keep the probabilities
+# in float32 for the PV product (the Pallas kernel's v is float32 by then),
+# so in bfloat16 they differ by the order of float32 sums and at most one
+# rounding of the bfloat16 output (9.8e-4 at most over these cases).
+PALLAS_TOL = {"bfloat16": dict(rtol=2e-3, atol=2e-3),
+              "float32": dict(rtol=3e-5, atol=3e-5)}
 
 
 @pytest.mark.parametrize("shape,dtype", FLASH_CASES)
@@ -202,12 +208,78 @@ def test_flash_attention_plain_bf16_and_d128_match_pallas_interpret(
     got = tfa.flash_attention(*(_torch(a, dtype) for a in (q, k, v)),
                               causal=causal)
     assert got.dtype == DTYPES[dtype][1]
-    np.testing.assert_allclose(_np(got), want, **tol(dtype))
+    np.testing.assert_allclose(_np(got), want, **PALLAS_TOL[dtype])
     oracle = np.asarray(jref.flash_attention_ref(jq, jk, jv, causal=causal),
                         np.float32)
     np.testing.assert_allclose(_np(got), oracle, **tol(dtype))
 
 
 def test_flash_attention_rows_per_block():
-    """A thread per query row up to D = 64, four at D = 128."""
-    assert [tfa.rows_per_block(d) for d in tfa.HEAD_DIMS] == [128] * 4 + [32]
+    """4 warps of 16 query rows and a two-stage ring of K/V tiles, of 32
+    keys in bfloat16 and 64 in float32, at every head width."""
+    for d in tfa.HEAD_DIMS:
+        for dtype, keys in ((torch.bfloat16, 32), (torch.float32, 64)):
+            p = tfa.plan(d, dtype)
+            assert (p.threads, p.rows, p.keys, p.stages) == (128, 64, keys, 2)
+
+
+PLAN_CASES = [(d, dtype) for d in tfa.HEAD_DIMS
+              for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("d,dtype", PLAN_CASES)
+def test_flash_attention_plan_fits_shared_memory(d, dtype):
+    """Dynamic shared bytes: the Q tile and the K/V ring; a block may use
+    232,448 bytes.  Rows are whole 16-byte chunks (cp.async and ldmatrix)
+    and hold a row of D elements."""
+    p = tfa.plan(d, dtype)
+    assert p.smem_bytes == p.pitch * (p.rows + 2 * p.stages * p.keys)
+    assert p.smem_bytes <= tfa.SMEM_LIMIT == 232_448
+    assert p.pitch % 16 == 0 and p.pitch >= d * dtype.itemsize
+
+
+def test_flash_attention_plan_at_the_paths_widths():
+    """The LM prefill's bf16 D = 128 takes 52,224 bytes (four blocks an
+    SM); the policy class's float32 D = 8 15,360."""
+    assert tfa.plan(128, torch.bfloat16).smem_bytes == 52_224
+    assert tfa.plan(128, torch.float32).smem_bytes == 168_960
+    assert tfa.plan(8, torch.float32).smem_bytes == 15_360
+    with pytest.raises(ValueError, match="no kernel instance"):
+        tfa.plan(12, torch.float32)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        tfa.plan(8, torch.float16)
+
+
+def _banks(words):
+    """The 32 four-byte shared-memory banks a set of word addresses hits;
+    a warp's access without conflicts hits each bank at most once."""
+    banks = [w % 32 for w in words]
+    return len(banks) == len(set(banks))
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_flash_attention_tile_rows_avoid_bank_conflicts(d):
+    """bf16: ldmatrix reads one 16-byte chunk of 8 consecutive rows, so the
+    8 must fall in 8 distinct 16-byte bank groups.  float32: a warp's
+    K-fragment read (key g, dim tig) and V-fragment read (key 2 tig, dim
+    g), g < 8 and tig < 4, must hit 32 distinct banks."""
+    pitch = tfa.plan(d, torch.bfloat16).pitch
+    assert len({(r * pitch // 16) % 8 for r in range(8)}) == 8
+    pf = tfa.plan(d, torch.float32).pitch // 4
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    assert _banks([g * pf + tig for g, tig in lanes])
+    assert _banks([2 * tig * pf + g for g, tig in lanes])
+    assert _banks([(2 * tig + 1) * pf + g for g, tig in lanes])
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 1), (64, 64), (65, 130), (512, 512),
+                                    (5000, 5000), (100, 4096)])
+def test_flash_attention_query_blocks_run_heaviest_first(sq, skv):
+    """The launch order visits every query block once, and under causal
+    the keys a block sees never grow along it."""
+    rows = tfa.plan(128, torch.bfloat16).rows
+    n = -(-sq // rows)
+    order = tfa.query_block_order(n)
+    assert sorted(order) == list(range(n))
+    seen = [min(skv, min(sq, (y + 1) * rows) + skv - sq) for y in order]
+    assert seen == sorted(seen, reverse=True)

@@ -119,6 +119,105 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(bad):
             fn(q, k, v, **kw)
 
 
+# ---------------------------------------------------------------------------
+# a numpy model of the CUDA kernel's float32 instance: 3xTF32 products
+# ---------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` does, by bit masks."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_part(x):
+    """The TF32 value the tensor core reads from a float32 register: the
+    low 13 bits ignored."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a, b, terms):
+    """a @ b from TF32 parts in float32 sums: x rounded to TF32 alone
+    (``terms=1``, what TF32 products give), or the kernel's split, hi = x
+    with the low 13 bits cleared and lo = x - hi as the tensor core reads
+    it, lo·hi + hi·lo + hi·hi (``terms=3``)."""
+    if terms == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32_part(a), _tf32_part(b)
+    al, bl = _tf32_part(a - ah), _tf32_part(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_tf32(q, k, v, terms):
+    """The kernel's arithmetic in float32: scores from split products,
+    base-2 softmax with one scale, P split again for the PV product."""
+    d = q.shape[-1]
+    qh, kh, vh = (np.swapaxes(t, 1, 2) for t in (q, k, v))   # (B, H, S, D)
+    scale = np.float32(1.4426950408889634 / np.sqrt(d))
+    s = _matmul_tf32(qh, np.swapaxes(kh, -1, -2), terms)
+    m = s.max(-1, keepdims=True)
+    p = np.exp2(s * scale - m * scale).astype(np.float32)
+    o = _matmul_tf32(p, vh, terms) / p.sum(-1, keepdims=True)
+    return np.swapaxes(o, 1, 2)
+
+
+def _attention_f64(q, k, v):
+    qh, kh, vh = (np.swapaxes(t, 1, 2).astype(np.float64) for t in (q, k, v))
+    s = qh @ np.swapaxes(kh, -1, -2) / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.swapaxes(p @ vh / p.sum(-1, keepdims=True), 1, 2)
+
+
+def _policy_qkv(n, b=2, seed=4):
+    """q, k, v as the attention class makes them: tanh embeddings of
+    afterstate rows through its random projections, 2 heads of 8."""
+    from repro_torch.core import policy as tpol
+
+    params = tpol.init_attention(torch.Generator().manual_seed(seed),
+                                 device="cpu")
+    feats = np.random.default_rng(seed).uniform(
+        0.0, 1.5, (b, n, tpol.FEATURE_DIM)).astype(np.float32)
+    x = tpol._attn_embed(params, torch.tensor(feats))
+    return tuple((x @ params[w]).reshape(b, n, 2, 8).numpy()
+                 for w in ("wq", "wk", "wv"))
+
+
+def test_tf32_split_is_exact_and_its_parts_are_tf32():
+    """The kernel's split: hi (low 13 bits cleared) + lo == x exactly, and
+    the TF32 part the tensor core reads of lo is within 2^-20 of x; and
+    TF32 rounding (the model of TF32 alone) rounds ties away from zero."""
+    x = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi = _tf32_part(x)
+    lo = x - hi
+    assert np.array_equal(hi + lo, x)
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(x - hi - _tf32_part(lo)) <= np.abs(x) * 2.0 ** -20).all()
+    one, ulp = np.float32(1.0), np.float32(2.0 ** -10)   # TF32's step at 1
+    assert _tf32(np.float32(1.0 + 2.0 ** -11)) == one + ulp
+    assert _tf32(np.float32(-(1.0 + 2.0 ** -11))) == -(one + ulp)
+    assert _tf32(np.float32(1.0 + 2.0 ** -12)) == one
+
+
+@pytest.mark.parametrize("inputs", ["policy", "normal"])
+def test_3xtf32_split_holds_the_float32_tolerance(inputs):
+    """The float32 kernel's products as 3xTF32 stay within the reference's
+    3e-5 of float64 attention, at the attention class's values and at
+    chip_smoke.py's standard normal ones, (2, 1000, 2, 8); TF32 alone
+    does not."""
+    if inputs == "policy":
+        q, k, v = _policy_qkv(1000)
+    else:
+        q, k, v = _qkv(2, 1000, 1000, 2, 2, 8, seed=3)
+    exact = _attention_f64(q, k, v)
+    err3 = np.abs(_attention_tf32(q, k, v, terms=3) - exact).max()
+    err1 = np.abs(_attention_tf32(q, k, v, terms=1) - exact).max()
+    assert err3 < FA_TOL["atol"] / 10, err3
+    assert err1 > FA_TOL["atol"], err1
+
+
 def _scan_inputs(b, s, di, n, seed=2):
     """The distributions of tests/test_kernels.py's scan sweep, in numpy."""
     rng = np.random.default_rng(seed)
