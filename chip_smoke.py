@@ -49,8 +49,14 @@ hosts in 8 shards with 8 candidates each:
    ceilings, flat and sharded deterministic replays agreeing likewise.
    Then ``PlacementEngine.place_batch`` of 64 jobs and ``engine._score``
    (kernel 2) against the delta scorer at zero delta.
-8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4), and
-   the breakdown of a sharded-cluster batch (as phase 5).
+8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4),
+   kernels 4 and 5 also at B = 1 (the serving path's batches, under
+   ``other_shapes``), each with the launch plan that ran
+   (``sdqn_score.topk_plan``: cluster size, pods per thread, nodes per
+   block); one call of each must be exactly one device kernel
+   (torch.profiler), and at B = 32 their candidates' values must be
+   kernels 1's and 3's scores of the same pairs bit for bit.  Then the
+   breakdown of a sharded-cluster batch (as phase 5).
 
 The attention and Mamba policy classes (kernels 7 and 6):
 
@@ -961,108 +967,144 @@ def phase_engine(device):
     return counts["sdqn_score"]
 
 
-def kernel_alone_ms(fn):
-    """Device time of a top-k wrapper's kernel launch alone: the graph is
-    captured with the wrapper's merge of each shard's tiles left out (the
-    wrapper's ``ms`` holds kernel and merge, the bound the function)."""
-    from repro_torch.kernels import sdqn_score as ss
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (torch.profiler;
+    launches made here are restored by the caller)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    merge = ss.merge_topk
-    ss.merge_topk = lambda vals, idx, k: (vals, idx)
-    try:
-        return graph_time_ms(fn, 100)
-    finally:
-        ss.merge_topk = merge
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def phase_new_timings(device, name):
     """Kernels 2-5 at the main paths' shape (N = 131,072, B = 32, k = 8,
-    8 shards): device time from a CUDA graph, eager per-call time, the
-    plain version's device time and the bound from this run's inputs."""
+    8 shards), kernels 4 and 5 also at B = 1 (the serving path's batches):
+    device time from a CUDA graph, eager per-call time, the plain
+    version's device time and the bound from this run's inputs.  For
+    kernels 4 and 5 also the launch plan that ran, the device kernels of
+    one call (exactly one), and their candidates' values against kernels
+    1's and 3's scores of the same pairs (bit for bit)."""
     from repro_torch.core import env
     from repro_torch.kernels import ops, sdqn_score as ss
     from repro_torch.sched import placement as pl
 
-    n, b, lay = SHARDED_N, MAIN_B, _layout()
-    cfg, state, params, pods = make_case(n, b, device, SEED + 7)
+    n, lay = SHARDED_N, _layout()
     fleet = pl.fresh_fleet(n, torch.Generator().manual_seed(SEED + 8),
                            device=device)
     cols = pl.fleet_cols(fleet)
-    deltas = pl.job_deltas(make_jobs(b, SEED + 9), device)
-    w = (params["w1"], params["b1"], params["w2"], params["b2"])
     feats = env.normalize_features(fleet.features())
-    a_inputs = ops._afterstate_inputs(state, pods, cfg, params)
-    t_cols = a_inputs[0] + (state.cpu_requested, state.mem_requested)
-    creq = ops._pod_column(pods.cpu_request, device)
-    mreq = ops._pod_column(pods.mem_request, device)
     geo = dict(k=TOPK, shards=lay.shards, shard_size=lay.shard_size)
     ceil = ops.DEFAULT_CEILINGS
-    batch = type(pods)(*(x[:, None] for x in pods))
-    feasible_pods = int(env.feasible(state, batch, cfg).sum())
-    feasible_jobs = int(pl.feasible_deltas(fleet, deltas).sum())
-    cand = b * lay.shards * TOPK * CAND_BYTES
-    cases = {
-        "sdqn_score": (
-            lambda: ss.sdqn_score(feats, *w),
-            lambda: ss.sdqn_score_plain(feats, *w),
-            n * SCORE_BYTES_PER_ROW + WEIGHT_BYTES, n * SCORE_OPS_PER_ROW),
-        "sdqn_score_cols": (
-            lambda: ss.sdqn_score_cols(cols, deltas, ops.FEATURE_SCALE, *w),
-            lambda: ss.sdqn_score_cols_plain(cols, deltas, ops.FEATURE_SCALE,
-                                             *w),
-            n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
-            + b * n * 4, b * n * COLS_OPS_PER_PAIR + 6 * 32),
-        "sdqn_score_afterstate_topk": (
-            lambda: ss.sdqn_score_afterstate_topk(
-                t_cols, a_inputs[1], a_inputs[2], creq, mreq, *a_inputs[3:],
-                **geo),
-            lambda: ss.sdqn_score_afterstate_topk_plain(
-                t_cols, a_inputs[1], a_inputs[2], creq, mreq, *a_inputs[3:],
-                **geo),
-            n * TOPK_BYTES_PER_NODE + b * 16 + WEIGHT_BYTES + cand,
-            b * n * TOPK_FILTER_OPS_PER_PAIR + n * TOPK_OPS_PER_NODE
-            + feasible_pods * TOPK_OPS_PER_FEASIBLE),
-        "sdqn_score_cols_topk": (
-            lambda: ss.sdqn_score_cols_topk(cols, deltas, ops.FEATURE_SCALE,
-                                            *w, ceil, **geo),
-            lambda: ss.sdqn_score_cols_topk_plain(
-                cols, deltas, ops.FEATURE_SCALE, *w, ceil, **geo),
-            n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES + cand,
-            b * n * COLS_TOPK_FILTER_OPS_PER_PAIR + n * COLS_TOPK_OPS_PER_HOST
-            + feasible_jobs * COLS_TOPK_OPS_PER_FEASIBLE + 6 * 32),
-    }
     rows = {}
-    for key, (fn, plain, nbytes, n_ops) in cases.items():
-        saved = read_counts()
-        ms = graph_time_ms(fn, 100)
-        call_ms = cuda_time_ms(fn, 100)
-        for k, fnc in wrappers().items():     # timing launches don't count
-            fnc.launches = saved[k]
-        alone = ""
-        if key.endswith("_topk"):
-            alone = f"kernel_alone_ms={kernel_alone_ms(fn)} "
-            for k, fnc in wrappers().items():
+    for b in (MAIN_B, 1):
+        cfg, state, params, pods = make_case(n, b, device, SEED + 7)
+        deltas = pl.job_deltas(make_jobs(b, SEED + 9), device)
+        w = (params["w1"], params["b1"], params["w2"], params["b2"])
+        a_inputs = ops._afterstate_inputs(state, pods, cfg, params)
+        t_cols = a_inputs[0] + (state.cpu_requested, state.mem_requested)
+        creq = ops._pod_column(pods.cpu_request, device)
+        mreq = ops._pod_column(pods.mem_request, device)
+        batch = type(pods)(*(x[:, None] for x in pods))
+        feasible_pods = int(env.feasible(state, batch, cfg).sum())
+        feasible_jobs = int(pl.feasible_deltas(fleet, deltas).sum())
+        cand = b * lay.shards * TOPK * CAND_BYTES
+        cases = {
+            "sdqn_score_afterstate_topk": (
+                lambda: ss.sdqn_score_afterstate_topk(
+                    t_cols, a_inputs[1], a_inputs[2], creq, mreq,
+                    *a_inputs[3:], **geo),
+                lambda: ss.sdqn_score_afterstate_topk_plain(
+                    t_cols, a_inputs[1], a_inputs[2], creq, mreq,
+                    *a_inputs[3:], **geo),
+                n * TOPK_BYTES_PER_NODE + b * 16 + WEIGHT_BYTES + cand,
+                b * n * TOPK_FILTER_OPS_PER_PAIR + n * TOPK_OPS_PER_NODE
+                + feasible_pods * TOPK_OPS_PER_FEASIBLE),
+            "sdqn_score_cols_topk": (
+                lambda: ss.sdqn_score_cols_topk(cols, deltas,
+                                                ops.FEATURE_SCALE, *w, ceil,
+                                                **geo),
+                lambda: ss.sdqn_score_cols_topk_plain(
+                    cols, deltas, ops.FEATURE_SCALE, *w, ceil, **geo),
+                n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
+                + cand,
+                b * n * COLS_TOPK_FILTER_OPS_PER_PAIR
+                + n * COLS_TOPK_OPS_PER_HOST
+                + feasible_jobs * COLS_TOPK_OPS_PER_FEASIBLE + 6 * 32),
+        }
+        scores = {}
+        if b == MAIN_B:
+            cases.update({
+                "sdqn_score": (
+                    lambda: ss.sdqn_score(feats, *w),
+                    lambda: ss.sdqn_score_plain(feats, *w),
+                    n * SCORE_BYTES_PER_ROW + WEIGHT_BYTES,
+                    n * SCORE_OPS_PER_ROW),
+                "sdqn_score_cols": (
+                    lambda: ss.sdqn_score_cols(cols, deltas,
+                                               ops.FEATURE_SCALE, *w),
+                    lambda: ss.sdqn_score_cols_plain(
+                        cols, deltas, ops.FEATURE_SCALE, *w),
+                    n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
+                    + b * n * 4, b * n * COLS_OPS_PER_PAIR + 6 * 32)})
+            # the scores kernels 4 and 5 select from: kernels 1 and 3
+            scores = {"sdqn_score_afterstate_topk":
+                      ss.sdqn_score_afterstate(*a_inputs),
+                      "sdqn_score_cols_topk": cases["sdqn_score_cols"][0]()}
+        for key, (fn, plain, nbytes, n_ops) in cases.items():
+            saved = read_counts()
+            ms = graph_time_ms(fn, 100)
+            call_ms = cuda_time_ms(fn, 100)
+            extra = ""
+            if key.endswith("_topk"):
+                names = device_kernels(fn)
+                assert len(names) == 1 and key in names[0], names
+                plan = ss.topk_plan(n, b, lay.shards, lay.shard_size)
+                extra = (f"plan: cluster={plan.cluster} pods={plan.pods} "
+                         f"chunk={plan.chunk} grid={plan.grid} "
+                         f"blocks={plan.blocks}; device kernels per call: "
+                         f"{len(names)} ")
+            if key in scores:
+                v, i = fn()
+                real = i >= 0
+                at = torch.gather(scores[key], 1,
+                                  i.clamp(min=0).flatten(1)).view_as(v)
+                differ = int((v[real] != at[real]).sum())
+                assert differ == 0 and int(real.sum()) > 0, (key, differ)
+                extra += (f"values bit for bit the scoring kernel's: "
+                          f"{int(real.sum())} candidates, {differ} differ ")
+            for k, fnc in wrappers().items():     # timing launches don't count
                 fnc.launches = saved[k]
-        plain_ms = graph_time_ms(plain, 10)
-        b_ms, b_by = roofline(nbytes, n_ops, name)
-        rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by)
-        print(f"timing {key} N={n} B={b if key != 'sdqn_score' else '-'} "
-              f"k={TOPK} shards={lay.shards}: kernel_ms={ms} {alone}"
-              f"plain_ms={plain_ms} (device time, CUDA graph) "
-              f"kernel_call_ms={call_ms} (eager call, host included) "
-              f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
-              f"{peaks(name)[0]} peaks) kernel/bound={ms / b_ms}")
-    print(f"feasible pairs in the timed inputs: pods x nodes={feasible_pods} "
-          f"of {b * n}, jobs x hosts={feasible_jobs} of {b * n}")
+            plain_ms = graph_time_ms(plain, 10)
+            b_ms, b_by = roofline(nbytes, n_ops, name)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            if b == MAIN_B:
+                rows[key] = row
+            else:
+                rows[key]["other_shapes"] = [dict(row, b=b)]
+            print(f"timing {key} N={n} "
+                  f"B={b if key != 'sdqn_score' else '-'} k={TOPK} "
+                  f"shards={lay.shards}: kernel_ms={ms} plain_ms={plain_ms} "
+                  f"(device time, CUDA graph) kernel_call_ms={call_ms} "
+                  f"(eager call, host included) bound_ms={b_ms} ({b_by}; "
+                  f"bytes={nbytes} ops={n_ops}, {peaks(name)[0]} peaks) "
+                  f"kernel/bound={ms / b_ms} {extra}")
+        print(f"feasible pairs in the timed inputs at B={b}: pods x nodes="
+              f"{feasible_pods} of {b * n}, jobs x hosts={feasible_jobs} of "
+              f"{b * n}")
     return rows
 
 
 def phase_sharded_breakdown(device):
     """Where one sharded-cluster batch's time goes at 4000/s offered: host
-    spans (synchronizing) around snapshot publish, pack, the kernel
-    wrapper (kernel + each shard's tile merge), every merge, candidate
-    read-back and commit; torch.profiler's device time by kernel."""
+    spans (synchronizing) around snapshot publish, pack, the top-k
+    kernel's wrapper (one launch), the merge of the shards' candidates,
+    candidate read-back and commit; torch.profiler's device time by
+    kernel."""
     from repro_torch.kernels import sdqn_score as ss
     from repro_torch.scenarios import arrival_trace
     from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
@@ -1076,11 +1118,11 @@ def phase_sharded_breakdown(device):
     d.warmup()
     spans = Spans()
     kernel, merge = ss.sdqn_score_afterstate_topk, ss.merge_topk
-    ss.sdqn_score_afterstate_topk = spans.wrap("kernel_and_tile_merge",
-                                               kernel, sync=True)
+    ss.sdqn_score_afterstate_topk = spans.wrap("topk_kernel", kernel,
+                                               sync=True)
     # the wrapper counts its launches on whatever its module name holds
     ss.sdqn_score_afterstate_topk.launches = kernel.launches
-    ss.merge_topk = spans.wrap("merges_tile_and_shard", merge, sync=True)
+    ss.merge_topk = spans.wrap("shard_merge", merge, sync=True)
     try:
         sub.snapshot = spans.wrap("snapshot_publish", sub.snapshot, sync=True)
         sub.pack = spans.wrap("pack_pods", sub.pack, sync=True)

@@ -1,7 +1,8 @@
 // Device helpers shared by the SDQN scoring kernels for Hopper (sm_90a):
 // the Table-4 Q-net 6 -> 32 -> ReLU -> 1 over weights staged in shared
-// memory, the Table-2 afterstate features, and the running top-k with its
-// block-level merge.
+// memory (for one row, or for P rows that share each weight load), the
+// Table-2 afterstate features, and the top-k kernels' packed candidates
+// with their register lists and warp-level selection.
 //
 // Exactness.  The kernels repeat the reference's order of operations (its
 // `*_xla` twins in src/repro/kernels/sdqn_score.py) and keep IEEE division.
@@ -17,11 +18,8 @@
 
 #define SDQN_HIDDEN 32
 #define SDQN_BLOCK 256
-// the top-k kernels: each thread keeps its best TOPK_MAX candidates, a
-// block reduces a tile of TOPK_TILE nodes (TOPK_TILE / SDQN_BLOCK per thread)
+// the top-k kernels keep at most TOPK_MAX candidates per shard (k)
 #define TOPK_MAX 8
-#define TOPK_TILE 1024
-#define IDX_NONE 0x7fffffff
 
 __device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
 __device__ __forceinline__ float minv(float x, float hi) { return x > hi ? hi : x; }
@@ -103,90 +101,173 @@ __device__ __forceinline__ void afterstate_features(
   f[5] = ep1 / s.exp_scale;
 }
 
-// ---------------------------------------------------------------------------
-// top-k: (value desc, index asc), NaN above every number (torch.sort's order)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  const bool an = a != a, bn = b != b;
-  if (an || bn) return an && (!bn || ia < ib);
-  return a > b || (a == b && ia < ib);
+// A float4 from shared memory, as a volatile load: in a loop over nodes
+// the compiler would otherwise hoist all 64 weight vectors of the Q-net
+// into registers (256 of them) and spill.
+__device__ __forceinline__ float4 ld_shared_f4(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)));
+  return v;
 }
 
-// A thread's running top-TOPK_MAX as a sorted list in registers: every
-// index below is a compile-time constant after unrolling, so nothing
-// spills to local memory.  Empty slots hold (-inf, IDX_NONE), which any
-// real node (even an infeasible one at -inf) beats.
-struct TopK {
-  float v[TOPK_MAX];
-  int i[TOPK_MAX];
+// ReLU in one instruction that keeps a NaN (max.NaN, sm_80 on).  It may
+// differ from max0 only in the sign of a zero, which the FMA into the
+// output sum (from +0) cannot show.
+__device__ __forceinline__ float relu_nan(float x) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// The same Q-net for P rows at once, each in mlp_q's order of operations
+// (so each q[p] is bit for bit mlp_q's): the two float4 of a hidden unit
+// are read from shared memory once and applied to all P rows.
+template <int P>
+__device__ __forceinline__ void mlp_q_rows(const float4 (*s_w)[2], float b2,
+                                           const float (&x)[6][P],
+                                           float (&q)[P]) {
+  float acc[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) acc[p] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < SDQN_HIDDEN; ++j) {
+    const float4 a = ld_shared_f4(&s_w[j][0]), c = ld_shared_f4(&s_w[j][1]);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float h = a.x;
+      h = h + x[0][p] * a.y;
+      h = h + x[1][p] * a.z;
+      h = h + x[2][p] * a.w;
+      h = h + x[3][p] * c.x;
+      h = h + x[4][p] * c.y;
+      h = h + x[5][p] * c.z;
+      acc[p] = acc[p] + relu_nan(h) * c.w;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) q[p] = acc[p] + b2;
+}
+
+// ---------------------------------------------------------------------------
+// top-k candidates: (value desc, index asc), NaN above every number
+// (torch.sort's order), packed into one 64-bit integer so that the order
+// is the integers' order: the high word is the value's order key, the low
+// word ~index.  Every NaN gets the top key, so NaNs rank by index; -0.0
+// takes +0.0's key, as the two compare equal.  0 is an empty slot, below
+// every real candidate (the key of -inf is 0x007fffff).
+// ---------------------------------------------------------------------------
+
+typedef unsigned long long cand_t;
+
+__device__ __forceinline__ cand_t cand_pack(float x, int idx) {
+  uint32_t u = __float_as_uint(x);
+  if (u == 0x80000000u) u = 0u;
+  const uint32_t key = x != x ? 0xffffffffu
+                              : (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((cand_t)key << 32) | (uint32_t)~idx;
+}
+
+__device__ __forceinline__ float cand_value(cand_t c) {
+  const uint32_t key = (uint32_t)(c >> 32);
+  if (key == 0xffffffffu) return CUDART_NAN_F;
+  if (key & 0x80000000u) return __uint_as_float(key & 0x7fffffffu);
+  return key <= 0x007fffffu ? -CUDART_INF_F : __uint_as_float(~key);
+}
+
+// a slot whose value is not finite (-inf: infeasible or empty; NaN; +inf)
+// carries index -1
+__device__ __forceinline__ int cand_index(cand_t c) {
+  return isfinite(cand_value(c)) ? (int)~(uint32_t)c : -1;
+}
+
+// A sorted (descending) list of the best J candidates in registers: every
+// index is a compile-time constant after unrolling, so nothing spills to
+// local memory.  An insertion is one pass of max / min down the list.
+template <int J>
+struct CandList {
+  cand_t c[J];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int r = 0; r < TOPK_MAX; ++r) { v[r] = -CUDART_INF_F; i[r] = IDX_NONE; }
+    for (int r = 0; r < J; ++r) c[r] = 0ull;
   }
 
-  // insertion; a thread pushes its nodes in ascending index order
-  __device__ __forceinline__ void push(float x, int ix) {
-    if (!beats(x, ix, v[TOPK_MAX - 1], i[TOPK_MAX - 1])) return;
-    v[TOPK_MAX - 1] = x;
-    i[TOPK_MAX - 1] = ix;
+  __device__ __forceinline__ void push(cand_t x) {
+    if (x <= c[J - 1]) return;
 #pragma unroll
-    for (int r = TOPK_MAX - 1; r > 0; --r) {
-      if (beats(v[r], i[r], v[r - 1], i[r - 1])) {
-        const float tv = v[r]; v[r] = v[r - 1]; v[r - 1] = tv;
-        const int ti = i[r]; i[r] = i[r - 1]; i[r - 1] = ti;
-      }
+    for (int r = 0; r < J; ++r) {
+      const cand_t hi = c[r] > x ? c[r] : x;
+      x = c[r] > x ? x : c[r];
+      c[r] = hi;
     }
   }
 
   __device__ __forceinline__ void pop() {
 #pragma unroll
-    for (int r = 0; r < TOPK_MAX - 1; ++r) { v[r] = v[r + 1]; i[r] = i[r + 1]; }
-    v[TOPK_MAX - 1] = -CUDART_INF_F;
-    i[TOPK_MAX - 1] = IDX_NONE;
+    for (int r = 0; r < J - 1; ++r) c[r] = c[r + 1];
+    c[J - 1] = 0ull;
   }
 };
 
-// The block's top-k of all threads' lists, written to out_v / out_i[0..k):
-// k rounds of a block-wide argmax over the list heads (warp shuffles, then
-// one warp over the per-warp winners); the winning thread pops its head.
-// Node indices are unique, so exactly one thread pops a real winner.  A
-// slot whose value is not finite gets index -1.  All threads must call it.
-__device__ __forceinline__ void block_topk(TopK& t, int k, float* out_v,
-                                           int* out_i) {
-  __shared__ float s_v[SDQN_BLOCK / 32];
-  __shared__ int s_i[SDQN_BLOCK / 32];
-  __shared__ int s_win;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The warp's best k of its 32 lanes' lists, in k rounds: the largest head
+// by its key word, then by its index word, each a warp reduction; the lane
+// that holds the winner pops it (indices are unique, so one lane does, or
+// every lane when all heads are empty).  Lane r < k returns winner r.  All
+// 32 lanes must call it.
+template <int J>
+__device__ __forceinline__ cand_t warp_select(CandList<J>& l, int k) {
+  const int lane = threadIdx.x & 31;
+  cand_t mine = 0ull;
   for (int r = 0; r < k; ++r) {
-    float v = t.v[0];
-    int ix = t.i[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
-      if (beats(ov, oi, v, ix)) { v = ov; ix = oi; }
-    }
-    if (lane == 0) { s_v[warp] = v; s_i[warp] = ix; }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < SDQN_BLOCK / 32 ? s_v[lane] : -CUDART_INF_F;
-      ix = lane < SDQN_BLOCK / 32 ? s_i[lane] : IDX_NONE;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, ix, off);
-        if (beats(ov, oi, v, ix)) { v = ov; ix = oi; }
-      }
-      if (lane == 0) {
-        out_v[r] = v;
-        out_i[r] = isfinite(v) ? ix : -1;
-        s_win = ix;
-      }
-    }
-    __syncthreads();
-    if (t.i[0] == s_win) t.pop();
-    __syncthreads();   // s_v / s_win are rewritten by the next round
+    const cand_t head = l.c[0];
+    const uint32_t hi = (uint32_t)(head >> 32);
+    const uint32_t top = __reduce_max_sync(0xffffffffu, hi);
+    const uint32_t lo = __reduce_max_sync(0xffffffffu,
+                                          hi == top ? (uint32_t)head : 0u);
+    const cand_t win = ((cand_t)top << 32) | lo;
+    if (head == win) l.pop();
+    if (lane == r) mine = win;
   }
+  return mine;
 }
+
+// A warp's running best k candidates, spread over its lanes: lane r < k
+// holds slot r of the sorted list (lanes from k on hold 0), and every lane
+// the bar, slot k - 1, that a candidate must beat.  `fill` starts the list
+// from one candidate a lane (k rounds of warp_select), `offer` takes one
+// more from every lane (0: none).  A step in which no lane beats the bar
+// costs one compare and one ballot; each candidate that does is inserted
+// by the whole warp (its position a ballot and a popcount, the shift one
+// shuffle), after which the other lanes' offers meet the new bar.  All 32
+// lanes must call them.
+struct WarpList {
+  cand_t slot, bar;
+
+  __device__ __forceinline__ void init() {
+    slot = 0ull;
+    bar = 0ull;
+  }
+
+  __device__ __forceinline__ void fill(cand_t x, int k) {
+    CandList<1> l;
+    l.c[0] = x;
+    slot = warp_select(l, k);
+    bar = __shfl_sync(0xffffffffu, slot, k - 1);
+  }
+
+  __device__ __forceinline__ void offer(cand_t x, int k) {
+    const int lane = threadIdx.x & 31;
+    unsigned m = __ballot_sync(0xffffffffu, x > bar);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      const cand_t c = __shfl_sync(0xffffffffu, x, src);
+      const int pos = __popc(__ballot_sync(0xffffffffu, slot > c));
+      const cand_t up = __shfl_up_sync(0xffffffffu, slot, 1);
+      if (lane < k && lane >= pos) slot = lane == pos ? c : up;
+      bar = __shfl_sync(0xffffffffu, slot, k - 1);
+      m &= __ballot_sync(0xffffffffu, x > bar) & ~(1u << src);
+    }
+  }
+};

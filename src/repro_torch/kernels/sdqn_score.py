@@ -23,9 +23,12 @@ The top-k kernels take a shard geometry (``shards`` slices of
 ``shard_size`` nodes, the last one ragged) and return each shard's top-k
 as ``(B, shards, k)`` values and GLOBAL node indices: sorted descending
 with NaN above every number, ties by ascending index, and ``-1`` for
-every slot that is not finite (``-inf`` = infeasible or exhausted).
+every slot that is not finite (``-inf`` = infeasible or exhausted).  One
+launch computes all of it; ``topk_plan`` sets the launch's geometry.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -57,8 +60,7 @@ SCORE_SOURCE = "sdqn_score"
 COLS_SOURCE = "sdqn_score_cols"
 TOPK_SOURCE = "sdqn_score_afterstate_topk"
 HIDDEN = 32
-TOPK_MAX = 8        # candidates a thread of the top-k kernels keeps
-TOPK_TILE = 1024    # nodes one block of the top-k kernels reduces
+TOPK_MAX = 8        # candidates per shard the top-k kernels keep, at most
 
 _F32 = torch.float32
 
@@ -110,9 +112,9 @@ def shard_topk(masked, shards: int, shard_size: int, k: int):
 
 
 def check_k(k: int) -> int:
-    """``k`` candidates per shard, at most ``TOPK_MAX`` (the list a thread
-    of the top-k kernels keeps in registers).  Held on every device, so a
-    ``k`` the card would refuse fails on the CPU as well."""
+    """``k`` candidates per shard, at most ``TOPK_MAX`` (the lists the
+    top-k kernels keep in registers).  Held on every device, so a ``k``
+    the card would refuse fails on the CPU as well."""
     if k > TOPK_MAX:
         raise ValueError(f"k={k} candidates per shard: the top-k kernels "
                          f"keep at most TOPK_MAX={TOPK_MAX}")
@@ -126,6 +128,55 @@ def _check_topk(name, n, k, shards, shard_size):
     if shards < 1 or shards > 65535 or shards * shard_size < n:
         raise ValueError(f"{name}: {shards} shards of {shard_size} do not "
                          f"cover N={n}")
+    if shards * shard_size + shard_size >= 2 ** 31:
+        raise ValueError(f"{name}: {shards} shards of {shard_size} overflow "
+                         f"the kernels' int32 node indices")
+
+
+# Launch geometry of the top-k kernels (csrc/topk_cluster.cuh).  A cluster
+# of C blocks takes one (shard, group of P pods); block rank r of it sweeps
+# the shard's nodes [r * chunk, (r + 1) * chunk).  P and the number of
+# blocks that fill the card were measured on an H100 SXM
+# (scripts/topk_timings.py, PERF.md section 6).
+TOPK_THREADS = 256           # threads per block: SDQN_BLOCK
+TOPK_PODS = 2                # pods (or jobs) a thread scores per node
+TOPK_CLUSTER_MAX = 8         # the portable cluster size
+TOPK_FILL_BLOCKS = 264       # blocks that fill the card: 2 on each of 132 SMs
+TOPK_MIN_CHUNK = 1024        # nodes a block sweeps at least (4 per thread)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopkPlan:
+    grid: tuple          # (shards * cluster, ceil(B / pods), 1)
+    cluster: int         # blocks per cluster, along x
+    pods: int            # P: pods per thread, 1 or 2
+    chunk: int           # nodes of the shard per block
+    shared_bytes: int    # static shared memory per block
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def topk_plan(n: int, b: int, shards: int, shard_size: int) -> TopkPlan:
+    """The top-k kernels' launch for B pods over ``shards`` slices of
+    ``shard_size`` of N nodes: P = ``TOPK_PODS`` (1 at B = 1), and C the
+    largest cluster that keeps the grid within ``TOPK_FILL_BLOCKS`` (one
+    wave), at most ``TOPK_CLUSTER_MAX`` and with at least
+    ``TOPK_MIN_CHUNK`` nodes a block."""
+    del n                               # the last shard is masked by index
+    pods = min(TOPK_PODS, b)
+    groups = -(-b // pods)
+    cluster = max(1, min(TOPK_CLUSTER_MAX,
+                         TOPK_FILL_BLOCKS // (shards * groups),
+                         -(-shard_size // TOPK_MIN_CHUNK)))
+    # s_w (32 float4 pairs), s_b2 (4, padded to 8), each warp's and the
+    # block's lists of 8-byte candidates per pod
+    shared = (HIDDEN * 32 + 8
+              + pods * (TOPK_THREADS // 32 + 1) * TOPK_MAX * 8)
+    return TopkPlan(grid=(shards * cluster, groups, 1), cluster=cluster,
+                    pods=pods, chunk=-(-shard_size // cluster),
+                    shared_bytes=shared)
 
 
 # ---------------------------------------------------------------------------
@@ -327,25 +378,24 @@ def sdqn_score_afterstate_topk_plain(cols, cpu_demand, mem_demand,
     return shard_topk(torch.where(ok, q, -torch.inf), shards, shard_size, k)
 
 
-def _tiled_topk(name, source, argtypes, device, args, n, b, k, shards,
-                shard_size):
-    """Launch a top-k kernel over (tiles, shards, B) blocks and merge each
-    shard's tile candidates."""
-    tiles = -(-shard_size // TOPK_TILE)
-    vals = torch.empty((b, shards, tiles, k), dtype=_F32, device=device)
-    idx = torch.empty((b, shards, tiles, k), dtype=torch.int32, device=device)
+def _launch_topk(name, source, argtypes, device, args, n, b, k, shards,
+                 shard_size):
+    """One launch of a top-k kernel: ``(B, shards, k)`` values, indices."""
+    plan = topk_plan(n, b, shards, shard_size)
+    if n < 1 or b < 1 or plan.grid[1] > 65535:
+        raise ValueError(f"{name}: unsupported shape N={n}, B={b}")
+    vals = torch.empty((b, shards, k), dtype=_F32, device=device)
+    idx = torch.empty((b, shards, k), dtype=torch.int32, device=device)
     _launch(name, source, argtypes, device, *args, vals, idx, n, b, k,
-            shards, shard_size, tiles)
-    if tiles == 1:
-        return vals[:, :, 0], idx[:, :, 0]
-    return merge_topk(vals, idx, k)
+            shards, shard_size, plan.cluster, plan.pods, plan.chunk)
+    return vals, idx
 
 
 def sdqn_score_afterstate_topk(cols, cpu_demand, mem_demand, cpu_request,
                                mem_request, scalars, w1, b1, w2, b2, *, k,
                                shards, shard_size):
-    """Per-shard feasible top-k: one kernel launch on CUDA (then a merge of
-    each shard's tiles), the plain version on CPU.
+    """Per-shard feasible top-k: one kernel launch on CUDA, the plain
+    version on CPU.
 
     ``cols``: the 14 (N,) columns of ``TOPK_COLUMNS`` in their native
     dtypes; the four pod columns (B,) float32; the rest as for
@@ -360,11 +410,9 @@ def sdqn_score_afterstate_topk(cols, cpu_demand, mem_demand, cpu_request,
                              (cpu_demand, mem_demand, cpu_request,
                               mem_request), w1, b1, w2, b2)
     _check_topk("sdqn_score_afterstate_topk", n, k, shards, shard_size)
-    if not 1 <= b <= 65535 or n >= 2 ** 31 - TOPK_TILE:
-        raise ValueError(f"unsupported shape: N={n}, B={b}")
-    out = _tiled_topk(
+    out = _launch_topk(
         "sdqn_score_afterstate_topk", TOPK_SOURCE,
-        [_P] * 18 + [_F] * 9 + [_P] * 6 + [_I] * 6, device,
+        [_P] * 18 + [_F] * 9 + [_P] * 6 + [_I] * 8, device,
         [*cols, cpu_demand, mem_demand, cpu_request, mem_request,
          *_scalar_args(scalars), w1, b1, w2, b2], n, b, k, shards,
         shard_size)
@@ -408,9 +456,9 @@ def sdqn_score_cols_topk(cols, deltas, scale, w1, b1, w2, b2, ceilings, *,
                                           shard_size=shard_size)
     n, b = _check_cols("sdqn_score_cols_topk", cols, deltas, w1, b1, w2, b2)
     _check_topk("sdqn_score_cols_topk", n, k, shards, shard_size)
-    out = _tiled_topk(
+    out = _launch_topk(
         "sdqn_score_cols_topk", COLS_SOURCE,
-        [_P] * 7 + [_F] * 9 + [_P] * 6 + [_I] * 6, device,
+        [_P] * 7 + [_F] * 9 + [_P] * 6 + [_I] * 8, device,
         [*cols, deltas, *(float(x) for x in scale),
          *(float(x) for x in ceilings), w1, b1, w2, b2], n, b, k, shards,
         shard_size)

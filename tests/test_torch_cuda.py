@@ -138,34 +138,163 @@ def _same_candidates(got, want, tol=1e-5):
     np.testing.assert_array_equal(gi[fin & ~close], wi[fin & ~close])
 
 
+def _both_topk(state, pods, cfg, params, fleet, deltas, k, lay, mode=None):
+    """Kernel 4's and kernel 5's candidates (through ``ops``), and the
+    launches each made."""
+    from repro_torch.sched import placement as pl
+
+    before = (ss.sdqn_score_afterstate_topk.launches,
+              ss.sdqn_score_cols_topk.launches)
+    out = (ops.sdqn_topk_afterstate(state, pods, cfg, params, k=k, layout=lay,
+                                    mode=mode),
+           ops.sdqn_topk_delta(pl.fleet_cols(fleet), deltas, params, k=k,
+                               layout=lay, mode=mode))
+    return out, (ss.sdqn_score_afterstate_topk.launches - before[0],
+                 ss.sdqn_score_cols_topk.launches - before[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 37, 1000, 131072])
 @pytest.mark.parametrize("shards", [1, 8])
-def test_topk_kernels_match_plain_on_card(cuda_device, n, shards):
+@pytest.mark.parametrize("b", [1, 5, 32])
+def test_topk_kernels_match_plain_on_card(cuda_device, n, shards, b):
     from repro_torch.launch.mesh import plan_fleet_layout
 
-    cfg, state, params, pods = _case(n, 32, cuda_device, n + shards)
+    cfg, state, params, pods = _case(n, b, cuda_device, n + shards + b)
     lay = plan_fleet_layout(n, shards=shards)
     size = n if lay is None else lay.shard_size
-    fleet = _fleet(n, cuda_device, n)
-    deltas = _deltas(32, cuda_device, n)
-    from repro_torch.sched import placement as pl
-
+    fleet = _fleet(n, cuda_device, n + b)
+    deltas = _deltas(b, cuda_device, n + b)
     for k in (1, 4, 8):
         k = min(k, size)
-        before = ss.sdqn_score_afterstate_topk.launches
-        got = ops.sdqn_topk_afterstate(state, pods, cfg, params, k=k,
-                                       layout=lay)
-        assert ss.sdqn_score_afterstate_topk.launches == before + 1
-        _same_candidates(got, ops.sdqn_topk_afterstate(
-            state, pods, cfg, params, k=k, layout=lay, mode="plain"))
-        before = ss.sdqn_score_cols_topk.launches
-        got = ops.sdqn_topk_delta(pl.fleet_cols(fleet), deltas, params, k=k,
-                                  layout=lay)
-        assert ss.sdqn_score_cols_topk.launches == before + 1
-        _same_candidates(got, ops.sdqn_topk_delta(
-            pl.fleet_cols(fleet), deltas, params, k=k, layout=lay,
-            mode="plain"))
+        got, launches = _both_topk(state, pods, cfg, params, fleet, deltas, k,
+                                   lay)
+        assert launches == (1, 1)
+        want, _ = _both_topk(state, pods, cfg, params, fleet, deltas, k, lay,
+                             mode="plain")
+        for g, w in zip(got, want):
+            _same_candidates(g, w)
+
+
+def _constant_case(n, b, device):
+    """Every node (host) alike, every pod (job) alike: all scores tie."""
+    cfg, state, params, _ = _case(n, b, device, 11)
+    state = type(state)(*(x[:1].expand_as(x).contiguous() if x.dim() == 1
+                          else x for x in state))
+    state = state._replace(healthy=torch.ones_like(state.healthy))
+    pods = convert.pods_from_numpy(*(np.full(b, v) for v in
+                                     (100.0, 64.0, 100.0, 64.0)),
+                                   device=device)
+    fleet = convert.fleet_from_numpy(dict(
+        cpu_pct=np.full(n, 30.0), mem_pct=np.full(n, 40.0),
+        job_util_pct=np.full(n, 12.0), healthy=np.ones(n, np.float32),
+        uptime_hours=np.full(n, 50.0), num_jobs=np.full(n, 3)), device=device)
+    deltas = _deltas(1, device, 0).expand(b, 6).contiguous()
+    return cfg, state, params, pods, fleet, deltas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 32])
+def test_topk_kernels_break_all_ties_to_the_lowest_index(cuda_device, b):
+    """All scores equal: each shard's winners are its k lowest indices."""
+    from repro_torch.launch.mesh import plan_fleet_layout
+
+    n = 131072
+    cfg, state, params, pods, fleet, deltas = _constant_case(n, b,
+                                                             cuda_device)
+    lay = plan_fleet_layout(n, shards=8)
+    got, _ = _both_topk(state, pods, cfg, params, fleet, deltas, 8, lay)
+    want = (torch.arange(8, dtype=torch.int32, device=cuda_device)[None]
+            + torch.arange(0, n, lay.shard_size, dtype=torch.int32,
+                           device=cuda_device)[:, None])
+    for (v, i), (pv, pi) in zip(got, _both_topk(
+            state, pods, cfg, params, fleet, deltas, 8, lay,
+            mode="plain")[0]):
+        assert bool(torch.isfinite(v).all())
+        assert bool((v == v[..., :1]).all())
+        assert torch.equal(i, want.expand_as(i)) and torch.equal(i, pi)
+        torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_topk_kernels_write_an_empty_shard_as_no_candidates(cuda_device):
+    """3 shards of 500 over N = 1000: the last covers no node."""
+    from repro_torch.launch.mesh import FleetLayout
+
+    n, b = 1000, 5
+    cfg, state, params, pods = _case(n, b, cuda_device, 4)
+    lay = FleetLayout(shards=3, shard_size=500, n_nodes=n)
+    fleet = _fleet(n, cuda_device, 4)
+    deltas = _deltas(b, cuda_device, 4)
+    got, _ = _both_topk(state, pods, cfg, params, fleet, deltas, 8, lay)
+    want, _ = _both_topk(state, pods, cfg, params, fleet, deltas, 8, lay,
+                         mode="plain")
+    for (v, i), w in zip(got, want):
+        assert bool((v[:, 2] == -torch.inf).all())
+        assert bool((i[:, 2] == -1).all())
+        assert bool(torch.isfinite(v[:, :2]).all())
+        _same_candidates((v, i), w)
+
+
+@pytest.mark.cuda
+def test_topk_values_are_the_scoring_kernels_scores_bit_for_bit(cuda_device):
+    """Kernel 4's candidates carry kernel 1's scores of the same (pod,
+    node) exactly, kernel 5's kernel 3's: the same order of operations."""
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.sched import placement as pl
+
+    n, b = 131072, 32
+    cfg, state, params, pods = _case(n, b, cuda_device, 9)
+    lay = plan_fleet_layout(n, shards=8)
+    fleet = _fleet(n, cuda_device, 9)
+    deltas = _deltas(b, cuda_device, 9)
+    (av, ai), (cv, ci) = _both_topk(state, pods, cfg, params, fleet, deltas,
+                                    8, lay)[0]
+    scores = (ops.sdqn_score_afterstate(state, pods, cfg, params),
+              ops.sdqn_score_delta(pl.fleet_cols(fleet), deltas, params))
+    for v, i, q in ((av, ai, scores[0]), (cv, ci, scores[1])):
+        real = i >= 0
+        assert int(real.sum()) > b * 8 * 4
+        at = torch.gather(q, 1, i.clamp(min=0).flatten(1)).view_as(v)
+        assert torch.equal(v[real], at[real])
+
+
+@pytest.mark.cuda
+def test_topk_wrapper_call_is_one_device_kernel(cuda_device):
+    """No sort, gather or copy runs beside the kernel: the profiler sees
+    exactly one device kernel per wrapper call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import plan_fleet_layout
+    from repro_torch.sched import placement as pl
+
+    n, b = 131072, 32
+    cfg, state, params, pods = _case(n, b, cuda_device, 10)
+    lay = plan_fleet_layout(n, shards=8)
+    fleet = _fleet(n, cuda_device, 10)
+    deltas = _deltas(b, cuda_device, 10)
+    a_in = ops._afterstate_inputs(state, pods, cfg, params)
+    t_cols = a_in[0] + (state.cpu_requested, state.mem_requested)
+    creq = ops._pod_column(pods.cpu_request, cuda_device)
+    mreq = ops._pod_column(pods.mem_request, cuda_device)
+    cols = pl.fleet_cols(fleet)
+    geo = dict(k=8, shards=lay.shards, shard_size=lay.shard_size)
+    calls = {
+        "sdqn_score_afterstate_topk": lambda: ss.sdqn_score_afterstate_topk(
+            t_cols, a_in[1], a_in[2], creq, mreq, *a_in[3:], **geo),
+        "sdqn_score_cols_topk": lambda: ss.sdqn_score_cols_topk(
+            cols, deltas, ops.FEATURE_SCALE, *a_in[4:], ops.DEFAULT_CEILINGS,
+            **geo)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
+        assert name in kernels[0].name, kernels[0].name
 
 
 @pytest.mark.cuda

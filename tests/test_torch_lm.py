@@ -7,10 +7,11 @@ cannot be reproduced in PyTorch) and are carried across with
 numpy from a seed.  On the CPU the attention kernels' plain versions run.
 Tolerances: in float32 (the configs' dtypes replaced) 1e-4 on logits
 against the reference's float32 run.  In bfloat16 the two packages round
-at different points (the reference casts attention probabilities to
-bfloat16 before the PV product, kernels 7 and 8 keep them in float32), and
-the reference's own bfloat16 logits lie up to ~0.04 from its float32
-logits at the smoke size; so the port's bfloat16 logits are held to the
+at different points: the reference casts attention probabilities to
+bfloat16 before the PV product (``_attend_block``), as kernel 7's bfloat16
+CUDA kernel does, while the plain versions (which run here) and kernel 8
+keep them in float32.  And the reference's own bfloat16 logits lie up to
+~0.04 from its float32 logits at the smoke size; so the port's bfloat16 logits are held to the
 reference's float32 run on the same bfloat16 weights, within the
 reference's bfloat16 tolerance (2e-2) plus the reference's own bfloat16
 deviation on the same prompts.  Greedy tokens must agree up to the first
@@ -327,7 +328,9 @@ def _agree(got_logits, got_tokens, want_logits, want_tokens, tol):
 @pytest.mark.parametrize("arch,dtype", [
     ("olmo-1b", "float32"), ("granite-8b", "float32"),
     ("internvl2-76b", "float32"), ("olmo-1b", "bfloat16"),
-    ("granite-8b", "bfloat16")])
+    ("granite-8b", "bfloat16"), ("llama3-405b", "float32"),
+    ("llama3-405b", "bfloat16"), ("command-r-plus-104b", "float32"),
+    ("command-r-plus-104b", "bfloat16")])
 def test_prefill_and_decode_match_the_reference(arch, dtype):
     """MHA (olmo-1b), GQA (granite-8b) and the vlm prefix (internvl2):
     prefill logits (and in float32 the prefill's K/V), then greedy decode

@@ -345,7 +345,7 @@ def test_unported_scorers_raise():
     "ops_afterstate", "ops_delta", "cluster_topk", "cluster_heuristic",
     "fleet_topk", "fleet_heuristic", "cluster_substrate", "fleet_substrate"])
 def test_k_past_the_kernels_list_raises_on_the_cpu_too(entry):
-    """The top-k kernels keep TOPK_MAX = 8 candidates per thread: a larger
+    """The top-k kernels keep TOPK_MAX = 8 candidates per shard: a larger
     k raises on the CPU as on the card, and a substrate refuses it when it
     is built, not at its first batch."""
     _, _, _, ts, tp, tcfg = _cluster()
