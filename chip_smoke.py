@@ -13,18 +13,26 @@ Phases (any failed check raises and the run exits nonzero):
 2. Kernels against their plain PyTorch versions on the card, at
    N in {1, 37, 1000, 5000, 131072} nodes x B in {1, 32} pods, on resets
    with unhealthy nodes and randomized workloads (rtol = atol = 1e-5), and
-   up to N = 1000 also against the unfused oracle (``mode="ref"``).
+   up to N = 1000 also against the unfused oracle (``mode="ref"``).  Then
+   kernels 1 and 3 at every branch of their launch plan
+   (``sdqn_score.score_plan``, printed per shape): the same N at B in
+   ``PLAN_B`` and ``PLAN_EXTRA``.
 3. Main path: ``PlacementDaemon`` over ``ClusterSubstrate(fleet_cluster(5000))``
    with ``DaemonConfig(batch_size=32, max_wait_s=0.005)`` replays 2,000
    requests from ``arrival_trace`` at 500/s and 4000/s offered.  Kernel
    launch counters are zeroed just before and read just after; every batch
-   must be exactly one kernel launch.  Then the same trace, on a
-   deterministic clock, through the kernel and through ``fused="plain"``:
-   the decisions must agree up to the first batch with a row whose two
-   best feasible scores lie within the tolerance.
+   must be exactly one kernel launch, and the launches are counted by
+   (N, B) (the daemon pads each batch to 32 rows).  Then the same trace,
+   on a deterministic clock, through the kernel and through
+   ``fused="plain"``: the decisions must agree up to the first batch with
+   a row whose two best feasible scores lie within the tolerance.
 4. Timings: kernel and plain-version device time (CUDA events around a
    CUDA graph of many calls) and eager per-call time, beside the least
-   time the card could take (``bound_ms``), at N = 5000 and 131072, B = 32.
+   time the card could take (``bound_ms``), at N = 5000 and 131072, B = 32,
+   and at N = 5000 with B = 1 and with the main path's requests per batch,
+   each with the launch plan that ran and one device kernel per call
+   (torch.profiler), beside one empty kernel's device time in a CUDA graph
+   (the launch floor).
 5. Breakdown: a 500-request replay at 4000/s with host-clock spans around
    each layer of a batch and torch.profiler's device time (busy share).
 
@@ -47,16 +55,17 @@ hosts in 8 shards with 8 candidates each:
    sharded (kernel 5), 2,000 jobs (cpu U(1, 10) %, mem U(0.5, 5) %) on the
    trace's arrival times at 500/s; one launch per batch, no host past its
    ceilings, flat and sharded deterministic replays agreeing likewise.
-   Then ``PlacementEngine.place_batch`` of 64 jobs and ``engine._score``
-   (kernel 2) against the delta scorer at zero delta.
+   Then ``PlacementEngine.place_batch`` of 64 jobs (kernel 3 at B = 1)
+   and ``engine._score`` (kernel 2) against the delta scorer at zero delta.
 8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4),
-   kernels 4 and 5 also at B = 1 (the serving path's batches, under
-   ``other_shapes``), each with the launch plan that ran
-   (``sdqn_score.topk_plan``: cluster size, pods per thread, nodes per
-   block); one call of each must be exactly one device kernel
-   (torch.profiler), and at B = 32 their candidates' values must be
-   kernels 1's and 3's scores of the same pairs bit for bit.  Then the
-   breakdown of a sharded-cluster batch (as phase 5).
+   kernels 3-5 also at B = 1 (``PlacementEngine``'s batch, under
+   ``other_shapes``, beside the launch floor), each with the launch plan
+   that ran (``sdqn_score.score_plan``, ``sdqn_score.topk_plan``: cluster
+   size, pods per thread, nodes per block); one call of each must be
+   exactly one device kernel (torch.profiler), and at B = 1 and 32
+   kernels 4's and 5's candidates' values must be kernels 1's and 3's
+   scores of the same pairs bit for bit.  Then the breakdown of a
+   sharded-cluster batch (as phase 5).
 
 The attention and Mamba policy classes (kernels 7 and 6):
 
@@ -123,6 +132,7 @@ table; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -143,6 +153,10 @@ RTOL = ATOL = 1e-5
 SHAPES_N = (1, 37, 1000, 5000, 131072)
 SHAPES_B = (1, 32)
 MAIN_N, MAIN_B = 5000, 32
+# kernels 1 and 3 at every branch of their launch plan (sdqn_score.
+# score_plan): the sweep's N at these B, and a shape for pod rows at R = 4
+PLAN_B = (1, 2, 3, 5, 32, 33)
+PLAN_EXTRA = ((40000, 5),)
 RATES_PER_S = (500.0, 4000.0)
 N_REQUESTS = 2000
 
@@ -301,6 +315,50 @@ def graph_time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def launch_floor_ms() -> float:
+    """One empty kernel's device time in a CUDA graph (as graph_time_ms):
+    the least a launch costs on this card."""
+    return graph_time_ms(lambda: torch.cuda._sleep(0), 200)
+
+
+def plan_text(n, b) -> str:
+    from repro_torch.kernels import sdqn_score as ss
+
+    plan = ss.score_plan(n, b)
+    return (f"score_plan(N={n}, B={b}): rows={plan.rows} "
+            f"pod_rows={plan.pod_rows} grid={plan.grid} blocks={plan.blocks}")
+
+
+@contextlib.contextmanager
+def launch_shapes(log):
+    """Count kernel 1's and kernel 3's calls by (name, N, B) of their
+    output into ``log`` while the block runs.  The wrappers run underneath;
+    they count their launches on the module's name, so the spy in its place
+    carries the count, handed back when the block ends."""
+    from repro_torch.kernels import sdqn_score as ss
+
+    saved = {k: getattr(ss, k)
+             for k in ("sdqn_score_afterstate", "sdqn_score_cols")}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            q = fn(*args, **kw)
+            key = (name, q.shape[1], q.shape[0])
+            log[key] = log.get(key, 0) + 1
+            return q
+        call.__name__, call.launches = fn.__name__, fn.launches
+        return call
+
+    for k, fn in saved.items():
+        setattr(ss, k, spy(k, fn))
+    try:
+        yield log
+    finally:
+        for k, fn in saved.items():
+            fn.launches = getattr(ss, k).launches
+            setattr(ss, k, fn)
+
+
 def make_case(n, b, device, seed):
     from repro_torch import convert
     from repro_torch.core import dqn, env
@@ -396,11 +454,13 @@ def phase_main_path(device):
                               N_REQUESTS, rate_per_s=rate)
         runs.append((rate, d, trace))
 
+    shapes = {}
     zero_counts()                                  # the main path starts here
     per_rate = []
     for rate, d, trace in runs:
         before = ss.sdqn_score_afterstate.launches
-        dur = replay_trace(d, trace.t_s, trace.pods)
+        with launch_shapes(shapes):
+            dur = replay_trace(d, trace.t_s, trace.pods)
         per_rate.append((rate, d, dur, ss.sdqn_score_afterstate.launches - before))
     launches = ss.sdqn_score_afterstate.launches   # ... and ends here
 
@@ -417,7 +477,13 @@ def phase_main_path(device):
               f"p99_ms={np.percentile(lat, 99) * 1e3} batches={m.batches} "
               f"kernel_launches={n_launch} bound={m.bound} "
               f"dropped={m.dropped} conflicts={m.conflicts}")
-    return launches
+    # every batch is padded to batch_size rows: the kernel's B is 32
+    # whatever the batch's fill
+    fill = len(RATES_PER_S) * N_REQUESTS / launches
+    print(f"flat cluster launches by (kernel, N, B): {shapes}; requests per "
+          f"batch {fill}")
+    assert sum(shapes.values()) == launches
+    return launches, fill
 
 
 def _deterministic_run(device, fused):
@@ -461,30 +527,47 @@ def phase_decision_parity(device):
     scores_agree(k_log, p_log, "flat cluster")
 
 
-def phase_timings(device, name):
+def phase_timings(device, name, fill):
+    """Kernel 1 at the flat cluster path's shape (N = 5000, B = 32: the
+    daemon pads every batch to 32 rows), at N = 131,072, B = 32, and at
+    N = 5000 with B = 1 and B = the path's requests per batch (``fill``,
+    rounded), with the launch plan that ran and the launch floor."""
     from repro_torch.kernels import ops, sdqn_score as ss
 
+    floor = launch_floor_ms()
+    print(f"launch floor: empty kernel in a CUDA graph {floor} ms")
     rows = {}
-    for n in (MAIN_N, 131072):
-        cfg, state, params, pods = make_case(n, MAIN_B, device, SEED + 7)
+    shapes = [(MAIN_N, MAIN_B), (SHARDED_N, MAIN_B), (MAIN_N, 1)]
+    mean_b = max(1, round(fill))
+    if mean_b not in (1, MAIN_B):
+        shapes.append((MAIN_N, mean_b))
+    for n, b in shapes:
+        cfg, state, params, pods = make_case(n, b, device, SEED + 7)
         inputs = ops._afterstate_inputs(state, pods, cfg, params)
         saved = ss.sdqn_score_afterstate.launches
         ms = graph_time_ms(lambda: ss.sdqn_score_afterstate(*inputs), 200)
         call_ms = cuda_time_ms(lambda: ss.sdqn_score_afterstate(*inputs), 200)
+        names = device_kernels(lambda: ss.sdqn_score_afterstate(*inputs))
+        assert len(names) == 1 and "sdqn_score_afterstate_kernel" in names[0]
         ss.sdqn_score_afterstate.launches = saved   # timing launches don't count
         plain_iters = 10 if n > 5000 else 50
         plain_ms = graph_time_ms(
             lambda: ss.sdqn_score_afterstate_plain(*inputs), plain_iters)
         plain_call_ms = cuda_time_ms(
             lambda: ss.sdqn_score_afterstate_plain(*inputs), plain_iters)
-        b_ms, b_by = bound_ms(n, MAIN_B, name)
-        rows[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"timing N={n} B={MAIN_B}: kernel_ms={ms} plain_ms={plain_ms} "
+        b_ms, b_by = bound_ms(n, b, name)
+        rows[n, b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, n=n, b=b,
+                          launch_floor_ms=floor)
+        print(f"timing N={n} B={b}: kernel_ms={ms} plain_ms={plain_ms} "
               f"(device time, CUDA graph) kernel_call_ms={call_ms} "
               f"plain_call_ms={plain_call_ms} (eager calls, host included) "
               f"bound_ms={b_ms} ({b_by}, {peaks(name)[0]} peaks) "
-              f"kernel/bound={ms / b_ms}")
-    return rows
+              f"kernel/bound={ms / b_ms} kernel/launch_floor={ms / floor} "
+              f"{plan_text(n, b)}; device kernels per call: {len(names)}")
+    main = dict(rows.pop((MAIN_N, MAIN_B)))
+    main["other_shapes"] = list(rows.values())
+    return main
 
 
 class Spans:
@@ -709,6 +792,43 @@ def phase_new_kernels(device):
     return errs
 
 
+def phase_plan_kernels(device):
+    """Kernels 1 and 3 against their plain versions at every branch of
+    their launch plan (``sdqn_score.score_plan``): the sweep's N at
+    ``PLAN_B`` pods and ``PLAN_EXTRA``."""
+    from repro_torch.kernels import ops, sdqn_score as ss
+    from repro_torch.sched import placement as pl
+
+    errs = dict.fromkeys(("sdqn_score_afterstate", "sdqn_score_cols"), 0.0)
+    branches = set()
+    for n, b in [(n, b) for n in SHAPES_N for b in PLAN_B] + list(PLAN_EXTRA):
+        plan = ss.score_plan(n, b)
+        branches.add((plan.rows, plan.pod_rows))
+        cfg, state, params, pods = make_case(n, b, device, SEED + n + b)
+        deltas = pl.job_deltas(make_jobs(b, SEED + b), device)
+        cols = pl.fleet_cols(make_fleet(n, device, SEED + n))
+        for key, run in (
+                ("sdqn_score_afterstate",
+                 lambda m: ops.sdqn_score_afterstate(state, pods, cfg, params,
+                                                     mode=m)),
+                ("sdqn_score_cols",
+                 lambda m: ops.sdqn_score_delta(cols, deltas, params,
+                                                mode=m))):
+            got = run("cuda")
+            torch.cuda.synchronize()
+            want = run("plain")
+            assert got.shape == (b, n) and bool(torch.isfinite(got).all())
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            errs[key] = max(errs[key], float((got - want).abs().max()))
+        print(f"kernels 1 and 3 vs plain N={n} B={b}: ok; "
+              f"{plan_text(n, b)}")
+    assert branches == {(r, p) for r in ss.SCORE_ROWS
+                        for p in (True, False) if p or r > 1}, branches
+    print(f"kernels 1 and 3 at every plan branch {sorted(branches)}: "
+          f"max_abs_err {errs}")
+    return errs
+
+
 def _sharded_setup(device):
     from repro_torch.core import dqn, env
     from repro_torch.core.types import fleet_cluster
@@ -907,8 +1027,10 @@ def phase_fleet(device):
                                 "sdqn_score_cols_topk")):
         d = _fleet_daemon(device, layout)
         d.warmup()
+        shapes = {}
         zero_counts()                               # the path starts here
-        dur = replay_trace(d, t_s, jobs)
+        with launch_shapes(shapes):
+            dur = replay_trace(d, t_s, jobs)
         counts = read_counts()                      # ... and ends here
         m = d.metrics
         assert m.bound + m.dropped == m.submitted == N_REQUESTS, m
@@ -920,7 +1042,9 @@ def phase_fleet(device):
               f"p50_ms={np.percentile(lat, 50) * 1e3} "
               f"p99_ms={np.percentile(lat, 99) * 1e3} batches={m.batches} "
               f"kernel_launches={counts[key]} bound={m.bound} "
-              f"dropped={m.dropped} conflicts={m.conflicts} counts={counts}")
+              f"dropped={m.dropped} conflicts={m.conflicts} counts={counts} "
+              f"launches by (kernel, N, B): {shapes} requests per batch "
+              f"{N_REQUESTS / m.batches}")
         launches[key] = counts[key]
     runs = {}
     for layout in (None, _layout()):
@@ -949,10 +1073,13 @@ def phase_engine(device):
     fleet = pl.fresh_fleet(SHARDED_N, gen, device=device)
     params = dqn.init_qnet(gen, device=device)
     eng = pl.PlacementEngine(params)
+    shapes = {}
     zero_counts()                                   # the path starts here
-    placed, hosts = eng.place_batch(fleet, 64, pl.JobSpec())
+    with launch_shapes(shapes):
+        placed, hosts = eng.place_batch(fleet, 64, pl.JobSpec())
     q = eng._score(fleet.features())
     counts = read_counts()                          # ... and ends here
+    assert shapes == {("sdqn_score_cols", SHARDED_N, 1): 64}, shapes
     assert counts["sdqn_score_cols"] == 64 and counts["sdqn_score"] == 1, (
         counts)
     zero = ops.sdqn_score_delta(pl.fleet_cols(fleet),
@@ -963,32 +1090,41 @@ def phase_engine(device):
     assert float(placed.job_util_pct.max()) <= pl.JOB_UTIL_CEILING_PCT
     print(f"PlacementEngine: place_batch(64) distinct_hosts="
           f"{len(set(hosts.tolist()))} _score vs delta scorer at zero delta "
-          f"max_abs_err={float((q - zero).abs().max())} counts={counts}")
+          f"max_abs_err={float((q - zero).abs().max())} counts={counts} "
+          f"launches by (kernel, N, B): {shapes}")
     return counts["sdqn_score"]
 
 
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` runs (torch.profiler;
-    launches made here are restored by the caller)."""
+    launches made here are restored by the caller).  A session whose trace
+    holds no device event at all is run again, up to three times: the
+    profiler on the card's machine now and then delivers a short session's
+    events only in part, or not at all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 def phase_new_timings(device, name):
     """Kernels 2-5 at the main paths' shape (N = 131,072, B = 32, k = 8,
-    8 shards), kernels 4 and 5 also at B = 1 (the serving path's batches):
-    device time from a CUDA graph, eager per-call time, the plain
-    version's device time and the bound from this run's inputs.  For
-    kernels 4 and 5 also the launch plan that ran, the device kernels of
-    one call (exactly one), and their candidates' values against kernels
-    1's and 3's scores of the same pairs (bit for bit)."""
+    8 shards), kernels 3-5 also at B = 1 (``PlacementEngine.select``'s
+    batch; the daemons pad theirs to 32): device time from a CUDA graph,
+    eager per-call time, the plain version's device time and the bound
+    from this run's inputs, at B = 1 beside the launch floor.  For kernels
+    3-5 also the launch plan that ran and the device kernels of one call
+    (exactly one), and at both B kernels 4's and 5's candidates' values
+    against kernels 1's and 3's scores of the same pairs (bit for bit)."""
     from repro_torch.core import env
     from repro_torch.kernels import ops, sdqn_score as ss
     from repro_torch.sched import placement as pl
@@ -1000,6 +1136,7 @@ def phase_new_timings(device, name):
     feats = env.normalize_features(fleet.features())
     geo = dict(k=TOPK, shards=lay.shards, shard_size=lay.shard_size)
     ceil = ops.DEFAULT_CEILINGS
+    floor = launch_floor_ms()
     rows = {}
     for b in (MAIN_B, 1):
         cfg, state, params, pods = make_case(n, b, device, SEED + 7)
@@ -1036,38 +1173,37 @@ def phase_new_timings(device, name):
                 + n * COLS_TOPK_OPS_PER_HOST
                 + feasible_jobs * COLS_TOPK_OPS_PER_FEASIBLE + 6 * 32),
         }
-        scores = {}
+        cases["sdqn_score_cols"] = (
+            lambda: ss.sdqn_score_cols(cols, deltas, ops.FEATURE_SCALE, *w),
+            lambda: ss.sdqn_score_cols_plain(cols, deltas, ops.FEATURE_SCALE,
+                                             *w),
+            n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
+            + b * n * 4, b * n * COLS_OPS_PER_PAIR + 6 * 32)
         if b == MAIN_B:
-            cases.update({
-                "sdqn_score": (
-                    lambda: ss.sdqn_score(feats, *w),
-                    lambda: ss.sdqn_score_plain(feats, *w),
-                    n * SCORE_BYTES_PER_ROW + WEIGHT_BYTES,
-                    n * SCORE_OPS_PER_ROW),
-                "sdqn_score_cols": (
-                    lambda: ss.sdqn_score_cols(cols, deltas,
-                                               ops.FEATURE_SCALE, *w),
-                    lambda: ss.sdqn_score_cols_plain(
-                        cols, deltas, ops.FEATURE_SCALE, *w),
-                    n * COLS_BYTES_PER_HOST + b * DELTA_BYTES + WEIGHT_BYTES
-                    + b * n * 4, b * n * COLS_OPS_PER_PAIR + 6 * 32)})
-            # the scores kernels 4 and 5 select from: kernels 1 and 3
-            scores = {"sdqn_score_afterstate_topk":
-                      ss.sdqn_score_afterstate(*a_inputs),
-                      "sdqn_score_cols_topk": cases["sdqn_score_cols"][0]()}
+            cases["sdqn_score"] = (
+                lambda: ss.sdqn_score(feats, *w),
+                lambda: ss.sdqn_score_plain(feats, *w),
+                n * SCORE_BYTES_PER_ROW + WEIGHT_BYTES, n * SCORE_OPS_PER_ROW)
+        # the scores kernels 4 and 5 select from: kernels 1 and 3
+        scores = {"sdqn_score_afterstate_topk":
+                  ss.sdqn_score_afterstate(*a_inputs),
+                  "sdqn_score_cols_topk": cases["sdqn_score_cols"][0]()}
         for key, (fn, plain, nbytes, n_ops) in cases.items():
             saved = read_counts()
             ms = graph_time_ms(fn, 100)
             call_ms = cuda_time_ms(fn, 100)
             extra = ""
-            if key.endswith("_topk"):
+            if key != "sdqn_score":
                 names = device_kernels(fn)
                 assert len(names) == 1 and key in names[0], names
+                extra = f"device kernels per call: {len(names)}; "
+            if key.endswith("_topk"):
                 plan = ss.topk_plan(n, b, lay.shards, lay.shard_size)
-                extra = (f"plan: cluster={plan.cluster} pods={plan.pods} "
-                         f"chunk={plan.chunk} grid={plan.grid} "
-                         f"blocks={plan.blocks}; device kernels per call: "
-                         f"{len(names)} ")
+                extra += (f"plan: cluster={plan.cluster} pods={plan.pods} "
+                          f"chunk={plan.chunk} grid={plan.grid} "
+                          f"blocks={plan.blocks} ")
+            elif key == "sdqn_score_cols":
+                extra += plan_text(n, b) + " "
             if key in scores:
                 v, i = fn()
                 real = i >= 0
@@ -1085,7 +1221,9 @@ def phase_new_timings(device, name):
             if b == MAIN_B:
                 rows[key] = row
             else:
-                rows[key]["other_shapes"] = [dict(row, b=b)]
+                rows[key]["other_shapes"] = [dict(row, b=b,
+                                                  launch_floor_ms=floor)]
+                extra += f"kernel/launch_floor={ms / floor} "
             print(f"timing {key} N={n} "
                   f"B={b if key != 'sdqn_score' else '-'} k={TOPK} "
                   f"shards={lay.shards}: kernel_ms={ms} plain_ms={plain_ms} "
@@ -1987,7 +2125,10 @@ def main() -> int:
     max_err = phase_kernels(device)
     errs = phase_new_kernels(device)
     errs["sdqn_score_afterstate"] = max_err
-    launches = {"sdqn_score_afterstate": phase_main_path(device)}
+    for key, err in phase_plan_kernels(device).items():
+        errs[key] = max(errs[key], err)
+    launches = {}
+    launches["sdqn_score_afterstate"], fill = phase_main_path(device)
     phase_decision_parity(device)
     launches["sdqn_score_afterstate_topk"] = phase_sharded_cluster(device)
     phase_sharded_parity(device)
@@ -2013,7 +2154,7 @@ def main() -> int:
         launches[key] = sum(per_path.values())
     errs["decode_attention"] = max(lm_errs["decode_attention"].values())
     timing = phase_new_timings(device, name)
-    timing["sdqn_score_afterstate"] = phase_timings(device, name)[MAIN_N]
+    timing["sdqn_score_afterstate"] = phase_timings(device, name, fill)
     timing.update(phase_seq_timings(device, name))
     lm_timing = phase_lm_timings(device, name)
     timing["decode_attention"] = dict(lm_timing["path"], other_shapes=[

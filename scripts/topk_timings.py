@@ -9,14 +9,18 @@ package beside this one's, in turns.  Prints one JSON object a line:
 
 * ``time``: device time per call from a CUDA graph of 100 calls (median
   of 5 replays; ``chip_smoke.graph_time_ms``) of each wrapper, and the
-  device kernels one eager call runs (torch.profiler): kernels 4 and 5 at N = 131,072, 8 shards, k = 8
-  and B = 1 and 32; kernel 3 at N = 131,072, B = 32; kernel 1 at the flat
-  cluster path's N = 5,000, B = 32;
+  device kernels one eager call runs (torch.profiler): kernels 4 and 5 at
+  N = 131,072, 8 shards, k = 8 and B = 1 and 32; kernel 3 at N = 131,072,
+  B = 1 and 32; kernel 1 at the flat cluster path's N = 5,000, B = 1 and
+  32, and at N = 131,072, B = 32;
+* ``floor``: one empty kernel's device time in the same kind of graph
+  (``torch.cuda._sleep(0)``), the launch floor;
 * ``bitwise``: kernel 4's (5's) finite candidates that differ from kernel
-  1's (3's) score of the same (pod, node) pair, at B = 32;
-* with ``--variants`` (a checkout that has ``sdqn_score.topk_plan``):
-  every (P, C) of the top-k launch at B = 1 and 32, each held to the
-  default plan's candidates exactly.
+  1's (3's) score of the same (pod, node) pair, at B = 1 and 32;
+* with ``--variants`` (a checkout that has the plans): every (P, C) of the
+  top-k launch at B = 1 and 32, and every R of the scoring kernels'
+  launch (``sdqn_score.score_plan``) at the timed shapes, each held to
+  the default plan's output exactly.
 """
 from __future__ import annotations
 
@@ -104,43 +108,68 @@ def main() -> int:
         mreq = ops._pod_column(pods.mem_request, device)
         deltas = job_deltas(b, SEED + 2 + b)
         w = a_in[4:]
-        calls[("sdqn_score_afterstate_topk", b)] = (
+        calls[("sdqn_score_afterstate_topk", b, N)] = (
             lambda t_cols=t_cols, a_in=a_in, creq=creq, mreq=mreq:
             ss.sdqn_score_afterstate_topk(t_cols, a_in[1], a_in[2], creq,
                                           mreq, *a_in[3:], **geo))
-        calls[("sdqn_score_cols_topk", b)] = (
+        calls[("sdqn_score_cols_topk", b, N)] = (
             lambda deltas=deltas, w=w: ss.sdqn_score_cols_topk(
                 cols, deltas, ops.FEATURE_SCALE, *w, ops.DEFAULT_CEILINGS,
                 **geo))
+        calls[("sdqn_score_cols", b, N)] = (
+            lambda deltas=deltas, w=w: ss.sdqn_score_cols(
+                cols, deltas, ops.FEATURE_SCALE, *w))
         if b == 32:
-            calls[("sdqn_score_cols", b)] = (
-                lambda deltas=deltas, w=w: ss.sdqn_score_cols(
-                    cols, deltas, ops.FEATURE_SCALE, *w))
-            # bit for bit: the top-k values against the scoring kernels
-            q1 = ops.sdqn_score_afterstate(state, pods, cfg, params)
-            q3 = ops.sdqn_score_delta(cols, deltas, params)
-            for key, q in (("sdqn_score_afterstate_topk", q1),
-                           ("sdqn_score_cols_topk", q3)):
-                v, i = calls[(key, b)]()
-                real = i >= 0
-                at = torch.gather(q, 1, i.clamp(min=0).flatten(1)).view_as(v)
-                emit("bitwise", name=key, b=b, candidates=int(real.sum()),
-                     differ=int((v[real] != at[real]).sum()),
-                     max_abs_diff=float((v[real] - at[real]).abs().max()))
-    cfg, state, params, pods = cluster_case(FLAT_N, 32, SEED)
-    a_flat = ops._afterstate_inputs(state, pods, cfg, params)
-    calls[("sdqn_score_afterstate", 32)] = (
-        lambda: ss.sdqn_score_afterstate(*a_flat))
+            calls[("sdqn_score_afterstate", b, N)] = (
+                lambda a_in=a_in: ss.sdqn_score_afterstate(*a_in))
+        # bit for bit: the top-k values against the scoring kernels
+        q1 = ops.sdqn_score_afterstate(state, pods, cfg, params)
+        q3 = ops.sdqn_score_delta(cols, deltas, params)
+        for key, q in (("sdqn_score_afterstate_topk", q1),
+                       ("sdqn_score_cols_topk", q3)):
+            v, i = calls[(key, b, N)]()
+            real = i >= 0
+            at = torch.gather(q, 1, i.clamp(min=0).flatten(1)).view_as(v)
+            emit("bitwise", name=key, b=b, candidates=int(real.sum()),
+                 differ=int((v[real] != at[real]).sum()),
+                 max_abs_diff=float((v[real] - at[real]).abs().max()))
+    for b in (1, 32):
+        cfg, state, params, pods = cluster_case(FLAT_N, b, SEED)
+        a_flat = ops._afterstate_inputs(state, pods, cfg, params)
+        calls[("sdqn_score_afterstate", b, FLAT_N)] = (
+            lambda a_flat=a_flat: ss.sdqn_score_afterstate(*a_flat))
 
-    for (name, b), fn in calls.items():
-        emit("time", name=name, b=b, ms=graph_time_ms(fn, 100),
+    emit("floor", ms=graph_time_ms(lambda: torch.cuda._sleep(0), 100))
+    for (name, b, n), fn in calls.items():
+        emit("time", name=name, n=n, b=b, ms=graph_time_ms(fn, 100),
              device_kernels=device_kernels(fn))
 
+    if args.variants and hasattr(ss, "score_plan"):
+        score_plan = ss.score_plan
+        for (name, b, n), fn in calls.items():
+            if name not in ("sdqn_score_afterstate", "sdqn_score_cols"):
+                continue
+            want = fn().clone()
+            emit("score_plan", name=name, n=n, b=b,
+                 plan=dataclasses.asdict(score_plan(n, b)))
+            for rows in ss.SCORE_ROWS:
+                plan = ss.ScorePlan.of(n, b, rows)
+                ss.score_plan = lambda n_, b_, plan=plan: plan
+                try:
+                    same = torch.equal(fn(), want)
+                    emit("score_variant", name=name, n=n, b=b, rows=rows,
+                         pod_rows=plan.pod_rows, blocks=plan.blocks,
+                         ms=graph_time_ms(fn, 100), same=same)
+                except RuntimeError as e:
+                    emit("score_variant", name=name, n=n, b=b, rows=rows,
+                         error=str(e)[:200])
+                finally:
+                    ss.score_plan = score_plan
     if args.variants:
         plan_fn = ss.topk_plan
         for b in (1, 32):
             for name in ("sdqn_score_afterstate_topk", "sdqn_score_cols_topk"):
-                fn = calls[(name, b)]
+                fn = calls[(name, b, N)]
                 want = [t.clone() for t in fn()]
                 emit("plan", name=name, b=b, plan=dataclasses.asdict(
                     plan_fn(N, b, SHARDS, shard_size)))

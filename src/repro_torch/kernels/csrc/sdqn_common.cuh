@@ -1,8 +1,9 @@
 // Device helpers shared by the SDQN scoring kernels for Hopper (sm_90a):
 // the Table-4 Q-net 6 -> 32 -> ReLU -> 1 over weights staged in shared
 // memory (for one row, or for P rows that share each weight load), the
-// Table-2 afterstate features, and the top-k kernels' packed candidates
-// with their register lists and warp-level selection.
+// Table-2 afterstate features, the launch plan of kernels 1 and 3, and the
+// top-k kernels' packed candidates with their register lists and
+// warp-level selection.
 //
 // Exactness.  The kernels repeat the reference's order of operations (its
 // `*_xla` twins in src/repro/kernels/sdqn_score.py) and keep IEEE division.
@@ -89,7 +90,11 @@ __device__ __forceinline__ void afterstate_features(
   raw = raw + cpu_demand;
   raw = raw + startup_cpu;
   raw = raw + start_cost;
-  raw = raw + s.crowd_coeff * crowd * crowd;
+  // the multiply-add the compiler contracts `raw + cc * crowd * crowd` to
+  // with one use of the product, written out: scoring several pods of a
+  // node shares the pod-independent product, and with five uses or more
+  // it would no longer be contracted (kernel 4 holds it at two)
+  raw = __fmaf_rn(s.crowd_coeff * crowd, crowd, raw);
   const float util = raw / cap;
   const float over = max0(util - s.cont_knee);
   const float used = minv(raw + s.cont_coeff * over * over * cap, cap);
@@ -148,6 +153,69 @@ __device__ __forceinline__ void mlp_q_rows(const float4 (*s_w)[2], float b2,
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) q[p] = acc[p] + b2;
+}
+
+// ---------------------------------------------------------------------------
+// The launch plan of the scoring kernels 1 and 3 (sdqn_score.score_plan
+// picks it).  Each thread scores R rows, (pod, node) pairs, with one read
+// of each hidden unit's weights for all of them (mlp_q_rows).  Thread t of
+// block (x, y):
+//   pod rows   (B >= R): node x * 256 + t, pods y * R + r;
+//              grid (ceil(N / 256), ceil(B / R)), the last group ragged;
+//   node rows  (B < R):  nodes x * 256 R + r * 256 + t (so a warp's loads
+//              coalesce), pod y; grid (ceil(N / (256 R)), B).
+// A row past N or B is clamped to a real one for its loads and writes
+// nothing.
+// ---------------------------------------------------------------------------
+
+// Blocks an SM that ptxas keeps room for (its register cap is 65536 /
+// (256 x that)): 3 (80 registers) for a node's 8 pods, which ran faster
+// than 2 or 4 on kernel 3 at N = 131,072, B = 32; 2 (128) elsewhere, where
+// 3 or 4 spilled (8 node rows) or ran no faster.
+#define SCORE_MIN_BLOCKS(R, POD_ROWS) ((POD_ROWS) && (R) == 8 ? 3 : 2)
+
+template <int R, bool POD_ROWS>
+struct ScoreRows {
+  int node[R], pod[R];
+  bool write[R];
+
+  __device__ __forceinline__ void init(int n, int b) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int g = POD_ROWS ? blockIdx.x * SDQN_BLOCK + threadIdx.x
+                             : (blockIdx.x * R + r) * SDQN_BLOCK + threadIdx.x;
+      const int p = POD_ROWS ? blockIdx.y * R + r : blockIdx.y;
+      write[r] = g < n && p < b;
+      node[r] = g < n ? g : n - 1;
+      pod[r] = p < b ? p : b - 1;
+    }
+  }
+};
+
+// Launch `k.template run<R, POD_ROWS>(grid, stream)` for the plan's
+// (rows, pod_rows, grid), after checking that the grid covers every
+// (pod, node) pair; returns a CUDA error code (0 = launched).
+template <typename K>
+int launch_score_plan(const K& k, int n, int b, int rows, int pod_rows,
+                      int grid_x, int grid_y, void* stream) {
+  const long long reach = (long long)grid_x * SDQN_BLOCK * (pod_rows ? 1 : rows);
+  const bool ok = n >= 1 && b >= 1 && grid_x >= 1 && grid_y >= 1 &&
+                  grid_y <= 65535 && reach >= n && reach < (1ll << 31) &&
+                  (pod_rows ? (long long)grid_y * rows >= b : grid_y == b);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (rows * 2 + (pod_rows || rows == 1 ? 1 : 0)) {
+    case 1 * 2 + 1: k.template run<1, true>(grid, s); break;
+    case 2 * 2 + 1: k.template run<2, true>(grid, s); break;
+    case 4 * 2 + 1: k.template run<4, true>(grid, s); break;
+    case 8 * 2 + 1: k.template run<8, true>(grid, s); break;
+    case 2 * 2: k.template run<2, false>(grid, s); break;
+    case 4 * 2: k.template run<4, false>(grid, s); break;
+    case 8 * 2: k.template run<8, false>(grid, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -4,115 +4,142 @@
 // src/repro/kernels/sdqn_score.py (function at :171, pallas_call at :193).
 // For each of B pods and each of N nodes it builds the six normalized
 // Table-2 afterstate features from the node's raw ClusterState columns (the
-// arithmetic of `_afterstate_norm_features`, sdqn_score.py:102-129) and runs
-// the Table-4 Q-net 6 -> 32 -> ReLU -> 1 on them in registers, writing one
-// float32 Q-value per (pod, node).  The (B, N, 6) features and the
-// (B, N, 32) hidden layer never reach device memory.
+// arithmetic of `_afterstate_norm_features`, sdqn_score.py:102-129, in
+// sdqn_common.cuh's `afterstate_features`) and runs the Table-4 Q-net
+// 6 -> 32 -> ReLU -> 1 on them in registers, writing one float32 Q-value
+// per (pod, node).  The (B, N, 6) features and the (B, N, 32) hidden layer
+// never reach device memory.
 //
-// Design.  One thread per (node, pod): blockIdx.y is the pod of the batch,
-// blockIdx.x * 256 + threadIdx.x the node.  The thread loads its node's 12
-// columns (in their native dtypes: f32, int32 and bool bytes, so the caller
-// needs no cast launches; a node's columns are re-read by the B pods from
-// L2).  The 257 weights sit in shared memory, packed so that each hidden
-// unit's 8 weights arrive in two 16-byte broadcast loads: with one 4-byte
-// load per weight the shared-memory pipe, not the FMA pipe, set the pace at
-// N = 131,072.  A first version looped each node's thread over the B pods:
-// the compiler then held 256 weights in registers across the loop (255
-// registers, spills, one block per SM) and N = 5000 filled only 20 blocks.  The TPU grid ran blocks
-// of 1024 lanes in order and padded capacities with 1; here blocks run in
-// parallel and the ragged edge is masked by `n < N`.
+// Design.  The launch plan `sdqn_score.score_plan` (sdqn_common.cuh,
+// `ScoreRows`) gives each thread R rows.  Where B allows they are one
+// node's R pods: the thread loads the node's 12 columns (in their native
+// dtypes: f32, int32 and bool bytes, so the caller needs no cast launches)
+// once, computes the pod-independent features once (the compiler shares
+// them between the R calls of `afterstate_features`) and reads each hidden
+// unit's two float4 of weights once for the R pods (`mlp_q_rows`).  Where
+// B < R they are R nodes for one pod.  The column loads are issued before
+// the block stages its weights, so the two latencies overlap: at the
+// 5,000-node cluster's small grids the kernel is a chain of such waits.  R is the largest whose grid still
+// keeps 256 blocks (about 2 an SM); the 5,000-node cluster at small B gets
+// R = 1 and leaves most SMs idle (splitting a row's hidden units over
+// lanes to fill them measured slower, PERF.md section 6).  The weights sit
+// in shared memory, two 16-byte broadcast loads per hidden unit.  Every
+// score keeps mlp_q's order of operations, so kernel 4's candidates carry
+// kernel 1's scores bit for bit.  The TPU grid ran blocks of 1024 lanes in
+// order and padded capacities with 1; here blocks run in parallel and the
+// ragged edges are masked by index.
 //
-// What bounds it.  Per (pod, node) it does ~500 fp32 operations (19 for the
-// features, 6x32 multiply-adds, 32 ReLUs, 32 multiply-adds for the output)
-// against 42 bytes per node read once and 4 bytes per (pod, node) written,
-// so at B = 32 it is bound by fp32 CUDA-core operations, not by bytes.  The
-// 6 -> 32 layer is too thin for tensor cores.  At the serving size (N =
-// 5000, B = 32) the whole launch is ~1 us of work, so launch latency
-// dominates.
-//
-// ReLU, max and min are written as compares so a NaN propagates as it does
-// through jnp.maximum / torch.clamp: a diverged net must reach the daemon's
-// NaN guard, not be masked to 0 by fmaxf.
+// What bounds it.  Per (pod, node) ~500 fp32 operations (19 for the
+// pod-dependent features, 6x32 multiply-adds, 32 ReLUs, 32 multiply-adds
+// for the output) against 42 bytes per node read once and 4 bytes per
+// (pod, node) written, so at B = 32 it is bound by fp32 CUDA-core
+// operations, not by bytes, and in practice by instruction issue (~290
+// instructions a pair for the Q-net).  The 6 -> 32 layer is too thin for
+// the tensor cores, whose TF32 products would also change the bits.  At
+// the serving size (N = 5000, B ~ 1) the whole launch is well under a
+// microsecond of work, so the launch's own latency dominates.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sdqn_common.cuh"
 
-#define HIDDEN 32
-#define BLOCK 256
+// one node's 12 raw columns, as loaded (the bool bytes are tested where
+// they are used, so no instruction waits on a load before it must)
+struct NodeCols {
+  float base_cpu, pods_cpu, startup_cpu, mem_used, uptime, cap, mem_cap;
+  int32_t num_pods, exp_pods, max_pods;
+  uint8_t cached, healthy;
+};
 
-__device__ __forceinline__ float max0(float x) { return x < 0.0f ? 0.0f : x; }
-__device__ __forceinline__ float minv(float x, float hi) { return x > hi ? hi : x; }
+struct ClusterCols {
+  const float *base_cpu, *pods_cpu, *startup_cpu;
+  const int32_t *num_pods, *exp_pods;
+  const float* mem_used;
+  const uint8_t *image_cached, *healthy;
+  const float *uptime, *cpu_cap, *mem_cap;
+  const int32_t* max_pods;
 
-__global__ void __launch_bounds__(BLOCK) sdqn_score_afterstate_kernel(
-    const float* __restrict__ base_cpu, const float* __restrict__ pods_cpu,
-    const float* __restrict__ startup_cpu, const int32_t* __restrict__ num_pods,
-    const int32_t* __restrict__ exp_pods, const float* __restrict__ mem_used,
-    const uint8_t* __restrict__ image_cached, const uint8_t* __restrict__ healthy,
-    const float* __restrict__ uptime, const float* __restrict__ cpu_cap,
-    const float* __restrict__ mem_cap, const int32_t* __restrict__ max_pods,
-    const float* __restrict__ cpu_demand, const float* __restrict__ mem_demand,
-    float pull, float warm, float overhead, float crowd_knee, float crowd_coeff,
-    float cont_knee, float cont_coeff, float uptime_scale, float exp_scale,
-    const float* __restrict__ w1,   // (6, 32) row-major, the reference layout
-    const float* __restrict__ b1,   // (32,)
-    const float* __restrict__ w2,   // (32,) = (32, 1)
-    const float* __restrict__ b2,   // (1,)
-    float* __restrict__ q,          // (B, N)
-    int n, int b) {
-  // per hidden unit j, two float4: (b1, w1[0..2][j]) and (w1[3..5][j], w2[j]),
-  // so the 8 weights of a unit arrive in two 16-byte broadcast loads
-  __shared__ float4 s_w[HIDDEN][2];
-  __shared__ float s_b2;
-  if (threadIdx.x < HIDDEN) {
-    const int j = threadIdx.x;
-    s_w[j][0] = make_float4(b1[j], w1[0 * HIDDEN + j], w1[1 * HIDDEN + j],
-                            w1[2 * HIDDEN + j]);
-    s_w[j][1] = make_float4(w1[3 * HIDDEN + j], w1[4 * HIDDEN + j],
-                            w1[5 * HIDDEN + j], w2[j]);
+  __device__ __forceinline__ NodeCols load(int g) const {
+    NodeCols c;
+    c.base_cpu = base_cpu[g];
+    c.pods_cpu = pods_cpu[g];
+    c.startup_cpu = startup_cpu[g];
+    c.num_pods = num_pods[g];
+    c.exp_pods = exp_pods[g];
+    c.mem_used = mem_used[g];
+    c.cached = image_cached[g];
+    c.healthy = healthy[g];
+    c.uptime = uptime[g];
+    c.cap = cpu_cap[g];
+    c.mem_cap = mem_cap[g];
+    c.max_pods = max_pods[g];
+    return c;
   }
-  if (threadIdx.x == 0) s_b2 = b2[0];
-  __syncthreads();
+};
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (i >= n) return;
-
-  const float cap = cpu_cap[i];
-  const float start_cost = image_cached[i] ? warm : pull;
-  const float np1 = (float)num_pods[i] + 1.0f;
-  const float ep1 = (float)exp_pods[i] + 1.0f;
-  const float crowd = max0(np1 - crowd_knee);
-  // the placed node is always active: the overhead term is unconditional
-  float raw = base_cpu[i] + overhead;
-  raw = raw + pods_cpu[i];
-  raw = raw + cpu_demand[p];
-  raw = raw + startup_cpu[i];
-  raw = raw + start_cost;
-  raw = raw + crowd_coeff * crowd * crowd;
-  const float util = raw / cap;
-  const float over = max0(util - cont_knee);
-  const float used = minv(raw + cont_coeff * over * over * cap, cap);
-  const float f0 = used / cap;
-  const float f1 = (mem_used[i] + mem_demand[p]) / mem_cap[i];
-  const float f2 = np1 / (float)max_pods[i];
-  const float f3 = healthy[i] ? 1.0f : 0.0f;
-  const float f4 = uptime[i] / uptime_scale;
-  const float f5 = ep1 / exp_scale;
-
-  float acc = 0.0f;
+// row r of x: node c's features as if the pod were placed on it
+template <int R>
+__device__ __forceinline__ void node_features(const AfterstateScalars& sc,
+                                              const NodeCols& c, float cd,
+                                              float md, float (&x)[6][R],
+                                              int r) {
+  float f[6];
+  afterstate_features(sc, c.base_cpu, c.pods_cpu, c.startup_cpu, c.num_pods,
+                      c.exp_pods, c.mem_used, c.cached != 0, c.healthy != 0,
+                      c.uptime,
+                      c.cap, c.mem_cap, c.max_pods, cd, md, f);
 #pragma unroll
-  for (int j = 0; j < HIDDEN; ++j) {
-    const float4 a = s_w[j][0], c = s_w[j][1];
-    float h = a.x;
-    h = h + f0 * a.y;
-    h = h + f1 * a.z;
-    h = h + f2 * a.w;
-    h = h + f3 * c.x;
-    h = h + f4 * c.y;
-    h = h + f5 * c.z;
-    acc = acc + max0(h) * c.w;
+  for (int i = 0; i < 6; ++i) x[i][r] = f[i];
+}
+
+// Kernel 1's arguments, and its launch for one plan (R, POD_ROWS).
+struct AfterstateScore {
+  ClusterCols cols;
+  const float *cpu_demand, *mem_demand;  // (B,)
+  AfterstateScalars sc;
+  const float* w1;  // (6, 32) row-major, the reference layout
+  const float* b1;  // (32,)
+  const float* w2;  // (32,) = (32, 1)
+  const float* b2;  // (1,)
+  float* q;         // (B, N)
+  int n, b;
+
+  template <int R, bool POD_ROWS>
+  void run(dim3 grid, cudaStream_t stream) const;
+};
+
+template <int R, bool POD_ROWS>
+__global__ void __launch_bounds__(SDQN_BLOCK, SCORE_MIN_BLOCKS(R, POD_ROWS))
+    sdqn_score_afterstate_kernel(const AfterstateScore a) {
+  __shared__ float4 s_w[SDQN_HIDDEN][2];
+  __shared__ float s_b2;
+  ScoreRows<R, POD_ROWS> m;
+  m.init(a.n, a.b);
+  // a node's columns, loaded once for its R pods, or R nodes' for one pod;
+  // the loads are in flight while the weights are staged
+  constexpr int H = POD_ROWS ? 1 : R;
+  NodeCols c[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) c[h] = a.cols.load(m.node[h]);
+  float cd[R], md[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    cd[r] = a.cpu_demand[m.pod[r]];
+    md[r] = a.mem_demand[m.pod[r]];
   }
-  q[(size_t)p * n + i] = acc + s_b2;
+  stage_weights(s_w, &s_b2, a.w1, a.b1, a.w2, a.b2, nullptr);
+  float x[6][R], q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    node_features<R>(a.sc, c[POD_ROWS ? 0 : r], cd[r], md[r], x, r);
+  mlp_q_rows<R>(s_w, s_b2, x, q);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (m.write[r]) a.q[(size_t)m.pod[r] * a.n + m.node[r]] = q[r];
+}
+
+template <int R, bool POD_ROWS>
+void AfterstateScore::run(dim3 grid, cudaStream_t stream) const {
+  sdqn_score_afterstate_kernel<R, POD_ROWS>
+      <<<grid, SDQN_BLOCK, 0, stream>>>(*this);
 }
 
 extern "C" int sdqn_score_afterstate_launch(
@@ -124,16 +151,19 @@ extern "C" int sdqn_score_afterstate_launch(
     float pull, float warm, float overhead, float crowd_knee, float crowd_coeff,
     float cont_knee, float cont_coeff, float uptime_scale, float exp_scale,
     const void* w1, const void* b1, const void* w2, const void* b2, void* q,
-    int n, int b, void* stream) {
-  const dim3 grid((n + BLOCK - 1) / BLOCK, b);
-  sdqn_score_afterstate_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)base_cpu, (const float*)pods_cpu, (const float*)startup_cpu,
-      (const int32_t*)num_pods, (const int32_t*)exp_pods, (const float*)mem_used,
-      (const uint8_t*)image_cached, (const uint8_t*)healthy, (const float*)uptime,
-      (const float*)cpu_cap, (const float*)mem_cap, (const int32_t*)max_pods,
-      (const float*)cpu_demand, (const float*)mem_demand, pull, warm, overhead,
-      crowd_knee, crowd_coeff, cont_knee, cont_coeff, uptime_scale, exp_scale,
+    int n, int b, int rows, int pod_rows, int grid_x, int grid_y,
+    void* stream) {
+  const AfterstateScore a = {
+      {(const float*)base_cpu, (const float*)pods_cpu,
+       (const float*)startup_cpu, (const int32_t*)num_pods,
+       (const int32_t*)exp_pods, (const float*)mem_used,
+       (const uint8_t*)image_cached, (const uint8_t*)healthy,
+       (const float*)uptime, (const float*)cpu_cap, (const float*)mem_cap,
+       (const int32_t*)max_pods},
+      (const float*)cpu_demand, (const float*)mem_demand,
+      {pull, warm, overhead, crowd_knee, crowd_coeff, cont_knee, cont_coeff,
+       uptime_scale, exp_scale},
       (const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
-      (float*)q, n, b);
-  return (int)cudaGetLastError();
+      (float*)q, n, b};
+  return launch_score_plan(a, n, b, rows, pod_rows, grid_x, grid_y, stream);
 }

@@ -17,47 +17,32 @@
 //
 // Design.  The normalization folds into w1 (w1[f] / scale[f], IEEE
 // division, as the reference's `w1 / scale[:, None]`), staged per block in
-// shared memory (sdqn_common.cuh).  `sdqn_score_cols`: one thread per
-// (host, job), grid (ceil(N / 256), B).  `sdqn_score_cols_topk`: the
-// geometry and reduction of topk_cluster.cuh (a cluster of blocks per
-// (shard, group of P jobs), each block an ascending chunk of the shard,
-// each warp its best k per job in a WarpList, the merge inside the
-// launch).  A thread loads a host's six columns once for its P jobs and
-// reads each hidden unit's weights once for them (mlp_q_rows: kernel 3's
-// order of operations, so every score is kernel 3's bit for bit).  All
-// the features depend on the delta, so P saves the column loads and the
-// shared-memory weight reads only.  The ragged last shard is masked by
-// index (host >= N), so no padded copy of the columns is made.
+// shared memory (sdqn_common.cuh).  `sdqn_score_cols`: the launch plan
+// `sdqn_score.score_plan` (sdqn_common.cuh, `ScoreRows`) gives each thread
+// R rows, a host's R jobs where B >= R (one load of its six columns) or R
+// hosts for one job (B = 1 over 131,072 hosts: R = 2), with one read of
+// each hidden unit's two float4 of weights for the R rows (mlp_q_rows);
+// the column loads are in flight while the block stages its weights.
+// `sdqn_score_cols_topk`: the geometry and reduction of topk_cluster.cuh
+// (a cluster of blocks per (shard, group of P jobs), each block an
+// ascending chunk of the shard, each warp its best k per job in a
+// WarpList, the merge inside the launch), with the next host's columns
+// loaded while the current one scores.  Both keep mlp_q's order of
+// operations, so every candidate of kernel 5 is kernel 3's score bit for
+// bit.  All the features depend on the delta, so R and P save the column
+// loads and the shared-memory weight reads only.  The ragged last shard is
+// masked by index (host >= N), so no padded copy of the columns is made.
 // Infeasible hosts are never offered: their slots stay -inf / -1.
 //
 // What bounds it.  Per (job, host) ~490 fp32 operations against 24 bytes
 // per host read once: at B = 32 the fp32 pipe, not memory, is the limit,
 // and in practice instruction issue (the Q-net's ~290 instructions a
-// pair).
+// pair: 7 multiply-adds, a ReLU and a multiply-add per hidden unit).  One
+// weight read per thread and hidden unit for R = 8 rows leaves the
+// shared-memory pipe idle most of the time; the tensor cores' TF32
+// products would change the bits.
 
 #include "topk_cluster.cuh"
-
-__global__ void __launch_bounds__(SDQN_BLOCK) sdqn_score_cols_kernel(
-    const float* __restrict__ c0, const float* __restrict__ c1,
-    const float* __restrict__ c2, const float* __restrict__ c3,
-    const float* __restrict__ c4, const float* __restrict__ c5,
-    const float* __restrict__ deltas,  // (B, 6)
-    float sc0, float sc1, float sc2, float sc3, float sc4, float sc5,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2,
-    float* __restrict__ q, int n) {
-  __shared__ float4 s_w[SDQN_HIDDEN][2];
-  __shared__ float s_b2;
-  const float scale[6] = {sc0, sc1, sc2, sc3, sc4, sc5};
-  stage_weights(s_w, &s_b2, w1, b1, w2, b2, scale);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (i >= n) return;
-  const float* d = deltas + p * 6;
-  q[(size_t)p * n + i] = mlp_q(s_w, s_b2, c0[i] + d[0], c1[i] + d[1],
-                               c2[i] + d[2], c3[i] + d[3], c4[i] + d[4],
-                               c5[i] + d[5]);
-}
 
 // one host's six raw columns
 struct HostCols {
@@ -71,6 +56,61 @@ struct FleetCols {
     return {c0[g], c1[g], c2[g], c3[g], c4[g], c5[g]};
   }
 };
+
+// Kernel 3's arguments, and its launch for one plan (R, POD_ROWS).
+struct ColsScore {
+  FleetCols cols;
+  const float* deltas;  // (B, 6)
+  float sc[6];
+  const float *w1, *b1, *w2, *b2;
+  float* q;             // (B, N)
+  int n, b;
+
+  template <int R, bool POD_ROWS>
+  void run(dim3 grid, cudaStream_t stream) const;
+};
+
+template <int R, bool POD_ROWS>
+__global__ void __launch_bounds__(SDQN_BLOCK, SCORE_MIN_BLOCKS(R, POD_ROWS))
+    sdqn_score_cols_kernel(const ColsScore a) {
+  __shared__ float4 s_w[SDQN_HIDDEN][2];
+  __shared__ float s_b2;
+  ScoreRows<R, POD_ROWS> m;
+  m.init(a.n, a.b);
+  // a host's columns, loaded once for its R jobs, or R hosts' for one job;
+  // the loads are in flight while the weights are staged
+  constexpr int H = POD_ROWS ? 1 : R;
+  HostCols c[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) c[h] = a.cols.load(m.node[h]);
+  float d[6][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int f = 0; f < 6; ++f) d[f][r] = a.deltas[m.pod[r] * 6 + f];
+  stage_weights(s_w, &s_b2, a.w1, a.b1, a.w2, a.b2, a.sc);
+  float x[6][R], q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const HostCols& hc = c[POD_ROWS ? 0 : r];
+    x[0][r] = hc.c0 + d[0][r];
+    x[1][r] = hc.c1 + d[1][r];
+    x[2][r] = hc.c2 + d[2][r];
+    x[3][r] = hc.c3 + d[3][r];
+    x[4][r] = hc.c4 + d[4][r];
+    x[5][r] = hc.c5 + d[5][r];
+  }
+  mlp_q_rows<R>(s_w, s_b2, x, q);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (m.write[r]) a.q[(size_t)m.pod[r] * a.n + m.node[r]] = q[r];
+}
+
+template <int R, bool POD_ROWS>
+void ColsScore::run(dim3 grid, cudaStream_t stream) const {
+  sdqn_score_cols_kernel<R, POD_ROWS><<<grid, SDQN_BLOCK, 0, stream>>>(
+      *this);
+}
 
 // The deltas of P jobs (job `job0 + p`; `valid[p]` false past B) and the
 // scoring of one host for them: kernel 3's arithmetic, the feasibility of
@@ -173,14 +213,15 @@ extern "C" int sdqn_score_cols_launch(
     const void* c4, const void* c5, const void* deltas, float sc0, float sc1,
     float sc2, float sc3, float sc4, float sc5, const void* w1,
     const void* b1, const void* w2, const void* b2, void* q, int n, int b,
+    int rows, int pod_rows, int grid_x, int grid_y,
     void* stream) {
-  const dim3 grid((n + SDQN_BLOCK - 1) / SDQN_BLOCK, b);
-  sdqn_score_cols_kernel<<<grid, SDQN_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)c0, (const float*)c1, (const float*)c2, (const float*)c3,
-      (const float*)c4, (const float*)c5, (const float*)deltas, sc0, sc1, sc2,
-      sc3, sc4, sc5, (const float*)w1, (const float*)b1, (const float*)w2,
-      (const float*)b2, (float*)q, n);
-  return (int)cudaGetLastError();
+  const ColsScore a = {
+      {(const float*)c0, (const float*)c1, (const float*)c2, (const float*)c3,
+       (const float*)c4, (const float*)c5},
+      (const float*)deltas, {sc0, sc1, sc2, sc3, sc4, sc5},
+      (const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2,
+      (float*)q, n, b};
+  return launch_score_plan(a, n, b, rows, pod_rows, grid_x, grid_y, stream);
 }
 
 extern "C" int sdqn_score_cols_topk_launch(

@@ -24,11 +24,13 @@ The top-k kernels take a shard geometry (``shards`` slices of
 as ``(B, shards, k)`` values and GLOBAL node indices: sorted descending
 with NaN above every number, ties by ascending index, and ``-1`` for
 every slot that is not finite (``-inf`` = infeasible or exhausted).  One
-launch computes all of it; ``topk_plan`` sets the launch's geometry.
+launch computes all of it; ``topk_plan`` sets the launch's geometry, and
+``score_plan`` that of the scoring kernels 1 and 3.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -179,6 +181,60 @@ def topk_plan(n: int, b: int, shards: int, shard_size: int) -> TopkPlan:
                     shared_bytes=shared)
 
 
+# Launch geometry of the scoring kernels 1 and 3 (csrc/sdqn_common.cuh,
+# ``ScoreRows``).  A thread scores R rows, (pod, node) pairs, reading each
+# hidden unit's weights once for them: a node's R pods where B >= R, else
+# R nodes for one pod.  R and the block count that fills the card were
+# measured on an H100 SXM (scripts/topk_timings.py --variants, PERF.md
+# section 6): the fastest R at every timed shape is the largest whose grid
+# keeps 256 blocks, about 2 on each of the 132 SMs.  Splitting a row's
+# hidden units over lanes, to fill the card at N = 5000 and B = 1, was
+# slower at every split and is not built.
+SCORE_THREADS = TOPK_THREADS   # threads per block: SDQN_BLOCK
+SCORE_ROWS = (8, 4, 2, 1)    # R the kernels are built for, largest first
+SCORE_FILL_BLOCKS = 256      # blocks the largest R must still give
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan:
+    grid: tuple          # (x, y, 1)
+    rows: int            # R: rows a thread scores
+    pod_rows: bool       # a thread's R rows are one node's pods (B >= R)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @classmethod
+    def of(cls, n: int, b: int, rows: int) -> "ScorePlan":
+        """The grid for R = ``rows`` over N nodes and B pods: pod rows
+        where B >= R, else node rows."""
+        if b >= rows:
+            return cls((-(-n // SCORE_THREADS), -(-b // rows), 1), rows, True)
+        return cls((-(-n // (SCORE_THREADS * rows)), b, 1), rows, False)
+
+    def args(self) -> tuple:
+        """The launch functions' (rows, pod_rows, grid_x, grid_y)."""
+        return self.rows, int(self.pod_rows), self.grid[0], self.grid[1]
+
+
+@functools.lru_cache(maxsize=256)
+def score_plan(n: int, b: int) -> ScorePlan:
+    """The scoring kernels' launch for B pods over N nodes: the largest R
+    of ``SCORE_ROWS`` whose grid keeps ``SCORE_FILL_BLOCKS`` blocks, else
+    R = 1."""
+    for rows in SCORE_ROWS:
+        plan = ScorePlan.of(n, b, rows)
+        if plan.blocks >= SCORE_FILL_BLOCKS:
+            return plan
+    return plan
+
+
+def _check_score_shape(name, n, b):
+    if n < 1 or not 1 <= b <= 65535 or n * b >= 2 ** 31:   # grid.y <= B
+        raise ValueError(f"{name}: unsupported shape N={n}, B={b}")
+
+
 # ---------------------------------------------------------------------------
 # kernel 1: afterstate scoring from raw ClusterState columns
 # ---------------------------------------------------------------------------
@@ -263,13 +319,12 @@ def sdqn_score_afterstate(cols, cpu_demand, mem_demand, scalars, w1, b1, w2,
                                            scalars, w1, b1, w2, b2)
     n, b = _check_afterstate(COLUMNS, COLUMN_DTYPES, cols,
                              (cpu_demand, mem_demand), w1, b1, w2, b2)
-    if n < 1 or not 1 <= b <= 65535 or n * b >= 2 ** 31:   # grid.y = B
-        raise ValueError(f"unsupported shape: N={n}, B={b}")
+    _check_score_shape("sdqn_score_afterstate", n, b)
     q = torch.empty((b, n), dtype=_F32, device=device)
     _launch("sdqn_score_afterstate", KERNEL_SOURCE,
-            [_P] * 14 + [_F] * 9 + [_P] * 5 + [_I, _I], device,
+            [_P] * 14 + [_F] * 9 + [_P] * 5 + [_I] * 6, device,
             *cols, cpu_demand, mem_demand, *_scalar_args(scalars),
-            w1, b1, w2, b2, q, n, b)
+            w1, b1, w2, b2, q, n, b, *score_plan(n, b).args())
     sdqn_score_afterstate.launches += 1
     return q
 
@@ -333,8 +388,7 @@ def _check_cols(name, cols, deltas, w1, b1, w2, b2):
         _check(f"column {i}", col, _F32, (n,), device)
     _check("deltas", deltas, _F32, (b, 6), device)
     _check_weights(w1, b1, w2, b2, device)
-    if n < 1 or not 1 <= b <= 65535 or n * b >= 2 ** 31:
-        raise ValueError(f"{name}: unsupported shape N={n}, B={b}")
+    _check_score_shape(name, n, b)
     return n, b
 
 
@@ -348,9 +402,9 @@ def sdqn_score_cols(cols, deltas, scale, w1, b1, w2, b2) -> torch.Tensor:
     n, b = _check_cols("sdqn_score_cols", cols, deltas, w1, b1, w2, b2)
     q = torch.empty((b, n), dtype=_F32, device=device)
     _launch("sdqn_score_cols", COLS_SOURCE,
-            [_P] * 7 + [_F] * 6 + [_P] * 5 + [_I, _I], device,
+            [_P] * 7 + [_F] * 6 + [_P] * 5 + [_I] * 6, device,
             *cols, deltas, *(float(x) for x in scale), w1, b1, w2, b2, q,
-            n, b)
+            n, b, *score_plan(n, b).args())
     sdqn_score_cols.launches += 1
     return q
 

@@ -17,6 +17,7 @@ from repro_torch.core import dqn, env
 from repro_torch.core.types import fleet_cluster
 from repro_torch.kernels import ops, sdqn_score as ss
 from repro_torch.sched import daemon
+from test_torch_score_plan import BRANCHES, PLAN_SHAPES
 
 
 @pytest.fixture
@@ -237,13 +238,16 @@ def test_topk_kernels_write_an_empty_shard_as_no_candidates(cuda_device):
 
 
 @pytest.mark.cuda
-def test_topk_values_are_the_scoring_kernels_scores_bit_for_bit(cuda_device):
+@pytest.mark.parametrize("b", [1, 5, 32])
+def test_topk_values_are_the_scoring_kernels_scores_bit_for_bit(cuda_device,
+                                                                 b):
     """Kernel 4's candidates carry kernel 1's scores of the same (pod,
-    node) exactly, kernel 5's kernel 3's: the same order of operations."""
+    node) exactly, kernel 5's kernel 3's: the same order of operations,
+    whichever branch of ``score_plan`` kernels 1 and 3 took."""
     from repro_torch.launch.mesh import plan_fleet_layout
     from repro_torch.sched import placement as pl
 
-    n, b = 131072, 32
+    n = 131072
     cfg, state, params, pods = _case(n, b, cuda_device, 9)
     lay = plan_fleet_layout(n, shards=8)
     fleet = _fleet(n, cuda_device, 9)
@@ -295,6 +299,85 @@ def test_topk_wrapper_call_is_one_device_kernel(cuda_device):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(kernels) == 1, [e.name for e in kernels]
         assert name in kernels[0].name, kernels[0].name
+
+
+def _plan_branch(n, b):
+    plan = ss.score_plan(n, b)
+    return plan.rows, plan.pod_rows
+
+
+def _scoring_calls(n, b, device, seed):
+    """Kernel 1's and kernel 3's wrapper calls at (N, B) with their plain
+    versions on the same inputs: {name: (call, plain)}."""
+    from repro_torch.sched import placement as pl
+
+    cfg, state, params, pods = _case(n, b, device, seed)
+    a_in = ops._afterstate_inputs(state, pods, cfg, params)
+    cols = pl.fleet_cols(_fleet(n, device, seed))
+    c_in = (cols, _deltas(b, device, seed), ops.FEATURE_SCALE, *a_in[4:])
+    return {"sdqn_score_afterstate": (
+                lambda: ss.sdqn_score_afterstate(*a_in),
+                lambda: ss.sdqn_score_afterstate_plain(*a_in)),
+            "sdqn_score_cols": (
+                lambda: ss.sdqn_score_cols(*c_in),
+                lambda: ss.sdqn_score_cols_plain(*c_in))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", PLAN_SHAPES)
+def test_scoring_kernels_match_plain_at_every_plan_branch(cuda_device, n, b):
+    """Kernels 1 and 3 against their plain versions at 1e-5 on the sweep
+    and the shapes that reach the plan's other branches, one launch each."""
+    for name, (call, plain) in _scoring_calls(n, b, cuda_device,
+                                              n + b).items():
+        wrapper = getattr(ss, name)
+        before = wrapper.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert got.shape == (b, n) and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, plain(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", sorted(
+    {_plan_branch(n, b): (n, b) for n, b in PLAN_SHAPES}.values()))
+def test_scoring_kernels_propagate_nan_at_every_plan_branch(cuda_device, n,
+                                                            b):
+    from repro_torch.sched import placement as pl
+
+    assert _plan_branch(n, b) in BRANCHES
+    cfg, state, params, pods = _case(n, b, cuda_device, 5)
+    for key in ("b1", "w2"):
+        bad = dict(params, **{key: torch.full_like(params[key], float("nan"))})
+        assert bool(torch.isnan(ops.sdqn_score_afterstate(
+            state, pods, cfg, bad)).all())
+        assert bool(torch.isnan(ops.sdqn_score_delta(
+            pl.fleet_cols(_fleet(n, cuda_device, 5)),
+            _deltas(b, cuda_device, 5), bad)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(5000, 1), (5000, 32), (131072, 1),
+                                 (131072, 32)])
+def test_scoring_wrapper_call_is_one_device_kernel(cuda_device, n, b):
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, (call, _) in _scoring_calls(n, b, cuda_device, 11).items():
+        call()
+        torch.cuda.synchronize()
+        # a session whose trace holds no device event at all (the profiler
+        # now and then delivers none for a short session) is run again
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 1, kernels
+        assert name + "_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda
