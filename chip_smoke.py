@@ -30,9 +30,9 @@ Phases (any failed check raises and the run exits nonzero):
    CUDA graph of many calls) and eager per-call time, beside the least
    time the card could take (``bound_ms``), at N = 5000 and 131072, B = 32,
    and at N = 5000 with B = 1 and with the main path's requests per batch,
-   each with the launch plan that ran and one device kernel per call
-   (torch.profiler), beside one empty kernel's device time in a CUDA graph
-   (the launch floor).
+   each with the launch plan that ran and one device kernel per call (the
+   kernel nodes of a CUDA graph of one call), beside one empty kernel's
+   device time in a CUDA graph (the launch floor).
 5. Breakdown: a 500-request replay at 4000/s with host-clock spans around
    each layer of a batch and torch.profiler's device time (busy share).
 
@@ -59,10 +59,11 @@ hosts in 8 shards with 8 candidates each:
    and ``engine._score`` (kernel 2) against the delta scorer at zero delta.
 8. Timings of kernels 2-5 at N = 131,072, B = 32, k = 8 (as phase 4),
    kernels 3-5 also at B = 1 (``PlacementEngine``'s batch, under
-   ``other_shapes``, beside the launch floor), each with the launch plan
+   ``other_shapes``, beside the launch floor) and kernel 2 also at N =
+   5,000 (likewise), each with the launch plan
    that ran (``sdqn_score.score_plan``, ``sdqn_score.topk_plan``: cluster
    size, pods per thread, nodes per block); one call of each must be
-   exactly one device kernel (torch.profiler), and at B = 1 and 32
+   exactly one device kernel (a CUDA graph of one call), and at B = 1 and 32
    kernels 4's and 5's candidates' values must be kernels 1's and 3's
    scores of the same pairs bit for bit.  Then the breakdown of a
    sharded-cluster batch (as phase 5).
@@ -75,7 +76,11 @@ The attention and Mamba policy classes (kernels 7 and 6):
     D = 128) and the attention class's main-path shape (32, 5000, 2
     heads, D = 8), causal and not
     (tolerance 3e-5); kernel 6 (``mamba_scan``) at the sweep shapes, the
-    mamba class's (1, 32, 8, 4) and (2, 256, 1024, 16) (tolerance 4e-5).
+    mamba class's (1, 32, 8, 4) and (2, 256, 1024, 16), and at S in
+    {1, 31, 33, 257, 2048} x di in {200, 1024} x every N in
+    ``STATE_SIZES`` (tolerance 4e-5), with the launch plan
+    (``mamba_scan.scan_plan``); dt = 0 pad rows must leave hT bit for bit
+    that of the sequence cut before them.
 9.  ``PlacementDaemon`` over ``ClusterSubstrate(fleet_cluster(5000),
     policy=...)`` for "attention" and for "mamba", 2,000 requests at 500/s:
     every batch is one launch of kernel 7, resp. kernel 6, and no other.
@@ -88,7 +93,10 @@ The attention and Mamba policy classes (kernels 7 and 6):
 11. Timings of kernels 7 and 6 (as phase 4), kernel 7 beside
     ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
     device time from a CUDA graph like the kernels': eager calls measure
-    the host's dispatch at the small shapes).
+    the host's dispatch at the small shapes); kernel 6 at the mamba
+    class's (1, 32, 8, 4) and at (2, 256, 1024, 16) (under
+    ``other_shapes``), each beside the launch floor, with the plan that
+    ran and one device kernel a call (a CUDA graph of one call).
     An attention kernel's bound is the largest of four times: bytes at the
     memory rate, its products at the tensor-core rate of the precision
     that holds the tolerance (bf16, or float32 as 3xTF32), one
@@ -133,6 +141,7 @@ table; the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
@@ -228,6 +237,12 @@ SCAN_SHAPES = ((1, 32, 8, 4), (2, 64, 16, 8), (1, 128, 32, 16))
 SCAN_PATH = (1, MAIN_B, 8, 4)
 SCAN_WIDE = (2, 256, 1024, 16)
 SCAN_TOL = 4e-5
+# kernel 6 across its chunk edges and long (S), with di a multiple of the
+# block's warps and not, at every state size; and dt = 0 pad rows after
+# each SCAN_PAD_REAL against the cut sequence (hT bit for bit)
+SCAN_EDGE_S = (1, 31, 33, 257, 2048)
+SCAN_EDGE_DI = (200, 1024)
+SCAN_PAD_REAL = (1, 9, 20, 31, 37, 95)
 # the policy classes' FleetSubstrate and sharded arms, held cuda vs plain
 # at a reduced N: block-local attention over 131,072 nodes in 8 shards
 # would cost ~4 TFLOP per batch in the plain version
@@ -1095,24 +1110,63 @@ def phase_engine(device):
     return counts["sdqn_score"]
 
 
-def device_kernels(fn) -> list:
-    """Names of the device kernels one call of ``fn`` runs (torch.profiler;
-    launches made here are restored by the caller).  A session whose trace
-    holds no device event at all is run again, up to three times: the
-    profiler on the card's machine now and then delivers a short session's
-    events only in part, or not at all."""
-    from torch.profiler import ProfilerActivity, profile
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of the CUDA driver API (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p)] + [
+        (f, ctypes.c_uint) for f in ("grid_x", "grid_y", "grid_z", "block_x",
+                                     "block_y", "block_z", "shared_bytes")] + [
+        (f, ctypes.c_void_p) for f in ("kernel_params", "extra", "kern",
+                                       "ctx")]
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            return names
+
+def device_kernels(fn) -> list:
+    """Names (mangled) of the device kernels one call of ``fn`` runs: the
+    kernel nodes of a CUDA graph that captures it, read with the driver
+    API through ctypes (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams_v2``, ``cuFuncGetName``); any other node
+    (a copy, a memset) is listed by its type.  torch.profiler on the
+    card's machine now and then delivers no event for a short session, for
+    minutes on end; the graph does not depend on it.  Launches made here
+    are restored by the caller."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"CUDA driver error {err}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)))
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"graph node of type {kind.value}")
+            continue
+        params = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(params)))
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params.func)))
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params.kern)))
+        names.append(name.value.decode())
+    graph.reset()
     return names
 
 
@@ -1192,11 +1246,9 @@ def phase_new_timings(device, name):
             saved = read_counts()
             ms = graph_time_ms(fn, 100)
             call_ms = cuda_time_ms(fn, 100)
-            extra = ""
-            if key != "sdqn_score":
-                names = device_kernels(fn)
-                assert len(names) == 1 and key in names[0], names
-                extra = f"device kernels per call: {len(names)}; "
+            names = device_kernels(fn)
+            assert len(names) == 1 and key in names[0], names
+            extra = f"device kernels per call: {len(names)}; "
             if key.endswith("_topk"):
                 plan = ss.topk_plan(n, b, lay.shards, lay.shard_size)
                 extra += (f"plan: cluster={plan.cluster} pods={plan.pods} "
@@ -1204,6 +1256,8 @@ def phase_new_timings(device, name):
                           f"blocks={plan.blocks} ")
             elif key == "sdqn_score_cols":
                 extra += plan_text(n, b) + " "
+            elif key == "sdqn_score":
+                extra += plan_text(n, 1) + " "
             if key in scores:
                 v, i = fn()
                 real = i >= 0
@@ -1234,6 +1288,28 @@ def phase_new_timings(device, name):
         print(f"feasible pairs in the timed inputs at B={b}: pods x nodes="
               f"{feasible_pods} of {b * n}, jobs x hosts={feasible_jobs} of "
               f"{b * n}")
+    # kernel 2 also at the flat cluster's N = 5,000 (rows of a fresh fleet)
+    n2 = MAIN_N
+    f2 = env.normalize_features(pl.fresh_fleet(
+        n2, torch.Generator().manual_seed(SEED + 8), device=device)
+        .features()).contiguous()
+    w = (params["w1"], params["b1"], params["w2"], params["b2"])
+    saved = read_counts()
+    k_ms = graph_time_ms(lambda: ss.sdqn_score(f2, *w), 100)
+    names = device_kernels(lambda: ss.sdqn_score(f2, *w))
+    assert len(names) == 1 and "sdqn_score" in names[0], names
+    for k, fnc in wrappers().items():
+        fnc.launches = saved[k]
+    plain_ms = graph_time_ms(lambda: ss.sdqn_score_plain(f2, *w), 10)
+    b_ms, b_by = roofline(n2 * SCORE_BYTES_PER_ROW + WEIGHT_BYTES,
+                          n2 * SCORE_OPS_PER_ROW, name)
+    rows["sdqn_score"]["other_shapes"] = [dict(
+        ms=k_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, n=n2,
+        launch_floor_ms=floor)]
+    print(f"timing sdqn_score N={n2}: kernel_ms={k_ms} plain_ms={plain_ms} "
+          f"(device time, CUDA graph) bound_ms={b_ms} ({b_by}) kernel/bound="
+          f"{k_ms / b_ms} kernel/launch_floor={k_ms / floor} device kernels "
+          f"per call: {len(names)}; {plan_text(n2, 1)}")
     return rows
 
 
@@ -1355,8 +1431,9 @@ def _scan_args(shape, device, seed):
 
 
 def phase_seq_kernels(device):
-    """Kernels 7 and 6 against their plain versions on the card."""
-    from repro_torch.kernels import ops
+    """Kernels 7 and 6 against their plain versions on the card; kernel 6
+    also across its chunk edges and its pad rows' carry bit for bit."""
+    from repro_torch.kernels import mamba_scan as ms, ops
 
     errs = {"flash_attention": 0.0, "mamba_scan": 0.0}
     for shape in FA_SHAPES + (FA_PATH,):
@@ -1383,6 +1460,35 @@ def phase_seq_kernels(device):
         torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
         torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
         errs["mamba_scan"] = max(errs["mamba_scan"], err)
+    edge = {}
+    for s in SCAN_EDGE_S:
+        for di in SCAN_EDGE_DI:
+            for n in ms.STATE_SIZES:
+                args = _scan_args((1, s, di, n), device, s + di + n)
+                y, h = ops.mamba_scan(*args, mode="cuda")
+                wy, wh = ops.mamba_scan(*args, mode="plain")
+                torch.testing.assert_close(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+                torch.testing.assert_close(h, wh, rtol=SCAN_TOL, atol=SCAN_TOL)
+                edge[(s, di, n)] = max(float((y - wy).abs().max()),
+                                       float((h - wh).abs().max()))
+    errs["mamba_scan"] = max(errs["mamba_scan"], *edge.values())
+    print(f"mamba_scan vs plain at S in {SCAN_EDGE_S}, di in {SCAN_EDGE_DI}, "
+          f"N in {ms.STATE_SIZES} (B = 1, {len(edge)} shapes): max_abs_err="
+          f"{max(edge.values())} at (S, di, N)={max(edge, key=edge.get)} "
+          f"(tolerance {SCAN_TOL}); plans: " + "; ".join(
+              f"N={n}: {ms.scan_plan(1, 1024, n)}" for n in ms.STATE_SIZES))
+    for n in ms.STATE_SIZES:
+        x, dt, a, bm, cm, d, h0 = _scan_args((2, 96, 8, n), device, n)
+        for n_real in SCAN_PAD_REAL:
+            dt_pad = dt.clone()
+            dt_pad[:, n_real:] = 0.0
+            _, h_pad = ms.mamba_scan(x, dt_pad, a, bm, cm, d, h0)
+            cut = [t[:, :n_real].contiguous() for t in (x, dt, bm, cm)]
+            _, h_cut = ms.mamba_scan(cut[0], cut[1], a, cut[2], cut[3], d, h0)
+            assert torch.equal(h_pad, h_cut), (n, n_real)
+    print(f"mamba_scan: dt = 0 pad rows after n_real in {SCAN_PAD_REAL} of "
+          f"96 leave hT bit for bit the cut sequence's, N in "
+          f"{ms.STATE_SIZES}")
     return errs
 
 
@@ -1623,22 +1729,32 @@ def phase_seq_timings(device, name):
           f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
           f"{peaks(name)[0]} peaks; terms_ms {terms}) "
           f"kernel/bound={kernel_ms / b_ms}")
+    floor = launch_floor_ms()
     for shape, iters in ((SCAN_PATH, 200), (SCAN_WIDE, 50)):
         args = _scan_args(shape, device, SEED + 13)
         kernel_ms = graph_time_ms(lambda: ms.mamba_scan(*args), iters)
         call_ms = cuda_time_ms(lambda: ms.mamba_scan(*args), iters)
+        names = device_kernels(lambda: ms.mamba_scan(*args))
+        assert len(names) == 1 and "mamba_scan" in names[0], names
         plain_ms = graph_time_ms(lambda: ms.mamba_scan_plain(*args), 3,
                                  reps=3)
         b_ms, b_by, nbytes, n_ops = scan_bound(shape, name)
+        plan = ms.scan_plan(shape[0], shape[2], shape[3])
+        row = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, launch_floor_ms=floor,
+                   plan=dataclasses.asdict(plan))
         if shape == SCAN_PATH:
-            rows["mamba_scan"] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=None)
+            rows["mamba_scan"] = dict(row, library_ms=None)
+        else:
+            rows["mamba_scan"]["other_shapes"] = [dict(row, shape=shape)]
         print(f"timing mamba_scan (B, S, di, N)={shape}: kernel_ms="
               f"{kernel_ms} plain_ms={plain_ms} (device time, CUDA graph) "
               f"kernel_call_ms={call_ms} bound_ms={b_ms} ({b_by}; "
               f"bytes={nbytes} ops={n_ops}, {peaks(name)[0]} peaks) "
-              f"kernel/bound={kernel_ms / b_ms}")
+              f"kernel/bound={kernel_ms / b_ms} launch_floor_ms={floor} "
+              f"kernel/launch_floor={kernel_ms / floor} device kernels per "
+              f"call: {len(names)}; plan: {plan} chunk={plan.chunk} "
+              f"blocks={plan.blocks}")
     for key, fn in wrappers().items():          # timing launches don't count
         fn.launches = saved[key]
     return rows
@@ -2202,7 +2318,7 @@ def main() -> int:
                 lm_errs[key], **({"float32": errs[key]}
                                  if key == "flash_attention" else {}))
         for extra in ("other_shapes", "shape", "kv_len", "library_kernel",
-                      "bound_terms_ms"):
+                      "bound_terms_ms", "launch_floor_ms", "plan"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(smi)

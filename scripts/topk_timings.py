@@ -9,10 +9,10 @@ package beside this one's, in turns.  Prints one JSON object a line:
 
 * ``time``: device time per call from a CUDA graph of 100 calls (median
   of 5 replays; ``chip_smoke.graph_time_ms``) of each wrapper, and the
-  device kernels one eager call runs (torch.profiler): kernels 4 and 5 at
-  N = 131,072, 8 shards, k = 8 and B = 1 and 32; kernel 3 at N = 131,072,
-  B = 1 and 32; kernel 1 at the flat cluster path's N = 5,000, B = 1 and
-  32, and at N = 131,072, B = 32;
+  device kernels one call runs (``chip_smoke.device_kernels``): kernels 4
+  and 5 at N = 131,072, 8 shards, k = 8 and B = 1 and 32; kernel 3 at
+  N = 131,072, B = 1 and 32; kernel 1 at the flat cluster path's
+  N = 5,000, B = 1 and 32, and at N = 131,072, B = 32;
 * ``floor``: one empty kernel's device time in the same kind of graph
   (``torch.cuda._sleep(0)``), the launch floor;
 * ``bitwise``: kernel 4's (5's) finite candidates that differ from kernel

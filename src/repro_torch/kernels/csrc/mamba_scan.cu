@@ -11,116 +11,351 @@
 // arrival history, (1, 32, di = 8, N = 4), with the history carry as h0.
 //
 // Design.  The TPU kernel keeps a (block_d, N) state tile in VMEM and
-// walks the sequence with a fori_loop inside a sequential grid axis; it
-// asserts S % block_s == 0.  Here ONE THREAD PER (batch, channel) keeps
-// h[N] and A[channel, :] in registers and loops over t itself; a block
-// holds 128 channels of one batch row.  Per chunk of 16 steps the block
-// stages B_t and C_t (shared by all its channels) in shared memory, and
-// each thread loads its 16 x and dt values (neighbouring threads read
-// neighbouring channels) before the steps, so the loads are in flight
-// together.  Any S is taken: the ragged last chunk is masked by index.
-// A step with dt = 0 leaves h bit-exact (exp(0) = 1, 0 * x * B = 0), which
-// the daemon uses to keep pad rows out of the carry.  expf is the
-// accurate one, not __expf: the reference exponentiates in float32.
+// walks the sequence with a fori_loop inside a sequential grid axis.  Here
+// the steps and the states of a channel are spread over a warp's lanes,
+// and a step is an affine map of the state, h -> dA_t h + u_t B_t (dA_t =
+// exp(dt_t A), u_t = dt_t x_t), so a chunk of steps is a scan of maps with
+// (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2).  The launch plan
+// (kernels/mamba_scan.py, `scan_plan`) sets three things: a block holds W
+// warps, one channel each, of one batch row; a lane holds SPL of the N
+// states (G = N / SPL lanes a step); and the warp's 32 / G = SEG segments
+// of L consecutive steps make a chunk of CH = SEG L steps.  Per chunk:
+//   1. the block's x and dt tile (CH steps x W channels, 4-byte copies)
+//      and the chunk's B and C rows (16-byte copies) arrive in shared
+//      memory by cp.async, issued a chunk ahead (double buffer), so that
+//      every global load of a chunk is in flight before its first
+//      dependent step; A, D and h0 are loaded while the first chunk is in
+//      flight.  Steps past S and channels past di are zero-filled: dt = 0
+//      is the identity map;
+//   2. each lane composes its segment's maps in order (segment 0 starts
+//      from the carry, so its b is the state itself: h0 is folded into
+//      the first step);
+//   3. an inclusive Hillis-Steele scan over the segments (log2 SEG
+//      shuffle steps; a lane combines only lanes before it) gives each
+//      segment the state at its end, and a shuffle the state at its start;
+//   4. each lane runs its L steps again from that state, h = fma(dA, h,
+//      u B), and y_t is the sum of h C over its SPL states, then over the
+//      G lanes by shuffles, plus D x_t, staged in shared memory and stored
+//      by the block in coalesced rows;
+//   5. the last segment's state is the next chunk's carry.
+// No cumulative product is ever divided: a product of dA that underflows
+// is a map that forgets, not a NaN.  The association of a step depends on
+// (N, SPL, L) only, never on S, so dt = 0 pad rows after row n_real leave
+// hT bit for bit the hT of the truncated sequence (identity maps compose
+// exactly); `policy.mamba_encode_sequence` relies on that for the daemon's
+// carry.  A NaN in dt at step t reaches y from t on and that channel's hT,
+// and nothing earlier.  expf is the accurate one, not __expf: the
+// reference exponentiates in float32.  tests/test_torch_scan_plan.py holds
+// a numpy model of this association to the JAX reference.
 //
-// What bounds it.  The only loop-carried dependence is h = fma(dA, h, u),
-// one FMA per step and state element; exp, the products and y's sum
-// hang off it.  At the policy path's shape the whole launch is 8 threads
-// and 32 steps, ~6 kFLOP and ~5 KB: its roofline bound is nanoseconds,
-// so its time is launch latency plus the 32-step chain of loads and
-// exp / FMA latencies.  At a wide shape (2, 256, 1024, 16) the bound is
-// bytes (x, dt and y, ~6.6 MB) at ~2 us, and 2,048 threads occupy 16 SMs:
-// the per-step latency, not bandwidth, sets the pace.
+// What bounds it (times from an H100 SXM, PERF.md section 6).  At the
+// policy path's shape the launch moves 4.5 KB and does ~8 kFLOP: its
+// roofline bound is nanoseconds.  It takes ~2.1 us against a launch floor
+// (an empty kernel in a CUDA graph) of 0.8-1.2 us; the rest is one load
+// round trip and one chunk's chain of 2 steps, 4 scan steps and 2 steps
+// again.  The one-thread-a-channel kernel before it took 5.5-5.9 us, which
+// was not launch latency: two chunks of 16 steps on 8 live threads, each
+// chunk two dependent global round trips.  At a wide shape (2, 256, 1024,
+// 16) the bound is bytes (x, dt and y, 6.7 MB) at 2.0 us, and the kernel
+// takes 13.3-14.2 us (before: ~92): 2,048 channels give 16 warps an SM, and
+// with 8.4 M accurate expf and the second pass a lane issues ~600
+// instructions a chunk at ~0.4 a cycle a scheduler.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#define MS_BLOCK 128   // channels per block, one per thread
-#define MS_CHUNK 16    // steps staged per round
+#define MS_MAX_WARPS 16
 
-template <int N>
-__global__ void __launch_bounds__(MS_BLOCK) mamba_scan_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const float* __restrict__ bm,
-    const float* __restrict__ cm, const float* __restrict__ dskip,
-    const float* __restrict__ h0, float* __restrict__ y,
-    float* __restrict__ hT, int s, int di) {
-  __shared__ float s_b[MS_CHUNK][N];
-  __shared__ float s_c[MS_CHUNK][N];
-  const int b = blockIdx.y;
-  const int ch = blockIdx.x * MS_BLOCK + threadIdx.x;
-  const bool live = ch < di;
-  const int chc = live ? ch : 0;     // idle threads read channel 0, store nothing
-  float h[N], av[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    av[n] = a[(size_t)chc * N + n];
-    h[n] = h0[((size_t)b * di + chc) * N + n];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 4 or 16 bytes global -> shared; zero-filled when !full
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int N, int SPL, int L>
+struct Scan {
+  static constexpr int G = N / SPL;      // lanes a step
+  static constexpr int SEG = 32 / G;     // segments a warp
+  static constexpr int CH = SEG * L;     // steps a chunk
+  static_assert(G >= 1 && G <= 32 && 32 % G == 0, "lanes a step");
+  // The B and C tiles hold a segment's L rows of N floats at a stride of
+  // SS floats, SS = N (mod 32): the 32 / N segments whose states one
+  // shared-memory wavefront serves then fall on disjoint banks (at SS =
+  // L N they would share them, up to 8-way).  SS is a multiple of 4, so a
+  // lane's SPL states load as one vector.
+  static constexpr int SS = L * N + ((N * (1 - L)) % 32 + 32) % 32;
+  static constexpr int BC = SEG * SS;    // floats of a B or C tile
+  static constexpr int TP = CH + 1;      // pitch of a channel's row in the
+                                         // x, dt and y tiles (odd: fewer
+                                         // bank conflicts)
+
+  // floats of one buffer for W warps: the B and C tiles, then x and dt
+  // (W x TP each), rounded up to 16 bytes; of the whole block: two
+  // buffers and the y tile (W x TP)
+  __host__ __device__ static constexpr int buf_floats(int w) {
+    return (2 * BC + 2 * w * TP + 3) / 4 * 4;
   }
-  const float dsk = dskip[chc];
-  const size_t row0 = (size_t)b * s;                 // row (b, 0) of (B, S, .)
-  for (int t0 = 0; t0 < s; t0 += MS_CHUNK) {
-    const int nt = min(MS_CHUNK, s - t0);
-    __syncthreads();                                 // last chunk consumed
-    for (int i = threadIdx.x; i < MS_CHUNK * N; i += MS_BLOCK) {
-      const int j = i / N, n = i - j * N;
-      const size_t off = (row0 + t0 + j) * N + n;
-      s_b[j][n] = j < nt ? bm[off] : 0.f;
-      s_c[j][n] = j < nt ? cm[off] : 0.f;
+  __host__ __device__ static constexpr int smem_floats(int w) {
+    return 2 * buf_floats(w) + w * TP;
+  }
+};
+
+// SPL consecutive floats from 4 * SPL-byte aligned shared memory
+template <int SPL>
+__device__ __forceinline__ void ld_states(const float* p, float (&v)[SPL]) {
+  if constexpr (SPL == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (SPL == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) v[k] = p[k];
+  }
+}
+
+struct ScanArgs {
+  const float *x, *dt, *a, *bm, *cm, *d, *h0;
+  float *y, *hT;
+  int s, di;
+};
+
+// The chunk starting at step t0 into one buffer: B, C as [segment][j][n]
+// (Scan::SS), x, dt as [w][t].  Every thread of the block takes part: the
+// x and dt elements of channel w_ld at steps t_ld, t_ld + 32, ... (the
+// block's 32 W threads cover 32 steps of W channels a pass), and the B
+// and C rows in 16-byte pieces where both are 16-byte aligned, else in
+// floats.  Steps past S and channels past di are zero-filled.
+template <int N, int SPL, int L>
+__device__ __forceinline__ void load_chunk(const ScanArgs& p, float* buf,
+                                           int w_count, int b, int ch0,
+                                           int t0, int w_ld, int t_ld,
+                                           bool bc16) {
+  using S = Scan<N, SPL, L>;
+  float* sb = buf;
+  float* sc = sb + S::BC;
+  float* sx = sc + S::BC;
+  float* sdt = sx + w_count * S::TP;
+  const bool ch_ok = ch0 + w_ld < p.di;
+#pragma unroll
+  for (int t = t_ld; t < S::CH; t += 32) {
+    const bool ok = ch_ok && t0 + t < p.s;
+    const size_t off =
+        ok ? ((size_t)b * p.s + t0 + t) * p.di + ch0 + w_ld : 0;
+    cp_async4(smem_u32(sx + w_ld * S::TP + t), p.x + off, ok);
+    cp_async4(smem_u32(sdt + w_ld * S::TP + t), p.dt + off, ok);
+  }
+  const size_t row0 = ((size_t)b * p.s + t0) * N;
+  const int nthr = w_count * 32;
+  if (bc16) {
+    for (int q = threadIdx.x; q < S::CH * N / 4; q += nthr) {
+      const int t = q / (N / 4), seg = t / L;
+      const int dst = seg * S::SS + (t - seg * L) * N + 4 * q - t * N;
+      const bool ok = t0 + t < p.s;
+      const size_t off = ok ? row0 + 4 * q : 0;
+      cp_async16(smem_u32(sb + dst), p.bm + off, ok);
+      cp_async16(smem_u32(sc + dst), p.cm + off, ok);
     }
-    __syncthreads();
-    float xs[MS_CHUNK], dts[MS_CHUNK];
+  } else {
+    for (int i = threadIdx.x; i < S::CH * N; i += nthr) {
+      const int t = i / N, seg = t / L;
+      const int dst = seg * S::SS + (t - seg * L) * N + i - t * N;
+      const bool ok = t0 + t < p.s;
+      const size_t off = ok ? row0 + i : 0;
+      cp_async4(smem_u32(sb + dst), p.bm + off, ok);
+      cp_async4(smem_u32(sc + dst), p.cm + off, ok);
+    }
+  }
+}
+
+template <int N, int SPL, int L>
+__global__ void __launch_bounds__(MS_MAX_WARPS * 32)
+    mamba_scan_kernel(const ScanArgs p) {
+  using S = Scan<N, SPL, L>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int w_count = blockDim.x >> 5;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int seg = lane / S::G, g = lane - seg * S::G;
+  const int b = blockIdx.y, ch0 = blockIdx.x * w_count, ch = ch0 + w;
+  const bool live = ch < p.di;
+  const int chc = live ? ch : p.di - 1;   // idle warps read a real channel
+  const int buf_floats = S::buf_floats(w_count);
+  float* sy = smem + 2 * buf_floats;
+  const int nch = (p.s + S::CH - 1) / S::CH;
+  // this thread's x, dt and y elements: channel w_ld, steps t_ld + 32 k
+  // (W is a power of two)
+  const int w_ld = threadIdx.x & (w_count - 1);
+  const int t_ld = threadIdx.x >> (__ffs(w_count) - 1);
+  const bool bc16 = ((reinterpret_cast<uintptr_t>(p.bm) |
+                      reinterpret_cast<uintptr_t>(p.cm)) & 15) == 0;
+
+  load_chunk<N, SPL, L>(p, smem, w_count, b, ch0, 0, w_ld, t_ld, bc16);
+  cp_async_commit();
+  if (nch > 1)
+    load_chunk<N, SPL, L>(p, smem + buf_floats, w_count, b, ch0, S::CH, w_ld,
+                          t_ld, bc16);
+  cp_async_commit();
+  // while the first chunk is in flight: the lane's A, D and carry
+  float av[SPL], h[SPL];
 #pragma unroll
-    for (int j = 0; j < MS_CHUNK; ++j) {
-      const size_t off = (row0 + t0 + j) * di + chc;
-      xs[j] = j < nt ? x[off] : 0.f;
-      dts[j] = j < nt ? dt[off] : 0.f;
+  for (int k = 0; k < SPL; ++k) {
+    av[k] = p.a[(size_t)chc * N + g * SPL + k];
+    h[k] = p.h0[((size_t)b * p.di + chc) * N + g * SPL + k];
+  }
+  const float dsk = p.d[chc];
+
+  for (int c = 0; c < nch; ++c) {
+    const float* buf = smem + (c & 1) * buf_floats;
+    const float* sb = buf + seg * S::SS + g * SPL;
+    const float* sc = sb + S::BC;
+    const float* sx = buf + 2 * S::BC + w * S::TP + seg * L;
+    const float* sdt = sx + w_count * S::TP;
+    cp_async_wait1();                 // this chunk has arrived ...
+    __syncthreads();                  // ... for every thread of the block
+    // 1. the segment's steps: dA, u B, and their composition in order
+    float xs[L], da[L][SPL], ub[L][SPL];
+    float sa[SPL], sbv[SPL];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      sa[k] = 1.0f;
+      sbv[k] = seg == 0 ? h[k] : 0.0f;   // the carry folded into segment 0
     }
 #pragma unroll
-    for (int j = 0; j < MS_CHUNK; ++j) {
-      if (j >= nt) break;                            // the same for the block
-      const float u = dts[j] * xs[j];
-      float yv = 0.f;
+    for (int j = 0; j < L; ++j) {
+      xs[j] = sx[j];
+      const float dtj = sdt[j];
+      const float u = dtj * xs[j];
+      float bv[SPL];
+      ld_states<SPL>(sb + j * N, bv);
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float da = expf(dts[j] * av[n]);
-        h[n] = fmaf(da, h[n], u * s_b[j][n]);
-        yv = fmaf(h[n], s_c[j][n], yv);
+      for (int k = 0; k < SPL; ++k) {
+        da[j][k] = expf(dtj * av[k]);
+        ub[j][k] = u * bv[k];
+        sa[k] = da[j][k] * sa[k];
+        sbv[k] = fmaf(da[j][k], sbv[k], ub[j][k]);
       }
-      if (live) y[(row0 + t0 + j) * di + ch] = fmaf(xs[j], dsk, yv);
+    }
+    // 2. inclusive scan over the segments: segment seg gets the state at
+    // its end
+#pragma unroll
+    for (int dd = 1; dd < S::SEG; dd *= 2) {
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        const float pa = __shfl_up_sync(0xffffffffu, sa[k], dd * S::G);
+        const float pb = __shfl_up_sync(0xffffffffu, sbv[k], dd * S::G);
+        if (seg >= dd) {
+          sbv[k] = fmaf(sa[k], pb, sbv[k]);
+          sa[k] = sa[k] * pa;
+        }
+      }
+    }
+    // 3. the state at the segment's start, and its steps again
+    float hs[SPL];
+#pragma unroll
+    for (int k = 0; k < SPL; ++k) {
+      const float prev = __shfl_up_sync(0xffffffffu, sbv[k], S::G);
+      hs[k] = seg == 0 ? h[k] : prev;
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      float part = 0.0f, cv[SPL];
+      ld_states<SPL>(sc + j * N, cv);
+#pragma unroll
+      for (int k = 0; k < SPL; ++k) {
+        hs[k] = fmaf(da[j][k], hs[k], ub[j][k]);
+        part = fmaf(hs[k], cv[k], part);
+      }
+#pragma unroll
+      for (int o = 1; o < S::G; o *= 2)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (g == 0) sy[w * S::TP + seg * L + j] = fmaf(xs[j], dsk, part);
+    }
+    // 4. the last segment's state carries into the next chunk
+#pragma unroll
+    for (int k = 0; k < SPL; ++k)
+      h[k] = __shfl_sync(0xffffffffu, hs[k], (S::SEG - 1) * S::G + g);
+    __syncthreads();                  // y tile complete, buffer consumed
+    if (c + 2 < nch)                  // the chunk after next, into it
+      load_chunk<N, SPL, L>(p, smem + (c & 1) * buf_floats, w_count, b, ch0,
+                            (c + 2) * S::CH, w_ld, t_ld, bc16);
+    cp_async_commit();
+    const int t0 = c * S::CH;
+#pragma unroll
+    for (int t = t_ld; t < S::CH; t += 32) {
+      if (t0 + t < p.s && ch0 + w_ld < p.di)
+        p.y[((size_t)b * p.s + t0 + t) * p.di + ch0 + w_ld] =
+            sy[w_ld * S::TP + t];
     }
   }
-  if (!live) return;
+  if (live && seg == 0) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) hT[((size_t)b * di + ch) * N + n] = h[n];
+    for (int k = 0; k < SPL; ++k)
+      p.hT[((size_t)b * p.di + ch) * N + g * SPL + k] = h[k];
+  }
 }
 
-template <int N>
-static void launch(const float* x, const float* dt, const float* a,
-                   const float* bm, const float* cm, const float* d,
-                   const float* h0, float* y, float* hT, int bsz, int s,
-                   int di, cudaStream_t stream) {
-  const dim3 grid((di + MS_BLOCK - 1) / MS_BLOCK, bsz);
-  mamba_scan_kernel<N><<<grid, MS_BLOCK, 0, stream>>>(x, dt, a, bm, cm, d,
-                                                      h0, y, hT, s, di);
+template <int N, int SPL, int L>
+static int launch(const ScanArgs& p, int warps, dim3 grid, cudaStream_t st) {
+  using S = Scan<N, SPL, L>;
+  const size_t bytes = sizeof(float) * S::smem_floats(warps);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mamba_scan_kernel<N, SPL, L>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  mamba_scan_kernel<N, SPL, L><<<grid, warps * 32, bytes, st>>>(p);
+  return (int)cudaGetLastError();
 }
 
+// The instances: for each N in STATE_SIZES the (SPL, L) of the launch
+// plan's two regimes, SCAN_LANES_FEW and SCAN_LANES in
+// kernels/mamba_scan.py (SCAN_BUILT there lists the same).
+#define MS_INSTANCES(X)                                                    \
+  X(4, 2, 2) X(4, 2, 8) X(8, 4, 2) X(8, 4, 8) X(16, 4, 4) X(16, 4, 8)
+
+// One launch of the plan (states SPL, seg_len L, warps W, grid); returns a
+// CUDA error code (0 = launched).  The grid must cover every channel of
+// every batch row.
 extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* a,
                                  const void* bm, const void* cm,
                                  const void* d, const void* h0, void* y,
                                  void* hT, int bsz, int s, int di, int n,
-                                 void* stream) {
-  const float *xf = (const float*)x, *dtf = (const float*)dt,
-              *af = (const float*)a, *bf = (const float*)bm,
-              *cf = (const float*)cm, *df = (const float*)d,
-              *hf = (const float*)h0;
-  float *yf = (float*)y, *tf = (float*)hT;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (n) {
-    case 4: launch<4>(xf, dtf, af, bf, cf, df, hf, yf, tf, bsz, s, di, st); break;
-    case 8: launch<8>(xf, dtf, af, bf, cf, df, hf, yf, tf, bsz, s, di, st); break;
-    case 16: launch<16>(xf, dtf, af, bf, cf, df, hf, yf, tf, bsz, s, di, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+                                 int states, int seg_len, int warps,
+                                 int grid_x, int grid_y, void* stream) {
+  const ScanArgs p{(const float*)x, (const float*)dt, (const float*)a,
+                   (const float*)bm, (const float*)cm, (const float*)d,
+                   (const float*)h0, (float*)y, (float*)hT, s, di};
+  const bool ok = bsz >= 1 && s >= 1 && di >= 1 && warps >= 1 &&
+                  warps <= MS_MAX_WARPS && (warps & (warps - 1)) == 0 &&
+                  grid_y == bsz && grid_y <= 65535 &&
+                  (long long)grid_x * warps >= di &&
+                  (long long)(grid_x - 1) * warps < di;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define MS_CASE(NN, SS, LL) \
+  if (n == NN && states == SS && seg_len == LL) \
+    return launch<NN, SS, LL>(p, warps, grid, st);
+  MS_INSTANCES(MS_CASE)
+#undef MS_CASE
+  return (int)cudaErrorInvalidValue;
 }

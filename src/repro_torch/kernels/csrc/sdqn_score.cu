@@ -6,38 +6,80 @@
 // Q-net 6 -> 32 -> ReLU -> 1, with the (N, 32) hidden layer kept in
 // registers.  Its caller is `PlacementEngine._score`.
 //
-// Design.  One thread per node: it reads its 24-byte row, runs the MLP
-// against the weights staged in shared memory (sdqn_common.cuh), writes
-// one float.  The hidden sum starts from b1 (the reference's GEMM adds it
-// last; the two orders differ by rounding only, well inside 1e-5).
+// Design.  The launch plan of kernels 1 and 3 (`sdqn_score.score_plan` at
+// B = 1, sdqn_common.cuh `ScoreRows`): a thread scores R rows, nodes
+// x * 256 R + r * 256 + t (so a warp's loads coalesce), and reads each
+// hidden unit's two float4 of weights from shared memory once for all R
+// (mlp_q_rows, the order of operations of mlp_q).  A row's 24 bytes arrive
+// as three float2 loads, issued before the block stages its weights, so
+// they are in flight meanwhile.  R is the largest whose grid keeps 256
+// blocks: 2 at N = 131,072, 1 at N = 5,000.
 //
-// What bounds it.  Per node ~513 fp32 operations against 28 bytes moved:
-// at 67 TFLOP/s and 3.35 TB/s the two take about the same time, so it sits
-// at the ridge; 256-thread blocks fill the card from N ~ 34k up.
+// The TPU kernel puts both products on the matrix unit.  Its counterpart
+// here, the hidden layer as mma.sync.m16n8k8 in TF32 with the 3xTF32
+// split (12 products a 16-row tile), was timed beside this design on an
+// H100 and was slower at both N: the TF32 products of mma.sync set its
+// pace (PERF.md section 6); it is not built.
+//
+// What bounds it.  28 bytes a row moved (24 read, 4 written): 3.7 MB at
+// N = 131,072, 1.1 us at 3.35 TB/s; its ~513 float32 operations a row
+// take as long at 67 TFLOP/s.  A kernel that only moves those bytes takes
+// ~2 us on the H100 (launch, one load round trip, the grid's tail); the
+// Q-net's ~290 instructions a row add the rest.
 
 #include "sdqn_common.cuh"
 
-__global__ void __launch_bounds__(SDQN_BLOCK) sdqn_score_kernel(
-    const float* __restrict__ feats,  // (N, 6) row-major
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2,
-    float* __restrict__ q, int n) {
+// The kernel's arguments, and its launch for one plan (R, POD_ROWS).
+struct RowScore {
+  const float* feats;  // (N, 6) row-major, 8-byte aligned
+  const float *w1, *b1, *w2, *b2;
+  float* q;            // (N,)
+  int n;
+
+  template <int R, bool POD_ROWS>
+  void run(dim3 grid, cudaStream_t stream) const;
+};
+
+template <int R, bool POD_ROWS>
+__global__ void __launch_bounds__(SDQN_BLOCK, SCORE_MIN_BLOCKS(R, POD_ROWS))
+    sdqn_score_kernel(const RowScore a) {
   __shared__ float4 s_w[SDQN_HIDDEN][2];
   __shared__ float s_b2;
-  stage_weights(s_w, &s_b2, w1, b1, w2, b2, nullptr);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* x = feats + (size_t)i * 6;
-  q[i] = mlp_q(s_w, s_b2, x[0], x[1], x[2], x[3], x[4], x[5]);
+  ScoreRows<R, POD_ROWS> m;
+  m.init(a.n, 1);
+  // the rows first, in flight while the weights are staged
+  float x[6][R], q[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2* p =
+        reinterpret_cast<const float2*>(a.feats + (size_t)m.node[r] * 6);
+    const float2 f01 = __ldg(p), f23 = __ldg(p + 1), f45 = __ldg(p + 2);
+    x[0][r] = f01.x;
+    x[1][r] = f01.y;
+    x[2][r] = f23.x;
+    x[3][r] = f23.y;
+    x[4][r] = f45.x;
+    x[5][r] = f45.y;
+  }
+  stage_weights(s_w, &s_b2, a.w1, a.b1, a.w2, a.b2, nullptr);
+  mlp_q_rows<R>(s_w, s_b2, x, q);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (m.write[r]) a.q[m.node[r]] = q[r];
 }
 
+template <int R, bool POD_ROWS>
+void RowScore::run(dim3 grid, cudaStream_t stream) const {
+  sdqn_score_kernel<R, POD_ROWS><<<grid, SDQN_BLOCK, 0, stream>>>(*this);
+}
+
+// One launch of the plan (rows, pod_rows, grid_x) that score_plan(n, 1)
+// gives; returns a CUDA error code (0 = launched).
 extern "C" int sdqn_score_launch(const void* feats, const void* w1,
                                  const void* b1, const void* w2,
-                                 const void* b2, void* q, int n,
-                                 void* stream) {
-  const dim3 grid((n + SDQN_BLOCK - 1) / SDQN_BLOCK);
-  sdqn_score_kernel<<<grid, SDQN_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)feats, (const float*)w1, (const float*)b1,
-      (const float*)w2, (const float*)b2, (float*)q, n);
-  return (int)cudaGetLastError();
+                                 const void* b2, void* q, int n, int rows,
+                                 int pod_rows, int grid_x, void* stream) {
+  const RowScore k{(const float*)feats, (const float*)w1, (const float*)b1,
+                   (const float*)w2,    (const float*)b2, (float*)q, n};
+  return launch_score_plan(k, n, 1, rows, pod_rows, grid_x, 1, stream);
 }

@@ -25,7 +25,7 @@ as ``(B, shards, k)`` values and GLOBAL node indices: sorted descending
 with NaN above every number, ties by ascending index, and ``-1`` for
 every slot that is not finite (``-inf`` = infeasible or exhausted).  One
 launch computes all of it; ``topk_plan`` sets the launch's geometry, and
-``score_plan`` that of the scoring kernels 1 and 3.
+``score_plan`` that of the scoring kernels 1, 2 (at B = 1) and 3.
 """
 from __future__ import annotations
 
@@ -342,7 +342,9 @@ sdqn_score_plain = ref.sdqn_score_ref
 
 
 def sdqn_score(feats, w1, b1, w2, b2) -> torch.Tensor:
-    """Q (N,) of normalized (N, 6) float32 rows: one launch on CUDA."""
+    """Q (N,) of normalized (N, 6) float32 rows: one launch on CUDA, at
+    ``score_plan(n, 1)`` (``feats`` 8-byte aligned there: the kernel reads
+    a row's features in pairs)."""
     device = feats.device
     if not _on_card("sdqn_score", device):
         return sdqn_score_plain(feats, w1, b1, w2, b2)
@@ -351,9 +353,11 @@ def sdqn_score(feats, w1, b1, w2, b2) -> torch.Tensor:
     _check_weights(w1, b1, w2, b2, device)
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"unsupported shape: N={n}")
+    if feats.data_ptr() % 8:
+        raise ValueError("sdqn_score: feats is not 8-byte aligned")
     q = torch.empty((n,), dtype=_F32, device=device)
-    _launch("sdqn_score", SCORE_SOURCE, [_P] * 6 + [_I], device,
-            feats, w1, b1, w2, b2, q, n)
+    _launch("sdqn_score", SCORE_SOURCE, [_P] * 6 + [_I] * 4, device,
+            feats, w1, b1, w2, b2, q, n, *score_plan(n, 1).args()[:3])
     sdqn_score.launches += 1
     return q
 

@@ -15,7 +15,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import dqn, env
 from repro_torch.core.types import fleet_cluster
-from repro_torch.kernels import ops, sdqn_score as ss
+from repro_torch.kernels import mamba_scan as tms, ops, sdqn_score as ss
 from repro_torch.sched import daemon
 from test_torch_score_plan import BRANCHES, PLAN_SHAPES
 
@@ -25,6 +25,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _one_call_kernels(call):
+    """Names of the device kernels one call of ``call`` runs
+    (``chip_smoke.device_kernels``: the kernel nodes of a CUDA graph of
+    the call)."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import device_kernels
+
+    return device_kernels(call)
 
 
 def _case(n, b, device, seed):
@@ -265,10 +278,8 @@ def test_topk_values_are_the_scoring_kernels_scores_bit_for_bit(cuda_device,
 
 @pytest.mark.cuda
 def test_topk_wrapper_call_is_one_device_kernel(cuda_device):
-    """No sort, gather or copy runs beside the kernel: the profiler sees
-    exactly one device kernel per wrapper call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """No sort, gather or copy runs beside the kernel: one wrapper call
+    runs exactly one device kernel."""
     from repro_torch.launch.mesh import plan_fleet_layout
     from repro_torch.sched import placement as pl
 
@@ -290,15 +301,9 @@ def test_topk_wrapper_call_is_one_device_kernel(cuda_device):
             cols, deltas, ops.FEATURE_SCALE, *a_in[4:], ops.DEFAULT_CEILINGS,
             **geo)}
     for name, call in calls.items():
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 1, [e.name for e in kernels]
-        assert name in kernels[0].name, kernels[0].name
+        kernels = _one_call_kernels(call)
+        assert len(kernels) == 1, kernels
+        assert name in kernels[0], kernels[0]
 
 
 def _plan_branch(n, b):
@@ -361,21 +366,8 @@ def test_scoring_kernels_propagate_nan_at_every_plan_branch(cuda_device, n,
 @pytest.mark.parametrize("n,b", [(5000, 1), (5000, 32), (131072, 1),
                                  (131072, 32)])
 def test_scoring_wrapper_call_is_one_device_kernel(cuda_device, n, b):
-    from torch.profiler import ProfilerActivity, profile
-
     for name, (call, _) in _scoring_calls(n, b, cuda_device, 11).items():
-        call()
-        torch.cuda.synchronize()
-        # a session whose trace holds no device event at all (the profiler
-        # now and then delivers none for a short session) is run again
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            kernels = [e.name for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            if kernels:
-                break
+        kernels = _one_call_kernels(call)
         assert len(kernels) == 1, kernels
         assert name + "_kernel" in kernels[0], kernels
 
@@ -604,6 +596,168 @@ def test_sequence_kernels_reject_bad_inputs(cuda_device):
                       .transpose(1, 2), *args[4:])
     with pytest.raises(ValueError, match="state size"):
         ms.mamba_scan(*_scan(1, 32, 8, 5, cuda_device, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 31, 33, 257, 2048])
+@pytest.mark.parametrize("di", [200, 1024])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_mamba_scan_matches_plain_across_chunks_and_widths(cuda_device, s, di,
+                                                          n):
+    """Kernel 6 (its chunked scan) against plain at 4e-5: S across the
+    chunk edges and long, di a multiple of the block's warps and not,
+    every state size."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    args = _scan(1, s, di, n, cuda_device, s + di + n)
+    before = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    wy, wh = ms.mamba_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=4e-5, atol=4e-5)
+    torch.testing.assert_close(h, wh, rtol=4e-5, atol=4e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [(n, spl, seg, w) for n, spl, seg in
+                                     tms.SCAN_BUILT for w in (4, 16)])
+def test_mamba_scan_every_built_variant_matches_plain(cuda_device, variant,
+                                                      monkeypatch):
+    """Every (SPL, L) the kernel is built for, at 4 and 16 warps a block,
+    so that any of them may be planned."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    n, spl, seg, warps = variant
+    args = _scan(2, 300, 37, n, cuda_device, spl + seg)
+    monkeypatch.setattr(ms, "scan_plan", lambda b, di, n_: ms.ScanPlan.of(
+        b, di, n_, spl, seg, warps))
+    y, h = ms.mamba_scan(*args)
+    wy, wh = ms.mamba_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=4e-5, atol=4e-5)
+    torch.testing.assert_close(h, wh, rtol=4e-5, atol=4e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_real", [1, 9, 20, 31, 37, 95])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_mamba_scan_pad_rows_leave_hT_bit_exact_on_card(cuda_device, n_real,
+                                                        n):
+    """dt = 0 rows after ``n_real`` (the daemon's pad rows) leave hT bit
+    for bit the hT of the sequence cut at ``n_real``."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    x, dt, a, bm, cm, d, h0 = _scan(2, 96, 8, n, cuda_device, n_real)
+    dt_pad = dt.clone()
+    dt_pad[:, n_real:] = 0.0
+    _, h_pad = ms.mamba_scan(x, dt_pad, a, bm, cm, d, h0)
+    cut = [t[:, :n_real].contiguous() for t in (x, dt, bm, cm)]
+    _, h_cut = ms.mamba_scan(cut[0], cut[1], a, cut[2], cut[3], d, h0)
+    assert torch.equal(h_pad, h_cut)
+
+
+@pytest.mark.cuda
+def test_mamba_encode_sequence_pad_rows_never_reach_the_carry(cuda_device):
+    """The mamba class's batch of 32 rows through kernel 6: two batches
+    that differ only in their pad rows (after ``n_real``) give the same
+    carry bit for bit, and it is the carry of the real rows alone (within
+    4e-5: the cut batch's projections are other cuBLAS calls)."""
+    from repro_torch.core import policy
+
+    gen = torch.Generator().manual_seed(4)
+    params = policy.get("mamba").init(gen, device=cuda_device)
+    rows = torch.rand((32, policy.ENCODER_IN), generator=gen).to(cuda_device)
+    other = torch.rand((32, policy.ENCODER_IN), generator=gen).to(cuda_device)
+    for n_real in (1, 7, 31):
+        mixed = torch.cat([rows[:n_real], other[n_real:]])
+        _, h_pad = policy.mamba_encode_sequence(params, rows, n_real=n_real)
+        _, h_mix = policy.mamba_encode_sequence(params, mixed, n_real=n_real)
+        _, h_cut = policy.mamba_encode_sequence(params, rows[:n_real])
+        assert torch.equal(h_pad, h_mix), n_real
+        torch.testing.assert_close(h_pad, h_cut, rtol=4e-5, atol=4e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 32, 8, 4), (2, 256, 1024, 16)])
+def test_mamba_scan_call_is_one_device_kernel(cuda_device, shape):
+    from repro_torch.kernels import mamba_scan as ms
+
+    args = _scan(*shape, cuda_device, 0)
+    kernels = _one_call_kernels(lambda: ms.mamba_scan(*args))
+    assert len(kernels) == 1 and "mamba_scan_kernel" in kernels[0], kernels
+
+
+def _rows(n, device, seed):
+    """Kernel 2's inputs: a fleet's normalized feature rows and a Q-net."""
+    from repro_torch.core import env as tenv
+
+    params = dqn.init_qnet(torch.Generator().manual_seed(seed),
+                           device=device)
+    feats = tenv.normalize_features(_fleet(n, device, seed).features())
+    return feats.contiguous(), (params["w1"], params["b1"], params["w2"],
+                                params["b2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 5000, 131072])
+def test_sdqn_score_matches_plain_on_card(cuda_device, n):
+    """Kernel 2 against plain at 1e-5, one launch a call, at the plan's
+    R = 1 (N <= 5000) and R = 2 (N = 131,072)."""
+    feats, w = _rows(n, cuda_device, n)
+    before = ss.sdqn_score.launches
+    got = ss.sdqn_score(feats, *w)
+    torch.cuda.synchronize()
+    assert ss.sdqn_score.launches == before + 1
+    assert got.shape == (n,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ss.sdqn_score_plain(feats, *w),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ss.SCORE_ROWS)
+@pytest.mark.parametrize("n", [17, 5000, 131072])
+def test_sdqn_score_every_plan_branch_matches_plain(cuda_device, rows, n,
+                                                   monkeypatch):
+    """Kernel 2 at every R of its launch plan (``score_plan(n, 1)``: node
+    rows for R > 1), so that any of them may be planned."""
+    feats, w = _rows(n, cuda_device, n + rows)
+    plan = ss.ScorePlan.of(n, 1, rows)
+    monkeypatch.setattr(ss, "score_plan", lambda n_, b_: plan)
+    torch.testing.assert_close(ss.sdqn_score(feats, *w),
+                               ss.sdqn_score_plain(feats, *w),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["w1", "b1", "w2", "b2"])
+def test_sdqn_score_propagates_a_nan_weight_to_every_row(cuda_device, key):
+    """One NaN weight, of the hidden layer (w1, b1: one unit) or of the
+    output (w2, b2), makes every score NaN, as in the plain version."""
+    feats, w = _rows(5000, cuda_device, 1)
+    w = dict(zip(("w1", "b1", "w2", "b2"), w))
+    w[key] = w[key].clone()
+    w[key].view(-1)[0] = float("nan")
+    q = ss.sdqn_score(feats, *w.values())
+    want = ss.sdqn_score_plain(feats, *w.values())
+    assert bool(torch.isnan(want).all()) and bool(torch.isnan(q).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5000, 131072])
+def test_sdqn_score_call_is_one_device_kernel(cuda_device, n):
+    feats, w = _rows(n, cuda_device, 2)
+    kernels = _one_call_kernels(lambda: ss.sdqn_score(feats, *w))
+    assert len(kernels) == 1 and "sdqn_score_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_sdqn_score_refuses_unaligned_rows(cuda_device):
+    feats, w = _rows(64, cuda_device, 3)
+    shifted = torch.empty(feats.numel() + 1,
+                          device=cuda_device)[1:].view(64, 6)
+    shifted.copy_(feats)                 # contiguous, 4 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        ss.sdqn_score(shifted, *w)
 
 
 @pytest.mark.cuda
