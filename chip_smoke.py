@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Run the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -132,6 +133,26 @@ kernel 3 for the routing):
     kernel 7 at the prefill shape (as phase 4), each beside its bound and
     ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
     with the backend's kernel).
+
+The paper's main path (kernels 7 and 1 on the DQN learner's path):
+
+15. The learner (``train.engine.train_seeds``, ``core.train_rl``) with
+    every draw made on the CPU and replayed from ``core.draws.ArrayDraws``:
+    the SDQN preset (E = 16, batch 256) cut to 2 seeds x 2 episodes on
+    ``training_cluster()`` on the card and on the CPU port (identical
+    actions up to the first near tie, then params within 1e-5); the
+    attention class through kernel 7 and through ``fused="plain"`` (the
+    same, and exactly 2 kernel-7 launches a pod step); the MLP at
+    ``fleet_cluster(5000)`` with E = 2 through kernel 1 and plain (exactly
+    2·E launches a pod step); kernels 7 and 1 against their plain versions
+    at the learner's shapes; ms per pod step at the SDQN preset's (S = 10,
+    E = 16, batch 256), and under torch.profiler the device operations per
+    step and the busy share.
+16. Tables 8-10 through ``scripts/paper_tables.py``'s functions at a cut
+    budget (20 episodes, 2 seeds, 5 trials): every trial places or drops
+    its 50 pods; then kube, SDQN and SDQN-n on recorded trial draws on the
+    card and on the CPU port: identical experiment pods, metrics within
+    1e-5 relative.
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -2177,6 +2198,404 @@ def phase_lm_breakdown(device, res):
               f"calls_per_step={c / steps}")
 
 
+# ---------------------------------------------------------------------------
+# the paper's main path: the DQN learner (kernels 7 and 1) and Tables 8-10
+# ---------------------------------------------------------------------------
+
+LEARNER_SEEDS = 2            # the cut train_seeds: the SDQN preset's E, B
+LEARNER_EPISODES = 2
+ATTN_LEARNER = dict(seeds=2, envs=4, episodes=1, pods=25)
+FLEET_LEARNER = dict(n=MAIN_N, envs=2, pods=3)
+STEP_TIMING_EPISODES = 3     # at the SDQN preset's (S, E, batch): 1 warm
+PAPER_CUT = dict(episodes=20, seeds=2, trials=5)
+
+
+def record_train_draws(draws, cfg, rl, n_seeds, device):
+    """What ``draws`` gives a ``train_carry`` run of (cfg, rl, n_seeds),
+    as the numpy arrays of ``ArrayDraws``; every add is ``n_envs`` rows,
+    so the replay sizes the indices are drawn against are known."""
+    from repro_torch.core import policy
+
+    spec = policy.get(rl.policy)
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    params = draws.init_params(spec, n_seeds, device=device)
+    resets, tables, explore, noise, idx, size = [], [], [], [], [], 0
+    for ep in range(rl.episodes):
+        resets.append([host(x) for x in draws.reset(cfg, ep, device=device)])
+        tables.append(draws.pod_table(cfg, rl.pods_per_episode, ep,
+                                      device=device))
+        us, ns, ids = [], [], []
+        for t in range(rl.pods_per_episode):
+            step = draws.step(ep, t)
+            us.append(host(step.explore()))
+            ns.append(host(step.noise(cfg.n_nodes)))
+            size = min(size + rl.n_envs, rl.buffer_capacity)
+            ids.append(host(draws.replay_indices(ep, t, size,
+                                                 (n_seeds, rl.batch_size))))
+        explore.append(np.stack(us)), noise.append(np.stack(ns))
+        idx.append(np.stack(ids))
+    tree = {}
+
+    def walk(p, out):
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[k] = {}
+                walk(v, out[k])
+            else:
+                out[k] = host(v)
+
+    walk(params, tree)
+    return dict(params=tree,
+                reset=[np.stack(c) for c in zip(*resets)],
+                pod_tables=_stack_tables(tables),
+                explore=np.stack(explore), noise=np.stack(noise),
+                replay_idx=np.stack(idx))
+
+
+def _stack_tables(tables):
+    """Port ``PodTable``s as one of numpy arrays, stacked on a new axis."""
+    from repro_torch.core.types import PodSpec, PodTable
+
+    def stack(cols):
+        return np.stack([c.detach().cpu().numpy() for c in cols])
+
+    return PodTable(specs=PodSpec(*(stack(c) for c in
+                                    zip(*(t.specs for t in tables)))),
+                    dt_s=stack([t.dt_s for t in tables]),
+                    type_idx=stack([t.type_idx for t in tables]),
+                    lifetime_s=stack([t.lifetime_s for t in tables]))
+
+
+class ActionSpy:
+    """Records every learner selection (``train_rl.masked_argmax``): the
+    actions and whether a greedy row's two best feasible Q values lie
+    within ``tie`` (the tolerance of the kernel that scored them)."""
+
+    def __init__(self, tie=ATOL):
+        self.tie = tie
+
+    def __enter__(self):
+        from repro_torch.core import train_rl
+
+        self.actions, self.near = [], []
+        self._orig = orig = train_rl.masked_argmax
+
+        def spy(gen, scores, ok, epsilon=0.0, *, u=None, noise=None):
+            a = orig(gen, scores, ok, epsilon, u=u, noise=noise)
+            masked = torch.where(ok, scores,
+                                 torch.full_like(scores, -torch.inf))
+            top = torch.topk(masked, min(2, scores.shape[-1]), dim=-1).values
+            greedy = (u >= epsilon) & torch.isfinite(top[..., -1])
+            gap = (top[..., 0] - top[..., -1])[greedy]
+            self.near.append(bool((gap <= self.tie).any()))
+            self.actions.append(a.cpu())
+            return a
+
+        train_rl.masked_argmax = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import train_rl
+
+        train_rl.masked_argmax = self._orig
+
+
+def _param_diff(a, b) -> float:
+    from repro_torch.optim import tree_leaves
+
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def compare_learner_runs(first, second, p1, p2, label):
+    """Two learner runs on the same draws: identical actions up to the
+    first pod step where either run had a near tie; with none, params
+    within 1e-5.  Returns the params' max difference (None after a tie)."""
+    steps = len(first.actions)
+    assert steps == len(second.actions) > 0, label
+    tie = next((i for i in range(steps)
+                if first.near[i] or second.near[i]), None)
+    for i in range(steps if tie is None else tie):
+        assert torch.equal(first.actions[i], second.actions[i]), (
+            f"{label}: pod step {i} differs before any near tie")
+    same = all(torch.equal(a, b) for a, b in zip(first.actions,
+                                                 second.actions))
+    diff = None
+    if tie is None:
+        diff = _param_diff(p1, p2)
+        assert diff <= 1e-5, (label, diff)
+    print(f"{label}: pod_steps={steps} actions_identical={same} "
+          f"first_near_tie_step={tie} params_max_abs_diff={diff}")
+    return diff
+
+
+def profile_steps(run, steps, label):
+    """torch.profiler over ``run()`` (``steps`` pod steps): device
+    operations per step and the device's busy share; "not measured" when
+    the profiler delivers no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type != torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0}
+    if not dev:
+        print(f"{label} profile: device ops and busy share not measured "
+              f"(the profiler delivered no device event)")
+        return None
+    busy = sum(t for t, _ in dev.values()) / 1e6
+    n_ops = sum(c for _, c in dev.values())
+    print(f"{label} profile: profiled_wall_ms_per_step={1e3 * wall / steps} "
+          f"device_busy_ms_per_step={1e3 * busy / steps} "
+          f"device_busy_share={busy / wall} "
+          f"device_ops_per_step={n_ops / steps}")
+    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:8]:
+        t, c = dev[key]
+        print(f"{label} device time {key[:100]}: per_step_us={t / steps} "
+              f"calls_per_step={c / steps}")
+    return n_ops / steps
+
+
+def phase_learner(device):
+    """The DQN learner on the card (``train.engine.train_seeds``,
+    ``core.train_rl``), every draw made on the CPU (so that a seed with no
+    near tie stays one) and replayed from ``ArrayDraws``:
+
+    * the SDQN preset (E = 16, batch 256) cut to 2 seeds x 2 episodes on
+      ``training_cluster()``, on the card and on the CPU port: identical
+      actions up to the first near tie, then params within 1e-5;
+    * ``policy="attention"`` on the card through kernel 7 and through
+      ``fused="plain"``: the same, and exactly 2 kernel-7 launches a pod
+      step (the select and the bootstrap score all S·E sets in one each);
+    * the MLP at ``fleet_cluster(5000)``, E = 2, a few pod steps, through
+      kernel 1 and through ``fused="plain"``: exactly 2·E launches a pod
+      step (kernel 1 scores one cluster a launch);
+    * kernels 7 and 1 against their plain versions at the learner's
+      shapes (not counted);
+    * ms per pod step at the SDQN preset's (S = 10, E = 16, batch 256),
+      synchronized, after one warm episode; device operations per step and
+      the busy share under torch.profiler.
+
+    Returns ({kernel: launches on the learner path}, {kernel: max abs
+    error at the learner's shapes})."""
+    from repro_torch.core import presets, train_rl
+    from repro_torch.core import env as kenv
+    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.schedulers import score_states
+    from repro_torch.core.types import PodSpec, fleet_cluster, training_cluster
+    from repro_torch.train import engine
+
+    cpu = torch.device("cpu")
+    cfg = training_cluster()
+    launches, errs = {}, {}
+
+    # the cut train_seeds, card against the CPU port
+    rl = dataclasses.replace(presets.SDQN_PRESET, episodes=LEARNER_EPISODES)
+    arrays = record_train_draws(
+        TorchDraws(torch.Generator().manual_seed(SEED + 7),
+                   (LEARNER_SEEDS, rl.n_envs)), cfg, rl, LEARNER_SEEDS, cpu)
+    runs = []
+    for dev in (device, cpu):
+        with ActionSpy() as spy:
+            t0 = time.perf_counter()
+            params, metrics = engine.train_seeds(
+                ArrayDraws(**arrays, device=dev), cfg, rl, LEARNER_SEEDS,
+                device=dev)
+            secs = time.perf_counter() - t0
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        runs.append((spy, params))
+        print(f"learner train_seeds on {dev.type}: seeds={LEARNER_SEEDS} "
+              f"envs={rl.n_envs} batch={rl.batch_size} episodes={rl.episodes}"
+              f" seconds={secs} avg_cpu={metrics['avg_cpu'].tolist()}")
+    compare_learner_runs(runs[0][0], runs[1][0], runs[0][1], runs[1][1],
+                         "learner card vs CPU port")
+
+    # the attention class: kernel 7 against fused="plain"
+    a = ATTN_LEARNER
+    rl = train_rl.RLConfig(policy="attention", n_envs=a["envs"],
+                           episodes=a["episodes"], pods_per_episode=a["pods"],
+                           batch_size=64)
+    arrays = record_train_draws(
+        TorchDraws(torch.Generator().manual_seed(SEED + 10),
+                   (a["seeds"], a["envs"])), cfg, rl, a["seeds"], cpu)
+    runs = {}
+    for fused in ("auto", "plain"):
+        with ActionSpy(tie=FA_TOL) as spy:
+            zero_counts()                           # the path starts here
+            carry, _ = train_rl.train_carry(ArrayDraws(**arrays, device=device),
+                                            cfg, rl, a["seeds"], device=device,
+                                            fused=fused)
+            counts = read_counts()                  # ... and ends here
+        runs[fused] = (spy, carry.params)
+        steps = rl.episodes * rl.pods_per_episode
+        want = 2 * steps if fused == "auto" else 0
+        assert counts["flash_attention"] == want == sum(counts.values()), (
+            fused, counts)
+        if fused == "auto":
+            launches["flash_attention"] = counts["flash_attention"]
+    print(f"attention learner: pod_steps={steps} sets_per_launch="
+          f"{a['seeds'] * a['envs']} kernel7_launches="
+          f"{launches['flash_attention']} (2 a pod step)")
+    compare_learner_runs(runs["auto"][0], runs["plain"][0],
+                         runs["auto"][1], runs["plain"][1],
+                         "attention learner kernel 7 vs plain")
+
+    # the MLP at 5,000 nodes: kernel 1 against fused="plain"
+    f = FLEET_LEARNER
+    fcfg = fleet_cluster(f["n"])
+    rl = train_rl.RLConfig(n_envs=f["envs"], episodes=1,
+                           pods_per_episode=f["pods"], batch_size=32)
+    arrays = record_train_draws(
+        TorchDraws(torch.Generator().manual_seed(SEED + 9),
+                   (1, f["envs"])), fcfg, rl, 1, cpu)
+    runs = {}
+    for fused in ("auto", "plain"):
+        with ActionSpy() as spy:
+            zero_counts()                           # the path starts here
+            carry, _ = train_rl.train_carry(ArrayDraws(**arrays, device=device),
+                                            fcfg, rl, 1, device=device,
+                                            fused=fused)
+            counts = read_counts()                  # ... and ends here
+        runs[fused] = (spy, carry.params)
+        want = 2 * f["envs"] * f["pods"] if fused == "auto" else 0
+        assert counts["sdqn_score_afterstate"] == want == sum(
+            counts.values()), (fused, counts)
+        if fused == "auto":
+            launches["sdqn_score_afterstate"] = counts["sdqn_score_afterstate"]
+    print(f"fleet learner N={f['n']} envs={f['envs']} pod_steps={f['pods']}: "
+          f"kernel1_launches={launches['sdqn_score_afterstate']} "
+          f"(2·E a pod step)")
+    compare_learner_runs(runs["auto"][0], runs["plain"][0],
+                         runs["auto"][1], runs["plain"][1],
+                         "fleet learner kernel 1 vs plain")
+
+    # kernels 7 and 1 against their plain versions at the learner's shapes
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    for name, c, batch, kernel in (("attention", cfg, (2, 16), "flash_attention"),
+                                   ("mlp", fcfg, (1, 2), "sdqn_score_afterstate")):
+        from repro_torch.core import policy
+
+        spec = policy.get(name)
+        params = TorchDraws(gen).init_params(spec, batch[0], device=device)
+        state = kenv.reset(gen, c, device=device, batch=batch)
+        pod = PodSpec(*(torch.full(batch, v, device=device)
+                        for v in kenv.default_pod(c)))
+        pol = None if name == "mlp" else spec
+        got = score_states(params, state, pod, c, policy=pol)
+        ref = score_states(params, state, pod, c, fused="plain", policy=pol)
+        errs[kernel] = float((got - ref).abs().max())
+        tol = FA_TOL if name == "attention" else ATOL
+        assert errs[kernel] <= tol, (name, errs[kernel])
+        print(f"learner-shape check {kernel} {tuple(batch)} x N={c.n_nodes}: "
+              f"max_abs_err={errs[kernel]} (tolerance {tol})")
+
+    # ms per pod step at the SDQN preset's shape
+    rl = dataclasses.replace(presets.SDQN_PRESET,
+                             episodes=STEP_TIMING_EPISODES)
+    s = presets.N_SELECTION_SEEDS
+    marks = []
+
+    def mark(ep, carry):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    train_rl.train_carry(TorchDraws(torch.Generator(device=device).manual_seed(
+        SEED + 11), (s, rl.n_envs)), cfg, rl, s, device=device,
+        on_episode=mark)
+    steps = (len(marks) - 1) * rl.pods_per_episode
+    ms = 1e3 * (marks[-1] - marks[0]) / steps
+    print(f"learner step SDQN preset (S={s}, E={rl.n_envs}, "
+          f"batch={rl.batch_size}, N={cfg.n_nodes}): ms_per_pod_step={ms} "
+          f"(synchronized, {steps} steps after a warm episode; first "
+          f"episode {marks[0] - t0} s)")
+    one = dataclasses.replace(rl, episodes=1)
+    ops = profile_steps(lambda: train_rl.train_carry(
+        TorchDraws(torch.Generator(device=device).manual_seed(SEED + 12),
+                   (s, one.n_envs)), cfg, one, s, device=device),
+        one.pods_per_episode, "learner step SDQN preset")
+    return launches, errs, {"ms_per_pod_step": ms, "device_ops_per_step": ops}
+
+
+def _load_paper_tables():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "paper_tables", ROOT / "scripts" / "paper_tables.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def record_trial_draws(draws, cfg, n_pods):
+    """A trial batch's draws as ``ArrayDraws`` arrays: the reset and each
+    arrival's kube tie-break row (greedy SDQN takes no draw)."""
+    device = draws.generator.device
+    reset = [x.cpu().numpy()[None] for x in draws.reset(cfg, device=device)]
+    tables = _stack_tables([draws.pod_table(cfg, n_pods, device=device)])
+    tie = np.stack([draws.step(0, t).tiebreak(cfg.n_nodes).cpu().numpy()
+                    for t in range(n_pods)])
+    return dict(reset=reset, pod_tables=tables, tiebreak=tie[None])
+
+
+def phase_paper_tables(device):
+    """Tables 8-10 at a cut budget through ``scripts/paper_tables.py``'s
+    functions (train SDQN and SDQN-n with the presets' widths, evaluate
+    kube, SDQN and SDQN-n on 5 trials): every trial places or drops all 50
+    pods, metrics finite; then the three schedulers on recorded trial
+    draws, on the card and on the CPU port: identical experiment pods and
+    metrics within 1e-5 relative."""
+    from repro_torch.core import schedulers
+    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.eval import engine as eval_engine
+    from repro_torch.optim import tree_map
+
+    pt = _load_paper_tables()
+    t0 = time.perf_counter()
+    out = pt.run(**PAPER_CUT, device=device)
+    secs = time.perf_counter() - t0
+    for name, tb in out["tables"].items():
+        assert len(tb["metric"]) == PAPER_CUT["trials"], name
+        assert all(np.isfinite(tb["metric"])), name
+        for row, dropped in zip(tb["exp_pods"], tb["dropped"]):
+            assert sum(row) + dropped == pt.N_PODS, (name, row, dropped)
+    policies = out.pop("params")
+    draws = TorchDraws(torch.Generator(device=device).manual_seed(
+        pt.TRIAL_SEED + 1), (PAPER_CUT["trials"],))
+    arrays = record_trial_draws(draws, pt.CFG, pt.N_PODS)
+    for name in ("default", "sdqn", "sdqn_n"):
+        res = []
+        for dev in (device, torch.device("cpu")):
+            if name == "default":
+                select = schedulers.make_kube_selector(pt.CFG)
+            else:
+                select = schedulers.make_sdqn_selector(
+                    tree_map(lambda x: x.to(dev), policies[name]), pt.CFG)
+            res.append(eval_engine.make_batch_episode(
+                pt.CFG, select, pt.N_PODS, device=dev)(
+                    ArrayDraws(**arrays, device=dev)))
+        card, host = res
+        assert torch.equal(card.exp_pods.cpu(), host.exp_pods), name
+        rel = float(((card.metric.cpu() - host.metric) / host.metric).abs().max())
+        assert rel <= 1e-5, (name, rel)
+        print(f"paper table {name} card vs CPU port on recorded trials: "
+              f"exp_pods identical, metric max_rel_diff={rel}")
+    print(f"paper tables (cut {PAPER_CUT}): seconds={secs} "
+          + " ".join(f"{k}_mean={v['mean']}" for k, v in out["tables"].items())
+          + " " + " ".join(f"{k}_train_s={v['seconds']}"
+                           for k, v in out["train"].items()))
+    return out
+
+
 def sass_counts(source):
     """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
     library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
@@ -2259,9 +2678,18 @@ def main() -> int:
     phase_lm_breakdown(device, res)
     del res
     torch.cuda.empty_cache()
+    learner_counts, learner_errs, _ = phase_learner(device)
+    for key, err in learner_errs.items():
+        errs[key] = max(errs[key], err)
+    phase_paper_tables(device)
     paths = {"flash_attention": {"attention policy class":
                                  launches["flash_attention"],
-                                 "LM prefill": lm_counts["flash_attention"]},
+                                 "LM prefill": lm_counts["flash_attention"],
+                                 "attention learner":
+                                 learner_counts["flash_attention"]},
+             "sdqn_score_afterstate": {
+                 "flat cluster": launches["sdqn_score_afterstate"],
+                 "fleet learner": learner_counts["sdqn_score_afterstate"]},
              "decode_attention": {"LM decode": lm_counts["decode_attention"]},
              "sdqn_score_cols": {"flat job->host": launches["sdqn_score_cols"],
                                  "LM wave routing":

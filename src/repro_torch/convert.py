@@ -3,9 +3,12 @@
 JAX's threefry draws cannot be reproduced in PyTorch, so states and weights
 made by the reference are exported as numpy arrays and turned into port
 tensors here — that is how the parity tests feed both packages the same
-cluster (or job fleet) and the same Q-net.  The dtypes are the port's
-contract (float32, int32 counts, bool flags), whatever the numpy input
-carried.
+cluster (or job fleet), the same Q-net, and the same learner state (a
+reference ``TrainCarry``: params, Adam state, replay ring).  Every
+converter takes arrays of any leading shape, so the reference's stacked
+seeds (``train_seeds``) come across with their seed dimension.  The dtypes
+are the port's contract (float32, int32 counts, bool flags), whatever the
+numpy input carried.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.replay import Replay
 from repro_torch.core.types import ClusterState, PodSpec
 from repro_torch.device import resolve_device
 from repro_torch.sched.placement import FleetState
@@ -31,7 +35,8 @@ def _dtype(field: str) -> torch.dtype:
 
 
 def qnet_from_numpy(params: Mapping[str, np.ndarray], device=None) -> dict:
-    """Table-4 Q-net params ``{w1 (6,32), b1 (32,), w2 (32,1), b2 (1,)}``."""
+    """Table-4 Q-net params ``{w1 (6,32), b1 (32,), w2 (32,1), b2 (1,)}``
+    (each may lead with a seed dimension)."""
     device = resolve_device(device)
     return {k: torch.tensor(np.asarray(params[k], np.float32), device=device)
             for k in ("w1", "b1", "w2", "b2")}
@@ -45,6 +50,31 @@ def policy_params_from_numpy(tree, device=None):
     if isinstance(tree, Mapping):
         return {k: policy_params_from_numpy(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+def opt_state_from_numpy(state: Mapping, device=None) -> dict:
+    """An Adam state (``optim.adam_init``'s keys: ``step``, ``m``, ``v``
+    and, with a master dtype, ``master``): int32 step (``()`` or ``(S,)``),
+    the trees with their own float dtypes."""
+    device = resolve_device(device)
+    out = {"step": torch.tensor(np.asarray(state["step"], np.int32),
+                                device=device)}
+    for key in ("m", "v", "master"):
+        if key in state:
+            out[key] = lm_params_from_numpy(state[key], device=device)
+    return out
+
+
+def replay_from_numpy(data, ptr, size, device=None) -> Replay:
+    """A replay ring: the fused ``(..., n_slots, lane, F + 2)`` float32
+    data; ``ptr`` and ``size`` become host ints (with a seed dimension
+    they must agree across seeds, as every seed adds alike)."""
+    device = resolve_device(device)
+    ptrs, sizes = np.unique(np.asarray(ptr)), np.unique(np.asarray(size))
+    if len(ptrs) != 1 or len(sizes) != 1:
+        raise ValueError(f"rings disagree: ptr {ptrs}, size {sizes}")
+    return Replay(torch.tensor(np.asarray(data, np.float32), device=device),
+                  int(ptrs[0]), int(sizes[0]))
 
 
 def _array_to_tensor(a, dtype, device) -> torch.Tensor:

@@ -1,0 +1,204 @@
+"""The random draws of training and evaluation, behind one small interface.
+
+torch cannot reproduce JAX's threefry streams, so every draw the reference
+takes goes through this seam: a run gets its randomness from a ``Draws``
+object and from nothing else.  Two implementations:
+
+  * ``TorchDraws(generator, batch)`` — standalone runs: each draw comes
+    from the generator, on the generator's device;
+  * ``ArrayDraws(...)`` — built from numpy arrays (the parity tests make
+    them with the reference's own functions and keys), so that the port
+    replays the reference's exact episodes.
+
+The interface covers exactly what the reference draws, and no more:
+
+  * ``init_params(spec, n_seeds, device)`` — initial policy params, with a
+    leading seed dimension;
+  * ``reset(cfg, episode, device)`` — the episode's initial clusters,
+    ``(*batch, N)``;
+  * ``pod_table(cfg, n_pods, episode, device)`` — the episode's arrival
+    streams, fields ``(*batch, n_pods)`` (no draw without a scenario);
+  * ``step(episode, t)`` — the draws of arrival ``t``: ``explore()``, the
+    epsilon-greedy uniform ``(*batch,)``; ``noise(n)``, its random
+    argmax's uniforms ``(*batch, n)``; ``tiebreak(n)``, the
+    kube-scheduler's tie-break uniforms ``(*batch, n)``;
+  * ``replay_indices(episode, t, size, shape)`` — the learner's sample,
+    uniform integers in ``[0, max(size, 1))``.
+
+``batch`` is the clusters' batch shape: ``(seeds, envs)`` for the trainer,
+``(trials,)`` for evaluation.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.core import env as kenv
+from repro_torch.core.types import ClusterState, EnvConfig, PodSpec, PodTable
+from repro_torch.device import resolve_device
+from repro_torch.optim import tree_leaves, tree_map
+
+
+def stack_trees(trees):
+    """Nested dicts of tensors stacked leaf by leaf on a new leading dim."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+class _TorchStep:
+    def __init__(self, gen: torch.Generator, batch):
+        self._gen, self._batch = gen, batch
+
+    def _rand(self, shape):
+        return torch.rand(shape, generator=self._gen, dtype=torch.float32,
+                          device=self._gen.device)
+
+    def explore(self) -> torch.Tensor:
+        return self._rand(self._batch)
+
+    def noise(self, n: int) -> torch.Tensor:
+        return self._rand(self._batch + (n,))
+
+    tiebreak = noise
+
+
+class TorchDraws:
+    """Every draw from ``generator``, on its device, for clusters of batch
+    shape ``batch``."""
+
+    def __init__(self, generator: torch.Generator,
+                 batch: Tuple[int, ...] = ()):
+        self.generator = generator
+        self.batch = tuple(batch)
+
+    def init_params(self, spec, n_seeds: int, device=None):
+        return stack_trees([spec.init(self.generator, device=device)
+                            for _ in range(n_seeds)])
+
+    def reset(self, cfg: EnvConfig, episode: int = 0,
+              device=None) -> ClusterState:
+        return kenv.reset(self.generator, cfg, device=device,
+                          batch=self.batch)
+
+    def pod_table(self, cfg: EnvConfig, n_pods: int, episode: int = 0,
+                  device=None) -> PodTable:
+        return kenv.sample_pod_table(self.generator, cfg, n_pods,
+                                     device=device, batch=self.batch)
+
+    def step(self, episode: int, t: int) -> _TorchStep:
+        return _TorchStep(self.generator, self.batch)
+
+    def replay_indices(self, episode: int, t: int, size: int,
+                       shape) -> torch.Tensor:
+        return torch.randint(0, max(size, 1), tuple(shape),
+                             generator=self.generator,
+                             device=self.generator.device)
+
+
+class _ArrayStep:
+    def __init__(self, draws: "ArrayDraws", episode: int, t: int):
+        self._d, self._ep, self._t = draws, episode, t
+
+    def explore(self) -> torch.Tensor:
+        return self._d._get("explore")[self._ep, self._t]
+
+    def noise(self, n: int) -> torch.Tensor:
+        return self._d._rows("noise", self._ep, self._t, n)
+
+    def tiebreak(self, n: int) -> torch.Tensor:
+        return self._d._rows("tiebreak", self._ep, self._t, n)
+
+
+class ArrayDraws:
+    """Draws given as numpy arrays, indexed ``[episode, step, *batch]``.
+
+    ``params``: a params tree with a leading seed dimension; ``reset``: a
+    ``ClusterState`` of arrays ``(episodes, *batch, N)``; ``pod_tables``: a
+    ``PodTable`` of arrays ``(episodes, *batch, n_pods)``; ``explore``
+    ``(episodes, steps, *batch)``, ``noise`` and ``tiebreak`` ``(episodes,
+    steps, *batch, N)``; ``replay_idx`` ``(episodes, steps, *shape)``.
+    Whatever is given moves to ``device`` once; asking for a draw that was
+    not given raises ``KeyError``."""
+
+    def __init__(self, *, params=None, reset=None, pod_tables=None,
+                 explore=None, noise=None, tiebreak=None, replay_idx=None,
+                 device=None):
+        device = resolve_device(device)
+        self._arrays = {}
+        for name, value in (("explore", explore), ("noise", noise),
+                            ("tiebreak", tiebreak)):
+            if value is not None:
+                self._arrays[name] = torch.tensor(np.asarray(value, np.float32),
+                                                  device=device)
+        if replay_idx is not None:
+            self._arrays["replay_idx"] = torch.tensor(
+                np.asarray(replay_idx, np.int64), device=device)
+        if params is not None:
+            self._arrays["params"] = convert.policy_params_from_numpy(
+                params, device=device)
+        if reset is not None:
+            self._arrays["reset"] = convert.state_from_numpy(reset,
+                                                             device=device)
+        if pod_tables is not None:
+            specs = PodSpec(*(torch.tensor(np.asarray(x, np.float32),
+                                           device=device)
+                              for x in pod_tables.specs))
+            self._arrays["pod_tables"] = PodTable(
+                specs=specs,
+                dt_s=torch.tensor(np.asarray(pod_tables.dt_s, np.float32),
+                                  device=device),
+                type_idx=torch.tensor(np.asarray(pod_tables.type_idx,
+                                                 np.int32), device=device),
+                lifetime_s=torch.tensor(np.asarray(pod_tables.lifetime_s,
+                                                   np.float32),
+                                        device=device))
+
+    def _get(self, name):
+        try:
+            return self._arrays[name]
+        except KeyError:
+            raise KeyError(f"ArrayDraws was built without {name!r}") from None
+
+    def _rows(self, name, episode, t, n):
+        rows = self._get(name)[episode, t]
+        if rows.shape[-1] != n:
+            raise ValueError(f"{name} rows have {rows.shape[-1]} nodes, "
+                             f"the clusters {n}")
+        return rows
+
+    def init_params(self, spec, n_seeds: int, device=None):
+        params = self._get("params")
+        lead = {x.shape[0] for x in tree_leaves(params)}
+        if lead != {n_seeds}:
+            raise ValueError(f"ArrayDraws params lead with {lead}, "
+                             f"want {n_seeds} seeds")
+        return params
+
+    def reset(self, cfg: EnvConfig, episode: int = 0,
+              device=None) -> ClusterState:
+        return ClusterState(*(x[episode] for x in self._get("reset")))
+
+    def pod_table(self, cfg: EnvConfig, n_pods: int, episode: int = 0,
+                  device=None) -> PodTable:
+        table = self._get("pod_tables")
+        out = PodTable(specs=PodSpec(*(x[episode] for x in table.specs)),
+                       dt_s=table.dt_s[episode],
+                       type_idx=table.type_idx[episode],
+                       lifetime_s=table.lifetime_s[episode])
+        if out.dt_s.shape[-1] != n_pods:
+            raise ValueError(f"pod tables hold {out.dt_s.shape[-1]} arrivals, "
+                             f"want {n_pods}")
+        return out
+
+    def step(self, episode: int, t: int) -> _ArrayStep:
+        return _ArrayStep(self, episode, t)
+
+    def replay_indices(self, episode: int, t: int, size: int,
+                       shape) -> torch.Tensor:
+        idx = self._get("replay_idx")[episode, t]
+        if tuple(idx.shape) != tuple(shape):
+            raise ValueError(f"replay indices {tuple(idx.shape)}, want "
+                             f"{tuple(shape)}")
+        return idx

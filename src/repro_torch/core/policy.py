@@ -32,13 +32,18 @@ Three entries ship in-registry, with the reference's hyperparameters:
     (kernel 6, ``kernels.mamba_scan``) feeding an MLP Q-head over
     ``[afterstate | history embed]`` rows.
 
-The learner (``mse_loss``, ``make_train_step``, ``init_train_state``,
-``make_opt_state``) and checkpoint save/restore are not ported yet
-(ROADMAP.md, queue 1, 'Learner' and 'Serving, rest').
+Training is generic over the spec: ``init_train_state`` / ``make_train_step``
+are the Table-4 Adam/MSE learner for any registered class, and every
+function here accepts params with a leading seed dimension (candidate
+policies trained side by side, ``train.engine``): rows then lead with the
+same dimension and go through their seed's weights (``dqn.linear``).
+Checkpoint save/restore is not ported yet (ROADMAP.md, queue 1, 'Serving,
+rest').
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -46,10 +51,13 @@ import torch
 import torch.nn.functional as nnf
 
 from repro_torch.core import dqn
+from repro_torch.core.dqn import linear
 from repro_torch.core.types import FEATURE_DIM
 from repro_torch.device import resolve_device
+from repro_torch.optim import adam_init
 
-__all__ = ["ENCODER_IN", "PolicySpec", "checked", "get", "names",
+__all__ = ["ENCODER_IN", "PolicySpec", "checked", "get", "init_train_state",
+           "make_opt_state", "make_train_step", "mse_loss", "names",
            "pod_workload_features", "register"]
 
 F32 = torch.float32
@@ -68,8 +76,13 @@ def pod_workload_features(pod) -> torch.Tensor:
                   torch.device("cpu"))
     cols = [torch.as_tensor(x, dtype=F32, device=device) for x in
             (pod.cpu_request, pod.cpu_demand, pod.mem_request, pod.mem_demand)]
-    return torch.stack(cols, dim=-1) / torch.tensor(_WORKLOAD_SCALE, dtype=F32,
-                                                    device=device)
+    return torch.stack(cols, dim=-1) / _workload_scale(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _workload_scale(device: torch.device) -> torch.Tensor:
+    """``_WORKLOAD_SCALE`` on ``device``, copied there once."""
+    return torch.tensor(_WORKLOAD_SCALE, dtype=F32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +145,46 @@ def checked(policy) -> Optional[PolicySpec]:
     return policy
 
 
+# ---------------------------------------------------------------------------
+# generic Table-4 learner: Adam(1e-3) + MSE over any spec's qvalues
+# ---------------------------------------------------------------------------
+
+ADAM = dqn.ADAM  # every policy class trains with the paper's optimizer
+
+
+def mse_loss(spec: PolicySpec, params, feats, targets, weights=None):
+    """``dqn.mse_loss`` over ``spec.qvalues``: () loss, or (S,) with
+    per-seed params."""
+    return dqn.weighted_mse(spec.qvalues(params, feats), targets, weights,
+                            per_seed=dqn.seeded(params))
+
+
+def init_train_state(spec: PolicySpec, gen: torch.Generator, device=None):
+    params = spec.init(gen, device=device)
+    return params, adam_init(params, ADAM)
+
+
+def make_opt_state(params) -> dict:
+    """Fresh Adam moments for an EXISTING parameter tree (warm starts)."""
+    return adam_init(params, ADAM)
+
+
+def make_train_step(spec: PolicySpec) -> Callable:
+    """``(params, opt_state, feats, targets, weights) -> (params, opt_state,
+    loss, stats)`` — ``dqn.train_step`` generic over the spec (for "mlp"
+    the same computation).  Per-seed params give an (S,) loss and each
+    seed its own gradients."""
+
+    def loss_fn(params, feats, targets, weights):
+        return mse_loss(spec, params, feats, targets, weights)
+
+    def step(params, opt_state, feats, targets, weights=None):
+        return dqn.learner_step(loss_fn, params, opt_state, feats, targets,
+                                weights, per_seed=dqn.seeded(params))
+
+    return step
+
+
 def _dense(gen, fan_in, shape, device, gain=1.0):
     x = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
     return (x * (gain / fan_in) ** 0.5).to(device)
@@ -184,26 +237,28 @@ def init_attention(gen: torch.Generator, d_model: int = ATTN_DMODEL,
 
 
 def _attn_embed(params, feats):
-    return torch.tanh(feats @ params["w_in"] + params["b_in"])
+    return torch.tanh(linear(feats, params["w_in"], params["b_in"]))
 
 
 def _attn_head(params, x, attn_out):
-    h = torch.relu(x + attn_out @ params["wo"])     # residual mix of set context
-    return (h @ params["w_out"] + params["b_out"])[..., 0]
+    # residual mix of set context
+    h = torch.relu(x + linear(attn_out, params["wo"]))
+    return linear(h, params["w_out"], params["b_out"])[..., 0]
 
 
 def attention_qvalues(params: dict, feats: torch.Tensor) -> torch.Tensor:
     """Pointwise Q over ``(..., F)`` rows == the set scorer on singleton
     sets: softmax over one key is the identity, so ``attn_out == v``."""
     x = _attn_embed(params, feats)
-    return _attn_head(params, x, x @ params["wv"])
+    return _attn_head(params, x, linear(x, params["wv"]))
 
 
 def attention_score_set(params: dict, feats: torch.Tensor,
                         mode: Optional[str] = None) -> torch.Tensor:
     """(..., N, F) candidate sets -> (..., N) scores, with one multi-head
     attention mix over each set's node axis: ONE launch of kernel 7 for all
-    the sets, the leading dimensions flattened into its batch axis."""
+    the sets, the leading dimensions (seeds first, with per-seed params)
+    flattened into its batch axis."""
     from repro_torch.kernels import ops
 
     x = _attn_embed(params, feats)                          # (..., N, d)
@@ -212,8 +267,10 @@ def attention_score_set(params: dict, feats: torch.Tensor,
     def heads(t):
         return t.reshape(-1, n, ATTN_HEADS, d // ATTN_HEADS)  # (B, S=N, H, hd)
 
-    out = ops.flash_attention(heads(x @ params["wq"]), heads(x @ params["wk"]),
-                              heads(x @ params["wv"]), causal=False, mode=mode)
+    out = ops.flash_attention(heads(linear(x, params["wq"])),
+                              heads(linear(x, params["wk"])),
+                              heads(linear(x, params["wv"])), causal=False,
+                              mode=mode)
     return _attn_head(params, x, out.reshape(x.shape))
 
 
@@ -268,8 +325,8 @@ def init_mamba(gen: torch.Generator, device=None) -> dict:
 def mamba_qvalues(params: dict, feats: torch.Tensor) -> torch.Tensor:
     """Q-head over ``(..., FEATURE_DIM + MAMBA_EMBED)`` rows."""
     head = params["head"]
-    h = torch.relu(feats @ head["w1"] + head["b1"])
-    return (h @ head["w2"] + head["b2"])[..., 0]
+    h = torch.relu(linear(feats, head["w1"], head["b1"]))
+    return linear(h, head["w2"], head["b2"])[..., 0]
 
 
 def _mamba_score_set(params: dict, feats: torch.Tensor, mode=None):
@@ -284,25 +341,37 @@ def mamba_carry_init(params: dict) -> torch.Tensor:
 
 def _mamba_ssm_params(enc: dict, x: torch.Tensor):
     """x: (..., di) -> (dt (..., di), b (..., n), c (..., n)), float32."""
-    proj = x @ enc["x_proj"]
+    proj = linear(x, enc["x_proj"])
     r, n = MAMBA_DT_RANK, MAMBA_STATE
     dt_raw, b, c = proj[..., :r], proj[..., r:r + n], proj[..., r + n:]
-    dt = nnf.softplus(dt_raw @ enc["dt_proj"] + enc["dt_bias"])
+    dt = nnf.softplus(linear(dt_raw, enc["dt_proj"], enc["dt_bias"]))
     return dt, b, c
 
 
 def mamba_encode_step(params: dict, carry: torch.Tensor,
                       workload: torch.Tensor):
-    """One arrival: ``(carry (di, n), workload (ENCODER_IN,)) -> (new_carry,
-    embed (MAMBA_EMBED,))`` — ``h = exp(dt·a)·h + (dt·x)·B; y = h·C + x·D``."""
+    """One arrival: ``(carry (..., di, n), workload (..., ENCODER_IN)) ->
+    (new_carry, embed (..., MAMBA_EMBED))`` — ``h = exp(dt·a)·h +
+    (dt·x)·B; y = h·C + x·D`` — for any leading batch dimensions (seeds
+    first, with per-seed params)."""
     enc = params["enc"]
-    x = nnf.silu(workload @ enc["in_proj"])                # (di,)
+    lead = carry.shape[:-2]
+    if dqn.seeded(params):
+        # rows (S, M, ...) against each seed's (S, 1, ...) constants
+        s = enc["D"].shape[0]
+        carry = carry.reshape(s, -1, *carry.shape[-2:])
+        workload = workload.reshape(s, -1, workload.shape[-1])
+        a_log, d_skip = enc["A_log"][:, None], enc["D"][:, None]
+    else:
+        a_log, d_skip = enc["A_log"], enc["D"]
+    x = nnf.silu(linear(workload, enc["in_proj"]))         # (..., di)
     dt, b, c = _mamba_ssm_params(enc, x)
-    a = -torch.exp(enc["A_log"])                           # (di, n)
-    da = torch.exp(dt[:, None] * a)
-    h = da * carry + (dt * x)[:, None] * b[None, :]
-    y = h @ c + x * enc["D"]                               # (di,)
-    return h, torch.tanh(y @ enc["out_proj"])
+    a = -torch.exp(a_log)                                  # (..., di, n)
+    da = torch.exp(dt[..., None] * a)
+    h = da * carry + (dt * x)[..., None] * b[..., None, :]
+    y = torch.sum(h * c[..., None, :], dim=-1) + x * d_skip   # (..., di)
+    emb = torch.tanh(linear(y, enc["out_proj"]))
+    return h.reshape(lead + h.shape[-2:]), emb.reshape(lead + emb.shape[-1:])
 
 
 def mamba_encode_sequence(params: dict, workloads: torch.Tensor,

@@ -1,12 +1,18 @@
-"""SDQN scheduling (PyTorch port): the scoring dispatch and the selector.
+"""SDQN scheduling (PyTorch port): the scoring dispatch and the selectors.
 
 All policies apply the k8s *filtering* phase first (paper §3.2) and only
 score feasible nodes; SDQN scores afterstates with the Table-4 Q-net, and
 a registered policy class (``core.policy``) through its ``score_set``.
-Custom scorers (the LSTM / Transformer baselines) wait for their slice.
+Selectors are batched: ``select(step_draws, state, pod) -> node`` takes
+clusters ``(..., N)`` with one pod each (fields ``(...)``) and returns
+``(...)`` int32 nodes, ``NO_PLACEMENT`` where nothing fits; their
+randomness comes from ``step_draws`` (``core.draws``), which may be
+``None`` where no draw is taken (greedy selection).  Custom scorers (the
+LSTM / Transformer baselines) wait for their slice.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
@@ -26,25 +32,30 @@ SCORE_FN_QUEUE_ITEM = ("a custom score_fn (the LSTM / Transformer "
 
 
 def masked_argmax(gen: torch.Generator | None, scores: torch.Tensor,
-                  ok: torch.Tensor, epsilon: float = 0.0) -> torch.Tensor:
-    """Greedy over feasible nodes (first occurrence among equal maxima),
-    with epsilon-greedy exploration drawn from ``gen``.
+                  ok: torch.Tensor, epsilon: float = 0.0, *,
+                  u: torch.Tensor | None = None,
+                  noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Greedy over feasible nodes (the last axis; first occurrence among
+    equal maxima), with epsilon-greedy exploration: where ``u < epsilon``
+    the argmax of ``noise`` over the feasible nodes instead.
 
-    Returns ``NO_PLACEMENT`` (-1) as an int32 0-d tensor when no node is
-    feasible: an argmax over all ``-inf`` would silently pick node 0."""
-    masked = torch.where(ok, scores, torch.full_like(scores, -torch.inf))
-    choice = torch.argmax(masked).to(torch.int32)
-    if epsilon > 0.0:
-        draw_dev = gen.device if gen is not None else scores.device
-        explore = bool(torch.rand((), generator=gen, device=draw_dev) < epsilon)
-        if explore:
-            noise = torch.rand(scores.shape, generator=gen, device=draw_dev)
-            noise = torch.where(ok, noise.to(scores.device),
-                                torch.full_like(scores, -torch.inf))
-            choice = torch.argmax(noise).to(torch.int32)
-    return torch.where(torch.any(ok), choice,
-                       torch.tensor(NO_PLACEMENT, dtype=torch.int32,
-                                    device=scores.device))
+    ``u (...)`` and ``noise (..., N)`` are the reference's two uniforms
+    (``core.draws``); without them and with ``epsilon > 0`` they are drawn
+    from ``gen``.  No value is read back to the host.  Returns int32
+    ``(...)``, ``NO_PLACEMENT`` (-1) where no node is feasible: an argmax
+    over all ``-inf`` would silently pick node 0."""
+    neg = torch.full_like(scores, -torch.inf)
+    choice = torch.argmax(torch.where(ok, scores, neg), dim=-1).to(torch.int32)
+    if u is None and epsilon > 0.0:
+        dev = gen.device if gen is not None else scores.device
+        u = torch.rand(scores.shape[:-1], generator=gen, device=dev)
+        noise = torch.rand(scores.shape, generator=gen, device=dev)
+    if u is not None:
+        explore = u.to(scores.device) < epsilon
+        rand = torch.argmax(torch.where(ok, noise.to(scores.device), neg),
+                            dim=-1).to(torch.int32)
+        choice = torch.where(explore, rand, choice)
+    return torch.where(torch.any(ok, dim=-1), choice, NO_PLACEMENT)
 
 
 def check_scorer(fused, score_fn=None, policy=None, embed=None):
@@ -145,14 +156,118 @@ def score_afterstates(qparams: dict, state: ClusterState, pod: PodSpec,
                                    policy=policy, embed=embed)[0]
 
 
+def pod_rows(pod: PodSpec, like: torch.Tensor) -> PodSpec:
+    """One pod per cluster (fields floats or ``(...)``) shaped ``(..., 1)``
+    to broadcast over the node axis of ``like (..., N)``."""
+    return PodSpec(*(torch.as_tensor(x, dtype=torch.float32,
+                                     device=like.device)[..., None]
+                     for x in pod))
+
+
+def score_states(qparams, state: ClusterState, pod: PodSpec, cfg: EnvConfig,
+                 fused="auto", policy=None, embed=None) -> torch.Tensor:
+    """(..., N) scores of a batch of clusters ``state (..., N)``, each
+    against its own pod (fields ``(...)``): Q of every candidate
+    afterstate.  ``qparams`` may carry a leading seed dimension, which
+    then leads the batch.  ``embed (..., E)``: sequence specs' history
+    embeds, one per cluster.
+
+    The dispatch of ``score_afterstates_batch``: the fused path (from
+    ``FUSED_SCORE_MIN_NODES`` nodes up, or forced) runs kernel 1 once per
+    cluster, since it scores B pods against ONE snapshot; the plain path
+    and the policy classes score every cluster in one pass (one kernel-7
+    launch for all sets, for "attention")."""
+    spec = check_scorer(fused, None, policy, embed)
+    n = state.n_nodes
+    if spec is None and (fused in (True, "plain") or (
+            fused == "auto" and n >= FUSED_SCORE_MIN_NODES)):
+        from repro_torch.kernels import ops
+
+        mode = "plain" if fused == "plain" else None
+        batch = tuple(state.time_s.shape)
+        per_seed = dqn.seeded(qparams)
+        out = torch.empty(batch + (n,), dtype=torch.float32,
+                          device=state.base_cpu.device)
+        cols = PodSpec(*(torch.as_tensor(x, dtype=torch.float32,
+                                         device=out.device).expand(batch)
+                         for x in pod))
+        for idx in itertools.product(*(range(b) for b in batch)):
+            params = ({k: v[idx[0]] for k, v in qparams.items()}
+                      if per_seed else qparams)
+            out[idx] = ops.sdqn_score_afterstate(
+                ClusterState(*(x[idx] for x in state)),
+                PodSpec(*(x[idx] for x in cols)), cfg, params, mode=mode)
+        return out
+    after = kenv.hypothetical_place(state, pod_rows(pod, state.base_cpu), cfg)
+    feats = kenv.normalize_features(after)                  # (..., N, 6)
+    if spec is None:
+        return dqn.qvalues(qparams, feats)
+    return spec.score_set(qparams, with_embed(feats, embed),
+                          mode=policy_mode(fused))
+
+
+def _explore_draws(step, epsilon: float, n: int) -> dict:
+    """The selector's exploration draws: none when greedy."""
+    if not epsilon:
+        return {}
+    return {"u": step.explore(), "noise": step.noise(n)}
+
+
 def make_sdqn_selector(qparams: dict, cfg: EnvConfig,
                        epsilon: float = 0.0) -> Callable:
-    """``select(gen, state, pod) -> node`` (int32 0-d, ``NO_PLACEMENT`` if
-    nothing fits)."""
+    """``select(step_draws, state, pod) -> node`` (int32 ``(...)``,
+    ``NO_PLACEMENT`` where nothing fits).  ``qparams`` may carry a leading
+    seed dimension (one selector for every candidate)."""
 
-    def select(gen, state, pod):
-        ok = kenv.feasible(state, pod, cfg)
-        q = score_afterstates(qparams, state, pod, cfg)
-        return masked_argmax(gen, q, ok, epsilon)
+    def select(step, state, pod):
+        ok = kenv.feasible(state, pod_rows(pod, state.base_cpu), cfg)
+        q = score_states(qparams, state, pod, cfg)
+        return masked_argmax(None, q, ok, epsilon,
+                             **_explore_draws(step, epsilon, state.n_nodes))
+
+    return select
+
+
+# SDQN-n uses the same scoring machinery; consolidation comes from the
+# reward the network was trained on (Table 5), not from another selector.
+make_sdqn_n_selector = make_sdqn_selector
+
+
+def make_policy_selector(spec, params, cfg: EnvConfig, epsilon: float = 0.0):
+    """Episode selector for any registered policy class: ``(select,
+    carry0)``.  Stateless specs (``embed_dim == 0``, or ``spec is None``)
+    give ``select(step, state, pod)`` and ``carry0 = None``; sequence specs
+    ``select(step, state, pod, carry) -> (node, carry)`` and the initial
+    carry, for ``env.run_episode(select_carry=...)``."""
+    if spec is None or spec.embed_dim == 0:
+
+        def select(step, state, pod):
+            ok = kenv.feasible(state, pod_rows(pod, state.base_cpu), cfg)
+            q = score_states(params, state, pod, cfg, policy=spec)
+            return masked_argmax(None, q, ok, epsilon,
+                                 **_explore_draws(step, epsilon,
+                                                  state.n_nodes))
+
+        return select, None
+
+    def select(step, state, pod, carry):
+        carry2, emb = spec.encode_step(params, carry,
+                                       pol.pod_workload_features(pod))
+        ok = kenv.feasible(state, pod_rows(pod, state.base_cpu), cfg)
+        q = score_states(params, state, pod, cfg, policy=spec, embed=emb)
+        return masked_argmax(None, q, ok, epsilon,
+                             **_explore_draws(step, epsilon,
+                                              state.n_nodes)), carry2
+
+    return select, spec.carry_init(params)
+
+
+def make_kube_selector(cfg: EnvConfig) -> Callable:
+    """The default kube-scheduler as an episode selector; its random
+    tie-break comes from ``step.tiebreak``."""
+    from repro_torch.core import baselines
+
+    def select(step, state, pod):
+        return baselines.kube_select(step, state, pod, cfg)
 
     return select

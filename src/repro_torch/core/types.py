@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.core.types``: the same NamedTuples with the same
 field order and dtypes (int32 counts, bool ``healthy`` / ``image_cached``,
-float32 for the rest), and the same frozen ``EnvConfig``.  Scenario pools
+float32 for the rest), and the same frozen ``EnvConfig``.  Every field may
+carry leading batch dimensions (seeds, envs, trials) before the node axis:
+``(..., N)`` columns with a ``(...)`` clock.  Scenario pools
 (heterogeneous node classes, pod catalogs) are not ported yet: only
 ``scenario=None`` is accepted.
 """
@@ -25,7 +27,8 @@ SCENARIO_QUEUE_ITEM = ("scenario pools are not ported yet: see ROADMAP.md, "
 
 
 class ClusterState(NamedTuple):
-    """Vectorized node state. All tensors have leading dim N (nodes)."""
+    """Vectorized node state: columns ``(..., N)`` over the nodes, the clock
+    ``(...)``, for any leading batch dimensions."""
 
     cpu_capacity: torch.Tensor    # (N,) f32 millicores
     mem_capacity: torch.Tensor    # (N,) f32 MiB
@@ -57,13 +60,51 @@ class PodSpec(NamedTuple):
     mem_demand: object    # MiB
 
 
+class PodLedger(NamedTuple):
+    """Fixed-shape expiry ledger: one slot per episode arrival (``K``).
+
+    Slot ``t`` records where arrival ``t`` bound and when it completes;
+    ``env.retire_expired`` releases every due slot.  ``node == -1`` marks
+    empty, dropped or retired slots."""
+
+    node: torch.Tensor              # (..., K) int32; -1 = empty / retired
+    expiry_s: torch.Tensor          # (..., K) f32 absolute completion time
+    spec: "PodSpec"                 # each field (..., K): what to release
+
+
+class EpisodeStats(NamedTuple):
+    """Time-resolved lifecycle metrics of an episode (one per batch row).
+
+    The chaos counters stay zero: failure traces are not ported."""
+
+    nodes_active_mean: torch.Tensor   # time-averaged active-node count
+    nodes_active_final: torch.Tensor  # int32, active nodes at episode end
+    nodes_active_peak: torch.Tensor   # int32, most active nodes seen
+    node_seconds: torch.Tensor        # integral of nodes_active over time
+    energy_wh: torch.Tensor           # integral of active-node power draw
+    retired: torch.Tensor             # int32, pods completed + released
+    evicted: torch.Tensor             # int32, pods killed by node failures
+    rescheduled: torch.Tensor         # int32, evicted pods re-placed
+    lost: torch.Tensor                # int32, evicted pods never re-placed
+
+
+class EpisodeResult(NamedTuple):
+    """``env.run_episode``'s result, field for field the reference's."""
+
+    state: ClusterState               # final cluster state after settle
+    placements: torch.Tensor          # (..., N) final pods per node
+    metric: torch.Tensor              # dt-weighted cluster-average CPU%
+    dropped: torch.Tensor             # int32, arrivals with no feasible node
+    stats: EpisodeStats
+
+
 class PodTable(NamedTuple):
     """Pre-sampled arrival stream (see ``env.sample_pod_table``)."""
 
-    specs: PodSpec                  # each field (n_pods,) f32
-    dt_s: torch.Tensor              # (n_pods,) f32 gap after each placement
-    type_idx: torch.Tensor          # (n_pods,) int32
-    lifetime_s: torch.Tensor        # (n_pods,) f32, inf = runs forever
+    specs: PodSpec                  # each field (..., n_pods) f32
+    dt_s: torch.Tensor              # (..., n_pods) f32 gap after each bind
+    type_idx: torch.Tensor          # (..., n_pods) int32
+    lifetime_s: torch.Tensor        # (..., n_pods) f32, inf = runs forever
 
 
 @dataclasses.dataclass(frozen=True)
