@@ -154,6 +154,27 @@ The paper's main path (kernels 7 and 1 on the DQN learner's path):
     card and on the CPU port: identical experiment pods, metrics within
     1e-5 relative.
 
+The paper's baselines and SDQN-n over time (kernels 7 and 1):
+
+17. Tables 11/12 (the LSTM and Transformer scorers, 2 seeds x 3
+    episodes each), Figure 6's three claims (printed, not asserted at
+    the cut budget), the literal ablation and the policy-class table
+    through ``scripts/paper_tables.py``'s ``run_baselines`` on phase 16's
+    Tables 8-10: every trial places or drops its 50 pods, kernel 7's
+    launches in the attention arm; then the supervised trainer on
+    recorded draws on the card and on the CPU port: identical kube
+    actions, params within 1e-5.
+18. ``scripts/scenario_tables.py``'s ``run`` cut to 6 training episodes
+    and 3 trials: every scenario but the scoring-only and the chaos ones
+    under kube and a mixture-trained SDQN, the four churn scenarios under
+    kube, SDQN and SDQN-n with the consolidator (active nodes, energy,
+    average CPU, retired, moved).  Then a cluster-of-clusters-4k episode
+    (4,096 nodes, 32 pods, 2 trials) under SDQN-n with the consolidator
+    every 30 s, through kernel 1 and through ``fused="plain"`` on the
+    same recorded draws: exactly trials x (32 + 4 x 52) launches, every
+    call held to the plain version on its inputs, the selector's actions
+    identical up to the first near tie.
+
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
 table; the last line is
@@ -2270,37 +2291,42 @@ def _stack_tables(tables):
 
 
 class ActionSpy:
-    """Records every learner selection (``train_rl.masked_argmax``): the
+    """Records every selection of ``module.masked_argmax`` (the learner's,
+    ``train_rl``, by default; ``schedulers`` for episode selectors): the
     actions and whether a greedy row's two best feasible Q values lie
     within ``tie`` (the tolerance of the kernel that scored them)."""
 
-    def __init__(self, tie=ATOL):
-        self.tie = tie
+    def __init__(self, tie=ATOL, module="train_rl"):
+        self.tie, self.module = tie, module
+
+    def _mod(self):
+        import importlib
+
+        return importlib.import_module(f"repro_torch.core.{self.module}")
 
     def __enter__(self):
-        from repro_torch.core import train_rl
-
+        mod = self._mod()
         self.actions, self.near = [], []
-        self._orig = orig = train_rl.masked_argmax
+        self._orig = orig = mod.masked_argmax
 
         def spy(gen, scores, ok, epsilon=0.0, *, u=None, noise=None):
             a = orig(gen, scores, ok, epsilon, u=u, noise=noise)
             masked = torch.where(ok, scores,
                                  torch.full_like(scores, -torch.inf))
             top = torch.topk(masked, min(2, scores.shape[-1]), dim=-1).values
-            greedy = (u >= epsilon) & torch.isfinite(top[..., -1])
+            greedy = torch.isfinite(top[..., -1])
+            if u is not None:
+                greedy &= u >= epsilon
             gap = (top[..., 0] - top[..., -1])[greedy]
             self.near.append(bool((gap <= self.tie).any()))
             self.actions.append(a.cpu())
             return a
 
-        train_rl.masked_argmax = spy
+        mod.masked_argmax = spy
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.core import train_rl
-
-        train_rl.masked_argmax = self._orig
+        self._mod().masked_argmax = self._orig
 
 
 def _param_diff(a, b) -> float:
@@ -2596,6 +2622,275 @@ def phase_paper_tables(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paper's baselines (Tables 11/12, Figure 6, the policy-class table),
+# the scenario sweep and SDQN-n's consolidation over time (kernels 7 and 1)
+# ---------------------------------------------------------------------------
+
+BASELINE_CUT = dict(episodes=3, seeds=2, trials=5)
+SUPERVISED_RECORD = dict(episodes=2, pods_per_episode=25, n_envs=8)
+SCENARIO_CUT = dict(episodes=6, trials=3)
+COC = dict(name="cluster-of-clusters-4k", trials=2, pods=32)
+
+
+def _host_tree(tree):
+    return {k: (_host_tree(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy()) for k, v in tree.items()}
+
+
+def record_supervised_draws(draws, cfg, init_fn, episodes, pods, n_envs,
+                            device):
+    """What ``draws`` gives ``train_supervised_scorer``: the initial
+    params (a seed axis of 1), each episode's resets and each step's kube
+    tie-break rows, as ``ArrayDraws`` arrays."""
+    import types
+
+    params = draws.init_params(types.SimpleNamespace(init=init_fn), 1,
+                               device=device)
+    resets, ties = [], []
+    for ep in range(episodes):
+        resets.append([x.cpu().numpy() for x in draws.reset(cfg, ep,
+                                                            device=device)])
+        ties.append(np.stack([draws.step(ep, t).tiebreak(cfg.n_nodes).cpu()
+                              .numpy() for t in range(pods)]))
+    return dict(params=_host_tree(params),
+                reset=[np.stack(c) for c in zip(*resets)],
+                tiebreak=np.stack(ties))
+
+
+class KubeSpy:
+    """Records the kube selector's actions in ``train_rl`` (the supervised
+    trainer's behaviour policy)."""
+
+    def __enter__(self):
+        from repro_torch.core import train_rl
+
+        self.actions = []
+        self._orig = orig = train_rl.make_kube_selector
+
+        def make(cfg):
+            select = orig(cfg)
+
+            def spy(step, state, pod):
+                a = select(step, state, pod)
+                self.actions.append(a.cpu())
+                return a
+
+            return spy
+
+        train_rl.make_kube_selector = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import train_rl
+
+        train_rl.make_kube_selector = self._orig
+
+
+def phase_baselines(device, tables):
+    """Tables 11/12, Figure 6's claims (printed, not asserted at the cut
+    budget), the literal ablation and the policy-class table through
+    ``scripts/paper_tables.py``'s ``run_baselines`` at ``BASELINE_CUT``,
+    on phase 16's Tables 8-10; kernel 7's launches in the attention arm of
+    the policy-class table (the only kernel user there).  Then the
+    supervised trainer on recorded draws, on the card and on the CPU port:
+    identical kube actions, params within 1e-5.  Returns the kernel
+    launches of the run."""
+    from repro_torch.core import baselines, train_rl
+    from repro_torch.core.draws import ArrayDraws, TorchDraws
+
+    pt = _load_paper_tables()
+    t0 = time.perf_counter()
+    zero_counts()                                   # the path starts here
+    out = pt.run_baselines(**BASELINE_CUT, device=device, tables=tables)
+    counts = read_counts()                          # ... and ends here
+    secs = time.perf_counter() - t0
+    for name in ("lstm", "transformer"):
+        tb = out["tables"][name]
+        assert len(tb["metric"]) == BASELINE_CUT["trials"], name
+        assert all(np.isfinite(tb["metric"])), name
+        for row, dropped in zip(tb["exp_pods"], tb["dropped"]):
+            assert sum(row) + dropped == pt.N_PODS, (name, row, dropped)
+    assert all(np.isfinite(r["mean"]) for r in out["policy_class"].values())
+    assert counts["flash_attention"] > 0, counts
+    others = {k: v for k, v in counts.items()
+              if v and k != "flash_attention"}
+    assert not others, others
+    print(f"paper baselines (cut {BASELINE_CUT}): seconds={secs} "
+          + " ".join(f"{k}_mean={out['tables'][k]['mean']}"
+                     for k in ("lstm", "transformer"))
+          + f" claims={out['claims']} literal_mean={out['literal']['mean']} "
+          + " ".join(f"policy_class_{k}={v['mean']}"
+                     for k, v in out["policy_class"].items()))
+    print(f"policy-class attention arm: kernel7_launches="
+          f"{counts['flash_attention']} (training, validation and trials); "
+          f"launch counts of the run {counts}")
+
+    cfg = pt.TCFG
+    rec = SUPERVISED_RECORD
+    cpu = torch.device("cpu")
+    for name, init_fn, score_fn in (
+            ("lstm", baselines.init_lstm, baselines.lstm_score),
+            ("transformer", baselines.init_transformer,
+             baselines.transformer_score)):
+        arrays = record_supervised_draws(
+            TorchDraws(torch.Generator().manual_seed(SEED + 21),
+                       (rec["n_envs"],)), cfg, init_fn, rec["episodes"],
+            rec["pods_per_episode"], rec["n_envs"], cpu)
+        runs = []
+        for dev in (device, cpu):
+            with KubeSpy() as spy:
+                params = train_rl.train_supervised_scorer(
+                    ArrayDraws(**arrays, device=dev), cfg, init_fn, score_fn,
+                    device=dev, **rec)
+            runs.append((spy.actions, params))
+        (a1, p1), (a2, p2) = runs
+        assert len(a1) == len(a2) == rec["episodes"] * rec["pods_per_episode"]
+        assert all(torch.equal(x, y) for x, y in zip(a1, a2)), name
+        diff = _param_diff(p1, p2)
+        assert diff <= 1e-5, (name, diff)
+        print(f"supervised {name} card vs CPU port on recorded draws: "
+              f"pod_steps={len(a1)} actions_identical=True "
+              f"params_max_abs_diff={diff}")
+    return counts
+
+
+def _load_scenario_tables():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "scenario_tables", ROOT / "scripts" / "scenario_tables.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ScoreCheck:
+    """Holds kernel 1 to its plain version at every call a path makes
+    (``schedulers.score_states`` at fleet scale): the same inputs through
+    ``fused="plain"``, not counted as launches, within ``ATOL``."""
+
+    def __enter__(self):
+        from repro_torch.core import schedulers
+
+        self.calls, self.max_err = 0, 0.0
+        self._orig = orig = schedulers.score_states
+
+        def check(qparams, state, pod, cfg, fused="auto", policy=None,
+                  embed=None, score_fn=None):
+            q = orig(qparams, state, pod, cfg, fused=fused, policy=policy,
+                     embed=embed, score_fn=score_fn)
+            if fused == "auto" and state.n_nodes >= \
+                    schedulers.FUSED_SCORE_MIN_NODES:
+                ref = orig(qparams, state, pod, cfg, fused="plain")
+                err = float((q - ref).abs().max())
+                assert err <= ATOL, err
+                self.max_err = max(self.max_err, err)
+                self.calls += 1
+            return q
+
+        schedulers.score_states = check
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import schedulers
+
+        schedulers.score_states = self._orig
+
+
+def phase_scenarios(device):
+    """The scenario sweep and the lifecycle rows through
+    ``scripts/scenario_tables.py``'s ``run`` at ``SCENARIO_CUT`` (every
+    non-scoring-only scenario but the chaos ones under kube and a cut
+    mixture-trained SDQN; the four churn scenarios under kube, SDQN and
+    SDQN-n with the consolidator), every row finite.  Then a
+    cluster-of-clusters-4k episode (4,096 nodes in three classes, 32
+    pods, 2 trials) under SDQN-n with the consolidator every 30 s, through
+    kernel 1 (the selector's launch and the consolidator's four a step,
+    one a cluster each) and through ``fused="plain"`` on the same recorded
+    draws: every kernel-1 call held to its plain version on its inputs,
+    the selector's actions identical up to the first near tie.  Returns
+    the 4k episode's kernel launches."""
+    from repro_torch import scenarios
+    from repro_torch.core import dqn, schedulers
+    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.eval import engine as eval_engine
+    from repro_torch.sched import elastic
+
+    st = _load_scenario_tables()
+    t0 = time.perf_counter()
+    out = st.run(**SCENARIO_CUT, device=device)
+    secs = time.perf_counter() - t0
+    names = [n for n in scenarios.scenario_names()
+             if n not in scenarios.SCORING_ONLY]
+    chaos = [n for n in names if n not in out["scenarios"]]
+    assert chaos == ["batch-flaky", "preemptible-flaky", "train-flaky"], chaos
+    for name, row in out["scenarios"].items():
+        for pol, r in row.items():
+            assert np.isfinite(r["metric_mean"]), (name, pol)
+            assert r["pods_placed_mean"] + r["dropped_mean"] == \
+                scenarios.make_env(name).scenario.n_pods, (name, pol)
+    for name, row in out["lifecycle"].items():
+        for pol, r in row.items():
+            vals = [r[k] for k in ("nodes_active_mean", "energy_wh_mean",
+                                   "metric_mean", "retired_mean",
+                                   "moved_mean")]
+            assert all(np.isfinite(vals)), (name, pol)
+            print(f"lifecycle {name} {pol}: nodes_active={vals[0]} "
+                  f"energy_wh={vals[1]} avg_cpu={vals[2]} retired={vals[3]} "
+                  f"moved={vals[4]}")
+    print(f"scenario tables (cut {SCENARIO_CUT}): seconds={secs} train_s="
+          + " ".join(f"{k}={v['seconds']}" for k, v in out["train"].items()))
+
+    cfg = dataclasses.replace(scenarios.make_env(COC["name"]),
+                              consolidate_every_s=st.CONSOLIDATE_EVERY_S)
+    params = dqn.init_qnet(torch.Generator().manual_seed(SEED + 23),
+                           device=device)
+    draws = TorchDraws(torch.Generator(device=device).manual_seed(SEED + 24),
+                       (COC["trials"],))
+    arrays = record_trial_draws(draws, cfg, COC["pods"])
+    runs = {}
+    for fused in ("auto", "plain"):
+        select = schedulers.make_sdqn_selector(params, cfg, fused=fused)
+        consolidate = elastic.make_consolidator(params, cfg, fused=fused)
+        with ActionSpy(module="schedulers") as spy, ScoreCheck() as check:
+            zero_counts()                           # the path starts here
+            res = eval_engine.make_batch_episode(
+                cfg, select, COC["pods"], consolidate, device=device)(
+                    ArrayDraws(**arrays, device=device))
+            torch.cuda.synchronize()
+            got = read_counts()                     # ... and ends here
+        runs[fused] = (spy, res)
+        steps = COC["pods"] + cfg.settle_steps
+        want = COC["trials"] * (COC["pods"] + 4 * steps)
+        if fused == "auto":
+            counts, check_err = got, check.max_err
+            assert got["sdqn_score_afterstate"] == want == sum(
+                got.values()), (got, want)
+            assert check.calls == COC["pods"] + 4 * steps, check.calls
+            print(f"{COC['name']} episode N={cfg.n_nodes} pods={COC['pods']} "
+                  f"trials={COC['trials']}: kernel1_launches="
+                  f"{got['sdqn_score_afterstate']} (a launch a cluster: "
+                  f"{COC['pods']} selections + 4 consolidator sub-steps x "
+                  f"{steps} clock steps, per trial) kernel1_vs_plain "
+                  f"max_abs_err={check.max_err} over {check.calls} calls")
+        else:
+            assert sum(got.values()) == 0, got
+    (s1, r1), (s2, r2) = runs["auto"], runs["plain"]
+    tie = next((i for i, (a, b) in enumerate(zip(s1.near, s2.near))
+                if a or b), None)
+    for i in range(len(s1.actions) if tie is None else tie):
+        assert torch.equal(s1.actions[i], s2.actions[i]), i
+    same = torch.equal(r1.exp_pods.cpu(), r2.exp_pods.cpu())
+    print(f"{COC['name']} kernel 1 vs plain: first_near_tie_step={tie} "
+          f"final_exp_pods_identical={same} moved={r1.moved.tolist()} / "
+          f"{r2.moved.tolist()} nodes_active={r1.nodes_active.tolist()} / "
+          f"{r2.nodes_active.tolist()} metric={r1.metric.tolist()} / "
+          f"{r2.metric.tolist()}")
+    assert int(r1.moved.sum()) > 0
+    return counts, check_err
+
+
 def sass_counts(source):
     """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
     library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
@@ -2681,15 +2976,22 @@ def main() -> int:
     learner_counts, learner_errs, _ = phase_learner(device)
     for key, err in learner_errs.items():
         errs[key] = max(errs[key], err)
-    phase_paper_tables(device)
+    tables = phase_paper_tables(device)
+    baseline_counts = phase_baselines(device, tables)
+    coc_counts, coc_err = phase_scenarios(device)
+    errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"], coc_err)
     paths = {"flash_attention": {"attention policy class":
                                  launches["flash_attention"],
                                  "LM prefill": lm_counts["flash_attention"],
                                  "attention learner":
-                                 learner_counts["flash_attention"]},
+                                 learner_counts["flash_attention"],
+                                 "policy-class table, attention arm":
+                                 baseline_counts["flash_attention"]},
              "sdqn_score_afterstate": {
                  "flat cluster": launches["sdqn_score_afterstate"],
-                 "fleet learner": learner_counts["sdqn_score_afterstate"]},
+                 "fleet learner": learner_counts["sdqn_score_afterstate"],
+                 "cluster-of-clusters-4k episode with consolidation":
+                 coc_counts["sdqn_score_afterstate"]},
              "decode_attention": {"LM decode": lm_counts["decode_attention"]},
              "sdqn_score_cols": {"flat job->host": launches["sdqn_score_cols"],
                                  "LM wave routing":

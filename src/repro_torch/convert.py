@@ -4,7 +4,8 @@ JAX's threefry draws cannot be reproduced in PyTorch, so states and weights
 made by the reference are exported as numpy arrays and turned into port
 tensors here — that is how the parity tests feed both packages the same
 cluster (or job fleet), the same Q-net, and the same learner state (a
-reference ``TrainCarry``: params, Adam state, replay ring).  Every
+reference ``TrainCarry``: params, Adam state, replay ring; the LSTM and
+Transformer baselines' params).  Every
 converter takes arrays of any leading shape, so the reference's stacked
 seeds (``train_seeds``) come across with their seed dimension.  The dtypes
 are the port's contract (float32, int32 counts, bool flags), whatever the
@@ -50,6 +51,29 @@ def policy_params_from_numpy(tree, device=None):
     if isinstance(tree, Mapping):
         return {k: policy_params_from_numpy(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32), device=device)
+
+
+# the reference's key sets of the paper's baseline scorers (Tables 6/7)
+BASELINE_KEYS = {
+    "lstm": ("wx", "wh", "b", "w_out", "b_out"),
+    "transformer": ("w_in", "b_in", "wq", "wk", "wv", "wo", "ln1_s", "ln1_b",
+                    "ln2_s", "ln2_b", "ff1", "ff1_b", "ff2", "ff2_b", "w_out",
+                    "b_out"),
+}
+
+
+def baseline_params_from_numpy(params: Mapping[str, np.ndarray], kind: str,
+                               device=None) -> dict:
+    """The LSTM (``kind="lstm"``) or Transformer scorer's params, keyed as
+    ``core.baselines``' inits key them, as float32 tensors; a missing or
+    extra key raises."""
+    device = resolve_device(device)
+    keys = BASELINE_KEYS[kind]
+    if set(params) != set(keys):
+        raise ValueError(f"{kind} params have keys {sorted(params)}, want "
+                         f"{sorted(keys)}")
+    return {k: torch.tensor(np.asarray(params[k], np.float32), device=device)
+            for k in keys}
 
 
 def opt_state_from_numpy(state: Mapping, device=None) -> dict:

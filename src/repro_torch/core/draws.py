@@ -26,7 +26,10 @@ The interface covers exactly what the reference draws, and no more:
     uniform integers in ``[0, max(size, 1))``.
 
 ``batch`` is the clusters' batch shape: ``(seeds, envs)`` for the trainer,
-``(trials,)`` for evaluation.
+``(trials,)`` for evaluation.  ``SegmentDraws`` joins ``ArrayDraws`` blocks
+that cover consecutive episode ranges: a scenario mixture's segments
+differ in node count, so their resets and noise rows cannot share one
+array.
 """
 from __future__ import annotations
 
@@ -202,3 +205,42 @@ class ArrayDraws:
             raise ValueError(f"replay indices {tuple(idx.shape)}, want "
                              f"{tuple(shape)}")
         return idx
+
+
+class SegmentDraws:
+    """Draws of consecutive episode ranges, one block each:
+    ``blocks = [(ep0, draws), ...]`` in ascending ``ep0``; global episode
+    ``ep`` is episode ``ep - ep0`` of the last block starting at or before
+    it.  Params come from the first block."""
+
+    def __init__(self, blocks):
+        self._blocks = sorted(blocks, key=lambda b: b[0])
+        if not self._blocks or self._blocks[0][0] != 0:
+            raise ValueError("the first block must start at episode 0")
+
+    def _at(self, episode: int):
+        ep0, draws = next(b for b in reversed(self._blocks)
+                          if b[0] <= episode)
+        return draws, episode - ep0
+
+    def init_params(self, spec, n_seeds: int, device=None):
+        return self._blocks[0][1].init_params(spec, n_seeds, device=device)
+
+    def reset(self, cfg: EnvConfig, episode: int = 0,
+              device=None) -> ClusterState:
+        draws, ep = self._at(episode)
+        return draws.reset(cfg, ep, device=device)
+
+    def pod_table(self, cfg: EnvConfig, n_pods: int, episode: int = 0,
+                  device=None) -> PodTable:
+        draws, ep = self._at(episode)
+        return draws.pod_table(cfg, n_pods, ep, device=device)
+
+    def step(self, episode: int, t: int):
+        draws, ep = self._at(episode)
+        return draws.step(ep, t)
+
+    def replay_indices(self, episode: int, t: int, size: int,
+                       shape) -> torch.Tensor:
+        draws, ep = self._at(episode)
+        return draws.replay_indices(ep, t, size, shape)

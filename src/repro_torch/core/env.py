@@ -1,23 +1,29 @@
-"""Kubernetes-cluster environment, homogeneous pool (PyTorch port).
+"""Kubernetes-cluster environment (PyTorch port of ``repro.core.env``).
 
-Counterpart of ``repro.core.env``: construction (``reset``), the arrival
-stream without a scenario, the Table-2 features, the k8s filtering
-predicates, the bind / afterstate transitions, the clock, the pod ledger,
-the energy accounting and the episode loop.  The arithmetic follows the
+Construction (``reset``) of the paper's homogeneous pool and of scenario
+pools (heterogeneous node classes, ``core.types.ScenarioConfig``), the
+arrival stream (the paper's burst, or a scenario's pod catalog with burst,
+Poisson or diurnal gaps and lognormal lifetimes), the Table-2 features,
+the k8s filtering predicates, the bind / unbind / afterstate transitions,
+the clock, the pod ledger, the energy accounting and the episode loop
+with its in-episode consolidation pass.  The arithmetic follows the
 reference op for op, in float32, so that the port agrees with it to float
 rounding.  Every function takes states with leading batch dimensions
 (seeds, envs, trials): ``(..., N)`` columns, reduced over the node axis
 only.  Randomness comes from an explicit ``torch.Generator`` or from
 ``core.draws``; torch cannot reproduce JAX's threefry streams, so the
-parity tests carry the reference's draws over.  Chaos (failure traces) and
-in-episode consolidation are not ported yet.
+scenario arms take their unit draws as tensors (``reset_draws``,
+``pod_table_draws``) and the parity tests hand them the reference's.
+Chaos (failure traces, finite-MTBF scenarios) is not ported yet.
 """
 from __future__ import annotations
 
 import functools
+import math
 import numbers
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import (NO_PLACEMENT, ClusterState, EnvConfig,
@@ -52,13 +58,66 @@ def _profile(gen: torch.Generator, profile: tuple, jitter: float,
     return vals[perm] + _uniform(gen, shape, -jitter, jitter)
 
 
+@functools.lru_cache(maxsize=None)
+def _scenario_pool(scn) -> dict:
+    """Static per-node numpy columns of a heterogeneous pool (class by
+    class, in the scenario's order)."""
+
+    def col(get, dtype=np.float32):
+        return np.concatenate(
+            [np.full(c.count, get(c), dtype) for c in scn.node_classes])
+
+    return {
+        "cpu_capacity": col(lambda c: c.cpu_capacity),
+        "mem_capacity": col(lambda c: c.mem_capacity),
+        "max_pods": col(lambda c: c.max_pods, np.int32),
+        "unhealthy_prob": col(lambda c: c.unhealthy_prob),
+        "cached_prob": col(lambda c: c.image_cached_prob),
+        "base_lo": col(lambda c: c.base_cpu_frac[0]),
+        "base_hi": col(lambda c: c.base_cpu_frac[1]),
+        "req_lo": col(lambda c: c.requested_frac[0]),
+        "req_hi": col(lambda c: c.requested_frac[1]),
+        "idle_watts": col(lambda c: c.idle_watts),
+        "peak_watts": col(lambda c: c.peak_watts),
+        "mtbf": col(lambda c: c.mtbf_s),
+        "mttr": col(lambda c: c.mttr_s),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _pool(scn, name: str, device: torch.device) -> torch.Tensor:
+    """One pool column on ``device``, copied there once."""
+    return torch.from_numpy(_scenario_pool(scn)[name]).to(device)
+
+
+def _randomize_draws(gen: torch.Generator, cfg: EnvConfig, shape) -> dict:
+    """The training resets' mid-flight draws: pods per node, and unit
+    uniforms for the empty, cached and startup columns."""
+    return {"pods": torch.randint(0, cfg.randomize_max_pods + 1, shape,
+                                  generator=gen, device=gen.device).to(I32),
+            "empty": _uniform(gen, shape), "cached_r": _uniform(gen, shape),
+            "startup": _uniform(gen, shape)}
+
+
+def reset_draws(gen: torch.Generator, cfg: EnvConfig, shape) -> dict:
+    """A scenario reset's unit draws (``shape = (*batch, N)``): uniforms in
+    [0, 1) for ``uptime``, ``base``, ``healthy``, ``requested`` and
+    ``cached``, and with ``randomize_workload`` the mid-flight draws."""
+    u = {k: _uniform(gen, shape) for k in ("uptime", "base", "healthy",
+                                           "requested", "cached")}
+    if cfg.randomize_workload:
+        u.update(_randomize_draws(gen, cfg, shape))
+    return u
+
+
 def reset(gen: torch.Generator, cfg: EnvConfig, device=None,
           batch: Tuple[int, ...] = ()) -> ClusterState:
-    """Fresh homogeneous clusters drawn from ``gen``, ``(*batch, N)``, on
-    ``device`` (``EnvConfig`` rejects scenario pools until they are
-    ported)."""
+    """Fresh clusters drawn from ``gen``, ``(*batch, N)``, on ``device``:
+    the paper's homogeneous pool, or the scenario's node classes."""
     device = resolve_device(device)
     shape = tuple(batch) + (cfg.n_nodes,)
+    if cfg.scenario is not None:
+        return scenario_reset(cfg, reset_draws(gen, cfg, shape), device)
     dev = gen.device
     uptime = _uniform(gen, shape, *cfg.init_uptime_range_h)
     cap = torch.full(shape, cfg.cpu_capacity, dtype=F32, device=dev)
@@ -71,31 +130,75 @@ def reset(gen: torch.Generator, cfg: EnvConfig, device=None,
     requested0 = cfg.cpu_capacity * torch.clamp(
         _profile(gen, cfg.requested_frac_profile, cfg.requested_frac_jitter,
                  shape), 0.0, 0.95)
+    # a homogeneous pool has no pre-pulled images (cached_prob = 0)
+    cached0 = torch.zeros(shape, dtype=torch.bool, device=dev)
+    rand = (_randomize_draws(gen, cfg, shape) if cfg.randomize_workload
+            else None)
+    state = _populate(cfg, uptime, cap, mem_cap, max_pods, base, healthy,
+                      requested0, cached0, rand)
+    return ClusterState(*(x.to(device) for x in state))
+
+
+def scenario_reset(cfg: EnvConfig, u: dict, device=None) -> ClusterState:
+    """A scenario's clusters from their unit draws ``u`` (``reset_draws``'
+    keys, ``(*batch, N)``): each class's capacities, base load and
+    bookings uniform over its fractions of its own capacity, health and
+    pre-pulled images from its probabilities."""
+    device = resolve_device(device)
+    scn = cfg.scenario
+    dev = u["uptime"].device
+
+    def col(name):
+        return _pool(scn, name, dev)
+
+    def between(x, lo, hi):
+        return x * (hi - lo) + lo
+
+    shape = u["uptime"].shape
+    lo_h, hi_h = cfg.init_uptime_range_h
+    uptime = between(u["uptime"], lo_h, hi_h)
+    cap = col("cpu_capacity").expand(shape).clone()
+    # base load and bookings scale with each class's own capacity
+    base = cap * between(u["base"], col("base_lo"), col("base_hi"))
+    healthy = u["healthy"] >= col("unhealthy_prob")
+    requested0 = cap * torch.clamp(
+        between(u["requested"], col("req_lo"), col("req_hi")), 0.0, 0.95)
+    cached0 = u["cached"] < col("cached_prob")
+    rand = ({k: u[k] for k in ("pods", "empty", "cached_r", "startup")}
+            if cfg.randomize_workload else None)
+    state = _populate(cfg, uptime, cap,
+                      col("mem_capacity").expand(shape).clone(),
+                      col("max_pods").expand(shape).clone(), base, healthy,
+                      requested0, cached0, rand)
+    return ClusterState(*(x.to(device) for x in state))
+
+
+def _populate(cfg: EnvConfig, uptime, cap, mem_cap, max_pods, base, healthy,
+              requested0, cached0, rand: Optional[dict]) -> ClusterState:
+    """The reset's shared tail: tenant pods from the bookings, and with
+    ``rand`` (``_randomize_draws``) the training resets' mid-flight
+    workload, kept to what each node's memory and pod slots hold."""
     pod0 = mean_pod(cfg)
     # bookings come from tenant pods: X millicores requested ~ X/request pods
     tenant_pods = (requested0 / pod0.cpu_request).to(I32)
-
-    exp_pods0 = torch.zeros(shape, dtype=I32, device=dev)
-    # a homogeneous pool has no pre-pulled images (cached_prob = 0)
-    cached0 = torch.zeros(shape, dtype=torch.bool, device=dev)
-    startup0 = torch.zeros(shape, dtype=F32, device=dev)
-    if cfg.randomize_workload:
+    exp_pods0 = torch.zeros_like(tenant_pods)
+    startup0 = torch.zeros_like(base)
+    if rand is not None:
         # training-only domain randomization: nodes start mid-flight
-        pods = torch.randint(0, cfg.randomize_max_pods + 1, shape,
-                             generator=gen, device=dev).to(I32)
         mem_den = max(max(pod0.mem_request, pod0.mem_demand), 1e-6)
         mem_fit = torch.floor(0.9 * mem_cap / mem_den).to(I32)
         slot_fit = max_pods - tenant_pods
-        pods = torch.minimum(pods, torch.clamp(torch.minimum(mem_fit, slot_fit),
-                                               min=0))
-        empty = _uniform(gen, shape) < cfg.randomize_empty_prob
+        pods = torch.minimum(rand["pods"],
+                             torch.clamp(torch.minimum(mem_fit, slot_fit),
+                                         min=0))
+        empty = rand["empty"] < cfg.randomize_empty_prob
         exp_pods0 = torch.where(empty, torch.zeros_like(pods), pods).to(I32)
         cached0 = cached0 | (exp_pods0 > 0) | (
-            _uniform(gen, shape) < cfg.randomize_cached_prob)
-        startup0 = _uniform(gen, shape, 0.0, 0.3 * cfg.image_pull_cost)
+            rand["cached_r"] < cfg.randomize_cached_prob)
+        startup0 = rand["startup"] * (0.3 * cfg.image_pull_cost)
 
     fexp = exp_pods0.to(F32)
-    state = ClusterState(
+    return ClusterState(
         cpu_capacity=cap,
         mem_capacity=mem_cap,
         max_pods=max_pods,
@@ -111,9 +214,8 @@ def reset(gen: torch.Generator, cfg: EnvConfig, device=None,
         base_cpu=base,
         startup_cpu=startup0,
         image_cached=cached0,
-        time_s=torch.zeros(tuple(batch), dtype=F32, device=dev),
+        time_s=torch.zeros(uptime.shape[:-1], dtype=F32, device=uptime.device),
     )
-    return ClusterState(*(x.to(device) for x in state))
 
 
 def default_pod(cfg: EnvConfig) -> PodSpec:
@@ -124,24 +226,122 @@ def default_pod(cfg: EnvConfig) -> PodSpec:
 
 
 def mean_pod(cfg: EnvConfig) -> PodSpec:
-    """Mean PodSpec of the workload: the default pod without a scenario."""
-    return default_pod(cfg)
+    """Mixture-weighted mean PodSpec of the scenario's catalog, rounded to
+    float32 as the reference's (the default pod without a scenario): the
+    pre-existing workload's accounting at reset."""
+    scn = cfg.scenario
+    if scn is None:
+        return default_pod(cfg)
+    w = np.asarray([p.weight for p in scn.pod_types], np.float64)
+    w = w / w.sum()
+
+    def m(field):
+        vals = np.asarray([getattr(p, field) for p in scn.pod_types])
+        return float(np.float32(np.sum(w * vals)))
+
+    return PodSpec(*(m(f) for f in PodSpec._fields))
+
+
+# ---------------------------------------------------------------------------
+# arrival stream (the paper's burst, or a scenario's pod catalog)
+# ---------------------------------------------------------------------------
+
+
+def pod_table_draws(gen: torch.Generator, cfg: EnvConfig, shape) -> dict:
+    """A scenario pod table's draws (``shape = (*batch, n_pods)``): each
+    arrival's pod type from the catalog's mixture weights (inverse CDF of a
+    uniform), unit exponentials ``e`` for Poisson and diurnal gaps, and
+    standard normals ``z`` for the lifetimes."""
+    scn = cfg.scenario
+    w = np.asarray([p.weight for p in scn.pod_types], np.float64)
+    cdf = torch.tensor(np.cumsum(w / w.sum()), dtype=torch.float64,
+                       device=gen.device)
+    u = torch.rand(shape, generator=gen, dtype=torch.float64,
+                   device=gen.device)
+    out = {"type_idx": torch.clamp(torch.searchsorted(cdf, u, right=True),
+                                   max=len(w) - 1).to(I32)}
+    if scn.arrival.kind != "burst":
+        out["e"] = -torch.log1p(-_uniform(gen, shape))
+    out["z"] = torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+    return out
+
+
+def _arrival_gaps(cfg: EnvConfig, e: Optional[torch.Tensor], shape,
+                  device) -> torch.Tensor:
+    """Inter-arrival gaps ``(*batch, n_pods)`` from unit exponentials
+    ``e``: a fixed ``schedule_dt_s`` for bursts, ``e / rate`` for Poisson,
+    and for diurnal streams a rate modulated by a sine of the arrival
+    clock, advanced arrival by arrival."""
+    arr = cfg.scenario.arrival if cfg.scenario is not None else None
+    if arr is None or arr.kind == "burst":
+        return torch.full(shape, cfg.schedule_dt_s, dtype=F32, device=device)
+    if arr.kind == "poisson":
+        return e / arr.rate_per_s
+    if arr.kind != "diurnal":
+        raise ValueError(f"unknown arrival kind: {arr.kind!r}")
+    t = torch.zeros(e.shape[:-1], dtype=F32, device=e.device)
+    gaps = []
+    for i in range(e.shape[-1]):
+        rate = arr.rate_per_s * (1.0 + arr.depth * torch.sin(
+            2.0 * math.pi * t / arr.period_s))
+        dt = e[..., i] / torch.clamp(rate, min=1e-6)
+        t = t + dt
+        gaps.append(dt)
+    return torch.stack(gaps, dim=-1)
+
+
+def _sample_lifetimes(scn, type_idx: torch.Tensor,
+                      z: torch.Tensor) -> torch.Tensor:
+    """Per-arrival running durations: lognormal with each type's mean and
+    coefficient of variation (``cv = 0`` is the mean itself, ``inf`` mean
+    never finishes)."""
+    dev = z.device
+    mean = torch.tensor([p.lifetime_mean_s for p in scn.pod_types], dtype=F32,
+                        device=dev)
+    cv = torch.tensor([p.lifetime_cv for p in scn.pod_types], dtype=F32,
+                      device=dev)
+    sigma2 = torch.log1p(cv * cv)
+    # mean = exp(mu + sigma^2 / 2); an inf mean propagates to inf
+    mu = torch.log(mean) - 0.5 * sigma2
+    idx = type_idx.to(torch.int64)
+    return torch.exp(mu[idx] + torch.sqrt(sigma2)[idx] * z)
+
+
+def scenario_pod_table(cfg: EnvConfig, d: dict, device=None) -> PodTable:
+    """A scenario's arrival stream from its draws ``d`` (``pod_table_draws``'
+    keys): each arrival's catalog entry, gap and lifetime."""
+    device = resolve_device(device)
+    scn = cfg.scenario
+    idx = d["type_idx"].to(torch.int64)
+    dev = idx.device
+    specs = PodSpec(*(torch.tensor([getattr(p, f) for p in scn.pod_types],
+                                   dtype=F32, device=dev)[idx]
+                      for f in PodSpec._fields))
+    table = PodTable(specs=specs,
+                     dt_s=_arrival_gaps(cfg, d.get("e"), idx.shape, dev),
+                     type_idx=d["type_idx"].to(I32),
+                     lifetime_s=_sample_lifetimes(scn, idx, d["z"]))
+    return PodTable(PodSpec(*(x.to(device) for x in table.specs)),
+                    *(x.to(device) for x in table[1:]))
 
 
 def sample_pod_table(gen: Optional[torch.Generator], cfg: EnvConfig,
                      n_pods: int, device=None,
                      batch: Tuple[int, ...] = ()) -> PodTable:
-    """The paper's homogeneous burst: `n_pods` copies of the default pod every
-    `schedule_dt_s` seconds, all running forever (no draw is taken), with
-    fields ``(*batch, n_pods)``."""
+    """The episode's arrival streams, fields ``(*batch, n_pods)``: from the
+    scenario's catalog (draws from ``gen``), or without a scenario the
+    paper's homogeneous burst — `n_pods` copies of the default pod every
+    `schedule_dt_s` seconds, all running forever, no draw taken."""
     device = resolve_device(device)
     shape = tuple(batch) + (n_pods,)
+    if cfg.scenario is not None:
+        return scenario_pod_table(cfg, pod_table_draws(gen, cfg, shape),
+                                  device)
     pod = default_pod(cfg)
     specs = PodSpec(*(torch.full(shape, v, dtype=F32, device=device)
                       for v in pod))
     return PodTable(specs=specs,
-                    dt_s=torch.full(shape, cfg.schedule_dt_s, dtype=F32,
-                                    device=device),
+                    dt_s=_arrival_gaps(cfg, None, shape, device),
                     type_idx=torch.zeros(shape, dtype=I32, device=device),
                     lifetime_s=torch.full(shape, float("inf"), dtype=F32,
                                           device=device))
@@ -351,6 +551,41 @@ def hypothetical_place_one(state: ClusterState, pod: PodSpec, cfg: EnvConfig,
                           exp_pods, cap, at(state.mem_capacity))
 
 
+def remove_pod(state: ClusterState, node, pod: PodSpec,
+               count=1) -> ClusterState:
+    """Unbind ``count`` pods of spec ``pod`` from ``node`` per cluster (an
+    int or ``(...)``; pod fields floats or ``(...)``): the exact inverse of
+    ``place``'s resource accounting.  Startup transients and the cached
+    image stay: a pod finishing or migrating undoes no pull."""
+    dev = state.base_cpu.device
+    a = torch.as_tensor(node, device=dev).to(torch.int64)
+    hit = torch.arange(state.n_nodes, device=dev) == a[..., None]
+    onehot = hit.to(F32) * _per_node(count, hit)
+    onehot_i = onehot.to(I32)
+    return state._replace(
+        num_pods=state.num_pods - onehot_i,
+        exp_pods=state.exp_pods - onehot_i,
+        cpu_requested=state.cpu_requested
+        - onehot * _per_node(pod.cpu_request, onehot),
+        mem_requested=state.mem_requested
+        - onehot * _per_node(pod.mem_request, onehot),
+        pods_cpu=state.pods_cpu - onehot * _per_node(pod.cpu_demand, onehot),
+        mem_used=state.mem_used - onehot * _per_node(pod.mem_demand, onehot),
+    )
+
+
+def where_tree(mask: torch.Tensor, new, old):
+    """``new`` where ``mask (...)`` holds, else ``old``, field by field of
+    two NamedTuples of tensors with leading dimensions ``(...)``."""
+    def pick(a, b):
+        if isinstance(a, tuple):
+            return type(a)(*(pick(x, y) for x, y in zip(a, b)))
+        m = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
+        return torch.where(m, a, b)
+
+    return pick(new, old)
+
+
 def tick(state: ClusterState, cfg: EnvConfig, dt_s) -> ClusterState:
     """Advance wall-clock by ``dt_s`` (a float or ``(...)``): decay startup
     transients by ``decay ** (dt / schedule_dt_s)``, accrue uptime."""
@@ -370,8 +605,11 @@ def average_cpu_utilization(state: ClusterState, cfg: EnvConfig) -> torch.Tensor
 
 
 def node_watts(cfg: EnvConfig, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-node (idle_watts, peak_watts) of the homogeneous pool: (N,)."""
+    """Per-node (idle_watts, peak_watts): (N,), per class for a scenario."""
     device = resolve_device(device)
+    if cfg.scenario is not None:
+        return (_pool(cfg.scenario, "idle_watts", device),
+                _pool(cfg.scenario, "peak_watts", device))
     return (torch.full((cfg.n_nodes,), cfg.idle_watts, dtype=F32,
                        device=device),
             torch.full((cfg.n_nodes,), cfg.peak_watts, dtype=F32,
@@ -466,15 +704,33 @@ def retire_expired(state: ClusterState, ledger: PodLedger
     return state, ledger, torch.sum(done, dim=-1).to(I32)
 
 
+def has_lifecycle(cfg: EnvConfig) -> bool:
+    """True when the scenario's catalog holds a finite-lifetime pod type
+    (pods can retire mid-episode)."""
+    scn = cfg.scenario
+    return scn is not None and any(math.isfinite(p.lifetime_mean_s)
+                                   for p in scn.pod_types)
+
+
+def has_chaos(cfg: EnvConfig) -> bool:
+    """True when a node class can fail mid-episode (finite ``mtbf_s``)."""
+    scn = cfg.scenario
+    return scn is not None and any(math.isfinite(c.mtbf_s)
+                                   for c in scn.node_classes)
+
+
 # ---------------------------------------------------------------------------
 # the episode loop
 # ---------------------------------------------------------------------------
 
-CHAOS_QUEUE_ITEM = ("failure traces are not ported yet: see ROADMAP.md, "
-                    "queue 1, 'Chaos'")
-CONSOLIDATE_QUEUE_ITEM = ("in-episode consolidation is not ported yet: see "
-                          "ROADMAP.md, queue 1, 'Lifecycle and SDQN-n over "
-                          "time'")
+CHAOS_QUEUE_ITEM = ("failure traces and finite-MTBF scenarios are not "
+                    "ported yet: see ROADMAP.md, queue 1, 'Chaos'")
+
+
+def check_no_chaos(cfg: EnvConfig, failure_trace=None) -> None:
+    """Raise for what needs failure traces (not ported yet)."""
+    if failure_trace is not None or has_chaos(cfg):
+        raise NotImplementedError(CHAOS_QUEUE_ITEM)
 
 
 class _EpisodeAcc(NamedTuple):
@@ -486,6 +742,7 @@ class _EpisodeAcc(NamedTuple):
     energy_j: torch.Tensor      # sum of fleet power * dt (joules)
     peak_active: torch.Tensor   # max nodes_active seen
     retired: torch.Tensor       # int32 pods completed + released
+    moved: torch.Tensor         # int32 pods the kept passes migrated
 
 
 def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
@@ -505,15 +762,18 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
 
     ``select_action(step_draws, state, pod) -> node (...)``, or with
     ``select_carry`` ``(step_draws, state, pod, carry) -> (node, carry)``
-    (sequence policy classes).  ``failure_trace`` and ``consolidate`` raise
-    ``NotImplementedError`` (not ported yet).
+    (sequence policy classes).  ``consolidate`` (``sched.elastic.
+    make_consolidator``) runs after every clock step that crosses a
+    multiple of ``cfg.consolidate_every_s`` (0 = off): it runs on every
+    cluster and is kept where that cluster's clock crossed, so that no
+    value is read back; ``stats.moved`` adds up the pods the kept passes
+    moved.  ``failure_trace`` and scenarios with failing node classes
+    raise ``NotImplementedError`` (not ported yet).
 
     Returns ``EpisodeResult`` ``(state, placements, metric, dropped,
     stats)`` with the batch dimensions leading every field."""
-    if failure_trace is not None:
-        raise NotImplementedError(CHAOS_QUEUE_ITEM)
-    if consolidate is not None:
-        raise NotImplementedError(CONSOLIDATE_QUEUE_ITEM)
+    check_no_chaos(cfg, failure_trace)
+    do_consolidate = consolidate is not None and cfg.consolidate_every_s > 0.0
     device = resolve_device(device)
     lead = tuple(lead)
     state = draws.reset(cfg, device=device)
@@ -527,15 +787,25 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
                        pod_table.lifetime_s)]
     ledger = ledger_init(n_pods, batch, device=device)
     zf = torch.zeros(batch, dtype=F32, device=device)
-    acc = _EpisodeAcc(zf, zf, zf, zf, zf, torch.zeros(batch, dtype=I32,
-                                                      device=device))
+    zi = torch.zeros(batch, dtype=I32, device=device)
+    acc = _EpisodeAcc(zf, zf, zf, zf, zf, zi, zi)
     # one history carry per cluster (sequence policy classes)
     carry = (None if select_carry is None else
              select_carry.expand(batch + select_carry.shape).clone())
 
     def advance(st, ledger, dt, acc):
+        t_before = st.time_s
         st = tick(st, cfg, dt)
         st, ledger, n_ret = retire_expired(st, ledger)
+        moved = acc.moved
+        if do_consolidate:
+            period = cfg.consolidate_every_s
+            crossed = (torch.floor(st.time_s / period)
+                       > torch.floor(t_before / period))
+            st2, led2, n_moved = consolidate(st, ledger)
+            st = where_tree(crossed, st2, st)
+            ledger = where_tree(crossed, led2, ledger)
+            moved = moved + torch.where(crossed, n_moved, 0)
         m = average_cpu_utilization(st, cfg)
         na = nodes_active(st).to(F32)
         acc = acc._replace(
@@ -545,6 +815,7 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
             energy_j=acc.energy_j + fleet_power_w(st, cfg) * dt,
             peak_active=torch.maximum(acc.peak_active, na),
             retired=acc.retired + n_ret,
+            moved=moved,
         )
         return st, ledger, acc
 
@@ -566,7 +837,6 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
                                      torch.full(batch, cfg.schedule_dt_s,
                                                 dtype=F32, device=device),
                                      acc)
-    zi = torch.zeros(batch, dtype=I32, device=device)
     stats = EpisodeStats(
         nodes_active_mean=acc.node_seconds / acc.dt,
         nodes_active_final=nodes_active(state),
@@ -574,7 +844,7 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
         node_seconds=acc.node_seconds,
         energy_wh=acc.energy_j / 3600.0,
         retired=acc.retired,
-        evicted=zi, rescheduled=zi, lost=zi)
+        evicted=zi, rescheduled=zi, lost=zi, moved=acc.moved)
     return EpisodeResult(state=state, placements=state.num_pods,
                          metric=acc.metric / acc.dt, dropped=dropped,
                          stats=stats)

@@ -1,11 +1,14 @@
 """Canonical training presets — the configurations that reproduce the
-paper's Tables 8–10 (port of ``repro.core.presets``, same values).
+paper's Tables 8–12 (port of ``repro.core.presets``, same values), and
+the scenario-mixture, lifecycle and chaos presets with their name tuples.
 
 The reference's calibration (5 trials on the paper cluster, seeds
 100–104; ``repro/core/presets.py``): default scheduler 30.42% (paper
 30.87%), SDQN −9.2% relative (paper −11.9%), SDQN-n −23.0% relative
-(paper −27.6%).  The scenario-mixture, lifecycle and chaos presets wait
-for scenario pools (ROADMAP.md, queue 1).
+(paper −27.6%), LSTM / Transformer no significant advantage (the paper's
+finding too).  The chaos presets are data only: training on a chaos
+scenario raises until failure traces are ported (ROADMAP.md, queue 1,
+'Chaos').
 """
 from __future__ import annotations
 
@@ -47,3 +50,93 @@ SDQN_LITERAL_PRESET = RLConfig(
 N_SELECTION_SEEDS = 10      # policies trained per variant; best-on-validation deployed
 N_SUPERVISED_SEEDS = 4
 SUPERVISED_EPISODES = 30
+
+# ---------------------------------------------------------------------------
+# scenario-mixture training (one Q-net across heterogeneous workloads)
+# ---------------------------------------------------------------------------
+
+# Scenario names the generalist SDQN trains across (resolved via
+# ``repro_torch.scenarios.training_mixture`` — kept as names here so presets stay
+# import-light and the registry remains the single source of truth).
+SCENARIO_MIX_NAMES = (
+    "paper-burst",
+    "hetero-bigsmall",
+    "train-serve-mix",
+    "memory-pressure",
+    "spot-flaky",
+    "diurnal-serve",
+)
+
+# One net over the whole mixture: more episodes than the single-scenario
+# presets (they are split across scenarios), bandit-safe efficiency shaping.
+SDQN_SCENARIO_MIX_PRESET = RLConfig(
+    variant="sdqn",
+    episodes=720,
+    n_envs=16,
+    eps_end=0.05,
+    batch_size=256,
+    efficiency_weight=5.0,
+)
+
+# ---------------------------------------------------------------------------
+# lifecycle / churn training (finite pod lifetimes, green consolidation)
+# ---------------------------------------------------------------------------
+
+# Churn scenarios the lifecycle policies train across: pods finish and
+# release nodes mid-episode, so the consolidation signal actually exists.
+LIFECYCLE_MIX_NAMES = (
+    "short-job-burst",
+    "longrun-train-mix",
+    "diurnal-churn",
+    "consolidation-stress",
+)
+
+# Generalist SDQN over the churn mixture (for the lifecycle benchmark's
+# spread-style RL row; no node-count shaping).
+SDQN_LIFECYCLE_PRESET = RLConfig(
+    variant="sdqn",
+    episodes=720,
+    n_envs=16,
+    eps_end=0.05,
+    batch_size=256,
+    efficiency_weight=5.0,
+)
+
+# SDQN-n over the churn mixture: Table-5 consolidation + efficiency shaping
+# + the energy/node-count term (rewards.energy_term), producing the paper's
+# green packing *over time* — few active nodes, low node-seconds/energy.
+SDQN_N_LIFECYCLE_PRESET = RLConfig(
+    variant="sdqn_n",
+    episodes=720,
+    n_envs=16,
+    eps_end=0.05,
+    batch_size=256,
+    efficiency_weight=10.0,
+    energy_weight=15.0,
+)
+
+# ---------------------------------------------------------------------------
+# chaos training (mid-episode node failures, eviction/reschedule churn)
+# ---------------------------------------------------------------------------
+
+# Chaos scenarios (finite-MTBF node classes): nodes fail mid-episode, their
+# pods are evicted into the reschedule ring, and EpisodeStats charges
+# evicted/rescheduled/lost — the mixture a failure-aware policy trains on.
+CHAOS_MIX_NAMES = (
+    "preemptible-flaky",
+    "batch-flaky",
+    "train-flaky",
+)
+
+# Generalist SDQN over the chaos mixture.  Placements on flaky capacity get
+# wiped mid-episode, so the realized CPU-efficiency reward already penalizes
+# parking work on short-MTBF nodes — no extra shaping term is needed for the
+# policy to learn failure-aware placement.
+SDQN_CHAOS_PRESET = RLConfig(
+    variant="sdqn",
+    episodes=720,
+    n_envs=16,
+    eps_end=0.05,
+    batch_size=256,
+    efficiency_weight=5.0,
+)

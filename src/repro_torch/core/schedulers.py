@@ -7,8 +7,10 @@ Selectors are batched: ``select(step_draws, state, pod) -> node`` takes
 clusters ``(..., N)`` with one pod each (fields ``(...)``) and returns
 ``(...)`` int32 nodes, ``NO_PLACEMENT`` where nothing fits; their
 randomness comes from ``step_draws`` (``core.draws``), which may be
-``None`` where no draw is taken (greedy selection).  Custom scorers (the
-LSTM / Transformer baselines) wait for their slice.
+``None`` where no draw is taken (greedy selection).  A custom
+``score_fn(params, feats (..., N, 6)) -> (..., N)`` (the paper's LSTM /
+Transformer baselines, ``core.baselines``) scores the normalized
+afterstate rows on the unfused path, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,9 +28,6 @@ from repro_torch.core.types import NO_PLACEMENT, ClusterState, EnvConfig, PodSpe
 FUSED_SCORE_MIN_NODES = 4096
 
 FUSED_CHOICES = ("auto", True, False, "plain")
-SCORE_FN_QUEUE_ITEM = ("a custom score_fn (the LSTM / Transformer "
-                       "baselines) is not ported yet: see ROADMAP.md, queue "
-                       "1, 'Paper baselines'")
 
 
 def masked_argmax(gen: torch.Generator | None, scores: torch.Tensor,
@@ -61,15 +60,20 @@ def masked_argmax(gen: torch.Generator | None, scores: torch.Tensor,
 def check_scorer(fused, score_fn=None, policy=None, embed=None):
     """Validate a scoring request; returns the policy to score through, or
     ``None`` for the Table-4 kernels (no policy, or a fused-capable spec
-    such as ``"mlp"``).
+    such as ``"mlp"``) and for a custom ``score_fn``.
 
-    A custom ``score_fn`` raises ``NotImplementedError``; an unregistered
-    policy raises; ``embed`` goes with a sequence policy and nothing else,
-    and a sequence policy needs it."""
-    if score_fn is not None:
-        raise NotImplementedError(SCORE_FN_QUEUE_ITEM)
+    A ``score_fn`` goes with no policy and never with ``fused=True`` (no
+    kernel computes it); an unregistered policy raises; ``embed`` goes
+    with a sequence policy and nothing else, and a sequence policy needs
+    it."""
     if fused not in FUSED_CHOICES:
         raise ValueError(f"fused must be one of {FUSED_CHOICES}, got {fused!r}")
+    if score_fn is not None:
+        if policy is not None:
+            raise ValueError("pass either score_fn or policy, not both")
+        if fused is True:
+            raise ValueError("a custom score_fn cannot take the fused kernel "
+                             "path")
     policy = pol.checked(policy)
     embed_dim = 0 if policy is None else policy.embed_dim
     if (embed is not None) != (embed_dim > 0):
@@ -120,11 +124,13 @@ def score_afterstates_batch(qparams: dict, state: ClusterState, pods: PodSpec,
     ``policy.score_set`` over the (B, N, F) normalized afterstate rows,
     with ``embed`` ((E,) or (B, E), sequence specs) appended to every row;
     fused-capable specs ("mlp") keep the kernel path.  ``"plain"`` runs the
-    policy's kernels through their plain versions.
+    policy's kernels through their plain versions.  ``score_fn`` always
+    takes the unfused path.
     """
     spec = check_scorer(fused, score_fn, policy, embed)
-    use_fused = spec is None and (fused in (True, "plain") or (
-        fused == "auto" and state.n_nodes >= FUSED_SCORE_MIN_NODES))
+    use_fused = spec is None and score_fn is None and (
+        fused in (True, "plain") or (
+            fused == "auto" and state.n_nodes >= FUSED_SCORE_MIN_NODES))
     if use_fused:
         from repro_torch.kernels import ops
 
@@ -137,6 +143,14 @@ def score_afterstates_batch(qparams: dict, state: ClusterState, pods: PodSpec,
                       for x in pods))
     after = kenv.hypothetical_place(state, batch, cfg, pull_cost=pull_cost)
     feats = kenv.normalize_features(after)                  # (B, N, 6)
+    return _score_rows(qparams, feats, spec, score_fn, embed, fused)
+
+
+def _score_rows(qparams, feats, spec, score_fn, embed, fused):
+    """Scores of normalized afterstate rows ``(..., N, F)`` by the custom
+    scorer, the policy class, or the Table-4 net."""
+    if score_fn is not None:
+        return score_fn(qparams, feats)
     if spec is None:
         return dqn.qvalues(qparams, feats)
     return spec.score_set(qparams, with_embed(feats, embed),
@@ -165,7 +179,8 @@ def pod_rows(pod: PodSpec, like: torch.Tensor) -> PodSpec:
 
 
 def score_states(qparams, state: ClusterState, pod: PodSpec, cfg: EnvConfig,
-                 fused="auto", policy=None, embed=None) -> torch.Tensor:
+                 fused="auto", policy=None, embed=None,
+                 score_fn=None) -> torch.Tensor:
     """(..., N) scores of a batch of clusters ``state (..., N)``, each
     against its own pod (fields ``(...)``): Q of every candidate
     afterstate.  ``qparams`` may carry a leading seed dimension, which
@@ -176,10 +191,11 @@ def score_states(qparams, state: ClusterState, pod: PodSpec, cfg: EnvConfig,
     ``FUSED_SCORE_MIN_NODES`` nodes up, or forced) runs kernel 1 once per
     cluster, since it scores B pods against ONE snapshot; the plain path
     and the policy classes score every cluster in one pass (one kernel-7
-    launch for all sets, for "attention")."""
-    spec = check_scorer(fused, None, policy, embed)
+    launch for all sets, for "attention"); ``score_fn`` the unfused
+    path."""
+    spec = check_scorer(fused, score_fn, policy, embed)
     n = state.n_nodes
-    if spec is None and (fused in (True, "plain") or (
+    if spec is None and score_fn is None and (fused in (True, "plain") or (
             fused == "auto" and n >= FUSED_SCORE_MIN_NODES)):
         from repro_torch.kernels import ops
 
@@ -200,10 +216,7 @@ def score_states(qparams, state: ClusterState, pod: PodSpec, cfg: EnvConfig,
         return out
     after = kenv.hypothetical_place(state, pod_rows(pod, state.base_cpu), cfg)
     feats = kenv.normalize_features(after)                  # (..., N, 6)
-    if spec is None:
-        return dqn.qvalues(qparams, feats)
-    return spec.score_set(qparams, with_embed(feats, embed),
-                          mode=policy_mode(fused))
+    return _score_rows(qparams, feats, spec, score_fn, embed, fused)
 
 
 def _explore_draws(step, epsilon: float, n: int) -> dict:
@@ -213,15 +226,17 @@ def _explore_draws(step, epsilon: float, n: int) -> dict:
     return {"u": step.explore(), "noise": step.noise(n)}
 
 
-def make_sdqn_selector(qparams: dict, cfg: EnvConfig,
-                       epsilon: float = 0.0) -> Callable:
+def make_sdqn_selector(qparams: dict, cfg: EnvConfig, epsilon: float = 0.0,
+                       fused="auto") -> Callable:
     """``select(step_draws, state, pod) -> node`` (int32 ``(...)``,
     ``NO_PLACEMENT`` where nothing fits).  ``qparams`` may carry a leading
-    seed dimension (one selector for every candidate)."""
+    seed dimension (one selector for every candidate); ``fused`` is the
+    scoring dispatch's (``"plain"`` holds kernel 1 to its plain
+    version)."""
 
     def select(step, state, pod):
         ok = kenv.feasible(state, pod_rows(pod, state.base_cpu), cfg)
-        q = score_states(qparams, state, pod, cfg)
+        q = score_states(qparams, state, pod, cfg, fused=fused)
         return masked_argmax(None, q, ok, epsilon,
                              **_explore_draws(step, epsilon, state.n_nodes))
 
@@ -260,6 +275,18 @@ def make_policy_selector(spec, params, cfg: EnvConfig, epsilon: float = 0.0):
                                               state.n_nodes)), carry2
 
     return select, spec.carry_init(params)
+
+
+def make_neural_selector(params: dict, score_fn, cfg: EnvConfig) -> Callable:
+    """The LSTM / Transformer baselines as greedy episode selectors: the
+    same afterstate scoring protocol through ``score_fn``."""
+
+    def select(step, state, pod):
+        ok = kenv.feasible(state, pod_rows(pod, state.base_cpu), cfg)
+        q = score_states(params, state, pod, cfg, score_fn=score_fn)
+        return masked_argmax(None, q, ok)
+
+    return select
 
 
 def make_kube_selector(cfg: EnvConfig) -> Callable:

@@ -22,20 +22,31 @@ env and one replay sample per seed.
 The default is full DQN semantics: targets r + γ·Q_target(s′, argmax_a
 Q_online(s′, a)) (double DQN) with a periodically refreshed target network;
 ``bootstrap=False`` recovers the literal Table-4 "target rewards" update.
-``train_mixture`` (scenario mixtures) and ``train_supervised_scorer`` (the
-paper's baselines) are not ported yet and raise.
+On scenarios whose pods finish (``env.has_lifecycle``) every env keeps an
+expiry ledger and retires due pods each step, as evaluation does.
+
+``train_mixture`` trains ONE Q-net across a scenario mixture: segments of
+``chunk`` episodes, one scenario each, visited in cycle, with one carry
+(params, target, replay ring, Adam, learn step and the epsilon schedule)
+threaded through segments whose node counts differ (the ring stores
+6-feature afterstates).  ``train_supervised_scorer`` regresses the
+LSTM / Transformer baselines onto Table-3 rewards along kube-scheduler
+trajectories.  Training on a scenario with failing node classes raises
+(chaos: not ported yet).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+import itertools
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import dqn, env as kenv, policy as policy_mod, rewards
 from repro_torch.core.replay import Replay, replay_add, replay_init, replay_sample
-from repro_torch.core.schedulers import masked_argmax, pod_rows, score_states
+from repro_torch.core.schedulers import (make_kube_selector, masked_argmax,
+                                         pod_rows, score_states)
 from repro_torch.core.types import ClusterState, EnvConfig, PodSpec, PodTable
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init, tree_map
@@ -43,12 +54,6 @@ from repro_torch.optim import adam_init, tree_map
 # Rewards are ~100-point scale (Table 3 base = 100); scale them down so the
 # bootstrapped Q (~ r/(1-gamma)) stays O(1-10) under Adam(1e-3) + MSE.
 REWARD_SCALE = 0.01
-
-MIXTURE_QUEUE_ITEM = ("train_mixture needs scenario pools, which are not "
-                      "ported yet: see ROADMAP.md, queue 1, 'Lifecycle and "
-                      "SDQN-n over time' (scenarios/)")
-SUPERVISED_QUEUE_ITEM = ("train_supervised_scorer is not ported yet: see "
-                         "ROADMAP.md, queue 1, 'Paper baselines'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,13 +180,15 @@ def _make_episode_fn(env_cfg: EnvConfig, rl: RLConfig, n_steps_total: int,
     seq = spec.embed_dim > 0
     step_fn = policy_mod.make_train_step(spec)
     n_pods = rl.pods_per_episode
+    # an expiry ledger only where pods can finish, as in the reference
+    use_ledger = kenv.has_lifecycle(env_cfg)
 
     def episode(c: TrainCarry, ep: int, draws):
         env_states = draws.reset(env_cfg, ep, device=device)    # (S, E, N)
         table = draws.pod_table(env_cfg, n_pods, ep, device=device)
         batch = tuple(env_states.time_s.shape)
-        # no expiry ledger: a homogeneous pool's pods never retire (the
-        # reference keeps one only for scenario catalogs with lifetimes)
+        ledgers = (kenv.ledger_init(n_pods, batch, device=device)
+                   if use_ledger else None)
         carries = None
         if seq:
             carries = torch.zeros(batch + tuple(spec.carry_init(c.params)
@@ -200,9 +207,14 @@ def _make_episode_fn(env_cfg: EnvConfig, rl: RLConfig, n_steps_total: int,
             if seq:
                 carries, embeds = spec.encode_step(
                     c.params, carries, policy_mod.pod_workload_features(pod))
+            expiry = env_states.time_s + table.lifetime_s[..., t]
             new_states, stored, r, actions = _transition(
                 sd, c.params, env_states, pod, table.dt_s[..., t], env_cfg,
                 eps, reward_fn, spec=spec, embed=embeds, fused=fused)
+            if use_ledger:
+                ledgers = kenv.ledger_record(ledgers, t, actions, expiry, pod)
+                new_states, ledgers, _ = kenv.retire_expired(new_states,
+                                                             ledgers)
             targets = r
             if rl.bootstrap:
                 embeds_next = None
@@ -264,20 +276,51 @@ def train_carry(draws, env_cfg: EnvConfig, rl: RLConfig, n_seeds: int,
     scoring dispatch's (``"plain"`` holds the kernels to their plain
     versions); ``on_episode(ep, carry)``, if given, is called after each
     episode (timing, logging)."""
+    return _run_segments(draws, [(env_cfg, 0, rl.episodes)], rl, n_seeds,
+                         rl.episodes * rl.pods_per_episode, carry, device,
+                         fused, on_episode)
+
+
+def _run_segments(draws, segments, rl: RLConfig, n_seeds: int,
+                  n_steps_total: int, carry, device, fused, on_episode):
+    """Run ``segments`` — ``(env_cfg, first global episode, episodes)`` —
+    in order on one carry; the episode functions are built once per
+    config."""
+    for env_cfg, _, _ in segments:
+        kenv.check_no_chaos(env_cfg)
     device = resolve_device(device)
     if carry is None:
         carry = init_carry(draws, rl, n_seeds, device=device)
-    episode = _make_episode_fn(env_cfg, rl, rl.episodes * rl.pods_per_episode,
-                               device, fused)
+    episode_fns = {}
     per_ep = []
-    for ep in range(rl.episodes):
-        carry, m = episode(carry, ep, draws)
-        per_ep.append(m)
-        if on_episode is not None:
-            on_episode(ep, carry)
+    for env_cfg, ep0, n_eps in segments:
+        if env_cfg not in episode_fns:
+            episode_fns[env_cfg] = _make_episode_fn(env_cfg, rl,
+                                                    n_steps_total, device,
+                                                    fused)
+        for ep in range(ep0, ep0 + n_eps):
+            carry, m = episode_fns[env_cfg](carry, ep, draws)
+            per_ep.append(m)
+            if on_episode is not None:
+                on_episode(ep, carry)
     metrics = {k: torch.stack([m[k] for m in per_ep], dim=-1)
                for k in ("loss", "reward", "avg_cpu")}
     return carry, metrics
+
+
+def mixture_schedule(env_cfgs, episodes: int, rounds: int = 4):
+    """``train_mixture``'s segments ``[(env_cfg, ep0, chunk), ...]``:
+    ``chunk = max(episodes // (len(cfgs) * rounds), 1)`` episodes a
+    segment, the configs visited in cycle until ``episodes`` are
+    scheduled (the budget is met to within one chunk)."""
+    env_cfgs = list(env_cfgs)
+    chunk = max(episodes // (len(env_cfgs) * rounds), 1)
+    segments, ep0 = [], 0
+    cycle = itertools.cycle(env_cfgs)
+    while ep0 < episodes:
+        segments.append((next(cycle), ep0, chunk))
+        ep0 += chunk
+    return segments
 
 
 class _OneSeed:
@@ -333,10 +376,70 @@ def train(draws, env_cfg: EnvConfig, rl: RLConfig, carry: TrainCarry = None,
             {k: v[0] for k, v in metrics.items()})
 
 
-def train_mixture(*args, **kwargs):
-    raise NotImplementedError(MIXTURE_QUEUE_ITEM)
+def train_mixture(draws, env_cfgs, rl: RLConfig, rounds: int = 4,
+                  carry: TrainCarry = None, device=None) -> Tuple[dict, dict]:
+    """Train ONE SDQN/SDQN-n policy across a scenario mixture
+    (``mixture_schedule``); returns (qparams, metrics dict of per-episode
+    tensors in training order).  ``draws`` (batch ``(n_envs,)``) answer
+    for every config at its global episode indices: a
+    ``core.draws.SegmentDraws`` of per-segment blocks, or ``TorchDraws``.
+    The epsilon schedule spans the episodes actually scheduled.  Runs on
+    the card unless ``device="cpu"``."""
+    segments = mixture_schedule(env_cfgs, rl.episodes, rounds)
+    total = sum(n for _, _, n in segments)
+    carry, metrics = _run_segments(_OneSeed(draws), segments, rl, 1,
+                                   total * rl.pods_per_episode, carry,
+                                   device, "auto", None)
+    return (tree_map(lambda x: x[0], carry.params),
+            {k: v[0] for k, v in metrics.items()})
 
 
-def train_supervised_scorer(*args, **kwargs):
-    raise NotImplementedError(SUPERVISED_QUEUE_ITEM)
+# ---------------------------------------------------------------------------
+# supervised training for the LSTM / Transformer baselines (Tables 6/7)
+# ---------------------------------------------------------------------------
 
+
+class _Scorer(NamedTuple):
+    """A baseline scorer's init in the place of a policy class's, for
+    ``draws.init_params``."""
+
+    init: Callable
+
+
+def train_supervised_scorer(draws, env_cfg: EnvConfig, init_fn: Callable,
+                            score_fn: Callable, episodes: int = 40,
+                            pods_per_episode: int = 50, n_envs: int = 8,
+                            efficiency_weight: float = 10.0,
+                            device=None) -> dict:
+    """Train a scorer by regression onto Table-3 rewards along
+    kube-scheduler trajectories (the paper's LSTM / Transformer are
+    behaviour-cloning value estimators, not RL agents): per pod step the
+    ``transition_step`` of the RL loop with ``kube_select``, then one MSE
+    step on the ``n_envs`` stored afterstates, dropped arrivals weighted
+    0.  ``draws`` (batch ``(n_envs,)``) give the initial params (one
+    seed), each episode's resets and each step's kube tie-breaks; every
+    arrival is the default pod every ``schedule_dt_s`` seconds.  Runs on
+    the card unless ``device="cpu"``."""
+    from repro_torch.core import baselines
+
+    device = resolve_device(device)
+    params = tree_map(lambda x: x[0], draws.init_params(_Scorer(init_fn), 1,
+                                                        device=device))
+    opt_state = adam_init(params, baselines.ADAM)
+    step_fn = baselines.make_regression_trainer(score_fn)
+    pod = kenv.default_pod(env_cfg)
+    select = make_kube_selector(env_cfg)
+    reward_fn = rewards.make_reward_fn("sdqn",
+                                       efficiency_weight=efficiency_weight)
+    for ep in range(episodes):
+        env_states = draws.reset(env_cfg, ep, device=device)    # (E, N)
+        if tuple(env_states.time_s.shape) != (n_envs,):
+            raise ValueError(f"draws give {tuple(env_states.time_s.shape)} "
+                             f"envs, want ({n_envs},)")
+        for t in range(pods_per_episode):
+            env_states, feats, targets, actions = transition_step(
+                draws.step(ep, t), select, env_states, pod,
+                env_cfg.schedule_dt_s, env_cfg, reward_fn)
+            params, opt_state, _ = step_fn(params, opt_state, feats, targets,
+                                           (actions >= 0).to(torch.float32))
+    return params

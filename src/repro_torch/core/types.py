@@ -4,9 +4,10 @@ Counterpart of ``repro.core.types``: the same NamedTuples with the same
 field order and dtypes (int32 counts, bool ``healthy`` / ``image_cached``,
 float32 for the rest), and the same frozen ``EnvConfig``.  Every field may
 carry leading batch dimensions (seeds, envs, trials) before the node axis:
-``(..., N)`` columns with a ``(...)`` clock.  Scenario pools
-(heterogeneous node classes, pod catalogs) are not ported yet: only
-``scenario=None`` is accepted.
+``(..., N)`` columns with a ``(...)`` clock.  Scenarios (heterogeneous
+node pools x pod catalogs x arrival processes) are the reference's frozen,
+hashable dataclasses, field for field, so an ``EnvConfig`` carrying one
+keys ``train_mixture``'s segments.
 """
 from __future__ import annotations
 
@@ -21,10 +22,6 @@ NO_PLACEMENT = -1
 
 # width of the Table-2 afterstate feature row
 FEATURE_DIM = 6
-
-SCENARIO_QUEUE_ITEM = ("scenario pools are not ported yet: see ROADMAP.md, "
-                       "queue 1, 'Lifecycle and SDQN-n over time' (scenarios/)")
-
 
 class ClusterState(NamedTuple):
     """Vectorized node state: columns ``(..., N)`` over the nodes, the clock
@@ -75,7 +72,9 @@ class PodLedger(NamedTuple):
 class EpisodeStats(NamedTuple):
     """Time-resolved lifecycle metrics of an episode (one per batch row).
 
-    The chaos counters stay zero: failure traces are not ported."""
+    The chaos counters stay zero: failure traces are not ported.
+    ``moved`` counts the pods that the kept consolidation passes migrated
+    (zero without ``consolidate``); the reference does not report it."""
 
     nodes_active_mean: torch.Tensor   # time-averaged active-node count
     nodes_active_final: torch.Tensor  # int32, active nodes at episode end
@@ -86,6 +85,76 @@ class EpisodeStats(NamedTuple):
     evicted: torch.Tensor             # int32, pods killed by node failures
     rescheduled: torch.Tensor         # int32, evicted pods re-placed
     lost: torch.Tensor                # int32, evicted pods never re-placed
+    moved: torch.Tensor               # int32, pods consolidation moved
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeClass:
+    """A homogeneous slice of a heterogeneous node pool.
+
+    ``base_cpu_frac`` / ``requested_frac`` are uniform ranges as fractions
+    of this class's capacity; ``idle_watts`` / ``peak_watts`` parameterize
+    the energy model; ``mtbf_s`` / ``mttr_s`` the mid-episode failures
+    (``inf`` = the node never fails)."""
+
+    name: str
+    count: int
+    cpu_capacity: float               # millicores
+    mem_capacity: float               # MiB
+    max_pods: int = 110
+    unhealthy_prob: float = 0.0
+    base_cpu_frac: tuple = (0.02, 0.2)
+    requested_frac: tuple = (0.05, 0.5)
+    image_cached_prob: float = 0.0
+    idle_watts: float = 120.0
+    peak_watts: float = 350.0
+    mtbf_s: float = float("inf")
+    mttr_s: float = 60.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PodType:
+    """One entry of the workload catalog (a mixture component of the
+    stream); lifetimes are lognormal with ``lifetime_mean_s`` and
+    ``lifetime_cv`` (``inf`` = the pod never completes)."""
+
+    name: str
+    weight: float
+    cpu_request: float
+    cpu_demand: float
+    mem_request: float
+    mem_demand: float
+    lifetime_mean_s: float = float("inf")
+    lifetime_cv: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalConfig:
+    """Pod arrival process: ``burst`` (a fixed gap), ``poisson``
+    (exponential gaps at ``rate_per_s``) or ``diurnal`` (a Poisson stream
+    whose rate a sine of ``period_s`` and relative amplitude ``depth``
+    modulates)."""
+
+    kind: str = "burst"
+    rate_per_s: float = 0.5
+    period_s: float = 1200.0
+    depth: float = 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioConfig:
+    """Declarative scenario: node pool + pod catalog + arrival process."""
+
+    name: str
+    node_classes: tuple               # tuple[NodeClass, ...]
+    pod_types: tuple                  # tuple[PodType, ...]
+    arrival: ArrivalConfig = ArrivalConfig()
+    n_pods: int = 50                  # default arrivals per episode
+    settle_steps: Optional[int] = None  # post-arrival drain override
+
+    @property
+    def n_nodes(self) -> int:
+        return sum(c.count for c in self.node_classes)
 
 
 class EpisodeResult(NamedTuple):
@@ -145,11 +214,7 @@ class EnvConfig:
     randomize_cached_prob: float = 0.3
     chaos_requeue_cap: int = 32
     chaos_cycles: int = 4
-    scenario: Optional[object] = None
-
-    def __post_init__(self):
-        if self.scenario is not None:
-            raise NotImplementedError(SCENARIO_QUEUE_ITEM)
+    scenario: Optional[ScenarioConfig] = None
 
 
 def training_cluster() -> EnvConfig:
@@ -165,3 +230,15 @@ def paper_cluster() -> EnvConfig:
 def fleet_cluster(n_nodes: int = 1024) -> EnvConfig:
     """A fleet-scale cluster for the 1000+-node scheduling benchmarks."""
     return dataclasses.replace(paper_cluster(), n_nodes=n_nodes, max_pods=110)
+
+
+def scenario_env(scn: ScenarioConfig, randomize: bool = False,
+                 **overrides) -> EnvConfig:
+    """EnvConfig for a scenario: ``n_nodes`` tracks the node pool; capacity
+    and pod fields become per class / per arrival at reset and episode
+    time."""
+    if scn.settle_steps is not None:
+        overrides.setdefault("settle_steps", scn.settle_steps)
+    return dataclasses.replace(paper_cluster(), n_nodes=scn.n_nodes,
+                               scenario=scn, randomize_workload=randomize,
+                               **overrides)

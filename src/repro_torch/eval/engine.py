@@ -41,11 +41,14 @@ class TrialResults(NamedTuple):
     node_seconds: torch.Tensor  # (T,) integral of active nodes over time
     energy_wh: torch.Tensor     # (T,) energy billed to the workload
     retired: torch.Tensor       # (T,) int32 pods completed + released
+    moved: torch.Tensor         # (T,) int32 pods consolidation moved
 
 
 def _default_n_pods(env_cfg: EnvConfig, n_pods: Optional[int]) -> int:
-    # without a scenario the paper's 50-pod burst
-    return 50 if n_pods is None else n_pods
+    """``n_pods``, else the scenario's arrivals, else the paper's 50."""
+    if n_pods is not None:
+        return n_pods
+    return env_cfg.scenario.n_pods if env_cfg.scenario is not None else 50
 
 
 def _split_carrying(select):
@@ -57,10 +60,10 @@ def _split_carrying(select):
 
 
 def _trials(draws, env_cfg: EnvConfig, select, n: int, lead=(),
-            device=None) -> TrialResults:
+            consolidate=None, device=None) -> TrialResults:
     select, carry0 = _split_carrying(select)
-    res = kenv.run_episode(draws, env_cfg, select, n, select_carry=carry0,
-                           lead=lead, device=device)
+    res = kenv.run_episode(draws, env_cfg, select, n, consolidate=consolidate,
+                           select_carry=carry0, lead=lead, device=device)
     stats = res.stats
     return TrialResults(
         metric=res.metric,
@@ -73,6 +76,7 @@ def _trials(draws, env_cfg: EnvConfig, select, n: int, lead=(),
         node_seconds=stats.node_seconds,
         energy_wh=stats.energy_wh,
         retired=stats.retired,
+        moved=stats.moved,
     )
 
 
@@ -80,13 +84,13 @@ def make_batch_episode(env_cfg: EnvConfig, select: Callable,
                        n_pods: Optional[int] = None, consolidate=None,
                        device=None) -> Callable:
     """``(draws) -> TrialResults``: every trial of ``draws``' batch in one
-    episode loop.  Runs on the card unless ``device="cpu"``;
-    ``consolidate`` raises (not ported)."""
-    if consolidate is not None:
-        raise NotImplementedError(kenv.CONSOLIDATE_QUEUE_ITEM)
+    episode loop.  ``consolidate`` threads the in-episode SDQN-n pass
+    through to ``run_episode`` (active when ``env_cfg.consolidate_every_s
+    > 0``).  Runs on the card unless ``device="cpu"``."""
     n = _default_n_pods(env_cfg, n_pods)
     device = resolve_device(device)
-    return lambda draws: _trials(draws, env_cfg, select, n, device=device)
+    return lambda draws: _trials(draws, env_cfg, select, n,
+                                 consolidate=consolidate, device=device)
 
 
 def make_param_evaluator(env_cfg: EnvConfig, selector_factory: Callable,
@@ -126,7 +130,8 @@ def make_multi_param_evaluator(env_cfg: EnvConfig, selector_factory: Callable,
 
 def summarize(trials: TrialResults) -> Dict[str, float]:
     """Mean / std / 95% CI of the paper metric, plus drop/placement stats
-    and the lifecycle metrics (active nodes, node-seconds, energy)."""
+    and the lifecycle metrics (active nodes, node-seconds, energy, pods
+    retired and pods consolidation moved)."""
     def host(x):
         return np.asarray(x.detach().cpu(), np.float64)
 
@@ -146,6 +151,7 @@ def summarize(trials: TrialResults) -> Dict[str, float]:
         "node_seconds_mean": float(host(trials.node_seconds).mean()),
         "energy_wh_mean": float(host(trials.energy_wh).mean()),
         "retired_mean": float(host(trials.retired).mean()),
+        "moved_mean": float(host(trials.moved).mean()),
         "trials": float(t),
     }
 

@@ -21,7 +21,9 @@
 CPU), ``"plain"`` forces the plain twin, ``False`` the unfused reference.
 ``policy`` (a registered ``core.policy.PolicySpec``) swaps in a policy
 class on either fleet type, ``embed`` is its history embedding for
-sequence specs.
+sequence specs.  ``score_fn`` swaps the Table-4 Q-net for a custom scorer
+(the LSTM / Transformer baselines): ClusterState fleets only, always the
+unfused path.
 ``shard``: ``"auto"`` resolves to the unsharded program on one card; an
 int forces that shard count (two-stage selection, ``sched.shard``); a
 ``launch.mesh.FleetLayout`` pins a layout; ``False`` disables it.
@@ -134,15 +136,22 @@ def _fleet_size(fleet: Fleet) -> int:
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
 
 
+def _no_fleet_score_fn(score_fn) -> None:
+    if score_fn is not None:
+        raise ValueError("score_fn is not supported on the FleetState "
+                         "column-kernel path")
+
+
 def _score_raw(fleet: Fleet, pod: Workload, *, params: dict,
                cfg: Optional[EnvConfig] = None, fused="auto", policy=None,
-               embed=None) -> torch.Tensor:
+               embed=None, score_fn=None) -> torch.Tensor:
     if isinstance(fleet, ClusterState):
         _need_cfg(cfg)
         return schedulers.score_afterstates(params, fleet, pod, cfg,
-                                            fused=fused, policy=policy,
-                                            embed=embed)
+                                            fused=fused, score_fn=score_fn,
+                                            policy=policy, embed=embed)
     if isinstance(fleet, FleetState):
+        _no_fleet_score_fn(score_fn)
         return _fleet_scores(fleet, _pl.job_delta(pod, fleet.cpu_pct.device),
                              params, fused, policy, embed)
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
@@ -150,7 +159,8 @@ def _score_raw(fleet: Fleet, pod: Workload, *, params: dict,
 
 def score(fleet: Fleet, pod: Workload, *, params: dict,
           cfg: Optional[EnvConfig] = None, fused="auto", shard="auto",
-          policy=None, embed=None, guard: bool = False) -> torch.Tensor:
+          score_fn=None, policy=None, embed=None,
+          guard: bool = False) -> torch.Tensor:
     """(N,) Q-scores of placing ``pod`` on each target in ``fleet``.
 
     With a resolved ``shard`` layout the vector is computed shard by
@@ -163,10 +173,11 @@ def score(fleet: Fleet, pod: Workload, *, params: dict,
     layout = _shard.resolve_layout(shard, _fleet_size(fleet))
     if layout is None:
         q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused,
-                       policy=policy, embed=embed)
+                       policy=policy, embed=embed, score_fn=score_fn)
     else:
         q = _shard.sharded_scores(fleet, pod, params=params, cfg=cfg,
-                                  layout=layout, fused=fused, policy=policy,
+                                  layout=layout, fused=fused,
+                                  score_fn=score_fn, policy=policy,
                                   embed=embed)
     if not guard:
         return q
@@ -174,8 +185,8 @@ def score(fleet: Fleet, pod: Workload, *, params: dict,
 
 
 def score_batch(fleet: Fleet, pods, *, params: dict,
-                cfg: Optional[EnvConfig] = None, fused="auto", policy=None,
-                embed=None) -> torch.Tensor:
+                cfg: Optional[EnvConfig] = None, fused="auto",
+                score_fn=None, policy=None, embed=None) -> torch.Tensor:
     """(B, N) Q-scores for a batch of workloads against ONE fleet: a
     ``PodSpec`` of (B,) fields (ClusterState) or a sequence of B
     ``JobSpec``s (FleetState) — one kernel launch for the batch.
@@ -183,9 +194,10 @@ def score_batch(fleet: Fleet, pods, *, params: dict,
     if isinstance(fleet, ClusterState):
         _need_cfg(cfg)
         return schedulers.score_afterstates_batch(
-            params, fleet, pods, cfg, fused=fused, policy=policy,
-            embed=embed)
+            params, fleet, pods, cfg, fused=fused, score_fn=score_fn,
+            policy=policy, embed=embed)
     if isinstance(fleet, FleetState):
+        _no_fleet_score_fn(score_fn)
         return _fleet_scores(fleet, _pl.job_deltas(pods, fleet.cpu_pct.device),
                              params, fused, policy, embed)
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
@@ -199,7 +211,7 @@ def _feasible(fleet: Fleet, pod: Workload, cfg, params: dict) -> torch.Tensor:
 
 def topk(fleet: Fleet, pod: Workload, *, params: dict,
          cfg: Optional[EnvConfig] = None, k: int = 4, fused="auto",
-         shard="auto", policy=None, embed=None):
+         shard="auto", score_fn=None, policy=None, embed=None):
     """The ``k`` best feasible targets: ``(values, indices)`` sorted
     descending, ties by ascending index, ``-inf`` / ``-1`` on infeasible
     slots.  With a resolved shard layout this is the two-stage path and
@@ -210,9 +222,10 @@ def topk(fleet: Fleet, pod: Workload, *, params: dict,
     layout = _shard.resolve_layout(shard, n)
     if layout is not None:
         return _shard.topk(fleet, pod, params=params, cfg=cfg, layout=layout,
-                           k=k, fused=fused, policy=policy, embed=embed)
+                           k=k, fused=fused, score_fn=score_fn, policy=policy,
+                           embed=embed)
     q = _score_raw(fleet, pod, params=params, cfg=cfg, fused=fused,
-                   policy=policy, embed=embed)
+                   policy=policy, embed=embed, score_fn=score_fn)
     ok = _feasible(fleet, pod, cfg, params)
     masked = torch.where(ok, q, -torch.inf)
     vals, pos = torch.sort(masked, descending=True, stable=True)
@@ -223,7 +236,8 @@ def topk(fleet: Fleet, pod: Workload, *, params: dict,
 
 def select(fleet: Fleet, pod: Workload, *, params: dict,
            cfg: Optional[EnvConfig] = None, fused="auto", shard="auto",
-           policy=None, embed=None, guard: bool = False) -> torch.Tensor:
+           score_fn=None, policy=None, embed=None,
+           guard: bool = False) -> torch.Tensor:
     """Greedy feasible argmax over ``score``; ``NO_PLACEMENT`` if none fit
     (int32 0-d tensor; ties break to the lowest index).  With a resolved
     ``shard`` layout selection goes through the two-stage candidate merge
@@ -234,9 +248,9 @@ def select(fleet: Fleet, pod: Workload, *, params: dict,
     if layout is not None:
         return _shard.select_candidates(fleet, pod, params=params, cfg=cfg,
                                         layout=layout, fused=fused,
-                                        policy=policy, embed=embed,
-                                        guard=guard)
+                                        score_fn=score_fn, policy=policy,
+                                        embed=embed, guard=guard)
     q = score(fleet, pod, params=params, cfg=cfg, fused=fused, shard=False,
-              policy=policy, embed=embed, guard=guard)
+              score_fn=score_fn, policy=policy, embed=embed, guard=guard)
     return schedulers.masked_argmax(None, q, _feasible(fleet, pod, cfg,
                                                        params))

@@ -32,7 +32,10 @@ Counterpart of ``repro.sched.daemon`` for the pod->node cluster
     d = PlacementDaemon(sub, qparams, DaemonConfig(batch_size=32))
     d.submit(pod); ...; d.poll(); decisions = d.decisions
 
-A custom ``score_fn`` and the online-learning hook are not ported yet.
+``ClusterSubstrate(score_fn=...)`` scores with a custom scorer (the
+paper's LSTM / Transformer baselines, ``core.baselines``) on the unfused
+path, flat or sharded.  The online-learning hook is not ported yet
+(ROADMAP.md, queue 1, 'Serving, rest').
 """
 from __future__ import annotations
 
@@ -263,9 +266,10 @@ class ClusterSubstrate:
     def __init__(self, state: ClusterState, cfg: EnvConfig, device=None,
                  score_fn: Optional[Callable] = None, policy=None,
                  layout: Optional[FleetLayout] = None, topk: int = 8):
-        if score_fn is not None:
-            raise NotImplementedError(schedulers.SCORE_FN_QUEUE_ITEM)
+        if score_fn is not None and policy is not None:
+            raise ValueError("pass either score_fn or policy, not both")
         _check_layout(layout, topk)
+        self.score_fn = score_fn
         self.policy = pol.checked(policy)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -307,7 +311,7 @@ class ClusterSubstrate:
         in ONE launch of the afterstate top-k kernel at fleet scale, with
         the snapshot's global pull-contention scalar passed to every
         shard."""
-        cfg, policy = self.cfg, self.policy
+        cfg, policy, score_fn = self.cfg, self.policy, self.score_fn
         encode = _encoder(policy, fused, pol.pod_workload_features)
         if self.layout is not None:
             layout, k = self.layout, self.topk
@@ -316,7 +320,8 @@ class ClusterSubstrate:
                 embed, carry = encode(params, pods, carry, n_real)
                 vals, idx = _shard.cluster_topk(
                     params, snap.state, pods, cfg, layout, k=k, fused=fused,
-                    policy=policy, embed=embed, pull_cost=snap.pull_cost)
+                    score_fn=score_fn, policy=policy, embed=embed,
+                    pull_cost=snap.pull_cost)
                 return vals, idx, carry
 
             return candidates
@@ -325,7 +330,8 @@ class ClusterSubstrate:
             embed, carry = encode(params, pods, carry, n_real)
             q = schedulers.score_afterstates_batch(
                 params, snap.state, pods, cfg, fused=fused,
-                pull_cost=snap.pull_cost, policy=policy, embed=embed)
+                pull_cost=snap.pull_cost, score_fn=score_fn, policy=policy,
+                embed=embed)
             batch = PodSpec(*(x[:, None] for x in pods))
             return q, kenv.feasible(snap.state, batch, cfg), carry
 

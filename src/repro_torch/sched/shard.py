@@ -28,7 +28,9 @@ same stable-sort contract.  Their shards ARE padded, with the reference's
 infeasible filler (``_pad_cluster`` / ``_pad_fleet``): the "attention" class
 mixes context over each shard's node set, block-local by construction as
 in the reference, and the filler rows of the last shard are among its
-keys there too.  A custom ``score_fn`` is not ported yet and raises.
+keys there too.  A custom ``score_fn`` (the paper's LSTM / Transformer
+baselines) scores the unfused rows of a ClusterState fleet with the same
+contract; the FleetState arms reject it, as the reference's do.
 """
 from __future__ import annotations
 
@@ -149,7 +151,7 @@ def cluster_topk(params: dict, state: ClusterState, pod, cfg,
     k = max(1, min(_ss.check_k(k), layout.shard_size))
     if pull_cost is None:
         pull_cost = kenv.pull_cost_now(state, cfg)
-    use_fused = not heuristic and spec is None and (
+    use_fused = not heuristic and spec is None and score_fn is None and (
         fused in (True, "plain")
         or (fused == "auto"
             and layout.shard_size >= schedulers.FUSED_SCORE_MIN_NODES))
@@ -176,7 +178,8 @@ def cluster_topk(params: dict, state: ClusterState, pod, cfg,
             q = heuristic_score(state, rows, cfg=cfg)
         else:
             q = schedulers.score_afterstates_batch(
-                params, state, pods, cfg, fused=fused, pull_cost=pull_cost)
+                params, state, pods, cfg, fused=fused, pull_cost=pull_cost,
+                score_fn=score_fn)
         ok = kenv.feasible(state, rows, cfg)
         vals, idx = _ss.shard_topk(torch.where(ok, q, -torch.inf),
                                    layout.shards, layout.shard_size, k)
@@ -304,7 +307,8 @@ def sharded_scores(fleet, pod, *, params: dict, cfg=None,
             sub = ClusterState(*(c[lo:lo + size] if c.dim() == 1 else c
                                  for c in fleet))
             return schedulers.score_afterstates(params, sub, pod, cfg,
-                                                fused=fused, pull_cost=pull)
+                                                fused=fused, pull_cost=pull,
+                                                score_fn=score_fn)
         n = fleet.n_nodes
     elif isinstance(fleet, _pl.FleetState):
         from repro_torch.sched import api as _api

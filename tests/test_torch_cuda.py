@@ -934,3 +934,60 @@ def test_lm_wave_goes_through_kernels_7_and_8(cuda_device):
     near = (plain.top2_gap <= 4e-2).any(dim=0).nonzero()
     upto = int(near[0]) if len(near) else 8
     torch.testing.assert_close(wave.tokens[:, :upto], plain.tokens[:, :upto])
+
+
+def _coc_4k(device, seed, randomize=True):
+    """A cluster-of-clusters-4k pool (three classes whose capacities
+    differ), randomized mid-flight or not, with its random Q-net."""
+    from repro_torch import scenarios
+
+    cfg = scenarios.make_env("cluster-of-clusters-4k", randomize=randomize)
+    gen = torch.Generator().manual_seed(seed)
+    state = env.reset(gen, cfg, device=device)
+    return cfg, state, dqn.init_qnet(gen, device=device), gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 32])
+def test_kernel_matches_plain_on_a_scenario_pool(cuda_device, b):
+    """Kernel 1 on a heterogeneous 4,096-node pool: per-node capacities,
+    pod slots and memory of three classes, the scenario's pod mix."""
+    from repro_torch import scenarios
+
+    cfg, state, params, gen = _coc_4k(cuda_device, 3 + b)
+    assert len(set(state.cpu_capacity.tolist())) == 3
+    table = env.sample_pod_table(gen, cfg, b, device=cuda_device)
+    got = ops.sdqn_score_afterstate(state, table.specs, cfg, params,
+                                    mode="cuda")
+    want = ops.sdqn_score_afterstate(state, table.specs, cfg, params,
+                                     mode="plain")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert scenarios.get_scenario("cluster-of-clusters-4k").n_nodes == 4096
+
+
+@pytest.mark.cuda
+def test_consolidator_fused_matches_plain_on_card(cuda_device):
+    """The consolidator at 4,096 nodes scores through kernel 1 (one launch
+    a cluster a sub-step) and moves what its plain version moves."""
+    from repro_torch.core.types import ClusterState, PodLedger, PodSpec
+    from repro_torch.sched import elastic
+
+    cfg, state, params, _ = _coc_4k(cuda_device, 7, randomize=False)
+    # two light nodes to drain, each pod ledgered with a long lifetime
+    pod = env.default_pod(cfg)
+    ledger = env.ledger_init(4, device=cuda_device)
+    for slot, node in enumerate((10, 10, 2000, 3000)):
+        state = env.place(state, node, pod, cfg)
+        ledger = env.ledger_record(ledger, slot, node, 1e6 + slot, pod)
+    states = ClusterState(*(x[None] for x in state))
+    ledgers = PodLedger(ledger.node[None], ledger.expiry_s[None],
+                        PodSpec(*(x[None] for x in ledger.spec)))
+    before = ss.sdqn_score_afterstate.launches
+    got = elastic.make_consolidator(params, cfg)(states, ledgers)
+    torch.cuda.synchronize()
+    assert ss.sdqn_score_afterstate.launches == before + 4
+    want = elastic.make_consolidator(params, cfg, fused="plain")(states,
+                                                                 ledgers)
+    assert torch.equal(got[2], want[2]) and int(got[2][0]) > 0
+    assert torch.equal(got[1].node, want[1].node)
+    assert torch.equal(got[0].exp_pods, want[0].exp_pods)

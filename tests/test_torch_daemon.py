@@ -21,7 +21,7 @@ from repro.core.types import fleet_cluster as j_fleet_cluster
 from repro.scenarios import arrivals as jarrivals
 from repro.sched import daemon as jdaemon
 from repro_torch import convert
-from repro_torch.core import env as tenv
+from repro_torch.core import env as tenv, policy as tpolicy
 from repro_torch.core.types import NO_PLACEMENT, fleet_cluster
 from repro_torch.scenarios import arrivals as tarrivals
 from repro_torch.sched import daemon as tdaemon
@@ -296,8 +296,9 @@ def test_daemon_config_validation(bad):
                                 dict(score_fn=lambda p, f: f)])
 def test_unported_substrate_options_raise(kw):
     """Layouts and registered policy classes are ported: what is not a
-    FleetLayout or a registered PolicySpec is rejected; a custom score_fn
-    (the paper baselines) is not ported yet."""
+    FleetLayout or a registered PolicySpec is rejected.  A custom score_fn
+    (the paper's LSTM baseline) is ported: the daemon over it decides as
+    the reference's does on the same trace (a parity case of its own)."""
     cfg = fleet_cluster(8)
     state = tenv.reset(torch.Generator().manual_seed(0), cfg, device="cpu")
     if "layout" in kw:
@@ -308,8 +309,51 @@ def test_unported_substrate_options_raise(kw):
         with pytest.raises(TypeError, match="PolicySpec"):
             tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdaemon.ClusterSubstrate(state, cfg, device="cpu", **kw)
+    with pytest.raises(ValueError, match="either"):
+        tdaemon.ClusterSubstrate(state, cfg, device="cpu",
+                                 policy=tpolicy.get("attention"), **kw)
+    _score_fn_daemons_agree()
+
+
+def _score_fn_daemons_agree():
+    """Both daemons serve one trace with the LSTM scorer (reference params
+    through ``convert``): identical decisions and live buffers."""
+    from repro.core import baselines as jbase
+    from repro_torch.core import baselines as tbase
+
+    jcfg, cols = _cluster(4)
+    jl = jbase.init_lstm(jax.random.PRNGKey(9))
+    kw = dict(batch_size=8, max_wait_s=0.005)
+    trace = jarrivals.arrival_trace(jax.random.PRNGKey(0), jcfg, N_REQUESTS,
+                                    rate_per_s=500.0)
+    j_clock, t_clock = FakeClock(), FakeClock()
+    jd = jdaemon.PlacementDaemon(
+        jdaemon.ClusterSubstrate(jenv.ClusterState(**cols), jcfg,
+                                 score_fn=jbase.lstm_score), jl,
+        jdaemon.DaemonConfig(**kw), clock=j_clock)
+    j_log = []
+    _spy_reference(jd, j_log)
+    _drive(jd, j_clock, trace, fail_after=N_REQUESTS)
+    cfg = dataclasses.replace(fleet_cluster(N_NODES), unhealthy_prob=0.1,
+                              randomize_workload=True)
+    td = tdaemon.PlacementDaemon(
+        tdaemon.ClusterSubstrate(convert.state_from_numpy(cols, device="cpu"),
+                                 cfg, device="cpu",
+                                 score_fn=tbase.lstm_score),
+        convert.baseline_params_from_numpy(jax.tree.map(np.asarray, jl),
+                                           "lstm", device="cpu"),
+        tdaemon.DaemonConfig(**kw), clock=t_clock)
+    t_log = []
+    _spy_port(td, t_log)
+    _drive(td, t_clock, trace, fail_after=N_REQUESTS)
+    assert _min_gap(j_log) > TIE_TOL
+    assert td.decisions == jd.decisions
+    assert td.metrics.bound > 0
+    for f, jx, tx in zip(jenv.ClusterState._fields, jd._sub.live,
+                         td._sub.live):
+        np.testing.assert_allclose(np.asarray(tx, np.float64),
+                                   np.asarray(jx, np.float64),
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
 
 
 def test_entry_points_default_to_the_card():

@@ -175,14 +175,38 @@ def test_score_afterstates_matches_reference(fused):
 
 
 def test_unported_scorers_raise():
-    """A custom score_fn (the paper baselines) is not ported yet; a policy
-    that is not a registered PolicySpec is rejected, and so is a fused-only
+    """A custom score_fn (the paper's LSTM baseline) scores as the
+    reference's does, on the unfused path even at fleet scale; it cannot
+    be forced onto the kernel or combined with a policy.  A policy that is
+    not a registered PolicySpec is rejected, and so is a fused-only
     request for a class the kernels cannot score (registered classes are
     served: tests/test_torch_policy.py)."""
-    _, _, _, ts, tp, tcfg = _setup(8)
+    from repro.core import baselines as jbase
+    from repro_torch.core import baselines as tbase
+
+    js, _, jcfg, ts, tp, tcfg = _setup(8)
     pod = tenv.default_pod(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsched.score_afterstates(tp, ts, pod, tcfg, score_fn=tdqn.qvalues)
+    jl = jbase.init_lstm(jax.random.PRNGKey(3))
+    tl = convert.baseline_params_from_numpy(jax.tree.map(np.asarray, jl),
+                                            "lstm", device="cpu")
+    want = jsched.score_afterstates(jl, js, jenv.default_pod(jcfg), jcfg,
+                                    score_fn=jbase.lstm_score)
+    np.testing.assert_allclose(
+        tsched.score_afterstates(tl, ts, pod, tcfg,
+                                 score_fn=tbase.lstm_score).numpy(),
+        np.asarray(want), **TOL)
+    want_b = jsched.score_afterstates_batch(jl, js, _jpods(), jcfg,
+                                            score_fn=jbase.lstm_score)
+    np.testing.assert_allclose(
+        tsched.score_afterstates_batch(tl, ts, _tpods(), tcfg,
+                                       score_fn=tbase.lstm_score).numpy(),
+        np.asarray(want_b), **TOL)
+    with pytest.raises(ValueError, match="fused"):
+        tsched.score_afterstates(tp, ts, pod, tcfg, score_fn=tdqn.qvalues,
+                                 fused=True)
+    with pytest.raises(ValueError, match="either"):
+        tsched.score_afterstates(tp, ts, pod, tcfg, score_fn=tdqn.qvalues,
+                                 policy=tpolicy.get("attention"))
     with pytest.raises(TypeError, match="PolicySpec"):
         tsched.score_afterstates(tp, ts, pod, tcfg, policy=object())
     attention = tpolicy.get("attention")

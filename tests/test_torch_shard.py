@@ -325,14 +325,42 @@ def test_nan_candidates_and_the_guard():
 
 
 def test_unported_scorers_raise():
-    """A custom score_fn is not ported yet; a policy that is not a
-    registered PolicySpec, and an embed without a sequence policy, are
-    rejected (registered classes are served: tests/test_torch_policy.py)."""
-    _, _, _, ts, tp, tcfg = _cluster()
+    """A custom score_fn (the paper's Transformer baseline) gives the
+    reference's two-stage candidates, and ``api.score``/``select`` with a
+    shard count its scores and winner; the FleetState arms reject it, as
+    the reference's do.  A policy that is not a registered PolicySpec, and
+    an embed without a sequence policy, are rejected (registered classes
+    are served: tests/test_torch_policy.py)."""
+    from repro.core import baselines as jbase
+    from repro.sched import shard as jshard
+    from repro_torch.core import baselines as tbase
+
+    js, _, jcfg, ts, tp, tcfg = _cluster()
     lay = plan_fleet_layout(N, shards=SHARDS)
     pod = tenv.default_pod(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tshard.cluster_topk(tp, ts, pod, tcfg, lay, score_fn=lambda p, f: f)
+    jtr = jbase.init_transformer(jax.random.PRNGKey(4))
+    ttr = convert.baseline_params_from_numpy(jax.tree.map(np.asarray, jtr),
+                                             "transformer", device="cpu")
+    jpod = jenv.default_pod(jcfg)
+    wv, wi = jshard.cluster_topk(jtr, js, jpod, jcfg,
+                                 jmesh.plan_fleet_layout(N, shards=SHARDS),
+                                 k=4, score_fn=jbase.transformer_score)
+    gv, gi = tshard.cluster_topk(ttr, ts, pod, tcfg, lay, k=4,
+                                 score_fn=tbase.transformer_score)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    q = tapi.score(ts, pod, params=ttr, cfg=tcfg, shard=SHARDS,
+                   score_fn=tbase.transformer_score)
+    np.testing.assert_allclose(q.numpy(), np.asarray(japi.score(
+        js, jpod, params=jtr, cfg=jcfg, shard=False,
+        score_fn=jbase.transformer_score)), rtol=1e-5, atol=1e-5)
+    assert int(tapi.select(ts, pod, params=ttr, cfg=tcfg, shard=SHARDS,
+                           score_fn=tbase.transformer_score)) == int(gi[0])
+    fleet = tpl.fresh_fleet(8, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="FleetState"):
+        tapi.score(fleet, tpl.JobSpec(), params=tp,
+                   score_fn=tbase.transformer_score)
     unregistered = dataclasses.replace(tpolicy.get("attention"))
     for kw, err in ((dict(policy=object()), TypeError),
                     (dict(policy=unregistered), ValueError),

@@ -392,20 +392,44 @@ def _seeds_params():
 
 
 def test_raising_arms_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="Lifecycle"):
-        ttrain.train_mixture()
-    with pytest.raises(NotImplementedError, match="Paper baselines"):
-        ttrain.train_supervised_scorer()
+    """What still raises names its ROADMAP.md item: failure traces and
+    finite-MTBF scenarios (*Chaos*), in episodes and in training, and the
+    job->host drain planner (*Serving, rest*).  ``train_mixture``,
+    ``train_supervised_scorer`` and ``consolidate=`` run now: their parity
+    with the reference is held in tests/test_torch_lifecycle.py and
+    tests/test_torch_baselines.py; here each runs once at a tiny size."""
+    from repro_torch import scenarios as tscn
+    from repro_torch.core import baselines as tbase, env as tenv
+    from repro_torch.sched import elastic as telastic
+
     cfg = ttypes.paper_cluster()
     draws = TorchDraws(torch.Generator().manual_seed(0), (2,))
     kube = tsched.make_kube_selector(cfg)
-    from repro_torch.core import env as tenv
     with pytest.raises(NotImplementedError, match="Chaos"):
         tenv.run_episode(draws, cfg, kube, 4, failure_trace=object(),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Lifecycle"):
-        teval.make_batch_episode(cfg, kube, 4, consolidate=object(),
-                                 device="cpu")
+    chaos = tscn.make_env("batch-flaky", randomize=True)
+    with pytest.raises(NotImplementedError, match="Chaos"):
+        ttrain.train_mixture(draws, [cfg, chaos], ttrain.RLConfig(**SHORT),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="Serving, rest"):
+        telastic.consolidation_plan()
+    trl = ttrain.RLConfig(**SHORT)
+    params, metrics = ttrain.train_mixture(
+        draws, [ttypes.training_cluster(),
+                tscn.make_env("hetero-bigsmall", randomize=True)], trl,
+        rounds=1, device="cpu")
+    assert metrics["loss"].shape == (2,) and params["w1"].shape == (6, 32)
+    scorer = ttrain.train_supervised_scorer(
+        TorchDraws(torch.Generator().manual_seed(1), (2,)), cfg,
+        tbase.init_lstm, tbase.lstm_score, episodes=1, pods_per_episode=4,
+        n_envs=2, device="cpu")
+    assert all(bool(torch.isfinite(v).all()) for v in scorer.values())
+    ccfg = dataclasses.replace(cfg, consolidate_every_s=4.0)
+    res = teval.make_batch_episode(
+        ccfg, kube, 4, consolidate=telastic.make_consolidator(params, ccfg),
+        device="cpu")(draws)
+    assert res.placed.tolist() == [4, 4]
 
 
 def test_presets_match_reference():
