@@ -165,15 +165,36 @@ The paper's baselines and SDQN-n over time (kernels 7 and 1):
     recorded draws on the card and on the CPU port: identical kube
     actions, params within 1e-5.
 18. ``scripts/scenario_tables.py``'s ``run`` cut to 6 training episodes
-    and 3 trials: every scenario but the scoring-only and the chaos ones
-    under kube and a mixture-trained SDQN, the four churn scenarios under
-    kube, SDQN and SDQN-n with the consolidator (active nodes, energy,
-    average CPU, retired, moved).  Then a cluster-of-clusters-4k episode
+    and 3 trials: every scenario but the scoring-only ones under kube and
+    a mixture-trained SDQN (the chaos ones with their pods evicted,
+    rescheduled and lost, balanced), the four churn scenarios under kube,
+    SDQN and SDQN-n with the consolidator (active nodes, energy, average
+    CPU, retired, moved) and their green Pareto rows (kube, TOPSIS and an
+    SDQN-n at energy weights 0 and 15).  Then a cluster-of-clusters-4k episode
     (4,096 nodes, 32 pods, 2 trials) under SDQN-n with the consolidator
     every 30 s, through kernel 1 and through ``fused="plain"`` on the
     same recorded draws: exactly trials x (32 + 4 x 52) launches, every
     call held to the plain version on its inputs, the selector's actions
     identical up to the first near tie.
+
+The chaos episodes and the rest of the scheduler (kernels 1 and 3):
+
+19. The three flaky scenarios under kube and SDQN, 3 trials each, traces
+    and draws from ``TorchDraws``: pods evicted, rescheduled and lost,
+    ``evicted == rescheduled + lost`` in every cluster.  A
+    cluster-of-clusters-4k chaos episode (32 pods, 2 trials; 5% of the
+    nodes down for 20 s from the middle arrival) through kernel 1 and
+    ``fused="plain"``: exactly trials x 2 x 32 launches (the arrival and
+    the re-placement selections), every call held to plain, actions
+    identical up to the first near tie.  The flat 5,000-node daemon with a
+    ``TransitionRecorder`` on its ``decision_hook``: the decisions of the
+    daemon without one, kernel-1 launches equal to batches; then 4
+    ``OnlineRefresher`` steps, each published, and a replay scored on the
+    new params; ``serve.main --online`` (kernel 3 routing).  Checkpoints:
+    the daemon's decisions with restored params, ``--qnet-path``, the
+    fallback on a damaged shard.  ``consolidation_plan`` on a 5,000-host
+    fleet and a straggler evacuation (kernel 3 at B = 1 a job, every call
+    held to plain, the plain path's plan up to near ties).
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -2628,8 +2649,9 @@ def phase_paper_tables(device):
 # ---------------------------------------------------------------------------
 
 BASELINE_CUT = dict(episodes=3, seeds=2, trials=5)
+CHAOS_NAMES = ("preemptible-flaky", "batch-flaky", "train-flaky")
 SUPERVISED_RECORD = dict(episodes=2, pods_per_episode=25, n_envs=8)
-SCENARIO_CUT = dict(episodes=6, trials=3)
+SCENARIO_CUT = dict(episodes=6, trials=3, pareto_weights=(0.0, 15.0))
 COC = dict(name="cluster-of-clusters-4k", trials=2, pods=32)
 
 
@@ -2799,11 +2821,12 @@ class ScoreCheck:
 
 
 def phase_scenarios(device):
-    """The scenario sweep and the lifecycle rows through
+    """The scenario sweep, the lifecycle rows and the Pareto rows through
     ``scripts/scenario_tables.py``'s ``run`` at ``SCENARIO_CUT`` (every
-    non-scoring-only scenario but the chaos ones under kube and a cut
-    mixture-trained SDQN; the four churn scenarios under kube, SDQN and
-    SDQN-n with the consolidator), every row finite.  Then a
+    non-scoring-only scenario under kube and a cut mixture-trained SDQN;
+    the four churn scenarios under kube, SDQN and SDQN-n with the
+    consolidator, and under TOPSIS and an SDQN-n per energy weight), every
+    row finite.  Then a
     cluster-of-clusters-4k episode (4,096 nodes in three classes, 32
     pods, 2 trials) under SDQN-n with the consolidator every 30 s, through
     kernel 1 (the selector's launch and the consolidator's four a step,
@@ -2823,13 +2846,30 @@ def phase_scenarios(device):
     secs = time.perf_counter() - t0
     names = [n for n in scenarios.scenario_names()
              if n not in scenarios.SCORING_ONLY]
-    chaos = [n for n in names if n not in out["scenarios"]]
-    assert chaos == ["batch-flaky", "preemptible-flaky", "train-flaky"], chaos
+    assert sorted(out["scenarios"]) == sorted(names), sorted(out["scenarios"])
     for name, row in out["scenarios"].items():
         for pol, r in row.items():
             assert np.isfinite(r["metric_mean"]), (name, pol)
             assert r["pods_placed_mean"] + r["dropped_mean"] == \
                 scenarios.make_env(name).scenario.n_pods, (name, pol)
+            assert abs(r["evicted_mean"] - r["rescheduled_mean"]
+                       - r["lost_mean"]) < 1e-9, (name, pol)
+            if name in CHAOS_NAMES:
+                print(f"scenario sweep {name} {pol}: avg_cpu="
+                      f"{r['metric_mean']} evicted={r['evicted_mean']} "
+                      f"rescheduled={r['rescheduled_mean']} "
+                      f"lost={r['lost_mean']}")
+    for name, row in out["pareto"].items():
+        for arm, r in row.items():
+            if arm != "sdqnn_dominates":
+                assert all(np.isfinite([r["metric_mean"], r["energy_wh_mean"],
+                                        r["dropped_mean"]])), (name, arm)
+                print(f"pareto {name} {arm}: avg_cpu={r['metric_mean']} "
+                      f"energy_wh={r['energy_wh_mean']} "
+                      f"dropped={r['dropped_mean']}")
+        print(f"pareto {name}: sdqnn dominates/matches topsis on "
+              f"{row['sdqnn_dominates']} of "
+              f"{len(SCENARIO_CUT['pareto_weights'])}")
     for name, row in out["lifecycle"].items():
         for pol, r in row.items():
             vals = [r[k] for k in ("nodes_active_mean", "energy_wh_mean",
@@ -2891,6 +2931,484 @@ def phase_scenarios(device):
     return counts, check_err
 
 
+# ---------------------------------------------------------------------------
+# phase 19: chaos episodes and the rest of the scheduler
+# ---------------------------------------------------------------------------
+
+CHAOS_TRIALS = 3
+COC_CHAOS = dict(name="cluster-of-clusters-4k", trials=2, pods=32,
+                 down_frac=0.05, window_s=20.0)
+ONLINE_STEPS = 4
+ONLINE_REPLAY = 200
+CKPT_REQUESTS = 500
+SERVE_SMOKE_ARGS = ["--arch", "olmo-1b", "--smoke", "--replicas", "4",
+                    "--requests", "32", "--wave-size", "8", "--prompt-len",
+                    "32", "--gen-tokens", "4", "--seed", "0"]
+DRAIN_N, DRAIN_LOADED, DRAIN_THRESHOLD = MAIN_N, 0.2, 3
+
+
+class ColsCheck:
+    """Holds kernel 3 to its plain version at every ``sched.api.score``
+    call on a job fleet through the kernel path (``PlacementEngine.select``
+    and ``api.select`` go through it): the same inputs through
+    ``fused="plain"`` (no launch), within ``ATOL`` on the feasible hosts,
+    and whether the two best feasible scores lie within ``ATOL``."""
+
+    def __enter__(self):
+        from repro_torch.sched import api, placement as pl
+
+        self.calls, self.max_err, self.near = 0, 0.0, []
+        self._orig = orig = api.score
+
+        def check(fleet, pod, *, params, fused="auto", **kw):
+            q = orig(fleet, pod, params=params, fused=fused, **kw)
+            if isinstance(fleet, pl.FleetState) and fused in ("auto", True):
+                ref = orig(fleet, pod, params=params, fused="plain", **kw)
+                ok = pl.PlacementEngine(params).feasible(fleet, pod)
+                if bool(ok.any()):
+                    err = float((q - ref).abs()[ok].max())
+                    assert err <= ATOL, err
+                    self.max_err = max(self.max_err, err)
+                    top = torch.topk(torch.where(ok, ref, -torch.inf),
+                                     min(2, ref.shape[0])).values
+                    self.near.append(bool(torch.isfinite(top[-1]))
+                                     and float(top[0] - top[-1]) <= ATOL)
+                self.calls += 1
+            return q
+
+        api.score = check
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sched import api
+
+        api.score = self._orig
+
+
+def _chaos_counts(res):
+    s = res.stats
+    ev, re, lo = (x.cpu() for x in (s.evicted, s.rescheduled, s.lost))
+    assert torch.equal(ev, re + lo), (ev, re, lo)
+    return ev.tolist(), re.tolist(), lo.tolist()
+
+
+def phase_chaos_episodes(device):
+    """The three flaky scenarios under kube and SDQN (a random Q-net),
+    ``CHAOS_TRIALS`` trials each, traces and draws from ``TorchDraws``:
+    the pods evicted, rescheduled and lost per trial, balanced in every
+    cluster, and evictions on at least one scenario."""
+    from repro_torch import scenarios
+    from repro_torch.core import dqn, env, schedulers
+    from repro_torch.core.draws import TorchDraws
+
+    params = dqn.init_qnet(torch.Generator().manual_seed(SEED + 30),
+                           device=device)
+    evicted = 0
+    for name in CHAOS_NAMES:
+        cfg = scenarios.make_env(name)
+        for pol, select in (("kube", schedulers.make_kube_selector(cfg)),
+                            ("sdqn", schedulers.make_sdqn_selector(params,
+                                                                   cfg))):
+            draws = TorchDraws(torch.Generator(device=device).manual_seed(
+                SEED + 31), (CHAOS_TRIALS,))
+            res = env.run_episode(draws, cfg, select, cfg.scenario.n_pods,
+                                  device=device)
+            ev, re, lo = _chaos_counts(res)
+            evicted += sum(ev)
+            print(f"chaos {name} {pol}: avg_cpu={res.metric.tolist()} "
+                  f"evicted={ev} rescheduled={re} lost={lo} "
+                  f"dropped={res.dropped.tolist()}")
+    assert evicted > 0
+
+
+def _coc_chaos_trace(params, cfg, arrays, device):
+    """The 4k episode's failure trace, from the phase's seed: in each
+    trial the ``down_frac`` nodes with the best Q for its first arrival at
+    reset (those SDQN fills first) are down from its middle arrival for
+    ``window_s`` seconds.  (One kernel-1 launch a trial, before the path's
+    count starts.)"""
+    from repro_torch.core import schedulers
+    from repro_torch.core.draws import ArrayDraws
+    from repro_torch.core.types import FailureTrace, PodSpec
+
+    draws = ArrayDraws(**arrays, device=device)
+    state = draws.reset(cfg, device=device)
+    table = draws.pod_table(cfg, COC_CHAOS["pods"], device=device)
+    q = schedulers.score_states(params, state, PodSpec(
+        *(x[..., 0] for x in table.specs)), cfg)
+    n_down = int(COC_CHAOS["down_frac"] * cfg.n_nodes)
+    down = torch.zeros_like(q, dtype=torch.bool).scatter(
+        -1, torch.topk(q, n_down, dim=-1).indices, True)
+    t_mid = torch.cumsum(table.dt_s, dim=-1)[..., COC_CHAOS["pods"] // 2 - 1]
+    inf = torch.full_like(q, float("inf"))
+    fail = torch.where(down, t_mid[..., None], inf)
+    rec = torch.where(down, t_mid[..., None] + COC_CHAOS["window_s"], inf)
+    return FailureTrace(fail[..., None, :], rec[..., None, :]), n_down
+
+
+def phase_chaos_fleet(device):
+    """A cluster-of-clusters-4k chaos episode (4,096 nodes, 32 pods, 2
+    trials) under SDQN with a random Q-net through kernel 1 and through
+    ``fused="plain"`` on the same recorded draws and trace: a launch a
+    cluster for every arrival selection and every re-placement attempt
+    (exactly trials x 2 x 32), every call held to the plain version, the
+    actions identical up to the first near tie.  Returns the launches."""
+    from repro_torch import scenarios
+    from repro_torch.core import dqn, env, schedulers
+    from repro_torch.core.draws import ArrayDraws, TorchDraws
+
+    cfg = scenarios.make_env(COC_CHAOS["name"])
+    params = dqn.init_qnet(torch.Generator().manual_seed(SEED + 32),
+                           device=device)
+    draws = TorchDraws(torch.Generator(device=device).manual_seed(SEED + 33),
+                       (COC_CHAOS["trials"],))
+    arrays = record_trial_draws(draws, cfg, COC_CHAOS["pods"])
+    trace, n_down = _coc_chaos_trace(params, cfg, arrays, device)
+    runs = {}
+    for fused in ("auto", "plain"):
+        select = schedulers.make_sdqn_selector(params, cfg, fused=fused)
+        with ActionSpy(module="schedulers") as spy, ScoreCheck() as check:
+            zero_counts()                           # the path starts here
+            res = env.run_episode(ArrayDraws(**arrays, device=device), cfg,
+                                  select, COC_CHAOS["pods"],
+                                  failure_trace=trace, device=device)
+            torch.cuda.synchronize()
+            got = read_counts()                     # ... and ends here
+        runs[fused] = (spy, res)
+        want = COC_CHAOS["trials"] * 2 * COC_CHAOS["pods"]
+        if fused == "auto":
+            counts = got
+            assert got["sdqn_score_afterstate"] == want == sum(
+                got.values()), (got, want)
+            assert check.calls == 2 * COC_CHAOS["pods"], check.calls
+            print(f"{COC_CHAOS['name']} chaos episode N={cfg.n_nodes} pods="
+                  f"{COC_CHAOS['pods']} trials={COC_CHAOS['trials']} down="
+                  f"{n_down} nodes a trial for {COC_CHAOS['window_s']} s: "
+                  f"kernel1_launches={got['sdqn_score_afterstate']} (a "
+                  f"launch a cluster: {COC_CHAOS['pods']} arrival selections"
+                  f" + {COC_CHAOS['pods']} re-placement attempts, per trial)"
+                  f" kernel1_vs_plain max_abs_err={check.max_err} over "
+                  f"{check.calls} calls")
+            check_err = check.max_err
+        else:
+            assert sum(got.values()) == 0, got
+    (s1, r1), (s2, r2) = runs["auto"], runs["plain"]
+    tie = next((i for i, (a, b) in enumerate(zip(s1.near, s2.near))
+                if a or b), None)
+    for i in range(len(s1.actions) if tie is None else tie):
+        assert torch.equal(s1.actions[i], s2.actions[i]), i
+    c1, c2 = _chaos_counts(r1), _chaos_counts(r2)
+    print(f"{COC_CHAOS['name']} chaos kernel 1 vs plain: first_near_tie_step="
+          f"{tie} evicted/rescheduled/lost={c1} / {c2} metric="
+          f"{r1.metric.tolist()} / {r2.metric.tolist()}")
+    assert sum(c1[0]) > 0
+    return counts, check_err
+
+
+def _spy_params(d):
+    """Record the params object each scored batch of ``d`` used."""
+    seen, inner = [], d._scorer
+
+    def spy(params, *args):
+        seen.append(params)
+        return inner(params, *args)
+
+    d._scorer = spy
+    return seen
+
+
+def phase_online(device):
+    """The online loop at full width: the flat 5,000-node daemon replays
+    phase 3's trace (500/s) on a deterministic clock with a
+    ``TransitionRecorder`` on its ``decision_hook`` and without: the same
+    decisions, kernel-1 launches equal to batches in both (the recorder
+    adds none).  Then ``ONLINE_STEPS`` ``OnlineRefresher.step()``s, each
+    publishing new params, and a replay whose every batch scores with the
+    last published params.  Then ``serve.main`` with ``--online`` (the
+    OLMo-1B smoke widths; the routing Q-net is full width either way):
+    kernel 3 once per daemon batch and the warm-up, every refresh step
+    published.  Returns the launches of kernels 1 and 3."""
+    from repro_torch.kernels import sdqn_score as ss
+    from repro_torch.launch import serve
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon)
+    from repro_torch.sched.online import OnlineRefresher, TransitionRecorder
+
+    cfg, state, params = _serving_setup(device)
+    trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                          N_REQUESTS, rate_per_s=RATES_PER_S[0])
+    runs = {}
+    for with_rec in (False, True):
+        clock = StepClock()
+        rec = TransitionRecorder(state, cfg, device=device) if with_rec \
+            else None
+        d = PlacementDaemon(ClusterSubstrate(state, cfg, device=device),
+                            params, DaemonConfig(batch_size=32,
+                                                 max_wait_s=0.005),
+                            clock=clock, timer=clock,
+                            decision_hook=rec.record if rec else None)
+        d.warmup()
+        zero_counts()                               # the path starts here
+        _replay_deterministic(d, clock, trace.t_s, trace.pods)
+        torch.cuda.synchronize()
+        got = read_counts()                         # ... and ends here
+        m = d.metrics
+        assert got["sdqn_score_afterstate"] == m.batches == \
+            m.device_launches == sum(got.values()), (got, m)
+        check_outcome(d, cfg)
+        runs[with_rec] = (d, rec, got, clock)
+    (d0, _, c0, _), (d1, rec, c1, clock) = runs[False], runs[True]
+    batches = d1.metrics.batches
+    same = [(x.req_id, x.node) for x in d0.decisions] == [
+        (x.req_id, x.node) for x in d1.decisions]
+    assert same and c0 == c1, (c0, c1)
+    assert rec.recorded == len(d1.decisions) == N_REQUESTS
+    counts = dict(c1)
+
+    ref = OnlineRefresher(d1, rec, seed=SEED)
+    ref.warmup()
+    t0 = time.perf_counter()
+    published = []
+    for _ in range(ONLINE_STEPS):
+        front = d1._params
+        loss = ref.step()
+        torch.cuda.synchronize()
+        assert loss is not None and np.isfinite(loss)
+        assert d1._params is ref.params and d1._params is not front
+        published.append(loss)
+    secs = time.perf_counter() - t0
+    seen = _spy_params(d1)
+    more = arrival_trace(torch.Generator().manual_seed(SEED + 34), cfg,
+                         ONLINE_REPLAY, rate_per_s=RATES_PER_S[0])
+    zero_counts()                                   # the path starts here
+    _replay_deterministic(d1, clock, clock.t + more.t_s, more.pods)
+    torch.cuda.synchronize()
+    got = read_counts()                             # ... and ends here
+    assert seen and all(p is ref.params for p in seen), len(seen)
+    assert got["sdqn_score_afterstate"] == len(seen), (got, len(seen))
+    counts["sdqn_score_afterstate"] += got["sdqn_score_afterstate"]
+    print(f"online loop N={cfg.n_nodes}: {N_REQUESTS} requests, decisions "
+          f"identical with and without the recorder={same}, kernel1_launches="
+          f"{c1['sdqn_score_afterstate']} = batches={batches} "
+          f"(recorder adds 0); {ONLINE_STEPS} refresh steps in {secs} s "
+          f"(first drains {rec.drained} transitions), losses={published}; "
+          f"replay of {ONLINE_REPLAY} more: {len(seen)} batches, all on the "
+          f"published params")
+
+    zero_counts()                                   # the path starts here
+    res = serve.main(SERVE_SMOKE_ARGS + ["--online", "--online-steps",
+                                         str(ONLINE_STEPS)])
+    torch.cuda.synchronize()
+    got = read_counts()                             # ... and ends here
+    m, r = res.daemon.metrics, res.refresher
+    assert got["sdqn_score_cols"] == m.batches + 1, (got, m)   # + warm-up
+    assert (r.steps, r.swaps) == (ONLINE_STEPS, ONLINE_STEPS), r.steps
+    assert r.recorder.drained == len(res.assignments) and np.isfinite(
+        r.last_loss)
+    assert res.daemon._params is r.params
+    print(f"serve --online (smoke LM): kernel3_launches="
+          f"{got['sdqn_score_cols']} (batches {m.batches} + warm-up), "
+          f"{r.recorder.drained} transitions, {r.steps} refresh steps, "
+          f"last_loss={r.last_loss}")
+    counts["sdqn_score_cols"] = got["sdqn_score_cols"]
+    return counts
+
+
+def phase_checkpoints(device):
+    """Params through ``policy.save_checkpoint`` and back: the flat daemon
+    replays ``CKPT_REQUESTS`` of phase 3's trace with the restored params
+    and with the in-memory ones (the same decisions), and ``serve.main``
+    routes with ``--qnet-path`` as with the fresh init it saved (the same
+    assignments).  A damaged shard with ``on_corrupt="fallback"`` gives a
+    fresh init and a warning."""
+    import tempfile
+    import warnings
+
+    from repro_torch.core import policy
+    from repro_torch.launch import serve
+    from repro_torch.optim import tree_leaves
+    from repro_torch.scenarios import arrival_trace
+    from repro_torch.sched.daemon import (ClusterSubstrate, DaemonConfig,
+                                          PlacementDaemon)
+
+    cfg, state, params = _serving_setup(device)
+    trace = arrival_trace(torch.Generator().manual_seed(SEED + 2), cfg,
+                          CKPT_REQUESTS, rate_per_s=RATES_PER_S[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        policy.save_checkpoint(f"{tmp}/qnet", 7, params, policy.get("mlp"))
+        restored, spec = policy.restore_checkpoint(f"{tmp}/qnet",
+                                                   device=device)
+        assert spec.name == "mlp"
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                     tree_leaves(params)))
+        decisions = []
+        for p in (params, restored):
+            clock = StepClock()
+            d = PlacementDaemon(ClusterSubstrate(state, cfg, device=device), p,
+                                DaemonConfig(batch_size=32, max_wait_s=0.005),
+                                clock=clock, timer=clock)
+            _replay_deterministic(d, clock, trace.t_s, trace.pods)
+            decisions.append([(x.req_id, x.node) for x in d.decisions])
+        assert decisions[0] == decisions[1]
+
+        qp, qspec = serve.load_policy("", serve.seed_generator(0, 1),
+                                      device=device)
+        policy.save_checkpoint(f"{tmp}/route", 1, qp, qspec)
+        fresh = serve.main(SERVE_SMOKE_ARGS)
+        loaded = serve.main(SERVE_SMOKE_ARGS + ["--qnet-path",
+                                                f"{tmp}/route"])
+        assert fresh.assignments == loaded.assignments
+
+        with open(f"{tmp}/qnet/step_00000007/shard_00000.npz", "wb") as f:
+            f.write(b"not an npz")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            back, spec = policy.restore_checkpoint(
+                f"{tmp}/qnet", on_corrupt="fallback", device=device)
+        said = [str(w.message) for w in caught
+                if "falling back" in str(w.message)]
+        assert said and spec.name == "mlp"
+        assert all(a.shape == b.shape and a.device == b.device for a, b in
+                   zip(tree_leaves(back), tree_leaves(params)))
+    print(f"checkpoints: the flat daemon's {CKPT_REQUESTS} decisions identical"
+          f" with restored and in-memory params; serve --qnet-path "
+          f"assignments={loaded.assignments} identical to the fresh init's; "
+          f"damaged shard with on_corrupt=fallback: {said[0]!r}")
+
+
+def _drain_fleet(device):
+    """``fresh_fleet(DRAIN_N)`` with 1 to 6 jobs on a ``DRAIN_LOADED``
+    share of the hosts, their load on the host's columns."""
+    from repro_torch.sched import placement as pl
+
+    fleet = pl.fresh_fleet(DRAIN_N, torch.Generator().manual_seed(SEED + 35),
+                           device=device)
+    rng = np.random.default_rng(SEED + 35)
+    jobs = np.where(rng.random(DRAIN_N) < DRAIN_LOADED,
+                    rng.integers(1, 7, DRAIN_N), 0)
+    j = torch.tensor(jobs, dtype=torch.float32, device=device)
+    return fleet._replace(cpu_pct=fleet.cpu_pct + 3.0 * j,
+                          mem_pct=fleet.mem_pct + 2.0 * j,
+                          job_util_pct=pl.JOB_UTIL_DELTA_PCT * j,
+                          num_jobs=j.to(torch.int32)), jobs
+
+
+def _same_up_to_tie(a, b, near, label):
+    """Two migration lists agree, or differ only after a near tie."""
+    diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if diff is None and len(a) == len(b):
+        return True
+    assert any(near), f"{label}: differs without a near tie"
+    return False
+
+
+def phase_drain_and_straggler(device):
+    """``consolidation_plan`` over ``_drain_fleet`` (hosts with 1 to
+    ``DRAIN_THRESHOLD`` jobs drained) and a ``StragglerMonitor``
+    evacuation of the most loaded host: kernel 3 once per
+    ``engine.select`` / ``api.select`` call (B = 1), every call held to
+    the plain version, and the same plan and migrations as through the
+    plain path (``use_kernel=False``, resp. ``fused="plain"``) up to near
+    ties.  Returns the kernel-3 launches."""
+    from repro_torch.core import dqn
+    from repro_torch.sched import api, elastic, placement as pl
+    from repro_torch.sched.straggler import StragglerMonitor
+
+    fleet, jobs = _drain_fleet(device)
+    params = dqn.init_qnet(torch.Generator().manual_seed(SEED + 36),
+                           device=device)
+    job = pl.JobSpec(cpu_pct_demand=3.0, mem_pct_demand=2.0)
+    engine = pl.PlacementEngine(params)
+    with ColsCheck() as check:
+        zero_counts()                               # the path starts here
+        t0 = time.perf_counter()
+        plan = elastic.consolidation_plan(engine, fleet, job,
+                                          DRAIN_THRESHOLD)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts()                         # ... and ends here
+    assert got["sdqn_score_cols"] == check.calls == sum(got.values()) > 0, (
+        got, check.calls)
+    plain = elastic.consolidation_plan(
+        pl.PlacementEngine(params, use_kernel=False), fleet, job,
+        DRAIN_THRESHOLD)
+    same = _same_up_to_tie(plan.migrations, plain.migrations, check.near,
+                           "consolidation_plan")
+    if same:
+        assert plan.drain_hosts == plain.drain_hosts
+        assert abs(plan.projected_avg_cpu_after
+                   - plain.projected_avg_cpu_after) <= 1e-4
+    assert plan.projected_avg_cpu_after <= plan.projected_avg_cpu_before + 1e-3
+    counts = {"plan": got["sdqn_score_cols"]}
+    print(f"consolidation_plan N={DRAIN_N} (candidates "
+          f"{int(((jobs > 0) & (jobs <= DRAIN_THRESHOLD)).sum())}): "
+          f"hosts_freed={plan.hosts_freed} migrations={len(plan.migrations)}"
+          f" avg_cpu {plan.projected_avg_cpu_before} -> "
+          f"{plan.projected_avg_cpu_after} in {secs} s; kernel3_launches="
+          f"{got['sdqn_score_cols']} max_abs_err={check.max_err} "
+          f"near_ties={sum(check.near)}; identical to use_kernel=False: "
+          f"{same}")
+    plan_err = check.max_err
+
+    slow = int(np.argmax(jobs))
+    runs = {}
+    for fused in ("auto", "plain"):
+        mon = StragglerMonitor(window=8, threshold=1.5)
+        for _ in range(8):
+            for h in range(64):
+                mon.record(h, 1.0)
+            mon.record(slow, 3.0)
+        assert mon.stragglers() == [slow], mon.stragglers()
+        orig = api.select
+        if fused == "plain":
+            api.select = functools.partial(orig, fused="plain")
+        try:
+            with ColsCheck() as check:
+                zero_counts()                       # the path starts here
+                out, migrations = mon.evacuate(engine, fleet, job)
+                torch.cuda.synchronize()
+                got = read_counts()                 # ... and ends here
+        finally:
+            api.select = orig
+        runs[fused] = (out, migrations, got, check)
+    (out, mig, got, check), (pout, pmig, pgot, _) = runs["auto"], runs["plain"]
+    assert got["sdqn_score_cols"] == check.calls == sum(got.values()) > 0
+    assert sum(pgot.values()) == 0, pgot
+    assert int(out.num_jobs.sum()) == int(jobs.sum()) - (
+        int(jobs[slow]) - len(mig)) and int(out.num_jobs[slow]) == 0
+    same_ev = _same_up_to_tie(mig, pmig, check.near, "evacuate")
+    counts["evacuate"] = got["sdqn_score_cols"]
+    print(f"straggler evacuation of host {slow} ({int(jobs[slow])} jobs): "
+          f"migrations={mig} kernel3_launches={got['sdqn_score_cols']} "
+          f"max_abs_err={check.max_err}; identical to fused=plain: {same_ev}")
+    return counts, max(plan_err, check.max_err)
+
+
+def phase_rest(device):
+    """Phase 19: the chaos episodes, chaos at fleet size through kernel 1,
+    the online loop, checkpoints, the drain planner and the straggler
+    monitor.  Returns (launches by path, kernel 1's and 3's max errors)."""
+    t0 = time.perf_counter()
+    phase_chaos_episodes(device)
+    chaos_counts, chaos_err = phase_chaos_fleet(device)
+    online_counts = phase_online(device)
+    phase_checkpoints(device)
+    drain_counts, drain_err = phase_drain_and_straggler(device)
+    print(f"phase 19 seconds={time.perf_counter() - t0}")
+    return ({"sdqn_score_afterstate": {
+                "cluster-of-clusters-4k chaos episode":
+                chaos_counts["sdqn_score_afterstate"],
+                "online loop, flat cluster":
+                online_counts["sdqn_score_afterstate"]},
+             "sdqn_score_cols": {
+                 "serve --online wave routing":
+                 online_counts["sdqn_score_cols"],
+                 "consolidation_plan": drain_counts["plan"],
+                 "straggler evacuation": drain_counts["evacuate"]}},
+            chaos_err, drain_err)
+
+
 def sass_counts(source):
     """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
     library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
@@ -2942,7 +3460,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = _build.build(_build.all_sources())  # one nvcc per source, together
     print(f"build: {secs} (wall {time.perf_counter() - t0:.2f} s)")
     for src, log in _build.BUILD_LOG.items():
@@ -2980,6 +3498,10 @@ def main() -> int:
     baseline_counts = phase_baselines(device, tables)
     coc_counts, coc_err = phase_scenarios(device)
     errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"], coc_err)
+    rest_paths, chaos_err, drain_err = phase_rest(device)
+    errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"],
+                                        chaos_err)
+    errs["sdqn_score_cols"] = max(errs["sdqn_score_cols"], drain_err)
     paths = {"flash_attention": {"attention policy class":
                                  launches["flash_attention"],
                                  "LM prefill": lm_counts["flash_attention"],
@@ -2996,6 +3518,8 @@ def main() -> int:
              "sdqn_score_cols": {"flat job->host": launches["sdqn_score_cols"],
                                  "LM wave routing":
                                  lm_counts["sdqn_score_cols"]}}
+    for key, per_path in rest_paths.items():
+        paths[key].update(per_path)
     for key, per_path in paths.items():
         launches[key] = sum(per_path.values())
     errs["decode_attention"] = max(lm_errs["decode_attention"].values())
@@ -3051,6 +3575,7 @@ def main() -> int:
                       "bound_terms_ms", "launch_floor_ms", "plan"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
+    print(f"chip_smoke seconds={time.perf_counter() - t_start}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""The scenario sweep and the lifecycle rows on the PyTorch/CUDA port.
+"""The scenario sweep, the lifecycle rows and the green Pareto rows on the
+PyTorch/CUDA port.
 
     python3 scripts/scenario_tables.py [--episodes N] [--trials T]
                                        [--pods P] [--device cpu] [--json PATH]
 
 The protocol of the reference's ``benchmarks/scenario_bench.sweep`` and
-``benchmarks/lifecycle_bench.rows``:
+``benchmarks/lifecycle_bench`` (``rows``, ``pareto_rows``):
 
 * **Scenario sweep.**  One SDQN trained across the scenario mixture
   (``presets.SCENARIO_MIX_NAMES``, ``SDQN_SCENARIO_MIX_PRESET``, generator
   seed 42) against the default kube-scheduler on every registered
   scenario except the scoring-only cluster-of-clusters family: the
-  average CPU per node, its spread, pods placed and dropped.  Scenarios
-  whose nodes fail mid-episode are skipped by name until failure traces
-  are ported (ROADMAP.md, queue 1, 'Chaos').
+  average CPU per node, its spread, pods placed and dropped.  On the
+  scenarios whose nodes fail mid-episode (``preemptible-flaky``,
+  ``batch-flaky``, ``train-flaky``) each trial samples a failure trace,
+  and the rows add the pods evicted, rescheduled and lost.
 * **Lifecycle rows.**  The four churn scenarios
   (``presets.LIFECYCLE_MIX_NAMES``) under kube, an SDQN trained across
   them (``SDQN_LIFECYCLE_PRESET``, seed 42) and SDQN-n
   (``SDQN_N_LIFECYCLE_PRESET``, seed 43) with the in-episode consolidation
   pass every 30 s: time-averaged active nodes, energy billed to the
   workload, the average CPU, pods retired and pods the pass moved.
+* **Green Pareto rows.**  On each churn scenario, kube, TOPSIS
+  (``sched.topsis``) and one SDQN-n with the pass per ``energy_weight``
+  of ``PARETO_ENERGY_WEIGHTS`` (each trained as the lifecycle SDQN-n with
+  that weight, seed 43; 15.0 is the lifecycle SDQN-n itself): the average
+  CPU, the energy and the drops of each, and how many SDQN-n points are
+  no worse than TOPSIS on all three axes (``dominates_or_matches``, 2%
+  slack).
 
 Training takes the reference benches' default of 120 episodes a policy
 (of 50 pods, 16 envs); trials are 3, drawn from a generator seeded 100,
@@ -47,7 +56,7 @@ from repro_torch.core import train_rl  # noqa: E402
 from repro_torch.core.draws import TorchDraws  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.eval import engine as eval_engine  # noqa: E402
-from repro_torch.sched import elastic  # noqa: E402
+from repro_torch.sched import elastic, topsis  # noqa: E402
 
 EPISODES = 120              # benchmarks/scenario_bench.py, lifecycle_bench.py
 TRIALS = 3
@@ -55,6 +64,8 @@ TRIAL_SEED = 100
 CONSOLIDATE_EVERY_S = 30.0  # benchmarks/lifecycle_bench.py
 TRAIN_SEEDS = {"mixture": 42, "lifecycle_sdqn": 42, "lifecycle_sdqnn": 43}
 POLICIES = ("kube", "sdqn", "sdqnn")
+# benchmarks/lifecycle_bench.py: 0 through 2x the lifecycle preset's 15.0
+PARETO_ENERGY_WEIGHTS = (0.0, 7.5, 15.0, 30.0)
 
 
 def _synchronize(device):
@@ -62,11 +73,13 @@ def _synchronize(device):
         torch.cuda.synchronize()
 
 
-def train(name: str, cfg_names, preset, episodes, pods, device) -> dict:
+def train(name: str, cfg_names, preset, episodes, pods, device,
+          seed=None) -> dict:
     """One Q-net across ``cfg_names`` (``train_rl.train_mixture``)."""
     rl = dataclasses.replace(preset, episodes=episodes, **(
         {} if pods is None else {"pods_per_episode": pods}))
-    gen = torch.Generator(device=device).manual_seed(TRAIN_SEEDS[name])
+    gen = torch.Generator(device=device).manual_seed(
+        TRAIN_SEEDS[name] if seed is None else seed)
     t0 = time.perf_counter()
     params, metrics = train_rl.train_mixture(
         TorchDraws(gen, (rl.n_envs,)), scenarios.training_mixture(cfg_names),
@@ -102,20 +115,19 @@ def sweep(params, names, trials, pods, device) -> dict:
     rows = {}
     for name in names:
         cfg = scenarios.make_env(name)
-        if kenv.has_chaos(cfg):
-            print(f"  {name:22s} skipped: its nodes fail mid-episode "
-                  f"(ROADMAP.md, queue 1, 'Chaos')")
-            continue
         rows[name] = {}
         for policy, select in (
                 ("kube", schedulers.make_kube_selector(cfg)),
                 ("sdqn", schedulers.make_sdqn_selector(params, cfg))):
             r = evaluate(cfg, select, trials, pods, device)
             rows[name][policy] = r
+            chaos = (f" evicted={r['evicted_mean']:.2f} rescheduled="
+                     f"{r['rescheduled_mean']:.2f} lost={r['lost_mean']:.2f}"
+                     if kenv.has_chaos(cfg) else "")
             print(f"  {name:22s} {policy:5s} avg_cpu={r['metric_mean']:6.2f}%"
                   f" (+-{r['metric_std']:.2f}) placed="
                   f"{r['pods_placed_mean']:.0f} dropped={r['dropped_mean']:.1f}"
-                  f" nodes={cfg.n_nodes} wall={r['seconds']:.2f}s")
+                  f"{chaos} nodes={cfg.n_nodes} wall={r['seconds']:.2f}s")
     return rows
 
 
@@ -153,10 +165,54 @@ def lifecycle(qp, qpn, names, trials, pods, device) -> dict:
     return rows
 
 
+def dominates_or_matches(a: dict, b: dict, tol: float = 0.02) -> bool:
+    """Point ``a`` is no worse than ``b`` on all three Pareto axes
+    (average CPU, energy, drops), with ``tol`` relative slack and half a
+    pod of absolute slack on drops (``benchmarks/lifecycle_bench.py``)."""
+    return (a["metric_mean"] <= b["metric_mean"] * (1 + tol)
+            and a["energy_wh_mean"] <= b["energy_wh_mean"] * (1 + tol)
+            and a["dropped_mean"] <= b["dropped_mean"] * (1 + tol) + 0.5)
+
+
+def _wtag(w: float) -> str:
+    return f"w{w:g}".replace(".", "p")
+
+
+def pareto(qpn_by_weight: dict, names, trials, pods, device) -> dict:
+    """kube, TOPSIS and the SDQN-n of each energy weight (with the pass)
+    on each churn scenario: the frontier points and the dominance count."""
+    print("\n--- green Pareto frontier (avg-CPU% / energy Wh / drops) ---")
+    rows = {}
+    for name in names:
+        base = scenarios.make_env(name)
+        points = {
+            "kube": evaluate(base, schedulers.make_kube_selector(base),
+                             trials, pods, device),
+            "topsis": evaluate(base, topsis.make_topsis_selector(base),
+                               trials, pods, device)}
+        cfg = dataclasses.replace(base,
+                                  consolidate_every_s=CONSOLIDATE_EVERY_S)
+        for w, qpn in qpn_by_weight.items():
+            points[f"sdqnn_{_wtag(w)}"] = evaluate(
+                cfg, schedulers.make_sdqn_selector(qpn, cfg), trials, pods,
+                device, elastic.make_consolidator(qpn, cfg))
+        for arm, r in points.items():
+            print(f"  {name:22s} {arm:12s} cpu={r['metric_mean']:6.2f}% "
+                  f"energy={r['energy_wh_mean']:7.2f}Wh "
+                  f"dropped={r['dropped_mean']:.1f}")
+        dom = sum(1 for arm, r in points.items() if arm.startswith("sdqnn_")
+                  and dominates_or_matches(r, points["topsis"]))
+        print(f"  {name:22s} sdqnn dominates/matches topsis on {dom} of "
+              f"{len(qpn_by_weight)} frontier points")
+        rows[name] = dict(points, sdqnn_dominates=dom)
+    return rows
+
+
 def run(episodes=None, trials=None, pods=None, device=None, names=None,
-        lifecycle_names=None) -> dict:
-    """Train the three policies, run the sweep and the lifecycle rows;
-    returns every number (the params under ``"params"``)."""
+        lifecycle_names=None,
+        pareto_weights=PARETO_ENERGY_WEIGHTS) -> dict:
+    """Train the policies, run the sweep, the lifecycle rows and the
+    Pareto rows; returns every number (the params under ``"params"``)."""
     device = resolve_device(device)
     cuts = {k: v for k, v in (("episodes", episodes), ("trials", trials),
                               ("pods", pods)) if v is not None}
@@ -187,6 +243,19 @@ def run(episodes=None, trials=None, pods=None, device=None, names=None,
     out["lifecycle"] = lifecycle(out["params"]["lifecycle_sdqn"],
                                  out["params"]["lifecycle_sdqnn"],
                                  lifecycle_names, trials, pods, device)
+    qpn_by_weight = {}
+    for w in pareto_weights:
+        if w == presets.SDQN_N_LIFECYCLE_PRESET.energy_weight:
+            qpn_by_weight[w] = out["params"]["lifecycle_sdqnn"]
+            continue
+        name = f"pareto_sdqnn_{_wtag(w)}"
+        tr = train(name, presets.LIFECYCLE_MIX_NAMES, dataclasses.replace(
+            presets.SDQN_N_LIFECYCLE_PRESET, energy_weight=float(w)),
+            episodes, pods, device, seed=TRAIN_SEEDS["lifecycle_sdqnn"])
+        qpn_by_weight[w] = out["params"][name] = tr.pop("params")
+        out["train"][name] = tr
+    out["pareto"] = pareto(qpn_by_weight, lifecycle_names, trials, pods,
+                           device)
     return out
 
 

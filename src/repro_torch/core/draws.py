@@ -18,12 +18,21 @@ The interface covers exactly what the reference draws, and no more:
     ``(*batch, N)``;
   * ``pod_table(cfg, n_pods, episode, device)`` — the episode's arrival
     streams, fields ``(*batch, n_pods)`` (no draw without a scenario);
+  * ``failure(cfg, episode, device)`` — the episode's failure-trace unit
+    exponentials, ``(*batch, cycles, 2, N)`` (``env.failure_draws``'
+    layout), for scenarios whose nodes fail;
   * ``step(episode, t)`` — the draws of arrival ``t``: ``explore()``, the
     epsilon-greedy uniform ``(*batch,)``; ``noise(n)``, its random
     argmax's uniforms ``(*batch, n)``; ``tiebreak(n)``, the
-    kube-scheduler's tie-break uniforms ``(*batch, n)``;
+    kube-scheduler's tie-break uniforms ``(*batch, n)``; ``reschedule()``,
+    the draws of the step's re-placement attempt (chaos episodes), with
+    the same three methods;
   * ``replay_indices(episode, t, size, shape)`` — the learner's sample,
     uniform integers in ``[0, max(size, 1))``.
+
+``TorchDraws`` takes the failure traces and the re-placement draws from
+streams of their own, so that a chaos episode's resets, arrivals and
+arrival draws are those of the same episode without failures.
 
 ``batch`` is the clusters' batch shape: ``(seeds, envs)`` for the trainer,
 ``(trials,)`` for evaluation.  ``SegmentDraws`` joins ``ArrayDraws`` blocks
@@ -50,9 +59,13 @@ def stack_trees(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+# salts of TorchDraws' side streams (the reference's fold_in constants)
+_FAILURE_STREAM, _RESCHEDULE_STREAM = 13, 17
+
+
 class _TorchStep:
-    def __init__(self, gen: torch.Generator, batch):
-        self._gen, self._batch = gen, batch
+    def __init__(self, gen: torch.Generator, batch, side=None):
+        self._gen, self._batch, self._side = gen, batch, side
 
     def _rand(self, shape):
         return torch.rand(shape, generator=self._gen, dtype=torch.float32,
@@ -66,6 +79,9 @@ class _TorchStep:
 
     tiebreak = noise
 
+    def reschedule(self) -> "_TorchStep":
+        return _TorchStep(self._side(_RESCHEDULE_STREAM), self._batch)
+
 
 class TorchDraws:
     """Every draw from ``generator``, on its device, for clusters of batch
@@ -75,6 +91,20 @@ class TorchDraws:
                  batch: Tuple[int, ...] = ()):
         self.generator = generator
         self.batch = tuple(batch)
+        self._streams = {}
+
+    def _stream(self, salt: int) -> torch.Generator:
+        """A generator of its own for ``salt``, seeded from the main
+        generator's seed and made on first use (so that it shifts none of
+        the main stream's draws)."""
+        gen = self._streams.get(salt)
+        if gen is None:
+            seed = np.random.SeedSequence(
+                [self.generator.initial_seed(), salt]).generate_state(1)[0]
+            gen = torch.Generator(device=self.generator.device).manual_seed(
+                int(seed))
+            self._streams[salt] = gen
+        return gen
 
     def init_params(self, spec, n_seeds: int, device=None):
         return stack_trees([spec.init(self.generator, device=device)
@@ -90,8 +120,13 @@ class TorchDraws:
         return kenv.sample_pod_table(self.generator, cfg, n_pods,
                                      device=device, batch=self.batch)
 
+    def failure(self, cfg: EnvConfig, episode: int = 0,
+                device=None) -> torch.Tensor:
+        return kenv.failure_draws(self._stream(_FAILURE_STREAM), cfg,
+                                  self.batch).to(resolve_device(device))
+
     def step(self, episode: int, t: int) -> _TorchStep:
-        return _TorchStep(self.generator, self.batch)
+        return _TorchStep(self.generator, self.batch, self._stream)
 
     def replay_indices(self, episode: int, t: int, size: int,
                        shape) -> torch.Tensor:
@@ -101,17 +136,21 @@ class TorchDraws:
 
 
 class _ArrayStep:
-    def __init__(self, draws: "ArrayDraws", episode: int, t: int):
-        self._d, self._ep, self._t = draws, episode, t
+    def __init__(self, draws: "ArrayDraws", episode: int, t: int,
+                 prefix: str = ""):
+        self._d, self._ep, self._t, self._p = draws, episode, t, prefix
 
     def explore(self) -> torch.Tensor:
-        return self._d._get("explore")[self._ep, self._t]
+        return self._d._get(self._p + "explore")[self._ep, self._t]
 
     def noise(self, n: int) -> torch.Tensor:
-        return self._d._rows("noise", self._ep, self._t, n)
+        return self._d._rows(self._p + "noise", self._ep, self._t, n)
 
     def tiebreak(self, n: int) -> torch.Tensor:
-        return self._d._rows("tiebreak", self._ep, self._t, n)
+        return self._d._rows(self._p + "tiebreak", self._ep, self._t, n)
+
+    def reschedule(self) -> "_ArrayStep":
+        return _ArrayStep(self._d, self._ep, self._t, "reschedule_")
 
 
 class ArrayDraws:
@@ -121,17 +160,23 @@ class ArrayDraws:
     ``ClusterState`` of arrays ``(episodes, *batch, N)``; ``pod_tables``: a
     ``PodTable`` of arrays ``(episodes, *batch, n_pods)``; ``explore``
     ``(episodes, steps, *batch)``, ``noise`` and ``tiebreak`` ``(episodes,
-    steps, *batch, N)``; ``replay_idx`` ``(episodes, steps, *shape)``.
-    Whatever is given moves to ``device`` once; asking for a draw that was
-    not given raises ``KeyError``."""
+    steps, *batch, N)``; ``replay_idx`` ``(episodes, steps, *shape)``;
+    ``failure`` ``(episodes, *batch, cycles, 2, N)``; ``reschedule``, a
+    dict of the re-placement attempts' ``explore`` / ``noise`` /
+    ``tiebreak`` in the layouts above.  Whatever is given moves to
+    ``device`` once; asking for a draw that was not given raises
+    ``KeyError``."""
 
     def __init__(self, *, params=None, reset=None, pod_tables=None,
                  explore=None, noise=None, tiebreak=None, replay_idx=None,
-                 device=None):
+                 failure=None, reschedule=None, device=None):
         device = resolve_device(device)
         self._arrays = {}
-        for name, value in (("explore", explore), ("noise", noise),
-                            ("tiebreak", tiebreak)):
+        floats = [("explore", explore), ("noise", noise),
+                  ("tiebreak", tiebreak), ("failure", failure)]
+        floats += [("reschedule_" + k, v)
+                   for k, v in (reschedule or {}).items()]
+        for name, value in floats:
             if value is not None:
                 self._arrays[name] = torch.tensor(np.asarray(value, np.float32),
                                                   device=device)
@@ -195,6 +240,14 @@ class ArrayDraws:
                              f"want {n_pods}")
         return out
 
+    def failure(self, cfg: EnvConfig, episode: int = 0,
+                device=None) -> torch.Tensor:
+        e = self._get("failure")[episode]
+        if e.shape[-1] != cfg.n_nodes:
+            raise ValueError(f"failure draws have {e.shape[-1]} nodes, "
+                             f"the clusters {cfg.n_nodes}")
+        return e
+
     def step(self, episode: int, t: int) -> _ArrayStep:
         return _ArrayStep(self, episode, t)
 
@@ -235,6 +288,10 @@ class SegmentDraws:
                   device=None) -> PodTable:
         draws, ep = self._at(episode)
         return draws.pod_table(cfg, n_pods, ep, device=device)
+
+    def failure(self, cfg: EnvConfig, episode: int = 0, device=None):
+        draws, ep = self._at(episode)
+        return draws.failure(cfg, ep, device=device)
 
     def step(self, episode: int, t: int):
         draws, ep = self._at(episode)

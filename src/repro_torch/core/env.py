@@ -13,8 +13,10 @@ rounding.  Every function takes states with leading batch dimensions
 only.  Randomness comes from an explicit ``torch.Generator`` or from
 ``core.draws``; torch cannot reproduce JAX's threefry streams, so the
 scenario arms take their unit draws as tensors (``reset_draws``,
-``pod_table_draws``) and the parity tests hand them the reference's.
-Chaos (failure traces, finite-MTBF scenarios) is not ported yet.
+``pod_table_draws``, ``failure_draws``) and the parity tests hand them
+the reference's.  Chaos: failure traces (sampled from each node class's
+MTBF / MTTR, or given), eviction of the pods on down nodes into a
+fixed-capacity reschedule ring, and one re-placement attempt per arrival.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import (NO_PLACEMENT, ClusterState, EnvConfig,
-                                    EpisodeResult, EpisodeStats, PodLedger,
-                                    PodSpec, PodTable)
+                                    EpisodeResult, EpisodeStats, FailureTrace,
+                                    PodLedger, PodSpec, PodTable)
 from repro_torch.device import resolve_device
 
 F32 = torch.float32
@@ -651,18 +653,21 @@ def ledger_init(n_slots: int, batch: Tuple[int, ...] = (),
     )
 
 
-def ledger_record(ledger: PodLedger, slot: int, action, expiry_s,
+def ledger_record(ledger: PodLedger, slot, action, expiry_s,
                   pod: PodSpec) -> PodLedger:
-    """Write arrival ``slot`` (a host int): where each cluster's pod went
-    (``action (...)``) and when it completes.  Dropped arrivals
-    (``action == -1``) record as empty slots and never retire."""
+    """Write arrival ``slot`` (a host int, or an integer tensor ``(...)``:
+    a slot per cluster): where each cluster's pod went (``action (...)``)
+    and when it completes.  Dropped arrivals (``action == -1``) record as
+    empty slots and never retire."""
     dev = ledger.node.device
+    batch = ledger.node.shape[:-1]
+    idx = torch.as_tensor(slot, device=dev).to(torch.int64).expand(
+        batch)[..., None]
     action = torch.as_tensor(action, device=dev).to(I32)
 
     def put(col, v):
-        out = col.clone()
-        out[..., slot] = torch.as_tensor(v, dtype=col.dtype, device=dev)
-        return out
+        v = torch.as_tensor(v, dtype=col.dtype, device=dev).expand(batch)
+        return col.scatter(-1, idx, v[..., None])
 
     expiry = torch.where(action >= 0,
                          torch.as_tensor(expiry_s, dtype=F32, device=dev),
@@ -720,17 +725,173 @@ def has_chaos(cfg: EnvConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the episode loop
+# chaos: failure traces, eviction, the reschedule ring
 # ---------------------------------------------------------------------------
 
-CHAOS_QUEUE_ITEM = ("failure traces and finite-MTBF scenarios are not "
-                    "ported yet: see ROADMAP.md, queue 1, 'Chaos'")
+
+def empty_failure_trace(n_nodes: int, cycles: int = 1,
+                        device=None) -> FailureTrace:
+    """A trace in which no node ever fails (every window at ``inf``)."""
+    device = resolve_device(device)
+    full = torch.full((cycles, n_nodes), float("inf"), dtype=F32,
+                      device=device)
+    return FailureTrace(fail_s=full, recover_s=full.clone())
 
 
-def check_no_chaos(cfg: EnvConfig, failure_trace=None) -> None:
-    """Raise for what needs failure traces (not ported yet)."""
-    if failure_trace is not None or has_chaos(cfg):
-        raise NotImplementedError(CHAOS_QUEUE_ITEM)
+def failure_draws(gen: torch.Generator, cfg: EnvConfig, shape,
+                  cycles: Optional[int] = None) -> torch.Tensor:
+    """A failure trace's unit exponentials, ``(*shape, cycles, 2, N)``:
+    ``[..., c, 0, :]`` the up time before outage ``c``, ``[..., c, 1, :]``
+    its length."""
+    cycles = cfg.chaos_cycles if cycles is None else cycles
+    return -torch.log1p(-_uniform(gen, tuple(shape)
+                                  + (cycles, 2, cfg.n_nodes)))
+
+
+def sample_failure_trace(cfg: EnvConfig, e: torch.Tensor,
+                         device=None) -> FailureTrace:
+    """Per-node fail / recover schedules from unit exponentials ``e``
+    (``failure_draws``' layout): node ``n``'s ``c``-th outage starts
+    ``mtbf * e`` after its previous recovery and lasts ``mttr * e``, each
+    class's MTBF / MTTR (``inf`` / 60 s without a scenario).  The cycles
+    accumulate one by one, so ``mtbf = inf`` stays ``inf`` (a cumsum would
+    meet ``inf - inf``), and the exponentials are clamped away from zero
+    so that ``inf * 0`` never appears."""
+    device = resolve_device(device)
+    e = e.to(device=device, dtype=F32)
+    n = e.shape[-1]
+    if cfg.scenario is None:
+        mtbf = torch.full((n,), float("inf"), dtype=F32, device=device)
+        mttr = torch.full((n,), 60.0, dtype=F32, device=device)
+    else:
+        mtbf = _pool(cfg.scenario, "mtbf", device)
+        mttr = _pool(cfg.scenario, "mttr", device)
+    prev = torch.zeros(e.shape[:-3] + (n,), dtype=F32, device=device)
+    fails, recovers = [], []
+    for c in range(e.shape[-3]):
+        f = prev + mtbf * torch.clamp(e[..., c, 0, :], min=1e-6)
+        r = f + mttr * torch.clamp(e[..., c, 1, :], min=1e-6)
+        fails.append(f)
+        recovers.append(r)
+        prev = r
+    return FailureTrace(fail_s=torch.stack(fails, dim=-2),
+                        recover_s=torch.stack(recovers, dim=-2))
+
+
+def trace_down(trace: FailureTrace, t_s) -> torch.Tensor:
+    """Per-node down mask at episode time ``t_s`` (a float or ``(...)``):
+    ``(..., N)`` bool."""
+    t = torch.as_tensor(t_s, dtype=F32,
+                        device=trace.fail_s.device)[..., None, None]
+    return torch.any((trace.fail_s <= t) & (t < trace.recover_s), dim=-2)
+
+
+class RescheduleQueue(NamedTuple):
+    """Fixed-capacity ring of evicted pods awaiting re-placement, per
+    cluster: each entry is the pod's own ledger slot (its spec is still
+    recorded there) and the run time it had left when its node died.
+    ``head`` / ``count`` bound the live window; pushes past capacity are
+    lost (counted, never silent)."""
+
+    slot: torch.Tensor         # (..., R) int32 ledger slot of each entry
+    remaining_s: torch.Tensor  # (..., R) f32 run time left at eviction
+    head: torch.Tensor         # (...) int32 index of the oldest entry
+    count: torch.Tensor        # (...) int32 number of live entries
+
+
+def reschedule_queue_init(cap: int, batch: Tuple[int, ...] = (),
+                          device=None) -> RescheduleQueue:
+    device = resolve_device(device)
+    shape = tuple(batch) + (cap,)
+    zi = torch.zeros(tuple(batch), dtype=I32, device=device)
+    return RescheduleQueue(
+        slot=torch.full(shape, -1, dtype=I32, device=device),
+        remaining_s=torch.zeros(shape, dtype=F32, device=device),
+        head=zi, count=zi.clone())
+
+
+def _ring_set(col: torch.Tensor, pos: torch.Tensor,
+              values: torch.Tensor) -> torch.Tensor:
+    """``col (..., R)`` with ``values`` written at ``pos`` (same shape as
+    ``values``), where ``pos == R`` drops the write: the scatter goes into
+    a ring one slot wider and the spare slot is sliced off."""
+    spare = torch.zeros(col.shape[:-1] + (1,), dtype=col.dtype,
+                        device=col.device)
+    wide = torch.cat([col, spare], dim=-1)
+    return wide.scatter(-1, pos, values.to(col.dtype))[..., :-1]
+
+
+def _queue_push(q: RescheduleQueue, mask: torch.Tensor, values: torch.Tensor,
+                cap: int) -> Tuple[RescheduleQueue, torch.Tensor]:
+    """Push every masked ledger slot (``mask (..., K)``) into its cluster's
+    ring in slot order, with ``values (..., K)``; entries past the free
+    space are dropped and returned as the overflow (lost) count ``(...)``."""
+    space = cap - q.count
+    rank = torch.cumsum(mask.to(I32), dim=-1) - 1
+    ok = mask & (rank < space[..., None])
+    pos = torch.where(ok, (q.head[..., None] + q.count[..., None] + rank)
+                      % cap, cap).to(torch.int64)
+    slot_ids = torch.arange(mask.shape[-1], dtype=I32,
+                            device=mask.device).expand(mask.shape)
+    n_mask = torch.sum(mask, dim=-1).to(I32)
+    n_push = torch.minimum(n_mask, space)
+    q = q._replace(slot=_ring_set(q.slot, pos, slot_ids),
+                   remaining_s=_ring_set(q.remaining_s, pos, values),
+                   count=q.count + n_push)
+    return q, n_mask - n_push
+
+
+def evict_down_pods(state: ClusterState, ledger: PodLedger, q: RescheduleQueue,
+                    healthy_base: torch.Tensor, trace: FailureTrace, cap: int
+                    ) -> Tuple[ClusterState, PodLedger, RescheduleQueue,
+                               torch.Tensor, torch.Tensor]:
+    """Apply the failure trace at each cluster's clock: ``healthy`` becomes
+    ``healthy_base & ~down(t)`` (a node that started NotReady stays down
+    after its outage), every ledger pod on a down node is released (one
+    ``scatter_add`` over the node axis per column, as ``retire_expired``)
+    and pushed into the ring with its remaining run time.  An evicted
+    slot's node is -1, so a node staying down evicts nothing new.
+    Returns (state, ledger, queue, evicted ``(...)``, overflow lost
+    ``(...)``)."""
+    n = state.n_nodes
+    down = trace_down(trace, state.time_s)
+    state = state._replace(healthy=healthy_base & torch.logical_not(down))
+    seg = torch.clamp(ledger.node, 0, n - 1).to(torch.int64)
+    evict = (ledger.node >= 0) & torch.take_along_dim(
+        down.expand(state.base_cpu.shape), seg, dim=-1)
+    w = evict.to(F32)
+    zeros = torch.zeros(state.base_cpu.shape, dtype=F32,
+                        device=state.base_cpu.device)
+
+    def released(col):
+        return zeros.scatter_add(-1, seg, w * col)
+
+    cnt = torch.zeros_like(state.num_pods).scatter_add(-1, seg,
+                                                       evict.to(I32))
+    state = state._replace(
+        num_pods=state.num_pods - cnt,
+        exp_pods=state.exp_pods - cnt,
+        cpu_requested=state.cpu_requested - released(ledger.spec.cpu_request),
+        mem_requested=state.mem_requested - released(ledger.spec.mem_request),
+        pods_cpu=state.pods_cpu - released(ledger.spec.cpu_demand),
+        mem_used=state.mem_used - released(ledger.spec.mem_demand),
+    )
+    remaining = ledger.expiry_s - state.time_s[..., None]
+    ledger = ledger._replace(node=torch.where(evict, torch.full_like(
+        ledger.node, -1), ledger.node))
+    q, n_lost = _queue_push(q, evict, remaining, cap)
+    return state, ledger, q, torch.sum(evict, dim=-1).to(I32), n_lost
+
+
+def take_last(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[..., idx]`` per cluster: ``col (..., K)``, ``idx (...)``."""
+    return torch.take_along_dim(col, idx.to(torch.int64)[..., None],
+                                dim=-1)[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# the episode loop
+# ---------------------------------------------------------------------------
 
 
 class _EpisodeAcc(NamedTuple):
@@ -743,6 +904,9 @@ class _EpisodeAcc(NamedTuple):
     peak_active: torch.Tensor   # max nodes_active seen
     retired: torch.Tensor       # int32 pods completed + released
     moved: torch.Tensor         # int32 pods the kept passes migrated
+    evicted: torch.Tensor       # int32 pods killed by node failures
+    rescheduled: torch.Tensor   # int32 evicted pods re-placed in-episode
+    lost: torch.Tensor          # int32 evicted pods dropped off the ring
 
 
 def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
@@ -767,13 +931,22 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
     multiple of ``cfg.consolidate_every_s`` (0 = off): it runs on every
     cluster and is kept where that cluster's clock crossed, so that no
     value is read back; ``stats.moved`` adds up the pods the kept passes
-    moved.  ``failure_trace`` and scenarios with failing node classes
-    raise ``NotImplementedError`` (not ported yet).
+    moved.
+
+    ``failure_trace`` (a ``FailureTrace``, ``(C, N)`` or ``(*batch, C,
+    N)``) injects mid-episode node failures; without one, a scenario with
+    a finite-MTBF node class samples it from ``draws.failure``.  After
+    each step's retirements the pods on down nodes are evicted into a
+    ``cfg.chaos_requeue_cap`` ring, and each arrival step makes one
+    re-placement attempt of the ring's head through the same selector
+    (``step_draws.reschedule()`` draws), back into the pod's own ledger
+    slot with its remaining run time; a failed attempt rotates the entry
+    to the tail.  Evictees still queued at the end count as lost.
 
     Returns ``EpisodeResult`` ``(state, placements, metric, dropped,
     stats)`` with the batch dimensions leading every field."""
-    check_no_chaos(cfg, failure_trace)
     do_consolidate = consolidate is not None and cfg.consolidate_every_s > 0.0
+    use_chaos = failure_trace is not None or has_chaos(cfg)
     device = resolve_device(device)
     lead = tuple(lead)
     state = draws.reset(cfg, device=device)
@@ -788,15 +961,36 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
     ledger = ledger_init(n_pods, batch, device=device)
     zf = torch.zeros(batch, dtype=F32, device=device)
     zi = torch.zeros(batch, dtype=I32, device=device)
-    acc = _EpisodeAcc(zf, zf, zf, zf, zf, zi, zi)
+    acc = _EpisodeAcc(zf, zf, zf, zf, zf, zi, zi, zi, zi, zi)
     # one history carry per cluster (sequence policy classes)
     carry = (None if select_carry is None else
              select_carry.expand(batch + select_carry.shape).clone())
+    cap = cfg.chaos_requeue_cap
+    queue = reschedule_queue_init(cap, batch, device=device)
+    if use_chaos:
+        if failure_trace is None:
+            failure_trace = sample_failure_trace(
+                cfg, draws.failure(cfg, 0, device=device), device)
+        failure_trace = FailureTrace(*(x.to(device=device, dtype=F32)
+                                       for x in failure_trace))
+    healthy_base = state.healthy
 
-    def advance(st, ledger, dt, acc):
+    def select(step, st, pod, pc):
+        if select_carry is None:
+            return select_action(step, st, pod), pc
+        return select_action(step, st, pod, pc)
+
+    def advance(st, ledger, q, dt, acc):
         t_before = st.time_s
         st = tick(st, cfg, dt)
         st, ledger, n_ret = retire_expired(st, ledger)
+        evicted, lost = acc.evicted, acc.lost
+        if use_chaos:
+            # retire, then evict: a pod both expired and on a dead node
+            # releases once (retirement already freed its slot)
+            st, ledger, q, n_ev, n_lost = evict_down_pods(
+                st, ledger, q, healthy_base, failure_trace, cap)
+            evicted, lost = evicted + n_ev, lost + n_lost
         moved = acc.moved
         if do_consolidate:
             period = cfg.consolidate_every_s
@@ -815,28 +1009,62 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
             energy_j=acc.energy_j + fleet_power_w(st, cfg) * dt,
             peak_active=torch.maximum(acc.peak_active, na),
             retired=acc.retired + n_ret,
-            moved=moved,
+            moved=moved, evicted=evicted, lost=lost,
         )
-        return st, ledger, acc
+        return st, ledger, q, acc
+
+    def try_reschedule(step, st, ledger, q, acc, pc):
+        """One re-placement attempt of each ring's head; every branch is
+        masked, so with an empty ring the block is the identity."""
+        has = q.count > 0
+        slot = torch.clamp(take_last(q.slot, q.head), 0, n_pods - 1)
+        remaining = take_last(q.remaining_s, q.head)
+        rpod = PodSpec(*(take_last(col, slot) for col in ledger.spec))
+        a, pc2 = select(step.reschedule(), st, rpod, pc)
+        if pc is not None:
+            # the carry advances only where the ring held a pod
+            pc = torch.where(has.reshape(has.shape + (1,) * (
+                pc.dim() - has.dim())), pc2, pc)
+        placed = has & (a >= 0)
+        a_eff = torch.where(placed, a.to(I32), NO_PLACEMENT)
+        st = place(st, a_eff, rpod, cfg)
+        ledger = where_tree(placed, ledger_record(
+            ledger, slot, a_eff, st.time_s + remaining, rpod), ledger)
+        # success pops the head; failure rotates it to the tail (writing
+        # at (head + count) % cap and advancing head together is a correct
+        # rotation even when the ring is full)
+        tail = ((q.head + q.count) % cap).to(torch.int64)[..., None]
+        rotated = (has & torch.logical_not(placed))[..., None]
+        head_slot = take_last(q.slot, q.head)[..., None]
+        q = q._replace(
+            slot=torch.where(rotated, q.slot.scatter(-1, tail, head_slot),
+                             q.slot),
+            remaining_s=torch.where(
+                rotated, q.remaining_s.scatter(-1, tail, remaining[..., None]),
+                q.remaining_s),
+            head=torch.where(has, (q.head + 1) % cap, q.head),
+            count=torch.where(placed, q.count - 1, q.count))
+        acc = acc._replace(rescheduled=acc.rescheduled + placed.to(I32))
+        return st, ledger, q, acc, pc
 
     dropped = torch.zeros(batch, dtype=I32, device=device)
     for t in range(n_pods):
         pod = PodSpec(*(col[..., t] for col in table[:4]))
         dt, lifetime = table[4][..., t], table[5][..., t]
         step = draws.step(0, t)
-        if select_carry is None:
-            a = select_action(step, state, pod)
-        else:
-            a, carry = select_action(step, state, pod, carry)
+        a, carry = select(step, state, pod, carry)
         state = place(state, a, pod, cfg)
         ledger = ledger_record(ledger, t, a, state.time_s + lifetime, pod)
-        state, ledger, acc = advance(state, ledger, dt, acc)
+        if use_chaos:
+            state, ledger, queue, acc, carry = try_reschedule(
+                step, state, ledger, queue, acc, carry)
+        state, ledger, queue, acc = advance(state, ledger, queue, dt, acc)
         dropped = dropped + (a < 0).to(I32)
     for _ in range(cfg.settle_steps):
-        state, ledger, acc = advance(state, ledger,
-                                     torch.full(batch, cfg.schedule_dt_s,
-                                                dtype=F32, device=device),
-                                     acc)
+        state, ledger, queue, acc = advance(
+            state, ledger, queue,
+            torch.full(batch, cfg.schedule_dt_s, dtype=F32, device=device),
+            acc)
     stats = EpisodeStats(
         nodes_active_mean=acc.node_seconds / acc.dt,
         nodes_active_final=nodes_active(state),
@@ -844,7 +1072,11 @@ def run_episode(draws, cfg: EnvConfig, select_action: Callable, n_pods: int,
         node_seconds=acc.node_seconds,
         energy_wh=acc.energy_j / 3600.0,
         retired=acc.retired,
-        evicted=zi, rescheduled=zi, lost=zi, moved=acc.moved)
+        evicted=acc.evicted,
+        rescheduled=acc.rescheduled,
+        # evictees still queued never re-entered before the episode ended
+        lost=acc.lost + queue.count,
+        moved=acc.moved)
     return EpisodeResult(state=state, placements=state.num_pods,
                          metric=acc.metric / acc.dt, dropped=dropped,
                          stats=stats)

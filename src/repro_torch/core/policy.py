@@ -37,8 +37,9 @@ are the Table-4 Adam/MSE learner for any registered class, and every
 function here accepts params with a leading seed dimension (candidate
 policies trained side by side, ``train.engine``): rows then lead with the
 same dimension and go through their seed's weights (``dqn.linear``).
-Checkpoint save/restore is not ported yet (ROADMAP.md, queue 1, 'Serving,
-rest').
+``save_checkpoint`` / ``restore_checkpoint`` write and read params with
+the class's record in the manifest (``checkpoint.ckpt``, the reference's
+format).
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ from repro_torch.core.types import FEATURE_DIM
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam_init
 
-__all__ = ["ENCODER_IN", "PolicySpec", "checked", "get", "init_train_state",
-           "make_opt_state", "make_train_step", "mse_loss", "names",
-           "pod_workload_features", "register"]
+__all__ = ["ENCODER_IN", "PolicySpec", "checked", "checkpoint_metadata",
+           "get", "init_train_state", "make_opt_state", "make_train_step",
+           "mse_loss", "names", "pod_workload_features", "register",
+           "restore_checkpoint", "save_checkpoint"]
 
 F32 = torch.float32
 
@@ -415,3 +417,81 @@ MAMBA = register(PolicySpec(
                  ("dt_rank", MAMBA_DT_RANK), ("embed", MAMBA_EMBED),
                  ("hidden", MAMBA_HIDDEN)),
 ))
+
+
+# ---------------------------------------------------------------------------
+# versioned policy checkpoints (legacy-MLP fallback for old manifests)
+# ---------------------------------------------------------------------------
+
+POLICY_CKPT_VERSION = 1
+
+
+def checkpoint_metadata(spec: PolicySpec) -> dict:
+    return {
+        "policy_ckpt_version": POLICY_CKPT_VERSION,
+        "policy": spec.name,
+        "feature_dim": spec.feature_dim,
+        "hyperparams": dict(spec.hyperparams),
+    }
+
+
+def save_checkpoint(ckpt_dir: str, step: int, params, spec: PolicySpec,
+                    extra: Optional[dict] = None) -> str:
+    """``checkpoint.save`` with the versioned policy record attached, so
+    that any class restores without the caller naming it."""
+    from repro_torch.checkpoint import ckpt
+
+    meta = dict(extra or {})
+    meta.update(checkpoint_metadata(spec))
+    return ckpt.save(ckpt_dir, step, params, extra=meta)
+
+
+def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
+                       default_policy: str = "mlp",
+                       on_corrupt: str = "raise", device=None):
+    """``(params, spec)`` from a checkpoint directory (the reference's
+    format: either package's checkpoints load).  The manifest's policy
+    record picks the spec; a manifest without one (the trainer's before
+    the registry) takes ``default_policy``.
+
+    ``on_corrupt="fallback"`` (the serving setting) turns an integrity
+    failure — a checksum or digest mismatch, a missing leaf, a shape that
+    differs, a truncated shard, a garbled manifest — into a warning and a
+    FRESH init of the declared (or default) class, drawn from seed 0;
+    ``"raise"`` propagates it.  A missing checkpoint always raises
+    ``FileNotFoundError``.  Params land on ``device`` (the card unless
+    ``"cpu"``)."""
+    import warnings
+    import zipfile
+
+    from repro_torch.checkpoint import ckpt
+
+    def fresh(spec, why: str):
+        warnings.warn(
+            f"checkpoint under {ckpt_dir!r} is unusable ({why}); "
+            f"falling back to a fresh {spec.name!r} init",
+            RuntimeWarning, stacklevel=2)
+        return spec.init(torch.Generator().manual_seed(0),
+                         device=device), spec
+
+    # a garbled manifest's JSONDecodeError is a ValueError
+    corrupt = (IOError, KeyError, ValueError, zipfile.BadZipFile)
+    try:
+        meta = ckpt.read_extra(ckpt_dir, step=step)
+    except FileNotFoundError:
+        raise
+    except corrupt as e:
+        if on_corrupt != "fallback":
+            raise
+        return fresh(get(default_policy), f"unreadable manifest: {e}")
+    spec = get(meta.get("policy", default_policy))
+    template = spec.init(torch.Generator().manual_seed(0), device="cpu")
+    try:
+        return ckpt.restore(ckpt_dir, template, step=step,
+                            device=device), spec
+    except FileNotFoundError:
+        raise
+    except corrupt as e:
+        if on_corrupt != "fallback":
+            raise
+        return fresh(spec, str(e))

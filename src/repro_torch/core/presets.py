@@ -6,9 +6,8 @@ The reference's calibration (5 trials on the paper cluster, seeds
 100–104; ``repro/core/presets.py``): default scheduler 30.42% (paper
 30.87%), SDQN −9.2% relative (paper −11.9%), SDQN-n −23.0% relative
 (paper −27.6%), LSTM / Transformer no significant advantage (the paper's
-finding too).  The chaos presets are data only: training on a chaos
-scenario raises until failure traces are ported (ROADMAP.md, queue 1,
-'Chaos').
+finding too).  The chaos preset trains over the flaky scenarios without
+failure traces, as the reference's trainer does.
 """
 from __future__ import annotations
 
@@ -128,10 +127,9 @@ CHAOS_MIX_NAMES = (
     "train-flaky",
 )
 
-# Generalist SDQN over the chaos mixture.  Placements on flaky capacity get
-# wiped mid-episode, so the realized CPU-efficiency reward already penalizes
-# parking work on short-MTBF nodes — no extra shaping term is needed for the
-# policy to learn failure-aware placement.
+# Generalist SDQN over the chaos mixture.  The trainer's episodes sample no
+# failure trace (as the reference's), so it learns on the flaky pools'
+# shapes, NotReady nodes and churn; failures show only in evaluation.
 SDQN_CHAOS_PRESET = RLConfig(
     variant="sdqn",
     episodes=720,

@@ -31,8 +31,8 @@ expiry ledger and retires due pods each step, as evaluation does.
 threaded through segments whose node counts differ (the ring stores
 6-feature afterstates).  ``train_supervised_scorer`` regresses the
 LSTM / Transformer baselines onto Table-3 rewards along kube-scheduler
-trajectories.  Training on a scenario with failing node classes raises
-(chaos: not ported yet).
+trajectories.  On a scenario with failing node classes the trainer's
+episodes run without a failure trace, as the reference's do.
 """
 from __future__ import annotations
 
@@ -286,8 +286,6 @@ def _run_segments(draws, segments, rl: RLConfig, n_seeds: int,
     """Run ``segments`` — ``(env_cfg, first global episode, episodes)`` —
     in order on one carry; the episode functions are built once per
     config."""
-    for env_cfg, _, _ in segments:
-        kenv.check_no_chaos(env_cfg)
     device = resolve_device(device)
     if carry is None:
         carry = init_carry(draws, rl, n_seeds, device=device)

@@ -69,12 +69,29 @@ class PodLedger(NamedTuple):
     spec: "PodSpec"                 # each field (..., K): what to release
 
 
+class FailureTrace(NamedTuple):
+    """Fixed-shape mid-episode node fail/recover schedule.
+
+    ``fail_s[..., c, n]`` / ``recover_s[..., c, n]`` bound node ``n``'s
+    ``c``-th outage window: the node is down whenever ``fail_s <= t <
+    recover_s``.  ``inf`` marks an unused cycle, so node health at any
+    time is a pure function of the trace.  Leading batch dimensions are
+    optional: a ``(C, N)`` trace is shared by every cluster of a batch.
+    Sampled per node from each ``NodeClass``'s MTBF / MTTR
+    (``env.sample_failure_trace``); an all-``inf`` trace
+    (``env.empty_failure_trace``) injects nothing."""
+
+    fail_s: torch.Tensor              # (..., C, N) f32 outage start times
+    recover_s: torch.Tensor           # (..., C, N) f32 recovery times
+
+
 class EpisodeStats(NamedTuple):
     """Time-resolved lifecycle metrics of an episode (one per batch row).
 
-    The chaos counters stay zero: failure traces are not ported.
-    ``moved`` counts the pods that the kept consolidation passes migrated
-    (zero without ``consolidate``); the reference does not report it."""
+    ``evicted`` / ``rescheduled`` / ``lost`` account for mid-episode node
+    failures (``evicted == rescheduled + lost``).  ``moved`` counts the
+    pods that the kept consolidation passes migrated (zero without
+    ``consolidate``); the reference does not report it."""
 
     nodes_active_mean: torch.Tensor   # time-averaged active-node count
     nodes_active_final: torch.Tensor  # int32, active nodes at episode end

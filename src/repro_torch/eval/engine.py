@@ -42,6 +42,9 @@ class TrialResults(NamedTuple):
     energy_wh: torch.Tensor     # (T,) energy billed to the workload
     retired: torch.Tensor       # (T,) int32 pods completed + released
     moved: torch.Tensor         # (T,) int32 pods consolidation moved
+    evicted: torch.Tensor       # (T,) int32 pods killed by node failures
+    rescheduled: torch.Tensor   # (T,) int32 evicted pods re-placed
+    lost: torch.Tensor          # (T,) int32 evicted pods never re-placed
 
 
 def _default_n_pods(env_cfg: EnvConfig, n_pods: Optional[int]) -> int:
@@ -77,6 +80,9 @@ def _trials(draws, env_cfg: EnvConfig, select, n: int, lead=(),
         energy_wh=stats.energy_wh,
         retired=stats.retired,
         moved=stats.moved,
+        evicted=stats.evicted,
+        rescheduled=stats.rescheduled,
+        lost=stats.lost,
     )
 
 
@@ -129,9 +135,10 @@ def make_multi_param_evaluator(env_cfg: EnvConfig, selector_factory: Callable,
 
 
 def summarize(trials: TrialResults) -> Dict[str, float]:
-    """Mean / std / 95% CI of the paper metric, plus drop/placement stats
-    and the lifecycle metrics (active nodes, node-seconds, energy, pods
-    retired and pods consolidation moved)."""
+    """Mean / std / 95% CI of the paper metric, plus drop/placement stats,
+    the lifecycle metrics (active nodes, node-seconds, energy, pods
+    retired and pods consolidation moved) and the chaos counts (pods
+    evicted, rescheduled and lost)."""
     def host(x):
         return np.asarray(x.detach().cpu(), np.float64)
 
@@ -152,6 +159,9 @@ def summarize(trials: TrialResults) -> Dict[str, float]:
         "energy_wh_mean": float(host(trials.energy_wh).mean()),
         "retired_mean": float(host(trials.retired).mean()),
         "moved_mean": float(host(trials.moved).mean()),
+        "evicted_mean": float(host(trials.evicted).mean()),
+        "rescheduled_mean": float(host(trials.rescheduled).mean()),
+        "lost_mean": float(host(trials.lost).mean()),
         "trials": float(t),
     }
 

@@ -15,8 +15,14 @@ drawn from ``--seed``; the replicas share them.
         --requests 32 --wave-size 8 --prompt-len 512 --gen-tokens 32
 
 runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions
-on the CPU (``--smoke`` for a reduced model).  ``main`` returns a
-``ServeResult`` with every wave's tokens; ``serve_wave`` is one wave.
+on the CPU (``--smoke`` for a reduced model).  ``--qnet-path`` loads the
+routing policy from a checkpoint directory (``checkpoint.ckpt``, either
+package's) or a legacy ``.npz``.  ``--online`` records every routing
+decision (``sched.online.FleetTransitionRecorder`` on the daemon's
+``decision_hook``) and, after the routing burst, runs ``--online-steps``
+refresh cycles that fine-tune the routing policy on the realized rewards
+and publish it to the daemon.  ``main`` returns a ``ServeResult`` with
+every wave's tokens; ``serve_wave`` is one wave.
 """
 from __future__ import annotations
 
@@ -35,8 +41,6 @@ from repro_torch.models import model as mdl
 from repro_torch.sched.daemon import (DaemonConfig, FleetSubstrate,
                                       PlacementDaemon)
 from repro_torch.sched.placement import JobSpec, fresh_fleet
-
-SERVING_REST = "ROADMAP queue 1, 'Serving, rest'"
 
 
 def seed_generator(seed: int, stream: int, device="cpu") -> torch.Generator:
@@ -60,8 +64,10 @@ def load_policy(path: str, gen: torch.Generator, policy: str = "mlp",
     """SDQN routing params and their policy class: ``(params, PolicySpec)``.
 
     Empty ``path``: a fresh init of ``policy``; a ``.npz``: the Table-4 MLP
-    (the reference's legacy flat file).  A checkpoint directory needs
-    ``checkpoint/ckpt.py``, which is not ported yet."""
+    (the reference's legacy flat file); otherwise a checkpoint directory
+    (``checkpoint.ckpt``'s format, written by either package; its latest
+    step), whose manifest names its policy class (``policy`` for one
+    without a record)."""
     if not path:
         spec = policy_mod.get(policy)
         return spec.init(gen, device=device), spec
@@ -71,9 +77,8 @@ def load_policy(path: str, gen: torch.Generator, policy: str = "mlp",
         return ({k: torch.tensor(np.asarray(loaded[k], np.float32),
                                  device=device) for k in loaded.files},
                 policy_mod.get("mlp"))
-    raise NotImplementedError(
-        f"--qnet-path {path!r}: loading a checkpoint directory needs "
-        f"checkpoint/ckpt.py, not ported yet: {SERVING_REST}")
+    return policy_mod.restore_checkpoint(path, default_policy=policy,
+                                         device=device)
 
 
 def load_qnet(path: str, gen: torch.Generator, device=None) -> dict:
@@ -149,6 +154,7 @@ class ServeResult:
     daemon: PlacementDaemon
     seconds: float                 # serving the waves, routing excluded
     generated: int                 # tokens generated
+    refresher: Optional[object] = None   # the OnlineRefresher (--online)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,15 +168,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--qnet-path", default="",
-                    help="trained SDQN params: a legacy .npz (the Table-4 "
-                         "MLP); fresh init if empty")
+                    help="trained SDQN params: a checkpoint directory or a "
+                         "legacy .npz (the Table-4 MLP); fresh init if empty")
     ap.add_argument("--policy", default="mlp",
                     help="policy class (core.policy registry) when "
-                         "--qnet-path is empty")
+                         "--qnet-path is empty or carries no policy record")
     ap.add_argument("--online", action="store_true",
-                    help="fine-tune the routing policy on realized rewards "
-                         "(not ported yet)")
-    ap.add_argument("--online-steps", type=int, default=4)
+                    help="record every routing decision and fine-tune the "
+                         "routing policy on the realized rewards (params "
+                         "swap at batch cuts)")
+    ap.add_argument("--online-steps", type=int, default=4,
+                    help="refresh cycles after the routing burst (with "
+                         "--online)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (raises "
                          "without one)")
@@ -179,9 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> ServeResult:
     args = build_parser().parse_args(argv)
-    if args.online:
-        raise NotImplementedError(
-            f"--online needs sched/online.py, not ported yet: {SERVING_REST}")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     params = mdl.init_params(seed_generator(args.seed, 0, device), cfg, device)
@@ -195,15 +201,41 @@ def main(argv=None) -> ServeResult:
                         device=device)
     waves = args.requests // args.wave_size
     sub = FleetSubstrate(fleet, policy=qspec, device=device)
+    recorder = refresher = None
+    if args.online:
+        from repro_torch.core.types import FEATURE_DIM
+        from repro_torch.sched.online import FleetTransitionRecorder
+
+        if qspec.feature_dim != FEATURE_DIM:
+            raise SystemExit(
+                f"--online needs a policy with the canonical afterstate "
+                f"feature width ({FEATURE_DIM}); {qspec.name} trains on "
+                f"{qspec.feature_dim}-wide rows")
+        recorder = FleetTransitionRecorder(fleet, device=device)
     daemon = PlacementDaemon(
         sub, qparams,
-        DaemonConfig(batch_size=max(min(waves, 8), 1), max_wait_s=0.0))
+        DaemonConfig(batch_size=max(min(waves, 8), 1), max_wait_s=0.0),
+        decision_hook=recorder.record if recorder else None)
     daemon.warmup()
     job = JobSpec(cpu_pct_demand=100.0 / max(waves, 1), kind="serve")
     for _ in range(waves):
         daemon.submit(job)
     daemon.drain()
     assignments = [d.node for d in sorted(daemon.decisions)]
+
+    if args.online:
+        # a pure submit / bind trace: the recorder's shadow needs no resync
+        from repro_torch.sched.online import OnlineRefresher
+
+        refresher = OnlineRefresher(daemon, recorder, spec=qspec)
+        refresher.warmup()
+        for _ in range(args.online_steps):
+            refresher.step()
+        loss = ("n/a" if refresher.last_loss is None
+                else f"{refresher.last_loss:.4f}")
+        print(f"[serve] online refresh: {recorder.drained} transitions "
+              f"recorded, {refresher.steps} refresh steps, "
+              f"{refresher.swaps} param swaps, last_loss={loss}")
 
     t0 = time.perf_counter()
     results = []
@@ -233,7 +265,7 @@ def main(argv=None) -> ServeResult:
     print(f"[serve] replica load (cpu%): "
           f"{np.round(np.asarray(sub.live.cpu_pct), 1).tolist()}")
     return ServeResult(counts, assignments, results, params, cfg, daemon, dt,
-                       generated)
+                       generated, refresher)
 
 
 if __name__ == "__main__":

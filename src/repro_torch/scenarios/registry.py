@@ -3,9 +3,9 @@
 
 Every entry is a fully declarative ``ScenarioConfig``, convertible to an
 ``EnvConfig`` with ``make_env(name)`` and run on the card by
-``scripts/scenario_tables.py``.  The chaos scenarios (finite MTBF) are
-registered too; their episodes raise until failure traces are ported
-(ROADMAP.md, queue 1, 'Chaos').
+``scripts/scenario_tables.py``.  The chaos scenarios (finite MTBF) sample
+a failure trace per episode: their nodes fail mid-episode and the pods
+there are evicted and rescheduled (``core.env.run_episode``).
 """
 from __future__ import annotations
 

@@ -6,6 +6,7 @@
     q = api.score(fleet_state, job, params=qparams)                  # (N,)
     qb = api.score_batch(fleet_state, jobs, params=qparams)          # (B, N)
     node = api.select(cluster_state, pod, params=qparams, cfg=env_cfg)
+    q = api.topsis_score(fleet_state, job)                           # (N,)
 
 ``score`` dispatches on the fleet's type:
 
@@ -41,7 +42,7 @@ from repro_torch.sched import placement as _pl
 from repro_torch.sched.placement import FleetState, JobSpec
 
 __all__ = ["DIVERGENCE_LIMIT", "NO_PLACEMENT", "heuristic_score", "score",
-           "score_batch", "scores_valid", "select", "topk"]
+           "score_batch", "scores_valid", "select", "topk", "topsis_score"]
 
 Fleet = Union[ClusterState, FleetState]
 Workload = Union[PodSpec, JobSpec]
@@ -87,6 +88,20 @@ def heuristic_score(fleet: Fleet, pod: Workload, *,
         return heuristic_delta_scores(
             fleet, _pl.job_delta(pod, fleet.cpu_pct.device))
     raise TypeError(f"unsupported fleet type: {type(fleet).__name__}")
+
+
+def topsis_score(fleet: Fleet, pod: Workload, *,
+                 cfg: Optional[EnvConfig] = None,
+                 weights=None) -> torch.Tensor:
+    """(N,) TOPSIS closeness coefficients: the multi-objective non-RL
+    baseline (``sched.topsis``: CPU / memory / wake-energy / imbalance cost
+    columns, distance-to-ideal ranking).  Same substrate dispatch as
+    ``heuristic_score``; higher = better, feasibility masked by the
+    caller."""
+    from repro_torch.sched import topsis as _topsis
+
+    weights = _topsis.DEFAULT_WEIGHTS if weights is None else weights
+    return _topsis.topsis_scores(fleet, pod, cfg=cfg, weights=weights)
 
 
 def scores_valid(q: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,10 @@ Counterpart of ``repro.sched.daemon`` for the pod->node cluster
 
 ``ClusterSubstrate(score_fn=...)`` scores with a custom scorer (the
 paper's LSTM / Transformer baselines, ``core.baselines``) on the unfused
-path, flat or sharded.  The online-learning hook is not ported yet
-(ROADMAP.md, queue 1, 'Serving, rest').
+path, flat or sharded.  ``decision_hook(pod, node)`` observes every
+served decision (``sched.online``'s recorders attach there) and
+``set_params`` swaps the policy's params; the daemon reads them once per
+batch cut.
 """
 from __future__ import annotations
 
@@ -550,8 +552,12 @@ class PlacementDaemon:
     def __init__(self, substrate, params: dict,
                  config: DaemonConfig = DaemonConfig(),
                  clock: Callable[[], float] = time.monotonic,
-                 timer: Callable[[], float] = time.monotonic):
+                 timer: Callable[[], float] = time.monotonic,
+                 decision_hook: Optional[Callable] = None):
         self._sub = substrate
+        # ``decision_hook(pod, node)`` observes every SERVED decision (bound
+        # or dropped; shed requests are never scored and produce none)
+        self.decision_hook = decision_hook
         self._params = params
         self.config = config
         self._clock = clock
@@ -613,6 +619,12 @@ class PlacementDaemon:
     def recover_node(self, node: int) -> None:
         """Mark ``node`` Ready again."""
         self._sub.set_health(node, True)
+
+    def set_params(self, params: dict) -> None:
+        """Swap the policy's params (the same tree structure), from any
+        thread: one reference assignment, taken up at the next batch cut.
+        The caller must not write ``params`` in place afterwards."""
+        self._params = params
 
     @property
     def pending(self) -> int:
@@ -689,12 +701,15 @@ class PlacementDaemon:
         scores = ok = cand_idx = None
         degraded = self.config.heuristic_only or self._degraded > 0
         if not degraded:
+            # the params are read once, at the cut: a swap during this
+            # batch takes effect at the next one
+            params = self._params
             snap = self._sub.snapshot()
             pods = self._sub.pack([r.pod for r in reqs],
                                   self.config.batch_size)
             t0 = self._timer()
-            q, okq, carry = self._scorer(self._params, snap, pods,
-                                         self._carry, len(reqs))   # 1 launch
+            q, okq, carry = self._scorer(params, snap, pods, self._carry,
+                                         len(reqs))                # 1 launch
             q = self._fetch(q)
             elapsed = self._timer() - t0
             self.metrics.device_launches += 1
@@ -754,6 +769,10 @@ class PlacementDaemon:
         else:
             self.metrics.bound += 1
             self._bound[req.req_id] = (node, req.pod)
+        if self.decision_hook is not None:
+            # host-side only (a deque append in sched.online's recorders):
+            # no scoring launch is added
+            self.decision_hook(req.pod, node)
 
     def _commit(self, req: _Request, row: np.ndarray, ok: np.ndarray,
                 now: float) -> int:

@@ -217,19 +217,42 @@ def test_paper_tables_baselines_at_a_cut_budget(capsys):
 
 
 def test_scenario_tables_at_a_cut_budget(capsys):
-    """The scenario sweep and the lifecycle rows on the CPU at 2 training
-    episodes, 1 trial and 6 pods: the cut is printed, chaos scenarios are
-    skipped by name, every row is finite."""
+    """The scenario sweep, the lifecycle rows and the Pareto rows on the
+    CPU at 2 training episodes, 1 trial and 6 pods: the cut is printed,
+    the chaos scenario has its row with the pods evicted, rescheduled and
+    lost (balanced), every row is finite, and the dominance count is the
+    script's rule applied to the printed points."""
     st, _ = _script("scenario_tables")
     out = st.run(episodes=2, trials=1, pods=6, device="cpu",
                  names=("paper-burst", "hetero-bigsmall", "train-flaky"),
                  lifecycle_names=("short-job-burst",))
     text = capsys.readouterr().out
-    assert "CUT" in text and "train-flaky" in text and "Chaos" in text
-    assert set(out["scenarios"]) == {"paper-burst", "hetero-bigsmall"}
+    assert "CUT" in text and "train-flaky" in text and "evicted=" in text
+    assert set(out["scenarios"]) == {"paper-burst", "hetero-bigsmall",
+                                     "train-flaky"}
     for row in out["scenarios"].values():
         assert set(row) == {"kube", "sdqn"}
         assert all(np.isfinite(r["metric_mean"]) for r in row.values())
+    for r in out["scenarios"]["train-flaky"].values():
+        assert r["evicted_mean"] == pytest.approx(
+            r["rescheduled_mean"] + r["lost_mean"])
+    pareto = out["pareto"]["short-job-burst"]
+    arms = {"kube", "topsis"} | {f"sdqnn_{st._wtag(w)}"
+                                 for w in st.PARETO_ENERGY_WEIGHTS}
+    assert set(pareto) == arms | {"sdqnn_dominates"}
+    assert pareto["sdqnn_dominates"] == sum(
+        st.dominates_or_matches(pareto[a], pareto["topsis"])
+        for a in arms if a.startswith("sdqnn_"))
+    assert "green Pareto frontier" in text
+    # the rule is the reference bench's, on points either side of the slack
+    from benchmarks import lifecycle_bench as jlb
+
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        a, b = ({k: float(v) for k, v in zip(
+            ("metric_mean", "energy_wh_mean", "dropped_mean"),
+            rng.uniform(0.9, 1.1, 3) * (20.0, 50.0, 1.0))} for _ in range(2))
+        assert st.dominates_or_matches(a, b) == jlb._dominates_or_matches(a, b)
     rows = out["lifecycle"]["short-job-burst"]
     assert set(rows) == {"kube", "sdqn", "sdqnn"}
     for r in rows.values():

@@ -173,12 +173,15 @@ def test_configs_match_reference():
 
 def test_scenarios_are_not_ported_yet():
     """Scenario pools are ported: a scenario EnvConfig equals the
-    reference's field for field and resets to its pool.  What is not
-    ported yet are the scenarios whose nodes fail mid-episode (chaos):
-    their episodes raise naming the queue item (parity of the rest:
-    tests/test_torch_scenarios.py)."""
+    reference's field for field and resets to its pool.  The scenarios
+    whose nodes fail mid-episode (chaos) run too: their failure traces
+    sample the reference's windows from the same exponentials, and an
+    episode evicts, re-places and loses pods with the ledger balanced
+    (episode parity: tests/test_torch_chaos.py)."""
     from repro import scenarios as jscn
     from repro_torch import scenarios as tscn
+    from repro_torch.core import schedulers as tsched
+    from repro_torch.core.draws import TorchDraws
 
     tcfg = ttypes.scenario_env(tscn.get_scenario("hetero-bigsmall"))
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(
@@ -187,8 +190,25 @@ def test_scenarios_are_not_ported_yet():
     np.testing.assert_array_equal(state.cpu_capacity.numpy(),
                                   [16000.0] * 2 + [2000.0] * 6)
     chaos = tscn.make_env("preemptible-flaky")
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        tenv.run_episode(None, chaos, lambda *a: None, 4, device="cpu")
+    jchaos = jscn.make_env("preemptible-flaky")
+    e = np.random.default_rng(0).exponential(
+        size=(chaos.chaos_cycles, 2, chaos.n_nodes)).astype(np.float32)
+    got = tenv.sample_failure_trace(chaos, torch.tensor(e), "cpu")
+    mtbf = jenv._scenario_pool(jchaos.scenario)["mtbf"]
+    mttr = jenv._scenario_pool(jchaos.scenario)["mttr"]
+    prev = np.zeros(chaos.n_nodes, np.float32)
+    for c in range(chaos.chaos_cycles):
+        f = prev + mtbf * np.maximum(e[c, 0], np.float32(1e-6))
+        r = f + mttr * np.maximum(e[c, 1], np.float32(1e-6))
+        np.testing.assert_array_equal(got.fail_s[c].numpy(), f)
+        np.testing.assert_array_equal(got.recover_s[c].numpy(), r)
+        prev = r
+    res = tenv.run_episode(TorchDraws(torch.Generator().manual_seed(1), (4,)),
+                           chaos, tsched.make_kube_selector(chaos), 60,
+                           device="cpu")
+    s = res.stats
+    assert int(s.evicted.sum()) > 0
+    assert torch.equal(s.evicted, s.rescheduled + s.lost)
 
 
 def test_pods_and_table_match_reference():

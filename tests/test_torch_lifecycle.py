@@ -172,8 +172,27 @@ def test_consolidator_matches_reference(case):
 
 
 def test_consolidation_plan_still_raises():
-    with pytest.raises(NotImplementedError, match="Serving, rest"):
-        telastic.consolidation_plan(None, None, None)
+    """The job->host drain planner runs: on the reference's case of two
+    nearly-idle hosts (``tests/test_substrates.py``) it gives the
+    reference's plan (more cases: tests/test_torch_elastic.py)."""
+    from repro.sched import elastic as jel, placement as jpl
+    from repro_torch.sched import placement as tpl
+
+    qp = jdqn.init_qnet(jax.random.PRNGKey(0))
+    jf = jpl.fresh_fleet(6)._replace(
+        cpu_pct=jnp.array([40.0, 40.0, 6.0, 7.0, 30.0, 30.0]),
+        num_jobs=jnp.array([8, 8, 1, 1, 6, 6], jnp.int32))
+    want = jel.consolidation_plan(jpl.PlacementEngine(qp), jf,
+                                  jpl.JobSpec(cpu_pct_demand=4.0))
+    got = telastic.consolidation_plan(
+        tpl.PlacementEngine(convert.qnet_from_numpy(_np(qp), "cpu")),
+        convert.fleet_from_numpy(_np(jf), "cpu"),
+        tpl.JobSpec(cpu_pct_demand=4.0))
+    assert (got.drain_hosts, got.migrations) == (want.drain_hosts,
+                                                 want.migrations)
+    assert got.hosts_freed == want.hosts_freed >= 1
+    assert got.projected_avg_cpu_after == pytest.approx(
+        want.projected_avg_cpu_after, rel=1e-5)
 
 
 def _consolidating(cfg_j, cfg_t, seed=8):

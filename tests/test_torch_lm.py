@@ -461,12 +461,38 @@ def test_families_not_ported_raise(arch):
 
 @pytest.mark.parametrize("case", ["checkpoint_dir", "online", "no_card"])
 def test_serve_refuses_what_is_not_here(case, tmp_path):
+    """A checkpoint directory and ``--online`` run now: a reference
+    checkpoint of the "attention" class loads bit for bit with its class,
+    an empty directory raises ``FileNotFoundError``, and ``--online``
+    records every routing decision and publishes each refresh step's
+    params to the daemon.  Without a card the entry point still raises."""
     if case == "checkpoint_dir":
-        with pytest.raises(NotImplementedError, match="Serving, rest"):
+        from repro.core import policy as jpol
+
+        with pytest.raises(FileNotFoundError):
             serve.load_policy(str(tmp_path), torch.Generator(), device="cpu")
+        spec = jpol.get("attention")
+        want = spec.init(jax.random.PRNGKey(4))
+        jpol.save_checkpoint(str(tmp_path), 2, want, spec)
+        got, tspec = serve.load_policy(str(tmp_path), torch.Generator(),
+                                       device="cpu")
+        assert tspec.name == "attention"
+        flat = jax.tree_util.tree_leaves_with_path(want)
+        for path, w in flat:
+            g = got
+            for p in path:
+                g = g[p.key]
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     elif case == "online":
-        with pytest.raises(NotImplementedError, match="Serving, rest"):
-            serve.main(["--smoke", "--online", "--device", "cpu"])
+        res = serve.main(["--smoke", "--online", "--online-steps", "2",
+                          "--requests", "8", "--wave-size", "2",
+                          "--prompt-len", "4", "--gen-tokens", "2",
+                          "--device", "cpu"])
+        ref = res.refresher
+        assert ref.recorder.drained == len(res.assignments) == 4
+        assert (ref.steps, ref.swaps) == (2, 2)
+        assert res.daemon._params is ref.params
+        assert np.isfinite(ref.last_loss)
     else:
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is visible")

@@ -246,13 +246,35 @@ def test_port_resets_stay_physical():
 @pytest.mark.parametrize("name", ["preemptible-flaky", "batch-flaky",
                                   "train-flaky"])
 def test_chaos_scenarios_still_raise(name):
-    """Episodes and training on a scenario whose nodes fail mid-episode
-    raise, naming the queue item."""
+    """Episodes and training on a scenario whose nodes fail mid-episode run:
+    a short kube episode on the reference's draws and failure trace gives
+    its distributions, drops and chaos counts, and the trainer runs on
+    the scenario (without a failure trace, as the reference's)."""
     from repro_torch.core import train_rl as ttrain
+    from repro_torch.core.draws import TorchDraws
+    from test_torch_chaos import reference_chaos_draws
 
-    cfg = tscn.make_env(name)
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        tenv.run_episode(None, cfg, tsched.make_kube_selector(cfg), 4,
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        ttrain.train(None, cfg, ttrain.RLConfig(episodes=1), device="cpu")
+    jcfg, tcfg = jscn.make_env(name), tscn.make_env(name)
+    n = 12
+    keys = jeval.fixed_trial_keys(100, 2)
+    select = jsched.make_kube_selector(jcfg)
+    want = jax.jit(jax.vmap(lambda k: jenv.run_episode(k, jcfg, select, n)))(
+        keys)
+    draws = ArrayDraws(**reference_chaos_draws(keys, jcfg, n), device="cpu")
+    got = tenv.run_episode(draws, tcfg, tsched.make_kube_selector(tcfg), n,
+                           device="cpu")
+    np.testing.assert_array_equal(got.placements.numpy(),
+                                  np.asarray(want.placements))
+    assert got.dropped.tolist() == np.asarray(want.dropped).tolist()
+    for f in ("evicted", "rescheduled", "lost"):
+        assert getattr(got.stats, f).tolist() == np.asarray(
+            getattr(want.stats, f)).tolist(), f
+    np.testing.assert_allclose(got.metric.numpy(), np.asarray(want.metric),
+                               rtol=1e-5)
+    rl = ttrain.RLConfig(episodes=1, pods_per_episode=4, n_envs=2,
+                         batch_size=4, buffer_capacity=8)
+    params, metrics = ttrain.train(
+        TorchDraws(torch.Generator().manual_seed(0), (2,)),
+        tscn.make_env(name, randomize=True), rl, device="cpu")
+    assert bool(torch.isfinite(metrics["loss"]).all())
+    assert all(bool(torch.isfinite(v).all()) for v in params.values())

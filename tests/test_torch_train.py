@@ -392,28 +392,56 @@ def _seeds_params():
 
 
 def test_raising_arms_name_their_roadmap_items():
-    """What still raises names its ROADMAP.md item: failure traces and
-    finite-MTBF scenarios (*Chaos*), in episodes and in training, and the
-    job->host drain planner (*Serving, rest*).  ``train_mixture``,
-    ``train_supervised_scorer`` and ``consolidate=`` run now: their parity
-    with the reference is held in tests/test_torch_lifecycle.py and
-    tests/test_torch_baselines.py; here each runs once at a tiny size."""
+    """The arms that raised run now.  An explicit failure trace drives an
+    episode: every other node down over [2, 6) s evicts pods, and the
+    ledger balances.  ``train_mixture`` over a chaos scenario gives the
+    reference's params (its episodes take no failure trace), and the
+    job->host drain planner gives the reference's plan.  Fuller parity:
+    tests/test_torch_chaos*.py and tests/test_torch_elastic.py.
+    ``train_mixture``, ``train_supervised_scorer`` and ``consolidate=``
+    run once each at a tiny size; their parity is held in
+    tests/test_torch_lifecycle.py and tests/test_torch_baselines.py."""
+    from repro import scenarios as jscn
+    from repro.sched import elastic as jel, placement as jpl
     from repro_torch import scenarios as tscn
     from repro_torch.core import baselines as tbase, env as tenv
-    from repro_torch.sched import elastic as telastic
+    from repro_torch.core.draws import SegmentDraws
+    from repro_torch.sched import elastic as telastic, placement as tpl
+    from test_torch_lifecycle import reference_mixture_draws
 
     cfg = ttypes.paper_cluster()
     draws = TorchDraws(torch.Generator().manual_seed(0), (2,))
     kube = tsched.make_kube_selector(cfg)
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        tenv.run_episode(draws, cfg, kube, 4, failure_trace=object(),
-                         device="cpu")
-    chaos = tscn.make_env("batch-flaky", randomize=True)
-    with pytest.raises(NotImplementedError, match="Chaos"):
-        ttrain.train_mixture(draws, [cfg, chaos], ttrain.RLConfig(**SHORT),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Serving, rest"):
-        telastic.consolidation_plan()
+    inf = float("inf")
+    trace = ttypes.FailureTrace(
+        fail_s=torch.tensor([[2.0, inf, 2.0, inf]]),
+        recover_s=torch.tensor([[6.0, inf, 6.0, inf]]))
+    res = tenv.run_episode(draws, cfg, kube, 4, failure_trace=trace,
+                           device="cpu")
+    assert int(res.stats.evicted.sum()) > 0
+    assert torch.equal(res.stats.evicted,
+                       res.stats.rescheduled + res.stats.lost)
+    jcfgs = [jtypes.paper_cluster(), jscn.make_env("batch-flaky",
+                                                   randomize=True)]
+    tcfgs = [cfg, tscn.make_env("batch-flaky", randomize=True)]
+    jrl, trl = _configs()
+    key = jax.random.PRNGKey(2)
+    want, _ = jtrain.train_mixture(key, jcfgs, jrl, rounds=1)
+    blocks, _ = reference_mixture_draws(key, jcfgs, jrl, 1)
+    got, _ = ttrain.train_mixture(
+        SegmentDraws([(ep0, ArrayDraws(**d, device="cpu"))
+                      for ep0, d in blocks]), tcfgs, trl, rounds=1,
+        device="cpu")
+    _close_trees(got, _np(want), PARAM_TOL)
+    qp = jpol.get("mlp").init(jax.random.PRNGKey(0))
+    jf = jpl.fresh_fleet(6)._replace(
+        cpu_pct=jnp.array([40.0, 40.0, 6.0, 7.0, 30.0, 30.0]),
+        num_jobs=jnp.array([8, 8, 1, 1, 6, 6], jnp.int32))
+    plan = telastic.consolidation_plan(
+        tpl.PlacementEngine(convert.qnet_from_numpy(_np(qp), "cpu")),
+        convert.fleet_from_numpy(_np(jf), "cpu"), tpl.JobSpec(4.0))
+    assert plan.migrations == jel.consolidation_plan(
+        jpl.PlacementEngine(qp), jf, jpl.JobSpec(4.0)).migrations
     trl = ttrain.RLConfig(**SHORT)
     params, metrics = ttrain.train_mixture(
         draws, [ttypes.training_cluster(),
