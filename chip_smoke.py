@@ -196,6 +196,26 @@ The chaos episodes and the rest of the scheduler (kernels 1 and 3):
     fleet and a straggler evacuation (kernel 3 at B = 1 a job, every call
     held to plain, the plain path's plan up to near ties).
 
+The remaining LM families (kernels 6, 7 and 8):
+
+20. ``serve.main`` with falcon-mamba-7b (ssm) and qwen2-moe-a2.7b (moe)
+    at full width and depth, random bf16 weights from seed 0, 4
+    replicas, 16 requests in waves of 8, prompts of 512, 32 tokens:
+    exactly 64 kernel-6 launches a falcon wave and no attention launch;
+    24 kernel-7 launches a qwen wave and 24 x 31 of kernel 8, with what
+    the MoE capacity dropped in each prefill and the rows where the
+    reference's last-slot rule fired.  whisper-medium (audio) through
+    ``serve_wave`` with 1,500 frames of ``0.02 N(0, 1)``: 2 waves of 8,
+    prompts of 384 plus 32 tokens, 72 kernel-7 launches a wave (encoder,
+    self, cross) and 48 kernel-8 launches a decode step.  dbrx-132b at
+    full width cut to 4 of its 40 layers and jamba at its smoke widths,
+    one wave each.  No plain call on the kernel runs; each model's wave 0
+    again through the plain versions (prefill logits within
+    ``LOGIT_TOL``, tokens up to the first near tie); tok/s, prefill ms
+    per wave, decode ms per step and a profiled decode step; each model
+    freed before the next.  Then kernels 6-8 against their plain versions
+    at the new shapes and timed beside their bounds and SDPA.
+
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
 table; the last line is
@@ -1461,14 +1481,31 @@ def causal_pairs(sq, skv):
     return int(np.minimum(skv, np.arange(sq) + skv - sq + 1).sum())
 
 
-def scan_bound(shape, name):
-    """(ms, by, bytes, ops) of one selective scan: every input read once
-    (x, dt, A, B, C, D, h0), y and hT written once."""
+def scan_bound_terms(shape, name):
+    """{bytes, operations, exponentials: ms} of one selective scan: every
+    input read once (x, dt, A, B, C, D, h0) and y and hT written once at
+    the memory rate; the float32 operations at the float32 peak; one
+    exponential a (batch, step, channel, state) at ``sfu_rate``."""
     b, s, di, n = shape
     nbytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + di
                   + 2 * b * di * n)
     ops = b * s * di * (n * SCAN_OPS_PER_STATE + SCAN_OPS_PER_CHANNEL)
-    return (*roofline(nbytes, ops, name), nbytes, ops)
+    _, (flops, bw) = peaks(name)
+    return {"bytes": nbytes / bw * 1e3, "operations": ops / flops * 1e3,
+            "exponentials": b * s * di * n / sfu_rate() * 1e3}
+
+
+def scan_bound(shape, name):
+    """(ms, by, bytes, ops) of one selective scan: the largest of
+    ``scan_bound_terms``."""
+    b, s, di, n = shape
+    terms = scan_bound_terms(shape, name)
+    by = max(terms, key=terms.get)
+    nbytes = 4 * (3 * b * s * di + di * n + 2 * b * s * n + di
+                  + 2 * b * di * n)
+    ops = b * s * di * (n * SCAN_OPS_PER_STATE + SCAN_OPS_PER_CHANNEL)
+    return (terms[by], "bytes" if by == "bytes" else "operations", nbytes,
+            ops)
 
 
 def _qkv(shape, device, seed):
@@ -1932,15 +1969,18 @@ def phase_lm_kernels(device):
 
 
 class _PlainSpy:
-    """Counts calls of the plain attention versions while in place."""
+    """Counts calls of the plain attention and scan versions while in
+    place."""
 
     def __init__(self):
         from repro_torch.kernels import decode_attention as da
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import mamba_scan as ms
 
         self.calls = 0
         self._saved = [(fa, "flash_attention_plain"),
-                       (da, "decode_attention_plain")]
+                       (da, "decode_attention_plain"),
+                       (ms, "mamba_scan_plain")]
         self._fns = [getattr(m, a) for m, a in self._saved]
 
     def __enter__(self):
@@ -2174,42 +2214,217 @@ def phase_lm_timings(device, name):
 
 def phase_lm_breakdown(device, res):
     """Where a decode step goes at the serving path's shape (8 requests,
-    position 512 + i of OLMo-1B): host time per step (synchronized), and
-    under torch.profiler the device's busy share, kernel 8's and the
-    matrix products' shares of device time and device operations per
-    step."""
+    position 512 + i of OLMo-1B): ``_decode_profile`` over
+    ``DECODE_PROFILE_STEPS`` steps."""
+    _decode_profile("olmo-1b", res.params, res.cfg, res.waves[0].prompts,
+                    steps=DECODE_PROFILE_STEPS, top=12)
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the moe, ssm, hybrid and audio LM families (kernels 6, 7, 8)
+# ---------------------------------------------------------------------------
+
+# falcon-mamba-7b and qwen2-moe-a2.7b through serve.main, full width and
+# depth: 4 replicas, 16 requests in waves of 8, prompts of 512, 32 tokens
+FAMILY_WAVES, FAMILY_BATCH = 2, 8
+FAMILY_SERVE_ARGS = ["--replicas", "4",
+                     "--requests", str(FAMILY_WAVES * FAMILY_BATCH),
+                     "--wave-size", str(FAMILY_BATCH),
+                     "--prompt-len", str(SERVE_PROMPT),
+                     "--gen-tokens", str(SERVE_GEN), "--seed", str(SEED)]
+# whisper-medium through serve_wave: prompts of 384 plus 32 generated, in
+# its published 448-token decoder context, against 1,500 encoder frames
+WHISPER_PROMPT = 384
+# dbrx-132b at full width, its 40 layers cut to 4 (one card holds ~31 GB
+# of it; the whole model ~264 GB)
+DBRX_LAYERS = 4
+FAMILY_PROFILE_STEPS = 4
+# the published widths each run asserts: falcon-mamba-7b (layers,
+# d_model, d_inner, state), qwen2-moe-a2.7b (layers, d_model, experts,
+# top-k), whisper-medium (decoder and encoder layers, d_model, heads, head
+# width, frames)
+FALCON_WIDTHS = (64, 4096, 8192, 16)
+QWEN_WIDTHS = (24, 2048, 60, 4)
+WHISPER_WIDTHS = (24, 24, 1024, 16, 64, 1500)
+# kernel 6 at falcon-mamba-7b's prefill; kernels 7 and 8 at the new
+# paths' shapes: (B, Sq, Skv, Hq, Hkv, D, causal) and (B, Hq, Hkv, S, D,
+# kv_len)
+SCAN_FALCON = (8, 512, 8192, 16)
+FA_FAMILIES = {"whisper_encoder": (8, 1500, 1500, 16, 16, 64, False),
+               "whisper_cross": (8, 384, 1500, 16, 16, 64, False),
+               "whisper_self": (8, 384, 384, 16, 16, 64, True),
+               "qwen_prefill": (8, 512, 512, 16, 16, 128, True),
+               "dbrx_prefill": (8, 512, 512, 48, 8, 128, True)}
+DA_FAMILIES = {"whisper_self": (8, 16, 16, 416, 64, 415),
+               "whisper_cross": (8, 16, 16, 1500, 64, 1500),
+               "qwen_decode": (8, 16, 16, 544, 128, 543),
+               "dbrx_decode": (8, 48, 8, 544, 128, 543)}
+FA_FAMILY_TIMED = ("whisper_encoder", "whisper_cross", "dbrx_prefill")
+DA_FAMILY_TIMED = ("whisper_cross", "dbrx_decode")
+
+
+class _DispatchSpy:
+    """Keeps the routing of every MoE prefill dispatch (T > 1 tokens a
+    row) while in place, to count what the capacity dropped afterwards;
+    adds no device operation to the run."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.fn, self.calls = moe, moe.dispatch_rows, []
+
+    def __enter__(self):
+        def spy(idx, num_experts, cap):
+            if idx.shape[1] > 1:
+                self.calls.append((idx, num_experts, cap))
+            return self.fn(idx, num_experts, cap)
+        self.moe.dispatch_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.dispatch_rows = self.fn
+
+    def summary(self):
+        """(assignments dropped, rows whose last expert overflowed, i.e.
+        where the reference's last-slot rule wiped a kept token, rows),
+        over every recorded dispatch."""
+        dropped = fired = rows = 0
+        for idx, e, cap in self.calls:
+            r, t, k = idx.shape
+            counts = torch.zeros((r, e), dtype=torch.int64, device=idx.device)
+            counts.scatter_add_(1, idx.reshape(r, t * k),
+                                torch.ones_like(idx.reshape(r, t * k)))
+            dropped += int((counts - cap).clamp(min=0).sum())
+            fired += int((counts[:, e - 1] > cap).sum())
+            rows += r
+        return dropped, fired, rows
+
+
+def _family_figures(label, waves, generated, seconds):
+    """Print and return tok/s (``generated`` tokens in ``seconds``),
+    prefill ms per wave and decode ms per step of a run's waves."""
+    steps = len(waves) * (waves[0].tokens.shape[1] - 1)
+    fig = dict(tok_per_s=generated / seconds,
+               prefill_ms_per_wave=1e3 * sum(w.prefill_s for w in waves)
+               / len(waves),
+               decode_ms_per_step=1e3 * sum(w.decode_s for w in waves)
+               / steps, seconds=seconds)
+    print(f"LM family {label}: waves={len(waves)} x {waves[0].tokens.shape[0]}"
+          f" requests, prompt {waves[0].prompts.shape[1]}, "
+          f"{waves[0].tokens.shape[1]} tokens: tok_per_s={fig['tok_per_s']} "
+          f"seconds={seconds} prefill_ms_per_wave={fig['prefill_ms_per_wave']}"
+          f" decode_ms_per_step={fig['decode_ms_per_step']}")
+    return fig
+
+
+def _check_waves(waves, cfg, gen):
+    for w in waves:
+        assert w.tokens.shape == (FAMILY_BATCH, gen), w.tokens.shape
+        assert bool(((w.tokens >= 0) & (w.tokens < cfg.padded_vocab)).all())
+        assert bool(torch.isfinite(w.prefill_logits).all())
+
+
+def _to_float32(tree):
+    """Cast every leaf of ``tree`` to float32 in place, one leaf at a time,
+    so that the bfloat16 weights are freed as their float32 copies are
+    made (qwen2-moe's 57 GB in float32 and its 28.6 GB in bfloat16 would
+    not fit together)."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _to_float32(val)
+        else:
+            tree[key] = val.to(torch.float32)
+
+
+def _family_hold(label, params, cfg, wave, extra=None):
+    """Wave 0 again, same prompts, as phase 13 holds OLMo-1B: in bf16
+    through the plain versions (attention and scan); then, the weights
+    cast to float32 IN PLACE (``params`` is float32 afterwards), through
+    the kernels and through the plain versions.  In float32 the two differ
+    by the order of float32 sums alone: prefill logits within
+    ``F32_LOGIT_TOL``, the exact check.  In bf16 a rounding that goes the
+    other way in one of them carries through every layer, and through a
+    MoE router to another expert: each run lies some distance from the
+    float32 run, and the kernel run's can be the larger, since kernel 7
+    rounds its probabilities to bf16 as the reference's LM path does and
+    the plain version keeps them in float32.  So in bf16 the two are held
+    to each other within LOGIT_TOL plus the larger of the two runs' own
+    bf16 deviations.  Tokens identical up to each row's first near tie."""
+    from repro_torch.launch import serve
+
+    gen = wave.tokens.shape[1]
+    with _PlainSpy() as spy:
+        plain = serve.serve_wave(params, cfg, wave.prompts, gen,
+                                 attn_mode="plain", extra=extra)
+    assert spy.calls > 0, label
+    _to_float32(params)
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                              cache_dtype="float32")
+    k32 = serve.serve_wave(params, c32, wave.prompts, gen, extra=extra)
+    f32 = serve.serve_wave(params, c32, wave.prompts, gen, attn_mode="plain",
+                           extra=extra)
+    dev_plain = _max_diff(plain.prefill_logits, f32.prefill_logits)
+    dev_kernel = _max_diff(wave.prefill_logits, f32.prefill_logits)
+    err = _max_diff(wave.prefill_logits, plain.prefill_logits)
+    tol_bf16 = LOGIT_TOL + max(dev_plain, dev_kernel)
+    err32 = _max_diff(k32.prefill_logits, f32.prefill_logits)
+    same, pairs = _tokens_agree(wave, plain, tol_bf16)
+    same32, pairs32 = _tokens_agree(k32, f32, F32_LOGIT_TOL)
+    print(f"LM family {label} wave 0 kernels vs plain, bf16: prefill logits "
+          f"max_abs_err={err} (tolerance {tol_bf16} = {LOGIT_TOL} + the "
+          f"larger of the runs' own bf16 deviations from float32: plain "
+          f"{dev_plain}, kernels {dev_kernel}); tokens identical={same} over "
+          f"{pairs} of {wave.tokens.numel()} (row, step) pairs before each "
+          f"row's first top-2 gap <= {2 * tol_bf16}")
+    print(f"LM family {label} wave 0 kernels vs plain, float32: prefill "
+          f"logits max_abs_err={err32} (tolerance {F32_LOGIT_TOL}); tokens "
+          f"identical={same32} over {pairs32} of {wave.tokens.numel()} (row, "
+          f"step) pairs before each row's first top-2 gap <= "
+          f"{2 * F32_LOGIT_TOL}")
+    assert err <= tol_bf16, (label, err, tol_bf16)
+    assert err32 <= F32_LOGIT_TOL, (label, err32)
+    assert same and same32, label
+    return dict(plain_logit_err=err, bf16_dev_plain=dev_plain,
+                bf16_dev_kernel=dev_kernel, f32_logit_err=err32,
+                f32_pairs=pairs32)
+
+
+def _decode_profile(label, params, cfg, prompts, extra=None,
+                    steps=FAMILY_PROFILE_STEPS, top=6):
+    """Where a decode step of ``cfg`` goes at the serving shape, two warm
+    steps after the prompt: host ms per step (synchronized, unprofiled),
+    and under torch.profiler the device's busy share, kernel 8's and the
+    matrix products' shares of device time, device operations per step
+    and the ``top`` largest device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch import serve
     from repro_torch.models import model as mdl
 
-    cfg, params, prompts = res.cfg, res.params, res.waves[0].prompts
+    b, plen = prompts.shape
     with torch.no_grad():
-        logits, pcache = mdl.prefill(params, cfg, prompts)
-        cache = mdl.init_cache(cfg, prompts.shape[0], SERVE_PROMPT + SERVE_GEN,
-                               device=device)
-        for key, sub in cache.items():
-            sub["k"][:, :, :SERVE_PROMPT] = pcache[key]["k"]
-            sub["v"][:, :, :SERVE_PROMPT] = pcache[key]["v"]
+        logits, pcache = mdl.prefill(params, cfg, prompts, extra or {})
+        cache = serve.decode_cache(cfg, pcache, b, plen, 2 * steps + 2,
+                                   prompts.device)
         del pcache
         tok = torch.argmax(logits, -1)[:, None]
         for i in range(2):                               # warm
-            logits, cache = mdl.decode_step(params, cfg, tok, cache,
-                                            SERVE_PROMPT + i)
+            logits, cache = mdl.decode_step(params, cfg, tok, cache, plen + i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(DECODE_PROFILE_STEPS):
+        for i in range(steps):
             logits, cache = mdl.decode_step(params, cfg, tok, cache,
-                                            SERVE_PROMPT + 2 + i)
+                                            plen + 2 + i)
             tok = torch.argmax(logits, -1)[:, None]
         torch.cuda.synchronize()
-        host_ms = 1e3 * (time.perf_counter() - t0) / DECODE_PROFILE_STEPS
+        host_ms = 1e3 * (time.perf_counter() - t0) / steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for i in range(DECODE_PROFILE_STEPS):
-                logits, cache = mdl.decode_step(
-                    params, cfg, tok, cache,
-                    SERVE_PROMPT + 2 + DECODE_PROFILE_STEPS + i)
+            for i in range(steps):
+                logits, cache = mdl.decode_step(params, cfg, tok, cache,
+                                                plen + 2 + steps + i)
                 tok = torch.argmax(logits, -1)[:, None]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2217,27 +2432,385 @@ def phase_lm_breakdown(device, res):
            for e in prof.key_averages()
            if e.device_type != torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0}
-    busy = sum(t for t, _ in dev.values()) / 1e6
-    n_ops = sum(c for _, c in dev.values())
+    total = sum(t for t, _ in dev.values())
+    assert total > 0, "the profiler saw no device time"
+    n_ops = sum(c for _, c in dev.values()) / steps
     k8 = sum(t for key, (t, _) in dev.items() if "decode_attention" in key)
     mm_words = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")
     mm = sum(t for key, (t, _) in dev.items()
              if any(w in key.lower() for w in mm_words))
-    total = sum(t for t, _ in dev.values())
-    assert total > 0, "the profiler saw no device time"
-    steps = DECODE_PROFILE_STEPS
-    print(f"LM decode step breakdown (olmo-1b, B=8, position ~{SERVE_PROMPT}"
-          f"): host_ms_per_step={host_ms} (synchronized, unprofiled) "
-          f"profiled wall_ms_per_step={1e3 * wall / steps} "
-          f"device_busy_ms_per_step={1e3 * busy / steps} "
-          f"device_busy_share={busy / wall} "
-          f"kernel8_share_of_device={k8 / total} "
-          f"matmul_share_of_device={mm / total} "
-          f"device_ops_per_step={n_ops / steps}")
-    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:12]:
+    busy = total / 1e6
+    print(f"LM decode step breakdown ({label}, B={b}, position ~{plen}): "
+          f"host_ms_per_step={host_ms} (synchronized, unprofiled) profiled "
+          f"wall_ms_per_step={1e3 * wall / steps} device_busy_ms_per_step="
+          f"{1e3 * busy / steps} device_busy_share={busy / wall} "
+          f"kernel8_share_of_device={k8 / total} matmul_share_of_device="
+          f"{mm / total} device_ops_per_step={n_ops}")
+    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:top]:
         t, c = dev[key]
-        print(f"LM decode device time {key[:110]}: per_step_us={t / steps} "
-              f"calls_per_step={c / steps}")
+        print(f"LM decode device time ({label}) {key[:100]}: per_step_us="
+              f"{t / steps} calls_per_step={c / steps}")
+    return dict(host_ms_per_step=host_ms, device_ops_per_step=n_ops,
+                device_busy_share=busy / wall)
+
+
+def _free(*names):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"LM family freed {', '.join(names)}: "
+          f"allocated_gb={torch.cuda.memory_allocated() / 1e9}")
+
+
+def _served_counts(label, counts, want):
+    """The run's launches of kernels 6-8 equal ``want``; every other
+    kernel's but kernel 3's (wave routing) are zero."""
+    got = {k: counts[k] for k in want}
+    print(f"LM family {label} launches: {counts}")
+    assert got == want, (label, got, want)
+    others = {k: v for k, v in counts.items()
+              if k not in want and k != "sdqn_score_cols"}
+    assert not any(others.values()), (label, counts)
+
+
+def _serve_family(arch, device, spy=None):
+    """``serve.main`` for ``arch`` with ``FAMILY_SERVE_ARGS``: counts
+    zeroed just before and read just after, no plain call."""
+    from repro_torch.launch import serve
+
+    with _PlainSpy() as plain, (spy or contextlib.nullcontext()):
+        zero_counts()                                  # the path starts here
+        res = serve.main(["--arch", arch] + FAMILY_SERVE_ARGS)
+        counts = read_counts()                         # ... and ends here
+    assert plain.calls == 0, (arch, plain.calls)
+    m = res.daemon.metrics
+    assert counts["sdqn_score_cols"] == m.batches + 1, (counts, m)
+    assert len(res.waves) == FAMILY_WAVES and m.bound == FAMILY_WAVES, m
+    n_params = sum(t.numel() for t in _leaves(res.params))
+    print(f"LM family {arch}: params={n_params} (param_count() "
+          f"{res.cfg.param_count()}), bf16, full width and depth "
+          f"({res.cfg.num_layers} layers, d_model {res.cfg.d_model}); "
+          f"replicas={res.counts.tolist()} daemon_batches={m.batches}")
+    return res, counts, n_params
+
+
+def _waves_through(params, cfg, device, waves, plen, extra_fn=None):
+    """``waves`` waves of FAMILY_BATCH prompts through ``serve_wave``, the
+    counts zeroed just before and read just after."""
+    from repro_torch.launch import serve
+
+    out = []
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        t0 = time.perf_counter()
+        for w in range(waves):
+            prompts = serve.sample_requests(
+                serve.seed_generator(SEED, 100 + w, device), FAMILY_BATCH,
+                cfg.vocab_size, plen)
+            out.append(serve.serve_wave(params, cfg, prompts, SERVE_GEN,
+                                        extra=extra_fn(w) if extra_fn
+                                        else None))
+        seconds = time.perf_counter() - t0
+        counts = read_counts()                         # ... and ends here
+    assert plain.calls == 0, plain.calls
+    return out, counts, seconds
+
+
+def phase_lm_families(device):
+    """Phase 20: falcon-mamba-7b and qwen2-moe-a2.7b through ``serve.main``,
+    whisper-medium through ``serve_wave`` with its frames, all three at
+    full width and depth; dbrx-132b at full width and 4 layers; jamba at
+    its smoke widths; each wave 0 again through the plain versions, every
+    model freed before the next.  Returns ({kernel: {path: launches}},
+    figures per model)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+
+    t_phase = time.perf_counter()
+    paths = {"mamba_scan": {}, "flash_attention": {}, "decode_attention": {}}
+    figures = {}
+    steps = SERVE_GEN - 1
+
+    # falcon-mamba-7b: one kernel-6 launch a layer a wave, none in decode,
+    # no attention
+    res, counts, n_params = _serve_family("falcon-mamba-7b", device)
+    cfg = res.cfg
+    assert (cfg.num_layers, cfg.d_model, cfg.d_inner,
+            cfg.ssm_state) == FALCON_WIDTHS, cfg
+    _served_counts("falcon-mamba-7b", counts, {
+        "mamba_scan": cfg.num_layers * FAMILY_WAVES,
+        "flash_attention": 0, "decode_attention": 0})
+    paths["mamba_scan"]["falcon-mamba-7b prefill"] = counts["mamba_scan"]
+    _check_waves(res.waves, cfg, SERVE_GEN)
+    fig = _family_figures("falcon-mamba-7b", res.waves, res.generated,
+                          res.seconds)
+    fig.update(_decode_profile("falcon-mamba-7b", res.params, cfg,
+                               res.waves[0].prompts))
+    fig.update(_family_hold("falcon-mamba-7b", res.params, cfg, res.waves[0]))
+    figures["falcon-mamba-7b"] = dict(fig, params=n_params)
+    del res
+    _free("falcon-mamba-7b")
+
+    # qwen2-moe-a2.7b: kernel 7 a layer a wave, kernel 8 a layer a step;
+    # what the capacity dropped in each prefill
+    dspy = _DispatchSpy()
+    res, counts, n_params = _serve_family("qwen2-moe-a2.7b", device, dspy)
+    cfg = res.cfg
+    assert (cfg.num_layers, cfg.d_model, cfg.moe_num_experts,
+            cfg.moe_top_k) == QWEN_WIDTHS, cfg
+    _served_counts("qwen2-moe-a2.7b", counts, {
+        "mamba_scan": 0, "flash_attention": cfg.num_layers * FAMILY_WAVES,
+        "decode_attention": cfg.num_layers * steps * FAMILY_WAVES})
+    paths["flash_attention"]["qwen2-moe-a2.7b prefill"] = counts[
+        "flash_attention"]
+    paths["decode_attention"]["qwen2-moe-a2.7b decode"] = counts[
+        "decode_attention"]
+    dropped, fired, rows = dspy.summary()
+    cap = dspy.calls[0][2]
+    assert len(dspy.calls) == cfg.num_layers * FAMILY_WAVES, len(dspy.calls)
+    print(f"LM family qwen2-moe-a2.7b MoE prefill dispatch: "
+          f"{len(dspy.calls)} dispatches of {FAMILY_BATCH} rows x 512 tokens "
+          f"x top-{cfg.moe_top_k}, capacity {cap} a row per expert: "
+          f"assignments dropped={dropped} of "
+          f"{rows * 512 * cfg.moe_top_k}; rows whose last expert overflowed "
+          f"(the last-slot rule wiped a kept token)={fired} of {rows}")
+    _check_waves(res.waves, cfg, SERVE_GEN)
+    fig = _family_figures("qwen2-moe-a2.7b", res.waves, res.generated,
+                          res.seconds)
+    fig.update(_decode_profile("qwen2-moe-a2.7b", res.params, cfg,
+                               res.waves[0].prompts))
+    fig.update(_family_hold("qwen2-moe-a2.7b", res.params, cfg, res.waves[0]))
+    figures["qwen2-moe-a2.7b"] = dict(
+        fig, params=n_params, moe_dropped=dropped, moe_last_slot_rows=fired,
+        moe_rows=rows, capacity=cap)
+    del res
+    _free("qwen2-moe-a2.7b")
+
+    # whisper-medium: kernel 7 for the encoder, the decoder's
+    # self-attention and its cross-attention; kernel 8 for both in decode
+    cfg = get_config("whisper-medium")
+    assert (cfg.num_layers, cfg.enc_layers, cfg.d_model, cfg.num_heads,
+            cfg.resolved_head_dim, cfg.enc_seq) == WHISPER_WIDTHS, cfg
+    params = mdl.init_params(serve.seed_generator(SEED, 0, device), cfg,
+                             device)
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    def frames(w):
+        gen = serve.seed_generator(SEED, 200 + w, device)
+        return {"frames": (0.02 * torch.randn(
+            (FAMILY_BATCH, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=device)).to(torch.bfloat16)}
+
+    waves, counts, seconds = _waves_through(params, cfg, device, FAMILY_WAVES,
+                                            WHISPER_PROMPT, frames)
+    # a wave: kernel 7 once an encoder layer, once a decoder layer's self-
+    # and once its cross-attention (72); kernel 8 twice a decoder layer a
+    # step (48)
+    _served_counts("whisper-medium", counts, {
+        "mamba_scan": 0,
+        "flash_attention": (cfg.enc_layers + 2 * cfg.num_layers)
+        * FAMILY_WAVES,
+        "decode_attention": 2 * cfg.num_layers * steps * FAMILY_WAVES})
+    paths["flash_attention"]["whisper-medium encoder, self and cross "
+                             "prefill"] = counts["flash_attention"]
+    paths["decode_attention"]["whisper-medium self and cross decode"] = (
+        counts["decode_attention"])
+    _check_waves(waves, cfg, SERVE_GEN)
+    print(f"LM family whisper-medium: params={n_params} (param_count() "
+          f"{cfg.param_count()}), bf16, full width and depth")
+    fig = _family_figures("whisper-medium", waves,
+                          FAMILY_WAVES * FAMILY_BATCH * SERVE_GEN, seconds)
+    fig.update(_decode_profile("whisper-medium", params, cfg,
+                               waves[0].prompts, frames(0)))
+    fig.update(_family_hold("whisper-medium", params, cfg, waves[0],
+                            frames(0)))
+    figures["whisper-medium"] = dict(fig, params=n_params)
+    del params, waves
+    _free("whisper-medium")
+
+    # dbrx-132b: full width, 4 of its 40 layers (a cut: ~264 GB whole)
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=DBRX_LAYERS)
+    print(f"LM family dbrx-132b CUT to {DBRX_LAYERS} of 40 layers at full "
+          f"width (d_model {cfg.d_model}, 48 / 8 heads of 128, 16 experts of "
+          f"{cfg.moe_d_ff}, top-{cfg.moe_top_k}): the whole model does not "
+          f"fit on one card")
+    params = mdl.init_params(serve.seed_generator(SEED, 0, device), cfg,
+                             device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    waves, counts, seconds = _waves_through(params, cfg, device, 1,
+                                            SERVE_PROMPT)
+    _served_counts("dbrx-132b (4 layers)", counts, {
+        "mamba_scan": 0, "flash_attention": DBRX_LAYERS,
+        "decode_attention": DBRX_LAYERS * steps})
+    paths["flash_attention"]["dbrx-132b (4 layers) prefill"] = counts[
+        "flash_attention"]
+    paths["decode_attention"]["dbrx-132b (4 layers) decode"] = counts[
+        "decode_attention"]
+    _check_waves(waves, cfg, SERVE_GEN)
+    fig = _family_figures("dbrx-132b (4 layers)", waves,
+                          FAMILY_BATCH * SERVE_GEN, seconds)
+    fig.update(_decode_profile("dbrx-132b (4 layers)", params, cfg,
+                               waves[0].prompts))
+    fig.update(_family_hold("dbrx-132b (4 layers)", params, cfg, waves[0]))
+    figures["dbrx-132b (4 layers)"] = dict(fig, params=n_params)
+    del params, waves
+    _free("dbrx-132b")
+
+    # jamba at its smoke widths: kernels 6, 7 and 8 in one hybrid block
+    cfg = get_config("jamba-1.5-large-398b", smoke=True)
+    spec, nb = mdl.block_spec(cfg), mdl.num_blocks(cfg)
+    n_attn = nb * sum(s.mixer == "attn" for s in spec)
+    n_mamba = nb * sum(s.mixer == "mamba" for s in spec)
+    params = mdl.init_params(serve.seed_generator(SEED, 0, device), cfg,
+                             device)
+    waves, counts, seconds = _waves_through(params, cfg, device, 1,
+                                            SERVE_PROMPT)
+    _served_counts("jamba-1.5-large-398b (smoke)", counts, {
+        "mamba_scan": n_mamba, "flash_attention": n_attn,
+        "decode_attention": n_attn * steps})
+    paths["mamba_scan"]["jamba (smoke widths) prefill"] = counts["mamba_scan"]
+    paths["flash_attention"]["jamba (smoke widths) prefill"] = counts[
+        "flash_attention"]
+    paths["decode_attention"]["jamba (smoke widths) decode"] = counts[
+        "decode_attention"]
+    _check_waves(waves, cfg, SERVE_GEN)
+    fig = _family_figures("jamba-1.5-large-398b (smoke)", waves,
+                          FAMILY_BATCH * SERVE_GEN, seconds)
+    fig.update(_family_hold("jamba-1.5-large-398b (smoke)", params, cfg,
+                            waves[0]))
+    figures["jamba-1.5-large-398b (smoke)"] = fig
+    del params, waves
+    _free("jamba")
+    print(f"phase 20 seconds={time.perf_counter() - t_phase}")
+    return paths, figures
+
+
+def phase_family_kernels(device):
+    """Kernels 6, 7 and 8 against their plain versions at phase 20's new
+    shapes: {kernel: max_abs_err}."""
+    from repro_torch.kernels import ops
+
+    errs = {}
+
+    def check(key, label, got, want, tol):
+        torch.cuda.synchronize()
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert bool(torch.isfinite(g.float()).all())
+            err = float((g.float() - w.float()).abs().max())
+            print(f"{key} vs plain {label}: max_abs_err={err} "
+                  f"(tolerance {tol})")
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    args = _scan_args(SCAN_FALCON, device, SEED + 31)
+    check("mamba_scan", f"(B, S, di, N)={SCAN_FALCON} float32",
+          ops.mamba_scan(*args, mode="cuda"),
+          ops.mamba_scan(*args, mode="plain"), SCAN_TOL)
+    del args
+    for label, (b, sq, skv, hq, hkv, d, causal) in FA_FAMILIES.items():
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(
+            (b, sq, skv, hq, hkv, d), device, SEED + sq + hq))
+        check("flash_attention", f"{label} (B, Sq, Skv, Hq, Hkv, D)="
+              f"{(b, sq, skv, hq, hkv, d)} causal={causal} bf16",
+              ops.flash_attention(q, k, v, causal=causal, mode="cuda"),
+              ops.flash_attention(q, k, v, causal=causal, mode="plain"),
+              LM_TOL[torch.bfloat16])
+    for label, (b, hq, hkv, s, d, n) in DA_FAMILIES.items():
+        q, k, v = _decode_case((b, hq, hkv, s, d), torch.bfloat16, device,
+                               SEED + s + hq, cache_layout=True)
+        check("decode_attention", f"{label} (B, Hq, Hkv, S, D)="
+              f"{(b, hq, hkv, s, d)} kv_len={n} bf16 (B, S, Hkv, D) cache view",
+              ops.decode_attention(q, k, v, n, mode="cuda"),
+              ops.decode_attention(q, k, v, n, mode="plain"),
+              LM_TOL[torch.bfloat16])
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_family_timings(device, name):
+    """Kernel 6 at falcon-mamba-7b's prefill, kernel 7 at whisper's encoder
+    and cross shapes and dbrx's GQA prefill, kernel 8 at whisper's cross
+    cache and dbrx's GQA decode: device time from a CUDA graph, the plain
+    versions' likewise, the bound from these inputs, and SDPA on the same
+    tensors for the attention kernels (``library_ms``)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    saved = read_counts()
+    rows = {"mamba_scan": [], "flash_attention": [], "decode_attention": []}
+    args = _scan_args(SCAN_FALCON, device, SEED + 32)
+    ms_ms = graph_time_ms(lambda: ms.mamba_scan(*args), 20)
+    plain_ms = graph_time_ms(lambda: ms.mamba_scan_plain(*args), 1, reps=2)
+    b_ms, b_by, nbytes, n_ops = scan_bound(SCAN_FALCON, name)
+    terms = scan_bound_terms(SCAN_FALCON, name)
+    plan = ms.scan_plan(SCAN_FALCON[0], SCAN_FALCON[2], SCAN_FALCON[3])
+    rows["mamba_scan"].append(dict(
+        ms=ms_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape=list(SCAN_FALCON), bound_terms_ms=terms,
+        plan=dataclasses.asdict(plan), path="falcon-mamba-7b prefill"))
+    print(f"timing mamba_scan falcon-mamba-7b prefill (B, S, di, N)="
+          f"{SCAN_FALCON}: kernel_ms={ms_ms} plain_ms={plain_ms} (device "
+          f"time, CUDA graph) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
+          f"ops={n_ops}; terms_ms {terms}) kernel/bound={ms_ms / b_ms} "
+          f"plan: {plan} blocks={plan.blocks}")
+    del args
+    for label in FA_FAMILY_TIMED:
+        b, sq, skv, hq, hkv, d, causal = FA_FAMILIES[label]
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(
+            (b, sq, skv, hq, hkv, d), device, SEED + 33))
+        ms_ = graph_time_ms(lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal), 20)
+        plain_ms = graph_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), 2, reps=2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib, backend = _library_attention(qt, kt, vt, causal=causal)
+        library_ms = graph_time_ms(lib, 20)
+        pairs = causal_pairs(sq, skv) if causal else sq * skv
+        b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+            b, hq, hkv, sq, skv, d, pairs, 2, name)
+        rows["flash_attention"].append(dict(
+            ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, shape=[b, sq, skv, hq, hkv, d],
+            causal=causal, library_kernel=backend, bound_terms_ms=terms,
+            path=label))
+        print(f"timing flash_attention {label} (B, Sq, Skv, Hq, Hkv, D)="
+              f"{(b, sq, skv, hq, hkv, d)} bf16 causal={causal}: "
+              f"kernel_ms={ms_} plain_ms={plain_ms} (device time, CUDA "
+              f"graph) library_ms={library_ms} (SDPA, CUDA graph; kernel "
+              f"{backend[:90]}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
+              f"ops={n_ops}; terms_ms {terms}) kernel/bound={ms_ / b_ms}")
+        del q, k, v, qt, kt, vt
+    for label in DA_FAMILY_TIMED:
+        b, hq, hkv, s, d, n = DA_FAMILIES[label]
+        q, k, v = _decode_case((b, hq, hkv, s, d), torch.bfloat16, device,
+                               SEED + 34, cache_layout=True)
+        ms_ = graph_time_ms(lambda: da.decode_attention(q, k, v, n), 200)
+        plain_ms = graph_time_ms(lambda: da.decode_attention_plain(
+            q, k, v, n), 3, reps=3)
+        mask = (torch.arange(s, device=device) < n)[None, None, None, :]
+        lib, backend = _library_attention(q[:, :, None], k, v, mask=mask)
+        library_ms = graph_time_ms(lib, 200)
+        b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+            b, hq, hkv, 1, n, d, n, 2, name)
+        rows["decode_attention"].append(dict(
+            ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, shape=[b, hq, hkv, s, d], kv_len=n,
+            library_kernel=backend, bound_terms_ms=terms, path=label))
+        print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)="
+              f"{(b, hq, hkv, s, d)} kv_len={n} bf16 (B, S, Hkv, D) cache "
+              f"view: kernel_ms={ms_} plain_ms={plain_ms} (device time, CUDA "
+              f"graph) library_ms={library_ms} (SDPA with a kv_len mask, CUDA "
+              f"graph; kernel {backend[:90]}) bound_ms={b_ms} ({b_by}; "
+              f"bytes={nbytes} ops={n_ops}; terms_ms {terms}) "
+              f"kernel/bound={ms_ / b_ms}")
+        del q, k, v
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3502,6 +4075,12 @@ def main() -> int:
     errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"],
                                         chaos_err)
     errs["sdqn_score_cols"] = max(errs["sdqn_score_cols"], drain_err)
+    family_paths, family_figures = phase_lm_families(device)
+    family_errs = phase_family_kernels(device)
+    errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
+    for key in ("flash_attention", "decode_attention"):
+        lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],
+                                       family_errs[key])
     paths = {"flash_attention": {"attention policy class":
                                  launches["flash_attention"],
                                  "LM prefill": lm_counts["flash_attention"],
@@ -3518,7 +4097,9 @@ def main() -> int:
              "sdqn_score_cols": {"flat job->host": launches["sdqn_score_cols"],
                                  "LM wave routing":
                                  lm_counts["sdqn_score_cols"]}}
-    for key, per_path in rest_paths.items():
+    paths["mamba_scan"] = {"mamba policy class": launches["mamba_scan"]}
+    for key, per_path in list(rest_paths.items()) + list(
+            family_paths.items()):
         paths[key].update(per_path)
     for key, per_path in paths.items():
         launches[key] = sum(per_path.values())
@@ -3530,6 +4111,8 @@ def main() -> int:
     timing["decode_attention"] = dict(lm_timing["path"], other_shapes=[
         lm_timing["olmo_32k"], lm_timing["granite_32k"]])
     timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
+    for key, rows in phase_family_timings(device, name).items():
+        timing[key].setdefault("other_shapes", []).extend(rows)
     phase_breakdown(device)
     phase_sharded_breakdown(device)
     phase_policy_breakdown(device)
@@ -3575,6 +4158,7 @@ def main() -> int:
                       "bound_terms_ms", "launch_floor_ms", "plan"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
+    print(f"lm_families {json.dumps(family_figures)}")
     print(f"chip_smoke seconds={time.perf_counter() - t_start}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

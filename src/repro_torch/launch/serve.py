@@ -6,16 +6,19 @@ routes each wave to one of several model-server replicas on their load
 features (every wave submitted as a placement request, a batch of them
 scored in one launch of the column kernel and bound with optimistic
 concurrency), then the wave is served: prefill of its prompts (kernel 7 in
-every attention layer), the prompt's K/V copied into a cache of
-``prompt_len + gen_tokens`` positions, and a greedy decode loop (kernel 8
-in every attention layer of every step).  The model's weights are random,
+every attention layer, kernel 6 in every mamba layer), the prompt's cache
+copied into one of ``prompt_len + gen_tokens`` positions, and a greedy
+decode loop (kernel 8 in every attention layer of every step).  The model's weights are random,
 drawn from ``--seed``; the replicas share them.
 
     python -m repro_torch.launch.serve --arch olmo-1b --replicas 4 \\
         --requests 32 --wave-size 8 --prompt-len 512 --gen-tokens 32
 
 runs on the CUDA card; ``--device cpu`` runs the kernels' plain versions
-on the CPU (``--smoke`` for a reduced model).  ``--qnet-path`` loads the
+on the CPU (``--smoke`` for a reduced model).  Every family serves
+(dense, moe, ssm, hybrid, vlm); ``main`` passes no encoder input, as the
+reference's does, so an encoder-decoder arch (whisper) raises
+``ValueError`` there; ``serve_wave(extra={"frames": ...})`` serves it.  ``--qnet-path`` loads the
 routing policy from a checkpoint directory (``checkpoint.ckpt``, either
 package's) or a legacy ``.npz``.  ``--online`` records every routing
 decision (``sched.online.FleetTransitionRecorder`` on the daemon's
@@ -102,11 +105,30 @@ def _top2_gap(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
+def decode_cache(cfg: ModelConfig, pcache: dict, batch: int, plen: int,
+                 gen_tokens: int, device=None) -> dict:
+    """The decode cache of ``plen + gen_tokens`` positions seeded from a
+    prefill cache: its K/V in the first ``plen`` positions, every other
+    leaf (the mamba ``conv`` and ``h``, the encoder's ``xk`` and ``xv``)
+    whole.  The reference pads only its 5-D leaves of length ``plen``
+    (``repro/launch/serve.py:156-163``) and keeps the rest as they are."""
+    cache = mdl.init_cache(cfg, batch, plen + gen_tokens, device=device)
+    for name, sub in cache.items():
+        for leaf, t in sub.items():
+            if leaf in ("k", "v"):
+                t[:, :, :plen] = pcache[name][leaf]
+            else:
+                t.copy_(pcache[name][leaf])
+    return cache
+
+
 def serve_wave(params, cfg: ModelConfig, prompts: torch.Tensor,
-               gen_tokens: int, *, attn_mode: Optional[str] = None
-               ) -> WaveResult:
-    """Prefill ``prompts`` (B, P), copy their K/V into a cache of P +
-    ``gen_tokens`` positions, and decode ``gen_tokens`` greedy tokens (the
+               gen_tokens: int, *, attn_mode: Optional[str] = None,
+               extra: Optional[dict] = None) -> WaveResult:
+    """Prefill ``prompts`` (B, P) (with ``extra``, e.g. an encoder-decoder's
+    ``{"frames": ...}``), copy the prefill cache into a decode cache of P +
+    ``gen_tokens`` positions (K/V into the first P, the mamba states and
+    the encoder's K/V whole), and decode ``gen_tokens`` greedy tokens (the
     first from the prefill's logits).  ``attn_mode`` is that of
     ``kernels.ops`` (None: the kernels on the card, the plain versions on
     the CPU)."""
@@ -120,12 +142,10 @@ def serve_wave(params, cfg: ModelConfig, prompts: torch.Tensor,
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        logits, pcache = mdl.prefill(params, cfg, prompts, {},
+        logits, pcache = mdl.prefill(params, cfg, prompts,
+                                     {} if extra is None else extra,
                                      attn_mode=attn_mode)
-        cache = mdl.init_cache(cfg, b, plen + gen_tokens, device=device)
-        for name, sub in cache.items():
-            sub["k"][:, :, :plen] = pcache[name]["k"]
-            sub["v"][:, :, :plen] = pcache[name]["v"]
+        cache = decode_cache(cfg, pcache, b, plen, gen_tokens, device)
         del pcache
         sync()
         t1 = time.perf_counter()
@@ -243,7 +263,8 @@ def main(argv=None) -> ServeResult:
         prompts = sample_requests(seed_generator(args.seed, 100 + w, device),
                                   args.wave_size, cfg.vocab_size,
                                   args.prompt_len)
-        results.append(serve_wave(params, cfg, prompts, args.gen_tokens))
+        results.append(serve_wave(params, cfg, prompts, args.gen_tokens,
+                                  extra={}))
     dt = time.perf_counter() - t0
     generated = len(results) * args.wave_size * args.gen_tokens
 

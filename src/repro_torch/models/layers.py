@@ -8,10 +8,12 @@ JAX's, so the parity tests carry the reference's weights across
 (``convert.lm_params_from_numpy``).
 
 ``attention`` dispatches to the port's kernels: one query token against a
-KV cache (``kv_len`` given) to kernel 8 (``kernels/decode_attention.py``),
-self-attention to kernel 7 (``kernels/flash_attention.py``).  On CUDA
-tensors the kernels run, on CPU tensors their plain versions (``mode``
-picks one explicitly); any other case raises ``NotImplementedError``.
+KV cache (``kv_len`` given, or non-causal cross-attention at decode) to
+kernel 8 (``kernels/decode_attention.py``), self-attention, the encoder and
+cross-attention at prefill to kernel 7 (``kernels/flash_attention.py``).
+On CUDA tensors the kernels run, on CPU tensors their plain versions
+(``mode`` picks one explicitly); an offset causal query block raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -121,18 +123,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       whose first ``kv_len`` positions are valid, ``q_offset`` its
       position): kernel 8 on ``q[:, 0]`` and the cache seen as
       (B, Hkv, S, hd) through ``permute``, which copies nothing;
-    * no ``kv_len``, Sq == Skv (self-attention, causal or not): kernel 7.
+    * no ``kv_len``, non-causal, one query token (cross-attention at
+      decode, against the whole encoder cache): kernel 8 with
+      ``kv_len = Skv``, whose split-KV grid fills the card where kernel
+      7 would leave 63 of a block's 64 query rows idle;
+    * no ``kv_len``, otherwise: kernel 7, non-causal at any Sq and Skv
+      (cross-attention at prefill, the encoder), causal at Sq == Skv.
 
-    ``q_chunk`` and ``causal_buckets`` set the reference's memory and speed,
-    not its result; the kernels need neither.  A cache stored in another
-    dtype than q is cast to q's, as the reference does (a float8 cache is
-    refused by the kernels).  ``mode`` is that of ``kernels.ops``: ``None``
-    runs the kernels on CUDA tensors and their plain versions on the CPU.
+    Causal with Sq != Skv or with ``q_offset`` and no ``kv_len`` raises
+    ``NotImplementedError``: the reference's diagonal there starts at key
+    0, kernel 7's at Skv - Sq, and no path runs it.  ``q_chunk`` and
+    ``causal_buckets`` set the reference's memory and speed, not its
+    result; the kernels need neither.  A cache stored in another dtype
+    than q is cast to q's, as the reference does (a float8 cache is
+    refused by the kernels).  ``mode`` is that of ``kernels.ops``:
+    ``None`` runs the kernels on CUDA tensors and their plain versions on
+    the CPU.
     """
     del q_chunk, causal_buckets
     if k.dtype != q.dtype and k.dtype in (torch.float32, torch.bfloat16):
         k, v = k.to(q.dtype), v.to(q.dtype)
     sq, skv = q.shape[1], k.shape[1]
+    if kv_len is None and sq == 1 and not causal and q_offset is None:
+        kv_len = skv
     if kv_len is not None:
         if sq != 1:
             raise NotImplementedError(
@@ -142,11 +155,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = ops.decode_attention(q[:, 0], k.permute(0, 2, 1, 3),
                                    v.permute(0, 2, 1, 3), kv_len, mode=mode)
         return out[:, None]
-    if q_offset is not None or sq != skv:
+    if q_offset is not None or (causal and sq != skv):
         raise NotImplementedError(
-            f"attention: Sq={sq} against Skv={skv} keys without kv_len "
-            f"(cross-attention and offset queries are not ported; see ROADMAP "
-            f"'LM scaffolding')")
+            f"attention: causal Sq={sq} against Skv={skv} keys without "
+            f"kv_len (offset queries are not ported: no path runs them)")
     return ops.flash_attention(q, k, v, causal=causal, mode=mode)
 
 
@@ -179,6 +191,15 @@ def attention_qkv(params: dict, x: torch.Tensor, cfg):
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     return (q.reshape(b, s, hq, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
+
+
+def attention_q(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The query projection alone (cross-attention), (B, S, Hq, hd)."""
+    b, s, _ = x.shape
+    q = x @ params["wq"]
+    if cfg.use_bias:
+        q = q + params["bq"]
+    return q.reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
 
 
 def attention_out(params: dict, o: torch.Tensor) -> torch.Tensor:

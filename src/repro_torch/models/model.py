@@ -1,21 +1,26 @@
-"""The LM (port of ``repro.models.model``): the ``dense`` and ``vlm``
-families, for inference.
+"""The LM (port of ``repro.models.model``): every family, dense, moe,
+ssm, hybrid, vlm and audio (encoder-decoder), for inference.
 
-Layers are grouped into *blocks* (the repeating unit, one layer for the
-ported families) whose parameters are stacked over blocks, ``(nb, ...)``,
-in the reference's tree, so ``convert.lm_params_from_numpy`` is a tree map.
-Where the reference scans over the stacked blocks (``lax.scan``), the port
-loops over them in Python; ``remat`` and ``scan_layers`` set how the
-reference trains and compiles, and an eager forward pass needs neither.
+Layers are grouped into *blocks* (the repeating unit: one layer, or a
+period of ``attn_period`` layers for jamba) whose parameters are stacked
+over blocks, ``(nb, ...)``, in the reference's tree, so
+``convert.lm_params_from_numpy`` is a tree map.  Where the reference scans
+over the stacked blocks (``lax.scan``), the port loops over them in
+Python; ``remat`` and ``scan_layers`` set how the reference trains and
+compiles, and an eager forward pass needs neither.
 
-The decode cache is ``{"sub0": {"k", "v"}}``, each (nb, B, max_len, Hkv,
-hd).  ``decode_step`` writes the new token's K/V into it IN PLACE (the
-reference's ``dynamic_update_slice`` returns a new cache, which on the card
-would copy the whole cache every step) and returns the same dict.
+The decode cache has, per sub-layer and stacked over blocks, ``k`` and
+``v`` (nb, B, max_len, Hkv, hd) for attention, ``conv`` (nb, B, cw - 1,
+di) and ``h`` (nb, B, di, N) float32 for a mamba mixer, and ``xk`` and
+``xv`` (nb, B, enc_seq, Hkv, hd), the encoder's keys and values, for
+cross-attention.  ``decode_step`` writes the new token's K/V and the new
+mamba state into it IN PLACE (the reference returns a new cache, which on
+the card would copy the whole cache every step) and returns the same dict.
 
-The ``mamba`` and ``moe`` sub-layers (ssm, hybrid and moe families) and
-cross-attention (the audio family) raise ``NotImplementedError``: they are
-later items of ROADMAP "LM scaffolding", as is ``loss_and_metrics``.
+The reference's quirks are kept: cross-attention's keys and values carry
+no bias even where ``use_bias`` holds (``_cross_kv``), and prefill returns
+the conv state in bfloat16 even in a float32 run.  ``loss_and_metrics``
+(training) is not ported yet.
 
 Public entry points: init_params, init_cache, forward, prefill,
 decode_step, logits_from_hidden.
@@ -28,9 +33,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
-
-ROADMAP_ITEM = "ROADMAP queue 1, 'LM scaffolding'"
+from repro_torch.models import layers, mamba, moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +42,9 @@ class SubLayer:
     ffn: str    # "mlp" | "moe" | "none"
     cross: bool = False  # enc-dec cross attention after the mixer
     causal: bool = True
+
+
+ENCODER_SPEC = [SubLayer("attn", "mlp", causal=False)]
 
 
 def block_spec(cfg: ModelConfig) -> List[SubLayer]:
@@ -62,22 +68,6 @@ def num_blocks(cfg: ModelConfig) -> int:
     return cfg.num_layers // len(spec)
 
 
-def check_ported(cfg: ModelConfig) -> List[SubLayer]:
-    """The block spec, raising ``NotImplementedError`` for a sub-layer the
-    port does not have yet."""
-    spec = block_spec(cfg)
-    for sub in spec:
-        missing = ("mamba mixer (models/mamba.py)" if sub.mixer != "attn"
-                   else "MoE FFN (models/moe.py)" if sub.ffn == "moe"
-                   else "cross-attention (the audio family)" if sub.cross
-                   else None)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) needs the {missing}, not ported "
-                f"yet: {ROADMAP_ITEM}")
-    return spec
-
-
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -87,14 +77,26 @@ def _dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def _init_sublayer(gen, sub: SubLayer, cfg: ModelConfig, dtype, device) -> dict:
-    return {
-        "norm1": layers.init_norm(cfg.norm, cfg.d_model, dtype, device),
-        "attn": layers.init_attention(gen, cfg, dtype, device),
-        "norm2": layers.init_norm(cfg.norm, cfg.d_model, dtype, device),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                               cfg.num_layers, device),
-    }
+def _init_sublayer(gen, sub: SubLayer, cfg: ModelConfig, dtype,
+                   device) -> dict:
+    p: Dict[str, Any] = {
+        "norm1": layers.init_norm(cfg.norm, cfg.d_model, dtype, device)}
+    if sub.mixer == "attn":
+        p["attn"] = layers.init_attention(gen, cfg, dtype, device)
+    else:
+        p["mamba"] = mamba.init_mamba(gen, cfg, dtype, device)
+    if sub.cross:
+        p["cross_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dtype,
+                                           device)
+        p["cross"] = layers.init_attention(gen, cfg, dtype, device)
+    if sub.ffn != "none":
+        p["norm2"] = layers.init_norm(cfg.norm, cfg.d_model, dtype, device)
+        if sub.ffn == "moe":
+            p["moe"] = moe.init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                       dtype, cfg.num_layers, device)
+    return p
 
 
 def _stack(trees: List[Any]):
@@ -106,7 +108,7 @@ def _stack(trees: List[Any]):
 def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """Random weights drawn from ``gen`` (on its device), in the
     reference's tree with leaves stacked over blocks, on ``device``."""
-    spec = check_ported(cfg)
+    spec = block_spec(cfg)
     dtype = _dtype(cfg.param_dtype)
     nb = num_blocks(cfg)
     params: Dict[str, Any] = {
@@ -123,6 +125,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
         params["lm_head"] = layers.dense_init(
             gen, (cfg.d_model, cfg.padded_vocab), dtype,
             scale=cfg.d_model ** -0.5, device=device)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": {"sub0": _stack([
+                _init_sublayer(gen, ENCODER_SPEC[0], cfg, dtype, device)
+                for _ in range(cfg.enc_layers)])},
+            "final_norm": layers.init_norm(cfg.norm, cfg.d_model, dtype,
+                                           device),
+        }
     return params
 
 
@@ -133,14 +143,30 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
-    """Decode cache: per sub-layer, stacked over blocks, zeros."""
-    spec = check_ported(cfg)
+    """Decode cache: per sub-layer, stacked over blocks, zeros (the mamba
+    state ``h`` float32, the rest in ``dtype``, the config's cache dtype by
+    default)."""
     dtype = dtype or _dtype(cfg.cache_dtype)
-    shape = (num_blocks(cfg), batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {f"sub{j}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for j in range(len(spec))}
+    nb = num_blocks(cfg)
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((nb, batch) + shape, dtype=dt, device=device)
+
+    cache: Dict[str, Any] = {}
+    for j, sub in enumerate(block_spec(cfg)):
+        c: Dict[str, Any] = {}
+        if sub.mixer == "attn":
+            c["k"] = zeros(max_len, hkv, hd)
+            c["v"] = zeros(max_len, hkv, hd)
+        else:
+            c["conv"] = zeros(cfg.ssm_conv - 1, cfg.d_inner)
+            c["h"] = zeros(cfg.d_inner, cfg.ssm_state, dt=torch.float32)
+        if sub.cross:
+            c["xk"] = zeros(cfg.enc_seq, hkv, hd)
+            c["xv"] = zeros(cfg.enc_seq, hkv, hd)
+        cache[f"sub{j}"] = c
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +182,16 @@ def _embed_tokens(params, cfg, tokens, extra: Optional[dict]) -> torch.Tensor:
     return x
 
 
+def _sinusoidal(seq: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 def _run_attn(sp, x, cfg, *, positions, causal, cache_kv=None,
               cache_index=None, collect_kv=False, attn_mode=None):
-    """One attention sub-layer (prefill or decode)."""
+    """One self-attention sub-layer (prefill or decode)."""
     q, k, v = layers.attention_qkv(sp, x, cfg)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
@@ -178,27 +211,79 @@ def _run_attn(sp, x, cfg, *, positions, causal, cache_kv=None,
     return layers.attention_out(sp, o), new_kv
 
 
+def _run_cross(sp, x, cfg, kv, attn_mode=None):
+    """Cross-attention of x's queries (no RoPE) against the encoder's K/V
+    (kernel 7 at prefill, kernel 8 for the one decode token)."""
+    o = layers.attention(layers.attention_q(sp, x, cfg), *kv, causal=False,
+                         mode=attn_mode)
+    return layers.attention_out(sp, o)
+
+
+def _cross_kv(sp, enc_out, cfg):
+    """The encoder's keys and values for one cross-attention sub-layer,
+    with NO bias even where ``cfg.use_bias`` holds, as the reference's
+    (``repro/models/model.py:181-186``)."""
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    b, s, _ = enc_out.shape
+    k = (enc_out @ sp["wk"]).reshape(b, s, hkv, hd)
+    v = (enc_out @ sp["wv"]).reshape(b, s, hkv, hd)
+    return k, v
+
+
 def _block_fn(bp, x, cfg, spec, *, mode, positions, block_cache=None,
-              cache_index=None, attn_mode=None):
-    """Run one block (all sub-layers). Returns (x, [(k, v) per sub-layer]
-    in prefill mode)."""
-    kvs = []
+              cache_index=None, enc_out=None, attn_mode=None):
+    """Run one block (all sub-layers).  Returns (x, {sub: prefill cache
+    leaves}, aux loss).  In decode mode the block's cache is written in
+    place."""
+    new_cache: Dict[str, Any] = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, sub in enumerate(spec):
         sp = bp[f"sub{j}"]
+        sc = block_cache[f"sub{j}"] if block_cache is not None else None
+        nc: Dict[str, Any] = {}
         h = layers.apply_norm(cfg.norm, sp["norm1"], x)
-        cache_kv = None
-        if mode == "decode":
-            sc = block_cache[f"sub{j}"]
-            cache_kv = (sc["k"], sc["v"])
-        out, kv = _run_attn(sp["attn"], h, cfg, positions=positions,
-                            causal=sub.causal, cache_kv=cache_kv,
-                            cache_index=cache_index,
-                            collect_kv=mode == "prefill", attn_mode=attn_mode)
-        kvs.append(kv)
+        if sub.mixer == "attn":
+            out, kv = _run_attn(
+                sp["attn"], h, cfg, positions=positions, causal=sub.causal,
+                cache_kv=(sc["k"], sc["v"]) if mode == "decode" else None,
+                cache_index=cache_index, collect_kv=mode == "prefill",
+                attn_mode=attn_mode)
+            if mode == "prefill":
+                nc["k"], nc["v"] = kv
+        elif mode == "decode":
+            out, (conv, hstate) = mamba.decode_mamba(sp["mamba"], h, cfg,
+                                                     (sc["conv"], sc["h"]))
+            sc["conv"].copy_(conv)
+            sc["h"].copy_(hstate)
+        else:
+            out, (conv, hstate) = mamba.apply_mamba(sp["mamba"], h, cfg,
+                                                    mode=attn_mode)
+            if mode == "prefill":      # bfloat16 even in a float32 run
+                nc["conv"], nc["h"] = conv.to(torch.bfloat16), hstate
         x = x + out
-        h2 = layers.apply_norm(cfg.norm, sp["norm2"], x)
-        x = x + layers.apply_mlp(sp["mlp"], h2, cfg.act)
-    return x, kvs
+
+        if sub.cross:
+            hc = layers.apply_norm(cfg.norm, sp["cross_norm"], x)
+            if mode == "decode":
+                kv = (sc["xk"], sc["xv"])
+            else:
+                kv = _cross_kv(sp["cross"], enc_out, cfg)
+                if mode == "prefill":
+                    nc["xk"], nc["xv"] = kv
+            x = x + _run_cross(sp["cross"], hc, cfg, kv, attn_mode)
+
+        if sub.ffn != "none":
+            h2 = layers.apply_norm(cfg.norm, sp["norm2"], x)
+            if sub.ffn == "moe":
+                out = moe.apply_moe(sp["moe"], h2, cfg)
+                if mode == "train":
+                    aux = aux + moe.load_balance_loss(sp["moe"]["router"], h2,
+                                                      cfg.moe_top_k)
+            else:
+                out = layers.apply_mlp(sp["mlp"], h2, cfg.act)
+            x = x + out
+        new_cache[f"sub{j}"] = nc
+    return x, new_cache, aux
 
 
 def _index(tree, i: int):
@@ -213,41 +298,73 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _encode(params, cfg: ModelConfig, frames: torch.Tensor,
+            attn_mode=None) -> torch.Tensor:
+    """The whisper encoder over precomputed (stub) frame embeddings
+    (B, enc_seq, D): sinusoidal positions added in the frames' dtype, then
+    the stack in the weights' dtype, non-causal (kernel 7)."""
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
+                             frames.device).to(frames.dtype)
+    x = x.to(params["embed"].dtype)
+    positions = torch.arange(frames.shape[1], device=x.device)
+    enc = params["encoder"]
+    for i in range(cfg.enc_layers):
+        x, _, _ = _block_fn(_index(enc["layers"], i), x, cfg, ENCODER_SPEC,
+                            mode="train", positions=positions,
+                            attn_mode=attn_mode)
+    return layers.apply_norm(cfg.norm, enc["final_norm"], x)
+
+
+def _stack_cache(blocks: List[dict]) -> dict:
+    """[{sub: {leaf: (B, ...)}} per block] -> {sub: {leaf: (nb, B, ...)}}."""
+    return {sub: {leaf: torch.stack([blk[sub][leaf] for blk in blocks])
+                  for leaf in blocks[0][sub]}
+            for sub in blocks[0]}
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             extra: Optional[dict] = None, *, mode: str = "train", cache=None,
             cache_index: Optional[int] = None, attn_mode: Optional[str] = None):
     """Returns (hidden_states, cache, aux_loss).
 
-    ``mode`` "train" runs the prompt, "prefill" also returns its K/V as a
-    cache (nb, B, S, Hkv, hd), "decode" runs one token per row at position
-    ``cache_index`` against ``cache``, written in place and returned.
-    ``attn_mode`` picks the attention kernels' mode (``kernels.ops``).
+    ``mode`` "train" runs the prompt, "prefill" also returns its cache
+    (K/V (nb, B, S, Hkv, hd), the mamba states, the encoder's K/V), and
+    "decode" runs one token per row at position ``cache_index`` against
+    ``cache``, written in place and returned.  An encoder-decoder arch
+    takes its encoder input as ``extra["frames"]`` (B, enc_seq, D) in
+    train and prefill.  ``attn_mode`` picks the kernels' mode
+    (``kernels.ops``) for attention and the selective scan alike.
     """
-    spec = check_ported(cfg)
+    spec = block_spec(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     x = _embed_tokens(params, cfg, tokens, extra)
+    enc_out = None
+    if cfg.is_encoder_decoder and mode != "decode":
+        if not extra or "frames" not in extra:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: {mode} needs the encoder "
+                f"input extra['frames'] (B, {cfg.enc_seq}, {cfg.d_model})")
+        enc_out = _encode(params, cfg, extra["frames"], attn_mode)
     if mode == "decode":
         cache_index = int(cache_index)
         positions = torch.full((1,), cache_index, device=x.device)
     else:
         positions = torch.arange(tokens.shape[1], device=x.device)
-    kv_blocks = []
-    for i in range(num_blocks(cfg)):
-        x, kvs = _block_fn(_index(params["layers"], i), x, cfg, spec,
-                           mode=mode, positions=positions,
-                           block_cache=(_index(cache, i) if mode == "decode"
-                                        else None),
-                           cache_index=cache_index, attn_mode=attn_mode)
-        kv_blocks.append(kvs)
-    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    new_cache = cache if mode == "decode" else None
-    if mode == "prefill":
-        new_cache = {f"sub{j}": {
-            "k": torch.stack([kvs[j][0] for kvs in kv_blocks]),
-            "v": torch.stack([kvs[j][1] for kvs in kv_blocks])}
-            for j in range(len(spec))}
+    blocks = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(num_blocks(cfg)):
+        x, nc, a = _block_fn(_index(params["layers"], i), x, cfg, spec,
+                             mode=mode, positions=positions,
+                             block_cache=(_index(cache, i) if mode == "decode"
+                                          else None),
+                             cache_index=cache_index, enc_out=enc_out,
+                             attn_mode=attn_mode)
+        aux = aux + a
+        blocks.append(nc)
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    new_cache = (cache if mode == "decode" else
+                 _stack_cache(blocks) if mode == "prefill" else None)
     return x, new_cache, aux
 
 
@@ -266,8 +383,9 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             extra: Optional[dict] = None, *, attn_mode: Optional[str] = None):
-    """Run the prompt, return (last-token logits (B, Vp) float32, cache of
-    the prompt's K/V (nb, B, S, Hkv, hd))."""
+    """Run the prompt, return (last-token logits (B, Vp) float32, the
+    prompt's cache: K/V (nb, B, S, Hkv, hd), mamba ``conv`` (bfloat16) and
+    ``h``, cross-attention ``xk`` / ``xv``)."""
     x, cache, _ = forward(params, cfg, tokens, extra, mode="prefill",
                           attn_mode=attn_mode)
     return logits_from_hidden(params, cfg, x[:, -1:])[:, 0], cache
@@ -276,7 +394,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,
                 cache_index: int, *, attn_mode: Optional[str] = None):
     """One token: tokens (B, 1), ``cache_index`` = #tokens already cached.
-    Writes the token's K/V into ``cache`` in place.  Returns (logits
+    Writes the token's K/V and the mamba states into ``cache`` in place.  Returns (logits
     (B, Vp) float32, cache)."""
     x, cache, _ = forward(params, cfg, tokens, mode="decode", cache=cache,
                           cache_index=cache_index, attn_mode=attn_mode)

@@ -936,6 +936,104 @@ def test_lm_wave_goes_through_kernels_7_and_8(cuda_device):
     torch.testing.assert_close(wave.tokens[:, :upto], plain.tokens[:, :upto])
 
 
+@pytest.mark.cuda
+def test_mamba_scan_at_falcon_mamba_width_matches_plain_on_card(cuda_device):
+    """Kernel 6 at falcon-mamba-7b's d_inner = 8192, N = 16 (the ssm
+    prefill's grid of 1,024 x B blocks), S cut to 64 for the plain loop."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    args = _scan(2, 64, 8192, 16, cuda_device, 8192)
+    before = ms.mamba_scan.launches
+    y, h = ms.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ms.mamba_scan.launches == before + 1
+    wy, wh = ms.mamba_scan_plain(*args)
+    torch.testing.assert_close(y, wy, rtol=4e-5, atol=4e-5)
+    torch.testing.assert_close(h, wh, rtol=4e-5, atol=4e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1500, 384, 7])
+def test_flash_attention_at_whisper_shapes_matches_plain_on_card(cuda_device,
+                                                                sq):
+    """Kernel 7 in bf16 at D = 64 against whisper's 1,500 encoder frames:
+    the encoder (Sq = Skv), cross-attention at prefill (Sq = 384) and a
+    ragged short query block, non-causal."""
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _qkv(2, sq, 1500, 16, 16, 64, cuda_device, sq))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=False),
+        ops.flash_attention(q, k, v, causal=False, mode="plain"),
+        **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_decode_attention_at_whisper_cross_cache_matches_plain_on_card(
+        cuda_device):
+    """Kernel 8 in bf16 at D = 64 against whisper's (B, 1500, 16, 64)
+    encoder cache seen through ``permute``, kv_len = 1500 (one-token
+    cross-attention through ``layers.attention`` with no kv_len)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator().manual_seed(9)
+    xk, xv = (torch.randn((4, 1500, 16, 64), generator=gen)
+              .to(torch.bfloat16).to(cuda_device) for _ in range(2))
+    q = torch.randn((4, 1, 16, 64), generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    got = layers.attention(q, xk, xv, causal=False)
+    want = ops.decode_attention(q[:, 0], xk.permute(0, 2, 1, 3).contiguous(),
+                                xv.permute(0, 2, 1, 3).contiguous(), 1500,
+                                mode="plain")
+    torch.testing.assert_close(got[:, 0], want, **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b", "whisper-medium"])
+def test_family_wave_goes_through_its_kernels(cuda_device, arch):
+    """A smoke-size wave of each new family on the card: kernel 6 once a
+    mamba layer in prefill, kernel 7 once an attention layer (and for
+    whisper once an encoder layer and once a cross-attention), kernel 8
+    once an attention layer (whisper: twice) a decode step; the plain
+    versions' prefill logits on the same card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+
+    cfg = get_config(arch, smoke=True)
+    spec = mdl.block_spec(cfg)
+    nb = mdl.num_blocks(cfg)
+    attn = nb * sum(s.mixer == "attn" for s in spec)
+    mamba = nb * sum(s.mixer == "mamba" for s in spec)
+    cross = nb * sum(s.cross for s in spec)
+    params = mdl.init_params(serve.seed_generator(0, 0, cuda_device), cfg,
+                             cuda_device)
+    prompts = serve.sample_requests(serve.seed_generator(0, 100, cuda_device),
+                                    4, cfg.vocab_size, 32)
+    extra = None
+    if cfg.is_encoder_decoder:
+        gen = serve.seed_generator(0, 3, cuda_device)
+        extra = {"frames": 0.02 * torch.randn(
+            (4, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=cuda_device).to(torch.bfloat16)}
+    counts = lambda: (fa.flash_attention.launches,     # noqa: E731
+                      da.decode_attention.launches, ms.mamba_scan.launches)
+    f0, d0, m0 = counts()
+    wave = serve.serve_wave(params, cfg, prompts, 8, extra=extra)
+    f1, d1, m1 = counts()
+    assert (f1 - f0, d1 - d0, m1 - m0) == (
+        attn + cross + (cfg.enc_layers if cross else 0),
+        (attn + cross) * 7, mamba)
+    plain = serve.serve_wave(params, cfg, prompts, 8, attn_mode="plain",
+                             extra=extra)
+    assert counts() == (f1, d1, m1)
+    torch.testing.assert_close(wave.prefill_logits, plain.prefill_logits,
+                               rtol=5e-2, atol=5e-2)
+
+
 def _coc_4k(device, seed, randomize=True):
     """A cluster-of-clusters-4k pool (three classes whose capacities
     differ), randomized mid-flight or not, with its random Q-net."""

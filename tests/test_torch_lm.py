@@ -34,10 +34,9 @@ from repro_torch.launch import serve
 from repro_torch.models import layers as tlayers, model as tmdl
 
 ARCHS = list(jbase.list_archs())
-PORTED = ["olmo-1b", "granite-8b", "llama3-405b", "command-r-plus-104b",
-          "internvl2-76b"]                # the dense and vlm families
-NOT_PORTED = ["qwen2-moe-a2.7b", "dbrx-132b", "falcon-mamba-7b",
-              "jamba-1.5-large-398b", "whisper-medium"]
+PORTED = ARCHS                             # every family
+FAMILIES = ["qwen2-moe-a2.7b", "dbrx-132b", "falcon-mamba-7b",
+            "jamba-1.5-large-398b", "whisper-medium"]  # moe, ssm, hybrid, audio
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 F32 = dict(dtype="float32", param_dtype="float32", cache_dtype="float32")
 
@@ -167,19 +166,23 @@ def test_mlp_matches_the_reference(act):
         k: v.shape for k, v in jp.items()}
 
 
-@pytest.mark.parametrize("case", ["causal", "full", "decode", "decode_gqa"])
+@pytest.mark.parametrize("case", ["causal", "full", "decode", "decode_gqa",
+                                  "cross", "cross_decode"])
 def test_attention_dispatch_matches_the_reference(case):
-    """Self-attention (kernel 7's plain version) and one token against a
-    cache (kernel 8's), GQA included, against the reference's XLA path."""
+    """Self-attention (kernel 7's plain version), one token against a
+    cache (kernel 8's), GQA included, and cross-attention of 5 queries
+    (kernel 7) or one (kernel 8, ``kv_len = Skv``) against 24 keys with
+    no ``kv_len``, against the reference's XLA path."""
     rng = np.random.default_rng(4)
     b, s, hkv, d = 2, 24, 2, 16
-    hq = 4 if case == "decode_gqa" else 2
-    sq = 1 if case.startswith("decode") else s
+    hq = 4 if case in ("decode_gqa", "cross") else 2
+    sq = {"cross": 5, "cross_decode": 1}.get(
+        case, 1 if case.startswith("decode") else s)
     q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
             for _ in range(2))
     kw = dict(causal=case == "causal")
-    if sq == 1:
+    if case.startswith("decode"):
         kw = dict(causal=False, kv_len=13, q_offset=12)
     want = jlayers.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              q_chunk=8, **kw)
@@ -191,11 +194,16 @@ def test_attention_dispatch_matches_the_reference(case):
 
 @pytest.mark.parametrize("case", ["cross", "kv_len_prefill", "float8"])
 def test_attention_refuses_what_no_ported_path_runs(case):
+    """Offset causal query blocks (the reference's diagonal starts at key
+    0 there, kernel 7's at Skv - Sq; no path runs them), ``kv_len`` with
+    several query tokens, and a float8 cache raise."""
     q = torch.zeros(1, 4 if case != "cross" else 3, 2, 16)
     k = v = torch.zeros(1, 4, 2, 16)
     if case == "cross":
         with pytest.raises(NotImplementedError):
-            tlayers.attention(q, k, v, causal=False)
+            tlayers.attention(q, k, v, causal=True)
+        with pytest.raises(NotImplementedError):
+            tlayers.attention(q[:, :1], k, v, causal=False, q_offset=3)
     elif case == "kv_len_prefill":
         with pytest.raises(NotImplementedError):
             tlayers.attention(q, k, v, causal=False, kv_len=3)
@@ -210,7 +218,7 @@ def test_attention_refuses_what_no_ported_path_runs(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-8b"] + FAMILIES)
 def test_init_params_and_cache_keep_the_reference_tree(arch):
     jc, tc = _cfgs(arch, "bfloat16")
     want = jax.eval_shape(lambda: jmdl.init_params(jax.random.PRNGKey(0), jc))
@@ -254,13 +262,35 @@ def _patches(cfg, b, seed):
         (b, cfg.num_vision_tokens, cfg.d_model))).astype(np.float32)
 
 
-def _reference_generate(jp, jc, prompts, gen_tokens, patches=None):
+def _extra_np(cfg, b, seed):
+    """The model's extra inputs as numpy: the vlm's patch embeddings, or
+    the encoder-decoder's frames (``0.02 N(0, 1)``, as the reference's
+    ``data/synthetic.py`` makes them), else None."""
+    if cfg.num_vision_tokens:
+        return {"patch_embeds": _patches(cfg, b, seed)}
+    if cfg.is_encoder_decoder:
+        return {"frames": (0.02 * np.random.default_rng(seed).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model))).astype(np.float32)}
+    return None
+
+
+def _jax_extra(extra):
+    return {} if extra is None else {k: jnp.asarray(v)
+                                     for k, v in extra.items()}
+
+
+def _torch_extra(extra, dtype=torch.float32):
+    return None if extra is None else {k: torch.tensor(v).to(dtype)
+                                       for k, v in extra.items()}
+
+
+def _reference_generate(jp, jc, prompts, gen_tokens, extra=None):
     """The reference serve loop (``launch/serve.py:148-166``): prefill, the
     cache padded to prompt + gen_tokens, greedy decode.  Returns the
     prefill logits, the per-step logits and the tokens."""
     plen = prompts.shape[1]
-    extra = {} if patches is None else {"patch_embeds": jnp.asarray(patches)}
-    logits, cache = jax.jit(lambda p, t: jmdl.prefill(p, jc, t, extra,
+    jextra = _jax_extra(extra)
+    logits, cache = jax.jit(lambda p, t: jmdl.prefill(p, jc, t, jextra,
                                                       q_chunk=64))(
         jp, jnp.asarray(prompts))
 
@@ -284,18 +314,18 @@ def _reference_generate(jp, jc, prompts, gen_tokens, patches=None):
     return np.stack(steps, 1), np.concatenate(tokens, 1)
 
 
-def _want(jp, jc, dtype, prompts, gen_tokens, patches=None):
+def _want(jp, jc, dtype, prompts, gen_tokens, extra=None):
     """(reference logits, tokens, tolerance) to hold the port's run to: the
     reference in float32, and in bfloat16 the tolerance widened by the
     reference's own bfloat16 deviation (module docstring)."""
     if dtype == "float32":
-        return (*_reference_generate(jp, jc, prompts, gen_tokens, patches),
+        return (*_reference_generate(jp, jc, prompts, gen_tokens, extra),
                 TOL[dtype])
     jc32 = dataclasses.replace(jc, **F32)
     jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     logits, tokens = _reference_generate(jp32, jc32, prompts, gen_tokens,
-                                         patches)
-    own, _ = _reference_generate(jp, jc, prompts, 1, patches)
+                                         extra)
+    own, _ = _reference_generate(jp, jc, prompts, 1, extra)
     return logits, tokens, TOL[dtype] + float(np.abs(own[:, 0]
                                                      - logits[:, 0]).max())
 
@@ -325,39 +355,45 @@ def _agree(got_logits, got_tokens, want_logits, want_tokens, tol):
     return upto
 
 
+def _decode_cache(cfg, pcache, plen, gen):
+    b = next(iter(pcache["sub0"].values())).shape[1]
+    return serve.decode_cache(cfg, pcache, b, plen, gen)
+
+
 @pytest.mark.parametrize("arch,dtype", [
     ("olmo-1b", "float32"), ("granite-8b", "float32"),
     ("internvl2-76b", "float32"), ("olmo-1b", "bfloat16"),
     ("granite-8b", "bfloat16"), ("llama3-405b", "float32"),
     ("llama3-405b", "bfloat16"), ("command-r-plus-104b", "float32"),
-    ("command-r-plus-104b", "bfloat16")])
+    ("command-r-plus-104b", "bfloat16")]
+    + [(arch, dtype) for arch in FAMILIES
+       for dtype in ("float32", "bfloat16")])
 def test_prefill_and_decode_match_the_reference(arch, dtype):
-    """MHA (olmo-1b), GQA (granite-8b) and the vlm prefix (internvl2):
-    prefill logits (and in float32 the prefill's K/V), then greedy decode
-    steps, step by step."""
+    """MHA (olmo-1b), GQA (granite-8b), the vlm prefix (internvl2), MoE
+    (qwen2-moe with its shared expert, dbrx), the mamba mixer
+    (falcon-mamba), the hybrid block (jamba) and the encoder with
+    cross-attention (whisper): prefill logits (and in float32 the
+    prefill's K/V), then greedy decode steps, step by step."""
     jc, tc = _cfgs(arch, dtype)
     jp, tp = _params(jc)
     b, plen, gen = 2, 12, 5
     prompts = _tokens(jc, b, plen, seed=6)
-    patches = _patches(jc, b, 7)
-    want_logits, want_tokens, tol = _want(jp, jc, dtype, prompts, gen,
-                                          patches)
-    extra = None if patches is None else {
-        "patch_embeds": torch.tensor(patches)}
-    logits, pcache = tmdl.prefill(tp, tc, torch.tensor(prompts).long(), extra)
+    extra = _extra_np(jc, b, 7)
+    want_logits, want_tokens, tol = _want(jp, jc, dtype, prompts, gen, extra)
+    logits, pcache = tmdl.prefill(tp, tc, torch.tensor(prompts).long(),
+                                  _torch_extra(extra, getattr(torch, dtype)))
     assert logits.dtype == torch.float32
-    _, jcache = jmdl.prefill(jp, jc, jnp.asarray(prompts),
-                             {} if patches is None else
-                             {"patch_embeds": jnp.asarray(patches)})
+    _, jcache = jmdl.prefill(jp, jc, jnp.asarray(prompts), _jax_extra(extra))
+    assert {k: set(v) for k, v in pcache.items()} == {
+        k: set(v) for k, v in jcache.items()}
     if dtype == "float32":     # bfloat16 K/V differ by roundings inside
-        for part in ("k", "v"):
-            np.testing.assert_allclose(
-                pcache["sub0"][part].numpy(),
-                np.asarray(jcache["sub0"][part]), rtol=TOL[dtype],
-                atol=TOL[dtype])
-    cache = tmdl.init_cache(tc, b, plen + gen)
-    for part in ("k", "v"):
-        cache["sub0"][part][:, :, :plen] = pcache["sub0"][part]
+        for sub, leaves in jcache.items():
+            for part, want in leaves.items():
+                np.testing.assert_allclose(
+                    pcache[sub][part].float().numpy(),
+                    np.asarray(want, np.float32), rtol=TOL[dtype],
+                    atol=TOL[dtype])
+    cache = _decode_cache(tc, pcache, plen, gen)
     steps, tokens = [logits.numpy()], []
     tok = torch.argmax(logits, -1)[:, None]
     tokens.append(tok.numpy())
@@ -382,24 +418,22 @@ def test_prefill_decode_consistency_on_the_port(arch):
     params = tmdl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     b, s = 2, 16
     tokens = torch.tensor(_tokens(cfg, b, s, seed=8)).long()
-    patches = _patches(cfg, b, 9)
-    extra = None if patches is None else {
-        "patch_embeds": torch.tensor(patches).to(torch.bfloat16)}
+    extra = _torch_extra(_extra_np(cfg, b, 9), torch.bfloat16)
     logits_pre, pcache = tmdl.prefill(params, cfg, tokens, extra)
     assert logits_pre.shape == (b, cfg.padded_vocab)
     assert bool(torch.isfinite(logits_pre).all())
     x, _, _ = tmdl.forward(params, cfg, tokens, extra, mode="train")
     logits_full = tmdl.logits_from_hidden(params, cfg, x[:, -1:])[:, 0]
     torch.testing.assert_close(logits_pre, logits_full, rtol=2e-2, atol=2e-2)
-    cache = tmdl.init_cache(cfg, b, s + 4)
-    for part in ("k", "v"):
-        cache["sub0"][part][:, :, :s] = pcache["sub0"][part]
-    shapes = {p: tuple(cache["sub0"][p].shape) for p in ("k", "v")}
+    cache = _decode_cache(cfg, pcache, s, 4)
+    shapes = {k: {p: tuple(t.shape) for p, t in v.items()}
+              for k, v in cache.items()}
     nxt = torch.argmax(logits_pre, -1)[:, None]
     logits_dec, cache2 = tmdl.decode_step(params, cfg, nxt, cache, s)
     assert logits_dec.shape == (b, cfg.padded_vocab)
     assert bool(torch.isfinite(logits_dec).all())
-    assert {p: tuple(cache2["sub0"][p].shape) for p in ("k", "v")} == shapes
+    assert {k: {p: tuple(t.shape) for p, t in v.items()}
+            for k, v in cache2.items()} == shapes
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -448,15 +482,34 @@ def test_serve_main_on_the_cpu_routes_and_serves_every_wave(capsys):
     torch.testing.assert_close(res.waves[1].prompts, again)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_raise(arch):
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_main_serves_every_family_but_the_encoder_decoder(arch, capsys):
+    """``serve.main`` routes and serves the moe, ssm and hybrid families
+    (one wave each) and, as the reference's ``main`` (which passes no
+    frames and fails in its ``_encode``), refuses whisper, naming the
+    missing frames; ``serve_wave(extra={"frames": ...})`` serves it."""
+    argv = ["--arch", arch, "--smoke", "--replicas", "2", "--requests", "2",
+            "--wave-size", "2", "--prompt-len", "6", "--gen-tokens", "3",
+            "--device", "cpu"]
     cfg = tbase.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="LM scaffolding"):
-        tmdl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="LM scaffolding"):
-        tmdl.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    if not cfg.is_encoder_decoder:
+        res = serve.main(argv)
+        assert len(res.waves) == 1 and res.generated == 6
+        assert res.waves[0].tokens.shape == (2, 3)
+        assert "[serve] 2 requests, 6 tokens" in capsys.readouterr().out
+        return
+    with pytest.raises(ValueError, match="frames"):
+        serve.main(argv)
+    from repro.launch import serve as jserve
+
+    with pytest.raises(KeyError, match="frames"):
+        jserve.main(argv[:-2])
+    params = tmdl.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    frames = torch.tensor(_extra_np(cfg, 2, 3)["frames"]).to(torch.bfloat16)
+    wave = serve.serve_wave(params, cfg, torch.tensor(_tokens(cfg, 2, 6, 4)),
+                            3, extra={"frames": frames})
+    assert wave.tokens.shape == (2, 3)
+    assert bool(torch.isfinite(wave.prefill_logits).all())
 
 
 @pytest.mark.parametrize("case", ["checkpoint_dir", "online", "no_card"])
