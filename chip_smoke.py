@@ -10,7 +10,10 @@ Phases (any failed check raises and the run exits nonzero):
    every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``,
    ptxas's registers and spills per kernel, and the SASS of kernel 7's ten
    instances: each must hold tensor-core products (HMMA) and cp.async
-   copies (LDGSTS), the bfloat16 ones ldmatrix loads (LDSM).
+   copies (LDGSTS), the bfloat16 ones ldmatrix loads (LDSM).  Kernel 8's
+   sixteen instances (q float32 or bfloat16 x cache in q's dtype or
+   float8_e4m3fn x D in {16, 32, 64, 128}): cp.async (LDGSTS) in all, HMMA
+   and LDSM in the bfloat16-q ones, and 0 spill bytes in every one.
 2. Kernels against their plain PyTorch versions on the card, at
    N in {1, 37, 1000, 5000, 131072} nodes x B in {1, 32} pods, on resets
    with unhealthy nodes and randomized workloads (rtol = atol = 1e-5), and
@@ -113,11 +116,15 @@ kernel 3 for the routing):
 
 2d. Kernel 8 (``decode_attention``) against its plain version at the
     reference's sweep shapes, kv_len in {1, 17, full} and a ragged (B,)
-    kv_len, float32 and bfloat16; at the serving path's cache seen as a
-    (B, S, Hkv, D) view; at OLMo-1B's (8, 16, 16, 32768, 128) and
-    granite-8b's GQA (8, 32, 8, 32768, 128) in bfloat16.  Kernel 7 in
+    kv_len, float32 and bfloat16, each also with a float8_e4m3fn cache; at
+    the serving path's cache seen as a (B, S, Hkv, D) view; at OLMo-1B's
+    (8, 16, 16, 32768, 128) and granite-8b's GQA (8, 32, 8, 32768, 128) in
+    bfloat16 (granite's also with a float8 cache); at every GQA group of
+    ``DECODE_GROUPS`` (1 to 16 and 24) on a 4,096-key cache view, both q
+    dtypes, both caches; and all 256 float8 codes as the one visible V row
+    (the output is each code's value, NaN at 0x7f and 0xff).  Kernel 7 in
     bfloat16 at the sweep shapes and OLMo-1B's prefill (8, 512, 16, 128),
-    causal.  Tolerances the reference's: 3e-5 float32, 2e-2 bfloat16.
+    causal.  Tolerances the reference's: 3e-5 float32 q, 2e-2 bfloat16 q.
 13. ``repro_torch.launch.serve.main`` with full-width, full-depth OLMo-1B
     (random bf16 weights from seed 0), 4 replicas, 32 requests in waves of
     8, prompts of 512 tokens, 32 generated: every wave routed and served,
@@ -129,10 +136,16 @@ kernel 3 for the routing):
     identical up to the first step with a near tie.  The decode-step
     breakdown (host ms per step, device busy share, kernel 8's and the
     matrix products' shares, device operations per step).
-14. Timings of kernel 8 at the path's shape and the two 32k caches, and of
-    kernel 7 at the prefill shape (as phase 4), each beside its bound and
-    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
-    with the backend's kernel).
+14. Timings of kernel 8 at the path's shape, the two 32k caches,
+    granite-8b's decode shape and granite's 32k and decode shapes with a
+    float8 cache (``DECODE_TIMED``), and of kernel 7 at the prefill shape
+    (as phase 4), each beside its bound (the cache's own bytes an element)
+    and ``scaled_dot_product_attention`` on the same tensors
+    (``library_ms``; for a float8 cache, which it does not take, on the
+    cache cast to bfloat16, beside it), with kernel 8's launch plan.  With
+    ``--parent-src DIR`` the kernel 8 of another checkout (the parent's
+    tree) is timed at every row before and after this one's
+    (``scripts/decode_timings.py``), as ``parent_ms``.
 
 The paper's main path (kernels 7 and 1 on the DQN learner's path):
 
@@ -214,7 +227,21 @@ The remaining LM families (kernels 6, 7 and 8):
     ``LOGIT_TOL``, tokens up to the first near tie); tok/s, prefill ms
     per wave, decode ms per step and a profiled decode step; each model
     freed before the next.  Then kernels 6-8 against their plain versions
-    at the new shapes and timed beside their bounds and SDPA.
+    at the new shapes and timed beside their bounds and SDPA (kernel 8 as
+    phase 14, with the parent's beside it under ``--parent-src``).
+
+Kernel 8's 4:1 GQA path and the float8 cache:
+
+21. granite-8b at full width and depth (36 layers, 8.25 B random bf16
+    parameters) through ``serve.main``, 4 replicas, one wave of 8 x 512
+    prompts and 32 tokens (the wave asks for all of a replica's CPU, so
+    the daemon drops it and ``serve.main`` serves it all the same), then
+    the same weights and prompts through ``serve_wave`` with
+    ``cache_dtype="float8_e4m3fn"``: exactly 36 kernel-7 and 36 x 31
+    kernel-8 launches each, no plain call, a profiled decode step each;
+    the float8 wave again through the plain versions (tokens identical up
+    to the first near tie) and the bf16 wave held as phase 20 holds its
+    models.
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -411,6 +438,22 @@ def graph_time_ms(fn, iters: int, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def cold_time_ms(fn, iters: int, reps: int = 5) -> float:
+    """Device time per call with the L2 cache cold, as a call inside a
+    model step finds it: a CUDA graph of ``iters`` (write 128 MB, call)
+    pairs less one of ``iters`` writes alone (``graph_time_ms`` each)."""
+    junk = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+
+    def flush():
+        junk.fill_(1.0)
+
+    def both():
+        flush()
+        fn()
+
+    return graph_time_ms(both, iters, reps) - graph_time_ms(flush, iters, reps)
 
 
 def launch_floor_ms() -> float:
@@ -1454,13 +1497,18 @@ def sfu_rate():
     return rate
 
 
-def attention_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
+def attention_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name,
+                    cache_itemsize=None):
     """(ms, by, bytes, ops, terms) of one attention call with ``pairs``
     visible (query, key) pairs per (batch, query head): the largest of
-    q, k, v read once and the output written once at the memory rate, the
-    products, the exponentials and the softmax's other operations, each
-    at its rate (above).  ``terms`` holds the four times in ms."""
-    nbytes = itemsize * (2 * b * sq * hq * d + 2 * b * skv * hkv * d)
+    q, k, v read once and the output written once at the memory rate (q
+    and the output ``itemsize`` bytes an element, k and v
+    ``cache_itemsize``, by default the same), the products, the
+    exponentials and the softmax's other operations, each at its rate
+    (above).  ``terms`` holds the four times in ms."""
+    cache_itemsize = cache_itemsize or itemsize
+    nbytes = (itemsize * 2 * b * sq * hq * d
+              + cache_itemsize * 2 * b * skv * hkv * d)
     n = b * hq * pairs
     key, (f32_peak, bw) = peaks(name)
     if itemsize == 2:
@@ -1870,6 +1918,23 @@ def phase_seq_timings(device, name):
 DECODE_SWEEP = ((1, 4, 4, 128, 32), (2, 8, 2, 256, 64), (3, 4, 1, 512, 16))
 DECODE_LONG = ((8, 16, 16, 32768, 128), (8, 32, 8, 32768, 128))
 LM_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+# kernel 8 at the GQA groups of src/repro/configs and at 24 (two chunks of
+# 16 query heads): (B, Hkv, S, D) of a (B, S, Hkv, D) cache view
+DECODE_GROUPS = (1, 4, 6, 8, 12, 16, 24)
+DECODE_GROUP_SHAPE = (4, 8, 4096, 128)
+E4M3 = "float8_e4m3fn"       # the reference's float8 cache_dtype
+# kernel 8's timed rows (phases 14 and 20, scripts/decode_timings.py): the
+# LM paths' (B, Hq, Hkv, S, D), kv_len, cache dtype and graph calls
+DECODE_TIMED = {
+    "path": ((8, 16, 16, 544, 128), 543, "bfloat16", 200),
+    "olmo_32k": ((8, 16, 16, 32768, 128), 32768, "bfloat16", 50),
+    "granite_32k": ((8, 32, 8, 32768, 128), 32768, "bfloat16", 50),
+    "granite_32k_e4m3": ((8, 32, 8, 32768, 128), 32768, E4M3, 50),
+    "granite_path": ((8, 32, 8, 544, 128), 543, "bfloat16", 200),
+    "granite_path_e4m3": ((8, 32, 8, 544, 128), 543, E4M3, 200),
+    "whisper_cross": ((8, 16, 16, 1500, 64), 1500, "bfloat16", 200),
+    "dbrx_decode": ((8, 48, 8, 544, 128), 543, "bfloat16", 200),
+}
 # kernel 7 at OLMo-1B's prefill: 8 prompts of 512 tokens, 16 heads of 128
 FA_LM_PREFILL = (8, 512, 512, 16, 16, 128)
 # the LM serving path: full-width, full-depth OLMo-1B, 4 waves of 8
@@ -1920,13 +1985,19 @@ def _ragged(b, s, device, seed):
 def phase_lm_kernels(device):
     """Kernel 8 against its plain version (sweep x kv_len in {1, 17, full,
     ragged (B,)} x {float32, bfloat16}, a strided (B, S, Hkv, D) cache
-    view, OLMo-1B's and granite-8b's 32k-token caches in bfloat16), and
-    kernel 7 in bfloat16 at the sweep shapes and OLMo-1B's prefill."""
+    view, OLMo-1B's and granite-8b's 32k-token caches in bfloat16; every
+    GQA group of ``DECODE_GROUPS``; a float8_e4m3fn cache with bfloat16
+    and float32 q at the sweep, the groups and granite's 32k cache;
+    granite-8b's and dbrx-132b's decode shapes with a bfloat16 and a
+    float8 cache at ragged lengths 512-543; all 256 float8 codes
+    converted exactly), and kernel 7 in bfloat16 at the sweep shapes and
+    OLMo-1B's prefill.  Returns {kernel: {case kind:
+    max_abs_err}}."""
     from repro_torch.kernels import ops
 
     errs = {"decode_attention": {}, "flash_attention": {}}
 
-    def check(key, label, got, want, dtype):
+    def check(key, label, got, want, dtype, kind=None):
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == dtype
         assert bool(torch.isfinite(got.float()).all())
@@ -1935,27 +2006,55 @@ def phase_lm_kernels(device):
               f"(tolerance {LM_TOL[dtype]})")
         torch.testing.assert_close(got, want, rtol=LM_TOL[dtype],
                                    atol=LM_TOL[dtype])
-        name = str(dtype)[6:]
-        errs[key][name] = max(errs[key].get(name, 0.0), err)
+        kind = kind or str(dtype)[6:]
+        errs[key][kind] = max(errs[key].get(kind, 0.0), err)
 
-    cases = [(shape, dtype, n, False) for shape in DECODE_SWEEP
+    b, hkv, s, d = DECODE_GROUP_SHAPE
+    cases = [(shape, dtype, n, False, cache) for shape in DECODE_SWEEP
              for dtype in (torch.float32, torch.bfloat16)
-             for n in (1, 17, shape[3], "ragged")]
+             for n in (1, 17, shape[3], "ragged") for cache in (None, E4M3)]
     cases += [((8, 16, 16, SERVE_PROMPT + SERVE_GEN, 128), torch.bfloat16,
-               SERVE_PROMPT + 9, True)]
-    cases += [(shape, torch.bfloat16, n, False) for shape in DECODE_LONG
+               SERVE_PROMPT + 9, True, None)]
+    cases += [(shape, torch.bfloat16, n, False, None) for shape in DECODE_LONG
               for n in (shape[3], "ragged")]
-    for shape, dtype, n, view in cases:
+    cases += [(DECODE_LONG[1], torch.bfloat16, "ragged", True, E4M3)]
+    cases += [(DECODE_TIMED[label][0], torch.bfloat16, "near", True, cache)
+              for label in ("granite_path", "dbrx_decode")
+              for cache in (None, E4M3)]
+    cases += [((b, g * hkv, hkv, s, d), dtype, "ragged", True, cache)
+              for g in DECODE_GROUPS for dtype in (torch.float32,
+                                                   torch.bfloat16)
+              for cache in (None, E4M3)]
+    for shape, dtype, n, view, cache in cases:
         q, k, v = _decode_case(shape, dtype, device, sum(shape), view)
+        if cache:
+            k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
         if n == "ragged":
             n = _ragged(shape[0], shape[3], device, sum(shape))
+        elif n == "near":               # a decode step's lengths, ragged
+            n = shape[3] - _ragged(shape[0], SERVE_GEN, device, sum(shape))
         got = ops.decode_attention(q, k, v, n, mode="cuda")
         want = ops.decode_attention(q, k, v, n, mode="plain")
         label = (f"(B, Hq, Hkv, S, D)={shape} kv_len="
                  f"{n.tolist() if torch.is_tensor(n) else n}"
-                 f"{' (B, S, Hkv, D) cache view' if view else ''}")
-        check("decode_attention", label, got, want, dtype)
+                 f"{' (B, S, Hkv, D) cache view' if view else ''}"
+                 f"{' ' + cache + ' cache' if cache else ''}")
+        check("decode_attention", label, got, want, dtype,
+              f"{str(dtype)[6:]} q, {cache} cache" if cache else None)
         del q, k, v
+    # every float8 code as the one visible V row: the output is its value
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+        torch.float8_e4m3fn).reshape(2, 1, 1, 128).to(device)
+    v = torch.zeros((2, 1, 64, 128), dtype=torch.float8_e4m3fn, device=device)
+    v[:, :, :1] = codes
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((2, 4, 128), dtype=dtype, device=device)
+        got = ops.decode_attention(q, torch.zeros_like(v), v, 1, mode="cuda")
+        want = codes.reshape(2, 1, 128).float().expand(2, 4, 128)
+        torch.testing.assert_close(got.float(), want, rtol=0, atol=0,
+                                   equal_nan=True)
+        print(f"decode_attention float8_e4m3fn codes 0..255 with "
+              f"{str(dtype)[6:]} q: every value exact (NaN at 0x7f, 0xff)")
     for shape in FA_SHAPES + (FA_LM_PREFILL,):
         for causal in ((True,) if shape == FA_LM_PREFILL else (False, True)):
             q, k, v = (t.to(torch.bfloat16)
@@ -2136,51 +2235,103 @@ def _library_attention(q, k, v, mask=None, causal=False):
     return call, top
 
 
-def phase_lm_timings(device, name):
-    """Kernels 8 and 7 at the LM path's shapes: device time from a CUDA
-    graph, the plain versions' likewise, the bound from these inputs, and
-    ``scaled_dot_product_attention`` on the same tensors (``library_ms``,
-    a CUDA graph likewise; the backend's kernel recorded)."""
+def time_decode_row(label, device, name):
+    """Kernel 8 at ``DECODE_TIMED[label]`` on the model's (B, S, Hkv, D)
+    cache seen through ``permute``, bfloat16 q: held to the plain version
+    on these inputs (``LM_TOL``); device time from a CUDA graph, warm (the
+    graph replays one cache) and with the L2 cold (``cold_time_ms``), the
+    plain version's likewise, the bound from these inputs (the cache's
+    own itemsize), ``scaled_dot_product_attention`` with a kv_len mask on
+    the same tensors (``library_ms``, a CUDA graph likewise; a float8
+    cache it does not take: null, and SDPA on the cache cast to bfloat16
+    beside it) and the launch plan that ran."""
     from repro_torch.kernels import decode_attention as da
+
+    shape, n, cache, iters = DECODE_TIMED[label]
+    b, hq, hkv, s, d = shape
+    q, k, v = _decode_case(shape, torch.bfloat16, device, SEED + 21,
+                           cache_layout=True)
+    k, v = k.to(getattr(torch, cache)), v.to(getattr(torch, cache))
+    got = da.decode_attention(q, k, v, n)
+    want = da.decode_attention_plain(q, k, v, n)
+    err = _max_diff(got, want)
+    print(f"decode_attention vs plain at the timed row {label}: "
+          f"max_abs_err={err} (tolerance {LM_TOL[torch.bfloat16]})")
+    assert bool(torch.isfinite(got.float()).all()), label
+    torch.testing.assert_close(got, want, rtol=LM_TOL[torch.bfloat16],
+                               atol=LM_TOL[torch.bfloat16])
+    del got, want
+    ms = graph_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
+    cold_ms = cold_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
+    call_ms = cuda_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
+    plain_ms = graph_time_ms(lambda: da.decode_attention_plain(q, k, v, n),
+                             3, reps=3)
+    mask = (torch.arange(s, device=device) < n)[None, None, None, :]
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    lib, backend = _library_attention(q[:, :, None], kb, vb, mask=mask)
+    sdpa_ms = graph_time_ms(lib, iters)
+    lib_err = float((lib()[:, :, 0].float() - da.decode_attention(
+        q, k, v, n).float()).abs().max())
+    b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+        b, hq, hkv, 1, n, d, n, 2, name, cache_itemsize=k.element_size())
+    cap = da.capacity(device, q.dtype, k.dtype, d)
+    p = da.plan(b, hq, hkv, s, n, cap)
+    plan = dict(chunks=p.chunks, splits=p.splits, span=p.span,
+                blocks=p.blocks, clusters=list(cap.clusters))
+    row = dict(ms=ms, cold_ms=cold_ms, max_abs_err=err, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=sdpa_ms if cache == "bfloat16" else None,
+               shape=list(shape), kv_len=n, cache=cache,
+               library_kernel=backend, bound_terms_ms=terms, plan=plan,
+               path=label)
+    if cache != "bfloat16":
+        row["sdpa_on_bf16_cache_ms"] = sdpa_ms
+    print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)={shape} "
+          f"kv_len={n} bf16 q, {cache} (B, S, Hkv, D) cache view: "
+          f"kernel_ms={ms} plain_ms={plain_ms} (device time, CUDA graph) "
+          f"kernel_cold_ms={cold_ms} (L2 cold) "
+          f"kernel_call_ms={call_ms} sdpa_ms={sdpa_ms} (SDPA with a kv_len "
+          f"mask{'' if cache == 'bfloat16' else ' on the cache cast to bf16'}"
+          f", CUDA graph; kernel {backend[:90]}; max_abs_diff {lib_err}) "
+          f"bound_ms={b_ms} ({b_by}; bytes={nbytes} ops={n_ops}, "
+          f"{peaks(name)[0]} peaks; terms_ms {terms}) kernel/bound="
+          f"{ms / b_ms} plan={plan}")
+    return row
+
+
+def parent_decode_times(src):
+    """{row: {"ms", "cold_ms"}} of another checkout's kernel 8 at
+    ``DECODE_TIMED`` (``scripts/decode_timings.py --src src`` in a process
+    of its own)."""
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "decode_timings.py"),
+                          "--src", str(src), "--label", "parent"],
+                         capture_output=True, text=True, check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    for r in rows:
+        print(f"timing decode_attention {r['row']} of the parent ({src}): "
+              f"kernel_ms={r['ms']} kernel_cold_ms={r['cold_ms']} "
+              f"{r.get('error', '')}".rstrip())
+    return {r["row"]: r for r in rows}
+
+
+PHASE14_DECODE = ("path", "olmo_32k", "granite_32k", "granite_32k_e4m3",
+                  "granite_path", "granite_path_e4m3")
+
+
+def phase_lm_timings(device, name):
+    """Kernel 8 at the LM path's rows (``PHASE14_DECODE``, as
+    ``time_decode_row``) and kernel 7 at the prefill shape: device time
+    from a CUDA graph, the plain versions' likewise, the bound from these
+    inputs, and ``scaled_dot_product_attention`` on the same tensors
+    (``library_ms``, a CUDA graph likewise; the backend's kernel
+    recorded)."""
     from repro_torch.kernels import flash_attention as fa
 
     saved = read_counts()
-    rows = {}
-    decode_cases = (("path", (8, 16, 16, SERVE_PROMPT + SERVE_GEN, 128),
-                     SERVE_PROMPT + SERVE_GEN - 1, 200),
-                    ("olmo_32k", DECODE_LONG[0], DECODE_LONG[0][3], 50),
-                    ("granite_32k", DECODE_LONG[1], DECODE_LONG[1][3], 50))
-    for label, shape, n, iters in decode_cases:
-        b, hq, hkv, s, d = shape
-        q, k, v = _decode_case(shape, torch.bfloat16, device, SEED + 21,
-                               cache_layout=True)
-        ms = graph_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
-        call_ms = cuda_time_ms(lambda: da.decode_attention(q, k, v, n), iters)
-        plain_ms = graph_time_ms(lambda: da.decode_attention_plain(q, k, v, n),
-                                 3, reps=3)
-        mask = (torch.arange(s, device=device) < n)[None, None, None, :]
-        lib, backend = _library_attention(q[:, :, None], k, v, mask=mask)
-        library_ms = graph_time_ms(lib, iters)
-        lib_err = float((lib()[:, :, 0].float() - da.decode_attention(
-            q, k, v, n).float()).abs().max())
-        b_ms, b_by, nbytes, n_ops, terms = attention_bound(b, hq, hkv, 1, n,
-                                                           d, n, 2, name)
-        gc, splits, split_len = da.plan(b, hq, hkv, s, n,
-                                        da._sm_count(device))
-        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=library_ms,
-                           shape=list(shape), kv_len=n,
-                           library_kernel=backend, bound_terms_ms=terms)
-        print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)={shape} "
-              f"kv_len={n} bf16 (B, S, Hkv, D) cache view: kernel_ms={ms} "
-              f"plain_ms={plain_ms} (device time, CUDA graph) "
-              f"kernel_call_ms={call_ms} library_ms={library_ms} (SDPA with "
-              f"a kv_len mask, CUDA graph; kernel {backend[:90]}; max_abs_diff "
-              f"{lib_err}) bound_ms={b_ms} ({b_by}; bytes={nbytes} "
-              f"ops={n_ops}, {peaks(name)[0]} peaks; terms_ms {terms}) "
-              f"kernel/bound={ms / b_ms} plan=(heads per block {gc}, splits {splits}, "
-              f"keys per split {split_len})")
-        del q, k, v
+    rows = {label: time_decode_row(label, device, name)
+            for label in PHASE14_DECODE}
     b, sq, skv, hq, hkv, d = FA_LM_PREFILL
     q, k, v = (t.to(torch.bfloat16) for t in _qkv(FA_LM_PREFILL, device,
                                                    SEED + 22))
@@ -2784,33 +2935,173 @@ def phase_family_timings(device, name):
               f"ops={n_ops}; terms_ms {terms}) kernel/bound={ms_ / b_ms}")
         del q, k, v, qt, kt, vt
     for label in DA_FAMILY_TIMED:
-        b, hq, hkv, s, d, n = DA_FAMILIES[label]
-        q, k, v = _decode_case((b, hq, hkv, s, d), torch.bfloat16, device,
-                               SEED + 34, cache_layout=True)
-        ms_ = graph_time_ms(lambda: da.decode_attention(q, k, v, n), 200)
-        plain_ms = graph_time_ms(lambda: da.decode_attention_plain(
-            q, k, v, n), 3, reps=3)
-        mask = (torch.arange(s, device=device) < n)[None, None, None, :]
-        lib, backend = _library_attention(q[:, :, None], k, v, mask=mask)
-        library_ms = graph_time_ms(lib, 200)
-        b_ms, b_by, nbytes, n_ops, terms = attention_bound(
-            b, hq, hkv, 1, n, d, n, 2, name)
-        rows["decode_attention"].append(dict(
-            ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, shape=[b, hq, hkv, s, d], kv_len=n,
-            library_kernel=backend, bound_terms_ms=terms, path=label))
-        print(f"timing decode_attention {label} (B, Hq, Hkv, S, D)="
-              f"{(b, hq, hkv, s, d)} kv_len={n} bf16 (B, S, Hkv, D) cache "
-              f"view: kernel_ms={ms_} plain_ms={plain_ms} (device time, CUDA "
-              f"graph) library_ms={library_ms} (SDPA with a kv_len mask, CUDA "
-              f"graph; kernel {backend[:90]}) bound_ms={b_ms} ({b_by}; "
-              f"bytes={nbytes} ops={n_ops}; terms_ms {terms}) "
-              f"kernel/bound={ms_ / b_ms}")
-        del q, k, v
+        rows["decode_attention"].append(time_decode_row(label, device, name))
     for key, fn in wrappers().items():          # timing launches don't count
         fn.launches = saved[key]
     torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 21: granite-8b, kernel 8's 4:1 GQA path, with a bf16 and an e4m3 cache
+# ---------------------------------------------------------------------------
+
+# granite-8b at its published widths and depth through serve.main: 4
+# replicas, one wave of 8 prompts of 512 tokens, 32 generated
+GRANITE_ARGS = ["--arch", "granite-8b", "--replicas", "4", "--requests",
+                str(FAMILY_BATCH), "--wave-size", str(FAMILY_BATCH),
+                "--prompt-len", str(SERVE_PROMPT), "--gen-tokens",
+                str(SERVE_GEN), "--seed", str(SEED)]
+# (layers, d_model, heads, KV heads, head width, d_ff)
+GRANITE_WIDTHS = (36, 4096, 32, 8, 128, 14336)
+
+
+def _decode_step_pair(params, cfg, prompts, token):
+    """Logits of one decode step after ``prompts`` (position P, kv_len P +
+    1), through kernel 8 and through its plain version, each from its own
+    copy of one prefill cache (made by the kernels), so the two differ in
+    the decode step's attention alone.  Counts kernel 8's launches in the
+    kernel step."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import serve
+    from repro_torch.models import model as mdl
+
+    b, plen = prompts.shape
+    with torch.no_grad():
+        _, pcache = mdl.prefill(params, cfg, prompts)
+        cache = serve.decode_cache(cfg, pcache, b, plen, 1, prompts.device)
+        del pcache
+        out = {}
+        for mode in ("cuda", "plain"):
+            copy = {name: {leaf: x.clone() for leaf, x in sub.items()}
+                    for name, sub in cache.items()}
+            before = da.decode_attention.launches
+            out[mode], _ = mdl.decode_step(params, cfg, token, copy, plen,
+                                           attn_mode=mode)
+            out[f"{mode}_launches"] = da.decode_attention.launches - before
+            del copy
+    return out
+
+
+def phase_lm_granite(device):
+    """Phase 21: granite-8b (random bf16 weights from seed 0) through
+    ``serve.main`` with its bfloat16 cache, then the same weights and
+    prompts through ``serve_wave`` with ``cache_dtype="float8_e4m3fn"``
+    (set with ``dataclasses.replace``: ``serve.main`` has no flag, as the
+    reference's has none).  Each: exactly one kernel-7 launch a layer and
+    one kernel-8 launch a layer a decode step, no plain call, a profiled
+    decode step.  Then the float8 wave again through the plain versions
+    (prefill logits, which kernel 7 computes, and tokens identical up to
+    the first near tie), the bfloat16 wave as phase 20 holds its models
+    (``_family_hold``: plain in bf16, kernels and plain in float32), and
+    the step that reads the float8 cache, one decode step from one prefill
+    cache through kernel 8 and through plain (``_decode_step_pair``): in
+    bfloat16 within the hold's tolerance, in float32 (the weights the hold
+    cast) within ``F32_LOGIT_TOL``.  Returns ({kernel: {path: launches}},
+    figures)."""
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    steps = SERVE_GEN - 1
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        res = serve.main(GRANITE_ARGS)
+        counts = read_counts()                         # ... and ends here
+    assert plain.calls == 0, plain.calls
+    cfg, params, wave = res.cfg, res.params, res.waves[0]
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.d_ff) == GRANITE_WIDTHS, cfg
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = res.daemon.metrics
+    # one wave asks for 100% of a replica's CPU (serve.main's job is
+    # 100 / waves %), which no replica has free: the daemon drops it and
+    # serve.main serves it all the same, as the reference's does
+    assert counts["sdqn_score_cols"] == m.batches + 1, (counts, m)
+    assert m.bound + m.dropped == 1 and len(res.waves) == 1, m
+    _served_counts("granite-8b", counts, {
+        "mamba_scan": 0, "flash_attention": cfg.num_layers,
+        "decode_attention": cfg.num_layers * steps})
+    _check_waves(res.waves, cfg, SERVE_GEN)
+    print(f"LM granite-8b: params={n_params} (param_count() "
+          f"{cfg.param_count()}), bf16, full width and depth")
+    figures = {"granite-8b": dict(
+        _family_figures("granite-8b", res.waves, res.generated, res.seconds),
+        params=n_params)}
+    figures["granite-8b"].update(_decode_profile("granite-8b", params, cfg,
+                                                 wave.prompts))
+    paths = {"flash_attention": {"granite-8b prefill":
+                                 counts["flash_attention"]},
+             "decode_attention": {"granite-8b decode, bf16 cache":
+                                  counts["decode_attention"]}}
+
+    c8 = dataclasses.replace(cfg, cache_dtype=E4M3)
+    # the float8 path's first calls load its kernels: a short wave first,
+    # so that the timed one starts warm as the bf16 one did
+    serve.serve_wave(params, c8, wave.prompts[:1], 2)
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        t0 = time.perf_counter()
+        w8 = serve.serve_wave(params, c8, wave.prompts, SERVE_GEN)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()                         # ... and ends here
+    assert plain.calls == 0, plain.calls
+    _served_counts("granite-8b e4m3 cache", counts, {
+        "mamba_scan": 0, "flash_attention": cfg.num_layers,
+        "decode_attention": cfg.num_layers * steps})
+    assert counts["sdqn_score_cols"] == 0, counts
+    _check_waves([w8], cfg, SERVE_GEN)
+    paths["flash_attention"]["granite-8b prefill, e4m3 run"] = counts[
+        "flash_attention"]
+    paths["decode_attention"]["granite-8b decode, e4m3 cache"] = counts[
+        "decode_attention"]
+    fig8 = _family_figures("granite-8b e4m3 cache", [w8],
+                           FAMILY_BATCH * SERVE_GEN, seconds)
+    fig8.update(_decode_profile("granite-8b e4m3 cache", params, c8,
+                                wave.prompts))
+    with _PlainSpy() as spy:
+        p8 = serve.serve_wave(params, c8, wave.prompts, SERVE_GEN,
+                              attn_mode="plain")
+    assert spy.calls > 0
+    same_bf16 = int((w8.tokens == wave.tokens).sum())
+    # the decode step that reads the float8 cache, with bf16 q (the path's
+    # instance) now and with float32 q on the weights the hold casts
+    token = w8.tokens[:, :1]
+    pairs = {"bfloat16": _decode_step_pair(params, c8, wave.prompts, token)}
+    hold = _family_hold("granite-8b", params, cfg, wave)
+    tol = LOGIT_TOL + max(hold["bf16_dev_plain"], hold["bf16_dev_kernel"])
+    err8 = _max_diff(w8.prefill_logits, p8.prefill_logits)
+    same8, pairs8 = _tokens_agree(w8, p8, tol)
+    print(f"LM granite-8b e4m3 cache, kernels vs plain: prefill logits "
+          f"max_abs_err={err8} (tolerance {tol}, the bf16 hold's); tokens "
+          f"identical={same8} over {pairs8} of {w8.tokens.numel()} (row, "
+          f"step) pairs before each row's first top-2 gap <= {2 * tol}; "
+          f"tokens equal to the bf16 cache's run: {same_bf16} of "
+          f"{w8.tokens.numel()}")
+    assert err8 <= tol and same8, (err8, tol, same8)
+    del p8
+    pairs["float32"] = _decode_step_pair(params, dataclasses.replace(
+        c8, dtype="float32", param_dtype="float32"), wave.prompts, token)
+    step_errs = {}
+    for key, pair in pairs.items():
+        assert pair["cuda_launches"] == cfg.num_layers, pair["cuda_launches"]
+        assert pair["plain_launches"] == 0, pair["plain_launches"]
+        assert bool(torch.isfinite(pair["cuda"]).all())
+        step_errs[key] = _max_diff(pair["cuda"], pair["plain"])
+        limit = tol if key == "bfloat16" else F32_LOGIT_TOL
+        print(f"LM granite-8b e4m3 cache, one decode step (kv_len "
+              f"{SERVE_PROMPT + 1}) from one prefill cache, kernel 8 vs "
+              f"plain, {key}: logits max_abs_err={step_errs[key]} "
+              f"(tolerance {limit})")
+        assert step_errs[key] <= limit, (key, step_errs[key], limit)
+    del pairs
+    figures["granite-8b"].update(hold)
+    figures["granite-8b e4m3 cache"] = dict(
+        fig8, plain_logit_err=err8, tokens_equal_to_bf16_cache=same_bf16,
+        pairs_compared=pairs8, decode_step_logit_err=step_errs)
+    del res, params, wave, w8
+    _free("granite-8b")
+    print(f"phase 21 seconds={time.perf_counter() - t_phase}")
+    return paths, figures
 
 
 # ---------------------------------------------------------------------------
@@ -4018,7 +4309,60 @@ def check_kernel7_sass():
         assert "bf16" not in fn or c["LDSM"] > 0, (fn, c)
 
 
-def main() -> int:
+def ptxas_spills(source):
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from ptxas's report (``-Xptxas -v``) of ``csrc/<source>.cu``'s build."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    out, fn = {}, None
+    for line in _build.BUILD_LOG[source]["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [0, 0, 0]
+        elif fn:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out[fn][1:] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_kernel8_build():
+    """Every instance of kernel 8 (q float32 or bfloat16 x cache in q's
+    dtype or float8_e4m3fn x D in {16, 32, 64, 128}) copies its K/V tiles
+    with cp.async (LDGSTS), spills nothing (ptxas), and the bfloat16-q
+    ones run their products on the tensor cores (HMMA) from ldmatrix
+    loads (LDSM)."""
+    counts = sass_counts("decode_attention")
+    spills = ptxas_spills("decode_attention")
+    kernels = {fn: c for fn, c in counts.items()
+               if "decode_attention_kernel" in fn}
+    assert len(kernels) == 16 and set(kernels) == set(spills), (
+        sorted(counts), sorted(spills))
+    for fn, c in sorted(kernels.items()):
+        regs, stores, loads = spills[fn]
+        mma = "kernelI13__nv_bfloat16" in fn
+        print(f"sass[decode_attention] {fn}: {c} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads}")
+        assert c["LDGSTS"] > 0 and stores == loads == 0, (fn, c, spills[fn])
+        assert not mma or (c["HMMA"] > 0 and c["LDSM"] > 0), (fn, c)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-src", default="",
+                    help="another checkout's src directory: phases 14 and "
+                         "20 also time its kernel 8 at every row, before "
+                         "and after this one's (scripts/decode_timings.py)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4042,6 +4386,7 @@ def main() -> int:
                                        "spill")):
                 print(f"ptxas[{src}]: {line.strip()}")
     check_kernel7_sass()
+    check_kernel8_build()
 
     max_err = phase_kernels(device)
     errs = phase_new_kernels(device)
@@ -4077,6 +4422,8 @@ def main() -> int:
     errs["sdqn_score_cols"] = max(errs["sdqn_score_cols"], drain_err)
     family_paths, family_figures = phase_lm_families(device)
     family_errs = phase_family_kernels(device)
+    granite_paths, granite_figures = phase_lm_granite(device)
+    family_figures.update(granite_figures)
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],
@@ -4098,8 +4445,9 @@ def main() -> int:
                                  "LM wave routing":
                                  lm_counts["sdqn_score_cols"]}}
     paths["mamba_scan"] = {"mamba policy class": launches["mamba_scan"]}
-    for key, per_path in list(rest_paths.items()) + list(
-            family_paths.items()):
+    for key, per_path in (list(rest_paths.items())
+                          + list(family_paths.items())
+                          + list(granite_paths.items())):
         paths[key].update(per_path)
     for key, per_path in paths.items():
         launches[key] = sum(per_path.values())
@@ -4107,12 +4455,31 @@ def main() -> int:
     timing = phase_new_timings(device, name)
     timing["sdqn_score_afterstate"] = phase_timings(device, name, fill)
     timing.update(phase_seq_timings(device, name))
+    parents = ([parent_decode_times(args.parent_src)] if args.parent_src
+               else [])
     lm_timing = phase_lm_timings(device, name)
     timing["decode_attention"] = dict(lm_timing["path"], other_shapes=[
-        lm_timing["olmo_32k"], lm_timing["granite_32k"]])
+        lm_timing[label] for label in PHASE14_DECODE[1:]])
     timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
     for key, rows in phase_family_timings(device, name).items():
         timing[key].setdefault("other_shapes", []).extend(rows)
+    t8 = timing["decode_attention"]       # every timed row held to plain
+    errs["decode_attention"] = max([errs["decode_attention"], t8["max_abs_err"]]
+                                   + [r["max_abs_err"]
+                                      for r in t8["other_shapes"]])
+    if args.parent_src:         # parent, this, parent: in turns on one card
+        parents.append(parent_decode_times(args.parent_src))
+        t8 = timing["decode_attention"]
+        for row in [t8] + t8["other_shapes"]:
+            for key in ("ms", "cold_ms"):
+                row[f"parent_{key}"] = [p.get(row["path"], {}).get(key)
+                                        for p in parents]
+            print(f"timing decode_attention {row['path']}: kernel_ms="
+                  f"{row['ms']} parent_ms={row['parent_ms']} (before, "
+                  f"after) kernel_cold_ms={row['cold_ms']} parent_cold_ms="
+                  f"{row['parent_cold_ms']} bound_ms={row['bound_ms']} "
+                  f"sdpa_ms="
+                  f"{row.get('library_ms') or row.get('sdpa_on_bf16_cache_ms')}")
     phase_breakdown(device)
     phase_sharded_breakdown(device)
     phase_policy_breakdown(device)
@@ -4154,8 +4521,9 @@ def main() -> int:
             kernels[-1]["max_abs_err_by_dtype"] = dict(
                 lm_errs[key], **({"float32": errs[key]}
                                  if key == "flash_attention" else {}))
-        for extra in ("other_shapes", "shape", "kv_len", "library_kernel",
-                      "bound_terms_ms", "launch_floor_ms", "plan"):
+        for extra in ("other_shapes", "shape", "kv_len", "cache",
+                      "library_kernel", "bound_terms_ms", "launch_floor_ms",
+                      "plan", "parent_ms", "cold_ms", "parent_cold_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(f"lm_families {json.dumps(family_figures)}")

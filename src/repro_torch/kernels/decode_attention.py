@@ -8,26 +8,30 @@ key/value head ``h // (Hq // Hkv)``, scale ``1/sqrt(D)``, scores, exp and
 sums in float32, in q's dtype.  A row with ``kv_len = 0`` comes out as
 zeros (``acc / max(l, 1e-30)``, as the TPU kernel; the reference's oracle
 ``decode_attention_ref`` gives the mean of V there).  ``kv_len`` past S is
-clamped to S.  Two versions of one function:
+clamped to S.  q is float32 or bfloat16; k and v are in q's dtype or in
+``float8_e4m3fn`` (the reference's ``cache_dtype="float8_e4m3fn"``, cast to
+q's dtype, exactly, before attending).  Two versions of one function:
 
 * ``decode_attention_plain`` — plain PyTorch, the whole (B, Hkv, G, S)
   score block in float32.  The CPU tests use it and ``chip_smoke.py`` holds
   the kernel to it.
-* ``decode_attention`` — the wrapper: on CUDA tensors ONE call of the
-  hand-written kernel ``csrc/decode_attention.cu`` (a split-KV pass, and
-  when the keys are split a small merge pass), counted in
-  ``decode_attention.launches``; on CPU tensors the plain version.  Any
-  other device raises.
+* ``decode_attention`` — the wrapper: on CUDA tensors ONE launch of the
+  hand-written kernel ``csrc/decode_attention.cu`` (the key splits of one
+  (batch, KV head) a thread-block cluster, merged inside the launch),
+  counted in ``decode_attention.launches``, on the grid of ``plan``; on
+  CPU tensors the plain version.  Any other device raises.
 
 k and v may be strided views whose last axis is contiguous, such as the
 model's (B, S, Hkv, D) cache seen through ``permute(0, 2, 1, 3)``: the
 kernel takes their strides and copies nothing.  Both versions refuse, on
-every device, what the kernel does not take: a dtype other than float32
-and bfloat16 (a float8 cache among them), mixed dtypes, a head width
-outside ``HEAD_DIMS``, and mismatched shapes.
+every device, what the kernel does not take: another dtype (float8_e5m2
+among them), a cache in a third dtype, a head width outside
+``HEAD_DIMS``, and mismatched shapes.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import torch
@@ -36,23 +40,25 @@ from repro_torch.kernels import _build
 
 SOURCE = "decode_attention"
 HEAD_DIMS = (16, 32, 64, 128)        # the kernel's template instances
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-GROUP_CHUNKS = (4, 2, 1)             # query heads a block serves, largest first
-MIN_SPLIT_KEYS = 256                 # keys of the smallest split
-BLOCKS_PER_SM = 4                    # split until the grid fills this many
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+CACHE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
+ROWS = 16            # query heads a block: the rows of one mma tile
+CLUSTER_MAX = 8      # splits of one (batch, KV head): a portable cluster
 
 
 def _dims(q, k, v):
     """(B, Hq, Hkv, S, D), raising on what the kernel does not take."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in DTYPES:
+    if q.dtype not in Q_TYPES:
+        raise ValueError(f"decode_attention: q is {q.dtype}; the kernel "
+                         f"takes float32 or bfloat16")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype not in (q.dtype, torch.float8_e4m3fn):
             raise ValueError(
-                f"decode_attention: {name} is {t.dtype}; the kernel takes "
-                f"float32 or bfloat16 (a float8 cache is not supported, see "
-                f"ROADMAP)")
-    if not q.dtype == k.dtype == v.dtype:
-        raise ValueError(f"decode_attention: mixed dtypes q {q.dtype}, k "
-                         f"{k.dtype}, v {v.dtype}")
+                f"decode_attention: {name} is {t.dtype}; the kernel takes a "
+                f"cache in q's dtype ({q.dtype}) or in float8_e4m3fn")
+    if k.dtype != v.dtype:
+        raise ValueError(f"decode_attention: mixed cache dtypes k {k.dtype}, "
+                         f"v {v.dtype}")
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"decode_attention: want q (B, Hq, D) and k, v "
                          f"(B, Hkv, S, D), got {tuple(q.shape)}, "
@@ -86,7 +92,8 @@ def _lengths(kv_len, b, device):
 
 
 def decode_attention_plain(q, k, v, kv_len) -> torch.Tensor:
-    """(B, Hq, D) attention output, plain PyTorch in float32."""
+    """(B, Hq, D) attention output, plain PyTorch in float32 (a float8
+    cache cast to float32, exactly)."""
     b, hq, hkv, s, d = _dims(q, k, v)
     g = hq // hkv
     scalar, lens = _lengths(kv_len, b, q.device)
@@ -105,42 +112,87 @@ def decode_attention_plain(q, k, v, kv_len) -> torch.Tensor:
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-_SMS: dict = {}
+@dataclasses.dataclass(frozen=True)
+class Capacity:
+    """What one (q dtype, cache dtype, D) instance of the kernel gets on a
+    card: ``tile`` keys a block takes a step (16 a warp); ``clusters[k -
+    1]`` clusters of k blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``: a block's registers and shared
+    memory, a cluster's blocks in one GPC); and its ``sms``."""
+    tile: int
+    clusters: tuple
+    sms: int
 
 
-def _sm_count(device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _SMS[device.index] = n
-    return n
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The grid of one launch: a block per (batch, KV head, chunk of up to
+    ``ROWS`` query heads, split); the ``splits`` blocks of one (batch, KV
+    head, chunk) form a cluster, and split r covers keys
+    ``[r * span // splits, (r + 1) * span // splits)`` of a row's first
+    kv_len."""
+    chunks: int
+    splits: int
+    span: int
+    pairs: int       # (batch, KV head, chunk) triples: clusters
+
+    @property
+    def blocks(self) -> int:
+        return self.pairs * self.splits
 
 
-def plan(b, hq, hkv, s, max_len, sms):
-    """(query heads per block, splits, keys per split) of one launch: a
-    block serves the largest chunk of its group in ``GROUP_CHUNKS``, and the
-    keys are split until the grid holds ``BLOCKS_PER_SM`` blocks per SM,
-    no split shorter than ``MIN_SPLIT_KEYS``."""
-    group = hq // hkv
-    gc = next(c for c in GROUP_CHUNKS if group % c == 0)
-    blocks = b * hkv * (group // gc)
-    max_len = max(0, min(max_len, s))
-    want = -(-BLOCKS_PER_SM * sms // blocks)
-    splits = max(1, min(want, -(-max_len // MIN_SPLIT_KEYS)))
-    split_len = -(-max(max_len, 1) // splits)
-    return gc, -(-max(max_len, 1) // split_len), split_len
+def plan(b, hq, hkv, s, max_len, cap: Capacity) -> Plan:
+    """The split count of one launch: the largest, at most ``CLUSTER_MAX``
+    and with no split shorter than one tile, whose blocks leave no SM with
+    two (``pairs * splits <= cap.sms``) and whose clusters the card holds
+    in one wave; else one.  A split brings an idle SM into play and costs
+    a cluster merge, so the keys split only while SMs would sit idle.
+    ``max_len`` is the longest row's kv_len (S for a per-row kv_len)."""
+    chunks = -(-(hq // hkv) // ROWS)
+    pairs = b * hkv * chunks
+    span = max(0, min(int(max_len), s))
+    splits = 1
+    for k in range(2, min(CLUSTER_MAX, span // cap.tile) + 1):
+        if pairs * k <= cap.sms and pairs <= cap.clusters[k - 1]:
+            splits = k
+    return Plan(chunks, splits, span, pairs)
+
+
+_CAPACITY: dict = {}
+
+
+def capacity(device, q_dtype, cache_dtype, d) -> Capacity:
+    """The instance's ``Capacity`` on ``device``, asked of the card once
+    per instance and device (``decode_attention_clusters``)."""
+    key = (device.index, Q_TYPES[q_dtype], CACHE_TYPES[cache_dtype], d)
+    cap = _CAPACITY.get(key)
+    if cap is None:
+        fn = _build.load(SOURCE).decode_attention_clusters
+        fn.argtypes = [_build.I] * 4
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            clusters = tuple(fn(*key[1:], k)
+                             for k in range(1, CLUSTER_MAX + 1))
+        if min(clusters) < 1:
+            raise RuntimeError(f"decode_attention: cluster occupancy of "
+                               f"{q_dtype}, {cache_dtype}, D={d}: {clusters}")
+        tile = 16 * (8 if q_dtype == torch.bfloat16 else 4)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cap = Capacity(tile, clusters, sms)
+        _CAPACITY[key] = cap
+    return cap
 
 
 def decode_attention(q, k, v, kv_len) -> torch.Tensor:
-    """(B, Hq, D) attention output: one kernel call on CUDA, the plain
+    """(B, Hq, D) attention output: one kernel launch on CUDA, the plain
     version on CPU.  q contiguous; k, v with a contiguous last axis and
-    16-byte aligned rows (the kernel reads them 16 bytes at a time)."""
+    16-byte aligned rows (the kernel copies them 16 bytes at a time)."""
     b, hq, hkv, s, d = _dims(q, k, v)
     device = q.device
     if not _build.on_card("decode_attention", device):
         return decode_attention_plain(q, k, v, kv_len)
     _build.check("q", q, q.dtype, q.shape, device)
-    size = q.element_size()
+    size = k.element_size()
     for name, t in (("k", k), ("v", v)):
         if t.device != device:
             raise ValueError(f"decode_attention: {name} is on {t.device}, "
@@ -153,25 +205,19 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     if q.data_ptr() % 16:
         raise ValueError("decode_attention: q is not 16-byte aligned")
     scalar, lens = _lengths(kv_len, b, device)
-    gc, splits, split_len = plan(b, hq, hkv, s, s if lens is not None
-                                 else scalar, _sm_count(device))
-    if b * hq * splits >= 2 ** 31 or splits > 65535:
+    p = plan(b, hq, hkv, s, s if lens is not None else scalar,
+             capacity(device, q.dtype, k.dtype, d))
+    if p.blocks >= 2 ** 31:
         raise ValueError(f"decode_attention: grid too large for B={b} "
                          f"Hq={hq} S={s}")
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((b * hq * splits * d,), dtype=torch.float32,
-                               device=device)
-        part_ml = torch.empty((b * hq * splits * 2,), dtype=torch.float32,
-                              device=device)
     _build.launch("decode_attention", SOURCE,
-                  [_build.P] * 7 + [_build.I] * 8 + [_build.L] * 6
-                  + [_build.I] * 2, device,
-                  q, k, v, out, part_acc, part_ml, lens,
-                  0 if scalar is None else scalar, b, hq, hkv, s, d,
-                  DTYPES[q.dtype], gc, *k.stride()[:3], *v.stride()[:3],
-                  splits, split_len)
+                  [_build.P] * 5 + [_build.I] * 8 + [_build.L] * 6
+                  + [_build.I] * 3, device,
+                  q, k, v, out, lens, 0 if scalar is None else scalar, b, hq,
+                  hkv, s, d, Q_TYPES[q.dtype], CACHE_TYPES[k.dtype],
+                  *k.stride()[:3], *v.stride()[:3], p.chunks, p.splits,
+                  p.span)
     decode_attention.launches += 1
     return out
 

@@ -39,12 +39,13 @@ def flash_attention_ref(q, k, v, *, causal=True):
 def decode_attention_ref(q, k, v, kv_len):
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); kv_len: () or (B,) -> (B, Hq, D).
     Masked scores are -1e30, so a row with kv_len = 0 gets the mean of V,
-    as the reference's oracle does (the kernel gives zeros there)."""
+    as the reference's oracle does (the kernel gives zeros there).  A
+    float8 cache is cast to float32 (exactly) first."""
     b, hq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
-    k = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
-    v = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    k = torch.repeat_interleave(k.to(torch.float32), group, dim=1)
+    v = torch.repeat_interleave(v.to(torch.float32), group, dim=1)
     s = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32), k) / math.sqrt(d)
     lens = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(b)
     mask = torch.arange(skv, device=q.device)[None, None, :] < lens[:, None, None]

@@ -111,14 +111,18 @@ def decode_cache(cfg: ModelConfig, pcache: dict, batch: int, plen: int,
     prefill cache: its K/V in the first ``plen`` positions, every other
     leaf (the mamba ``conv`` and ``h``, the encoder's ``xk`` and ``xv``)
     whole.  The reference pads only its 5-D leaves of length ``plen``
-    (``repro/launch/serve.py:156-163``) and keeps the rest as they are."""
+    (``repro/launch/serve.py:156-163``) and keeps the rest as they are.
+    Leaves go into the config's ``cache_dtype`` through
+    ``model.cache_cast`` (a float8 cache rounds as the reference's
+    ``astype``)."""
     cache = mdl.init_cache(cfg, batch, plen + gen_tokens, device=device)
     for name, sub in cache.items():
         for leaf, t in sub.items():
+            src = mdl.cache_cast(pcache[name][leaf], t.dtype)
             if leaf in ("k", "v"):
-                t[:, :, :plen] = pcache[name][leaf]
+                t[:, :, :plen] = src
             else:
-                t.copy_(pcache[name][leaf])
+                t.copy_(src)
     return cache
 
 

@@ -134,9 +134,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``NotImplementedError``: the reference's diagonal there starts at key
     0, kernel 7's at Skv - Sq, and no path runs it.  ``q_chunk`` and
     ``causal_buckets`` set the reference's memory and speed, not its
-    result; the kernels need neither.  A cache stored in another dtype
-    than q is cast to q's, as the reference does (a float8 cache is
-    refused by the kernels).  ``mode`` is that of ``kernels.ops``:
+    result; the kernels need neither.  A float32 or bfloat16 cache in
+    another dtype than q is cast to q's, as the reference does; a
+    ``float8_e4m3fn`` cache goes to kernel 8 as it is (the reference's
+    cast to q's dtype is exact, and the kernel converts exactly as it
+    reads).  ``mode`` is that of ``kernels.ops``:
     ``None`` runs the kernels on CUDA tensors and their plain versions on
     the CPU.
     """

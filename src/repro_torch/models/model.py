@@ -72,6 +72,22 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+E4M3_MAX_ROUNDED = 464.0   # the largest |x| that rounds to e4m3's 448
+
+
+def cache_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in the cache's ``dtype``, rounded as the reference's
+    ``astype`` rounds: to nearest even, and for ``float8_e4m3fn`` (no
+    infinity) every value past the range, infinities included, becomes
+    NaN of its sign, where PyTorch's cast saturates to +-448."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    over = x.abs() > E4M3_MAX_ROUNDED      # exact in bfloat16 and float32
+    bits = y.view(torch.uint8)
+    return torch.where(over, bits | 0x7F, bits).view(dtype)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -198,8 +214,8 @@ def _run_attn(sp, x, cfg, *, positions, causal, cache_kv=None,
     new_kv = None
     if cache_kv is not None:  # decode: write in place, then attend
         ck, cv = cache_kv
-        ck[:, cache_index:cache_index + 1] = k
-        cv[:, cache_index:cache_index + 1] = v
+        ck[:, cache_index:cache_index + 1] = cache_cast(k, ck.dtype)
+        cv[:, cache_index:cache_index + 1] = cache_cast(v, cv.dtype)
         o = layers.attention(q, ck, cv, causal=False, kv_len=cache_index + 1,
                              q_offset=cache_index, mode=attn_mode)
     else:

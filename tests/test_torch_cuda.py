@@ -851,9 +851,9 @@ def test_decode_attention_refuses_on_card(cuda_device):
     from repro_torch.kernels import decode_attention as da
 
     q, k, v = _decode_qkv(2, 4, 2, 64, 32, torch.float32, cuda_device, 6)
-    k8 = k.to(torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="float8"):
-        da.decode_attention(q, k8, k8, 10)
+    k5 = k.to(torch.float8_e5m2)
+    with pytest.raises(ValueError, match="float8_e5m2"):
+        da.decode_attention(q, k5, k5, 10)
     with pytest.raises(ValueError, match="cuda"):
         ops.decode_attention(q.cpu(), k.cpu(), v.cpu(), 10, mode="cuda")
     shifted = torch.empty(k.numel() + 1, device=cuda_device)[1:].view(k.shape)
@@ -862,6 +862,157 @@ def test_decode_attention_refuses_on_card(cuda_device):
         da.decode_attention(q, shifted, v, 10)
     with pytest.raises(ValueError, match="on cpu"):
         da.decode_attention(q, k.cpu(), v, 10)
+
+
+# kernel 8 with a float8_e4m3fn cache: the shapes above, dbrx-132b's
+# decode and a 16:1 group at 4,096 keys
+E4M3_SHAPES = [(1, 4, 4, 128, 32), (2, 8, 2, 256, 64), (3, 4, 1, 512, 16),
+               (8, 16, 16, 544, 128), (8, 32, 8, 4096, 128),
+               (8, 48, 8, 544, 128), (2, 128, 8, 4096, 128)]
+
+
+def _ragged_with_zero(b, s, device):
+    n = torch.randint(1, s + 1, (b,), generator=torch.Generator().manual_seed(
+        b + s))
+    n[0] = 0
+    return n.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", E4M3_SHAPES)
+@pytest.mark.parametrize("kv_len", ["full", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_e4m3_cache_matches_plain_on_card(cuda_device, shape,
+                                                           kv_len, dtype):
+    """q in float32 or bfloat16 against a float8_e4m3fn cache, the full
+    length or a ragged (B,) kv_len holding a 0: one launch, the plain
+    version's output (which casts the cache to float32, exactly)."""
+    from repro_torch.kernels import decode_attention as da
+
+    b, hq, hkv, s, d = shape
+    q, k, v = _decode_qkv(*shape, dtype, cuda_device, sum(shape) + 1)
+    k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    n = s if kv_len == "full" else _ragged_with_zero(b, s, cuda_device)
+    before = da.decode_attention.launches
+    got = ops.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, hq, d)
+    want = ops.decode_attention(q, k, v, n, mode="plain")
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    if kv_len == "ragged":
+        assert not bool(got[0].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 6, 8, 12, 16, 24])
+@pytest.mark.parametrize("cache", ["same", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_every_group_size_matches_plain_on_card(
+        cuda_device, group, cache, dtype):
+    """The GQA groups of the repo's configs (and 24, two chunks of query
+    heads), a (B, S, Hkv, D) cache view, a ragged kv_len holding a 0."""
+    gen = torch.Generator().manual_seed(group)
+    b, hkv, s, d = 3, 2, 700, 128
+    ck, cv = (torch.randn((b, s, hkv, d), generator=gen).to(dtype)
+              for _ in range(2))
+    if cache == "e4m3":
+        ck, cv = ck.to(torch.float8_e4m3fn), cv.to(torch.float8_e4m3fn)
+    q = torch.randn((b, group * hkv, d), generator=gen).to(dtype)
+    q, ck, cv = (t.to(cuda_device) for t in (q, ck, cv))
+    kview, vview = ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3)
+    n = _ragged_with_zero(b, s, cuda_device)
+    got = ops.decode_attention(q, kview, vview, n)
+    torch.testing.assert_close(got, ops.decode_attention(
+        q, kview, vview, n, mode="plain"), **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["same", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_nan_in_q_gives_nan_rows_on_card(cuda_device, cache,
+                                                          dtype):
+    """A NaN in one query head makes that head's output NaN and nothing
+    else, across the splits of a 4:1 group."""
+    q, k, v = _decode_qkv(4, 32, 8, 3000, 128, dtype, cuda_device, 12)
+    if cache == "e4m3":
+        k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    q[1, 5, 7] = float("nan")
+    q[3, 30, 0] = float("nan")
+    got = ops.decode_attention(q, k, v, 2900)
+    want = ops.decode_attention(q, k, v, 2900, mode="plain")
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[1, 5]).all() and torch.isnan(got[3, 30]).all())
+    assert int(torch.isnan(got).sum()) == 2 * 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["same", "e4m3"])
+def test_decode_attention_q_past_float16s_range_matches_plain_on_card(
+        cuda_device, cache):
+    """bfloat16 q whose rows lie past float16's largest value (~1e5) or
+    below its smallest normal (2^-14; here ~2^-18), or mix the two: with a
+    float8 cache the products run in float16, so each query row is scaled
+    by a power of two first; the output is the plain version's, finite
+    where it is."""
+    q, k, v = _decode_qkv(4, 32, 8, 600, 128, torch.bfloat16, cuda_device,
+                          14)
+    if cache == "e4m3":
+        k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    q[:, 0::4] *= 1e5
+    q[:, 1::4] *= 2.0 ** -18
+    q[:, 2::4, 0::2] *= 3e4
+    q[:, 2::4, 1::2] *= 2.0 ** -20
+    n = _ragged_with_zero(4, 600, cuda_device)
+    got = ops.decode_attention(q, k, v, n)
+    want = ops.decode_attention(q, k, v, n, mode="plain")
+    assert bool(torch.isfinite(want.float()).all())
+    torch.testing.assert_close(got, want, **_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_converts_every_e4m3_code_exactly_on_card(
+        cuda_device, dtype):
+    """All 256 float8_e4m3fn codes as the one visible value row: with one
+    key the output is that row, so it must be the codes' values exactly
+    (NaN for 0x7F and 0xFF) in q's dtype."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+        torch.float8_e4m3fn).reshape(2, 1, 1, 128)
+    v = torch.zeros((2, 1, 40, 128), dtype=torch.float8_e4m3fn)
+    v[:, :, :1] = codes
+    v = v.to(cuda_device)
+    k = torch.zeros_like(v)
+    q = torch.zeros((2, 4, 128), dtype=dtype, device=cuda_device)
+    got = ops.decode_attention(q, k, v, 1)
+    want = codes.reshape(2, 1, 128).to(torch.float32).expand(2, 4, 128)
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((8, 16, 16, 544, 128), 543),
+                                     ((8, 48, 8, 544, 128), 543),
+                                     ((8, 32, 8, 32768, 128), 32768),
+                                     ((2, 128, 8, 4096, 128), 4096),
+                                     ((2, 8, 2, 256, 64), 256)])
+@pytest.mark.parametrize("cache", ["same", "e4m3"])
+def test_decode_attention_call_is_one_device_kernel(cuda_device, shape, n,
+                                                    cache):
+    """One call is one device kernel, its splits merged inside it (the
+    kernel nodes of a CUDA graph of one call); the 32k and the 16:1 shapes
+    split their keys."""
+    from repro_torch.kernels import decode_attention as da
+
+    q, k, v = _decode_qkv(*shape, torch.bfloat16, cuda_device, 13)
+    if cache == "e4m3":
+        k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    b, hq, hkv, s, d = shape
+    p = da.plan(b, hq, hkv, s, n, da.capacity(q.device, q.dtype, k.dtype,
+                                              d))
+    names = _one_call_kernels(lambda: da.decode_attention(q, k, v, n))
+    assert len(names) == 1 and "decode_attention" in names[0], names
+    assert p.splits > 1 or s < 4096, p
 
 
 @pytest.mark.cuda

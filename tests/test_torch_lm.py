@@ -167,36 +167,43 @@ def test_mlp_matches_the_reference(act):
 
 
 @pytest.mark.parametrize("case", ["causal", "full", "decode", "decode_gqa",
-                                  "cross", "cross_decode"])
+                                  "cross", "cross_decode", "decode_e4m3",
+                                  "decode_gqa_e4m3", "cross_decode_e4m3"])
 def test_attention_dispatch_matches_the_reference(case):
     """Self-attention (kernel 7's plain version), one token against a
     cache (kernel 8's), GQA included, and cross-attention of 5 queries
     (kernel 7) or one (kernel 8, ``kv_len = Skv``) against 24 keys with
-    no ``kv_len``, against the reference's XLA path."""
+    no ``kv_len``, against the reference's XLA path; the ``_e4m3`` cases
+    with the cache in float8_e4m3fn (the reference casts it to q's
+    dtype, the port hands it to kernel 8 as it is)."""
     rng = np.random.default_rng(4)
     b, s, hkv, d = 2, 24, 2, 16
-    hq = 4 if case in ("decode_gqa", "cross") else 2
-    sq = {"cross": 5, "cross_decode": 1}.get(
-        case, 1 if case.startswith("decode") else s)
+    hq = 4 if case in ("decode_gqa", "cross", "decode_gqa_e4m3") else 2
+    sq = {"cross": 5}.get(case, 1 if case.startswith(
+        ("decode", "cross_decode")) else s)
     q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, s, hkv, d)).astype(np.float32)
             for _ in range(2))
     kw = dict(causal=case == "causal")
     if case.startswith("decode"):
         kw = dict(causal=False, kv_len=13, q_offset=12)
-    want = jlayers.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                             q_chunk=8, **kw)
-    got = tlayers.attention(torch.tensor(q), torch.tensor(k),
-                            torch.tensor(v), **kw)
+    jk, jv, tk, tv = jnp.asarray(k), jnp.asarray(v), torch.tensor(k), \
+        torch.tensor(v)
+    if case.endswith("_e4m3"):
+        jk, jv = jk.astype(jnp.float8_e4m3fn), jv.astype(jnp.float8_e4m3fn)
+        tk, tv = tk.to(torch.float8_e4m3fn), tv.to(torch.float8_e4m3fn)
+    want = jlayers.attention(jnp.asarray(q), jk, jv, q_chunk=8, **kw)
+    got = tlayers.attention(torch.tensor(q), tk, tv, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
                                atol=3e-5)
 
 
-@pytest.mark.parametrize("case", ["cross", "kv_len_prefill", "float8"])
+@pytest.mark.parametrize("case", ["cross", "kv_len_prefill", "e5m2"])
 def test_attention_refuses_what_no_ported_path_runs(case):
     """Offset causal query blocks (the reference's diagonal starts at key
     0 there, kernel 7's at Skv - Sq; no path runs them), ``kv_len`` with
-    several query tokens, and a float8 cache raise."""
+    several query tokens, and a float8_e5m2 cache (no config stores one;
+    kernel 8 takes float8_e4m3fn) raise."""
     q = torch.zeros(1, 4 if case != "cross" else 3, 2, 16)
     k = v = torch.zeros(1, 4, 2, 16)
     if case == "cross":
@@ -208,8 +215,8 @@ def test_attention_refuses_what_no_ported_path_runs(case):
         with pytest.raises(NotImplementedError):
             tlayers.attention(q, k, v, causal=False, kv_len=3)
     else:
-        k8 = k.to(torch.float8_e4m3fn)
-        with pytest.raises(ValueError, match="float8"):
+        k8 = k.to(torch.float8_e5m2)
+        with pytest.raises(ValueError, match="float8_e5m2"):
             tlayers.attention(q[:, :1], k8, k8, causal=False, kv_len=3)
 
 
@@ -407,6 +414,155 @@ def test_prefill_and_decode_match_the_reference(arch, dtype):
                       want_logits, want_tokens, tol)
     if dtype == "float32":
         assert compared == gen
+
+
+E4M3 = "float8_e4m3fn"
+
+
+@pytest.mark.parametrize("src", ["bfloat16", "float32"])
+def test_cache_cast_rounds_as_the_reference(src):
+    """``model.cache_cast`` into float8_e4m3fn against ml_dtypes (the
+    reference's ``astype``, JAX on the CPU) bit for bit: every one of the
+    65,536 bfloat16 values, or float32 values across and past the range
+    with its edges; NaN of the value's sign past +-464, where PyTorch's
+    own cast saturates to +-448.  Other dtypes: the plain cast."""
+    import ml_dtypes
+
+    if src == "bfloat16":
+        x = np.arange(65536, dtype=np.uint16).view(ml_dtypes.bfloat16)
+        tx = torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        x = np.concatenate([
+            np.random.default_rng(11).standard_normal(100_000) * 300,
+            [448, 464, -464, 464.00003, -464.00003, 479.9, 480, 1e30,
+             np.inf, -np.inf, np.nan, 2.0 ** -9, 2.0 ** -10, 1e-30, 0.0,
+             -0.0]]).astype(np.float32)
+        tx = torch.from_numpy(x.copy())
+    with np.errstate(invalid="ignore"):
+        want = x.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
+    jwant = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).view(np.uint8)
+    np.testing.assert_array_equal(jwant, want)
+    got = tmdl.cache_cast(tx, torch.float8_e4m3fn)
+    assert got.dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(got.view(torch.uint8).numpy(), want)
+    past = np.abs(x.astype(np.float32)) > 464
+    assert past.any() and (want[past] & 0x7F == 0x7F).all()
+    assert (tx.to(torch.float8_e4m3fn).view(torch.uint8).numpy()[
+        past & np.isfinite(x.astype(np.float32))] & 0x7F != 0x7F).any()
+    for dt in (torch.bfloat16, torch.float32):
+        torch.testing.assert_close(tmdl.cache_cast(tx, dt), tx.to(dt),
+                                   rtol=0, atol=0, equal_nan=True)
+
+
+def _reference_e4m3_run(jp, jc, prompts, gen_tokens):
+    """The reference's prefill, its K/V written with ``astype`` into an
+    ``init_cache`` of the e4m3 cache dtype, then greedy decode steps.
+    Returns (logits per step, tokens, the final cache, the prefill's
+    cache in the config's dtype)."""
+    plen = prompts.shape[1]
+    logits, pcache = jax.jit(lambda p, t: jmdl.prefill(p, jc, t, {},
+                                                      q_chunk=64))(
+        jp, jnp.asarray(prompts))
+    cache = jmdl.init_cache(jc, prompts.shape[0], plen + gen_tokens)
+    cache = jax.tree.map(
+        lambda c, p: c.at[:, :, :plen].set(p.astype(c.dtype)), cache, pcache)
+    decode = jax.jit(lambda p, t, c, i: jmdl.decode_step(p, jc, t, c, i))
+    steps, tokens = [np.asarray(logits)], []
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    tokens.append(np.asarray(tok))
+    for i in range(gen_tokens - 1):
+        logits, cache = decode(jp, tok, cache, jnp.int32(plen + i))
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        steps.append(np.asarray(logits))
+        tokens.append(np.asarray(tok))
+    return np.stack(steps, 1), np.concatenate(tokens, 1), cache, pcache
+
+
+def _e4m3_step(x):
+    """The spacing of float8_e4m3fn values at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -6))) - 3)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_with_an_e4m3_cache_match_the_reference(arch,
+                                                                   dtype):
+    """``cache_dtype="float8_e4m3fn"`` (the reference's option; a dense
+    GQA arch and the MoE dbrx): the prompt's K/V written into the float8
+    decode cache (``serve.decode_cache``), then decode steps that write
+    each token's K/V with ``cache_cast`` and attend through kernel 8's
+    plain version on the float8 cache.  The final cache's K/V within one
+    float8 rounding step (adjacent codes) of the reference's in float32,
+    where the two packages' K/V agree to float32 roundings and may only
+    straddle a rounding midpoint, at every position written.  In
+    bfloat16 the two packages' prefill K/V differ by their roundings
+    inside (held here by the module's rule, against the reference's
+    float32-weight K/V); the prompt's float8 codes equal the reference's
+    bit for bit wherever the two packages' bfloat16 K/V are equal, and
+    elsewhere lie within their difference plus one float8 step; and they
+    are ``cache_cast`` of the port's own prefill K/V bit for bit.  Logits
+    by the module's rules (in bfloat16 against the reference's run with
+    float32 weights and the same float8 cache)."""
+    jc, tc = _cfgs(arch, dtype)
+    jc, tc = (dataclasses.replace(c, cache_dtype=E4M3) for c in (jc, tc))
+    jp, tp = _params(jc)
+    b, plen, gen = 2, 12, 5
+    prompts = _tokens(jc, b, plen, seed=16)
+    want_logits, want_tokens, jcache, jpre = _reference_e4m3_run(
+        jp, jc, prompts, gen)
+    tol = TOL[dtype]
+    if dtype == "bfloat16":     # the module's rule: the float32-weight run
+        jc32 = dataclasses.replace(jc, dtype="float32",
+                                   param_dtype="float32")
+        jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+        own = want_logits[:, 0]
+        want_logits, want_tokens, _, jpre32 = _reference_e4m3_run(
+            jp32, jc32, prompts, gen)
+        tol += float(np.abs(own - want_logits[:, 0]).max())
+    logits, pcache = tmdl.prefill(tp, tc, torch.tensor(prompts).long())
+    cache = _decode_cache(tc, pcache, plen, gen)
+    assert all(t.dtype == torch.float8_e4m3fn for sub in cache.values()
+               for t in sub.values())
+    steps, tokens = [logits.numpy()], []
+    tok = torch.argmax(logits, -1)[:, None]
+    tokens.append(tok.numpy())
+    for i in range(gen - 1):
+        logits, _ = tmdl.decode_step(tp, tc, tok, cache, plen + i)
+        tok = torch.argmax(logits, -1)[:, None]
+        steps.append(logits.numpy())
+        tokens.append(tok.numpy())
+    upto = _agree(np.stack(steps, 1), np.concatenate(tokens, 1), want_logits,
+                  want_tokens, tol)
+    if dtype == "float32":
+        assert upto == gen
+    def codes(bits):            # float8 bit patterns in the values' order
+        mag = bits.astype(np.int32) & 0x7F
+        return np.where(bits & 0x80, -mag, mag)
+
+    for sub, leaves in jcache.items():
+        for part, want in leaves.items():
+            got = cache[sub][part].view(torch.uint8).numpy()
+            if dtype == "float32":
+                w = np.asarray(want).view(np.uint8)
+                assert np.isfinite(np.asarray(want, np.float32)).all()
+                assert np.abs(codes(got) - codes(w)).max() <= 1
+            else:
+                np.testing.assert_array_equal(
+                    got[:, :, :plen], tmdl.cache_cast(
+                        pcache[sub][part], torch.float8_e4m3fn).view(
+                            torch.uint8).numpy())
+                x = pcache[sub][part].float().numpy()
+                y = np.asarray(jpre[sub][part], np.float32)
+                y32 = np.asarray(jpre32[sub][part], np.float32)
+                assert np.abs(x - y32).max() <= TOL[dtype] + np.abs(
+                    y - y32).max()
+                mine = cache[sub][part][:, :, :plen].float().numpy()
+                ref = np.asarray(want[:, :, :plen], np.float32)
+                same = x == y
+                assert same.mean() > 0.5
+                np.testing.assert_array_equal(mine[same], ref[same])
+                assert (np.abs(mine - ref) <= np.abs(x - y) + _e4m3_step(
+                    np.maximum(np.abs(x), np.abs(y)))).all()
 
 
 @pytest.mark.parametrize("arch", PORTED)

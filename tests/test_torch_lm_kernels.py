@@ -130,15 +130,16 @@ def test_decode_attention_wrapper_on_cpu_is_the_plain_version():
     torch.testing.assert_close(got, tda.decode_attention_plain(q, k, v, 40))
 
 
-@pytest.mark.parametrize("bad", ["float8", "mixed", "head_width", "kv_heads",
+@pytest.mark.parametrize("bad", ["e5m2", "mixed", "head_width", "kv_heads",
                                  "shapes", "kv_len", "mode"])
 def test_decode_attention_refuses_what_the_kernel_does_not_take(bad):
-    """Refused on every device, so the CPU sees what the card would."""
+    """Refused on every device, so the CPU sees what the card would.  A
+    float8_e4m3fn cache is taken (below); float8_e5m2 is not."""
     q, k, v = (torch.tensor(a) for a in _decode_inputs(1, 4, 2, 32, 16,
                                                         "float32"))
     n = 8
-    if bad == "float8":
-        k, v = k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn)
+    if bad == "e5m2":
+        k, v = k.to(torch.float8_e5m2), v.to(torch.float8_e5m2)
     elif bad == "mixed":
         k = k.to(torch.bfloat16)
     elif bad == "head_width":
@@ -160,17 +161,131 @@ def test_decode_attention_refuses_what_the_kernel_does_not_take(bad):
             fn(q, k, v, n)
 
 
+# an e4m3 cache (the reference's cache_dtype="float8_e4m3fn") at the GQA
+# groups of src/repro/configs: q in bfloat16 or float32, (B, Hq, Hkv, S, D)
+E4M3_GROUPS = [6, 8, 12, 16]
+
+
+@pytest.mark.parametrize("group", E4M3_GROUPS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_plain_takes_an_e4m3_cache(group, dtype):
+    """k, v in float8_e4m3fn (the same bits in both packages, through
+    ml_dtypes), q in bfloat16 or float32, a ragged kv_len holding 0: the
+    plain version and ``mode="ref"`` against the Pallas kernel in
+    interpret mode and the reference's oracle (which cast the cache to
+    float32, exactly, as the plain version does)."""
+    b, hkv, s, d = 3, 2, 128, 32
+    hq = group * hkv
+    q, k, v = _arrays(((b, hq, d), (b, hkv, s, d), (b, hkv, s, d)),
+                      dtype, group)
+    k8, v8 = (a.astype(np.float32).astype(ml_dtypes.float8_e4m3fn)
+              for a in (k, v))
+    n = np.array([0, 77, s], np.int32)
+    jd = DTYPES[dtype][0]
+    jq = jnp.asarray(q, jd)
+    jk, jv = (jnp.asarray(a) for a in (k8, v8))
+    assert jk.dtype == jnp.float8_e4m3fn
+    pallas = np.asarray(jops.decode_attention(jq, jk, jv, jnp.asarray(n),
+                                              mode="interpret", block_k=64),
+                        np.float32)
+    oracle = np.asarray(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(n)),
+                        np.float32)
+    tq = _torch(q, dtype)
+    tk, tv = (torch.from_numpy(a.view(np.uint8).copy()).view(
+        torch.float8_e4m3fn) for a in (k8, v8))
+    np.testing.assert_array_equal(tk.to(torch.float32).numpy(),
+                                  k8.astype(np.float32))
+    got = tops.decode_attention(tq, tk, tv, torch.tensor(n))
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (b, hq, d)
+    np.testing.assert_allclose(_np(got), pallas, **tol(dtype))
+    np.testing.assert_allclose(_np(got)[1:], oracle[1:], **tol(dtype))
+    np.testing.assert_array_equal(_np(got)[0], np.zeros((hq, d), np.float32))
+    np.testing.assert_allclose(
+        _np(tops.decode_attention(tq, tk, tv, torch.tensor(n), mode="ref")),
+        oracle, **tol(dtype))
+
+
+# the capacities of the path's instances on an H100 (132 SMs; the clusters
+# of 1..8 blocks cudaOccupancyMaxActiveClusters gives, PERF.md): bfloat16
+# or float8 cache at D = 128 (one block of 8 warps an SM), bfloat16 at
+# D = 64 (two); tile = 8 warps x 16 keys
+H100_D128 = (132, 66, 39, 30, 22, 17, 15, 15)
+H100_D64 = (264, 132, 79, 62, 47, 39, 32, 30)
+
+
+def _cap(clusters):
+    return tda.Capacity(128, clusters, 132)
+
+
+# plan(B, Hq, Hkv, S, kv_len, capacity) -> (chunks, splits) at the paths'
+# shapes (the same for a bfloat16 and a float8 cache: their D = 128
+# instances hold the same clusters)
 @pytest.mark.parametrize("case", [
-    ((8, 16, 16, 544, 544), (1, 3, 182)),       # OLMo decode, this slice
-    ((8, 16, 16, 32768, 32768), (1, 5, 6554)),  # OLMo, 32k context
-    ((8, 32, 8, 32768, 32768), (4, 9, 3641)),   # granite-8b's GQA
-    ((8, 16, 16, 544, 0), (1, 1, 1)),           # nothing to attend to
-    ((1, 4, 4, 128, 17), (1, 1, 17)),
+    ((8, 16, 16, 544, 543, H100_D128), (1, 1)),        # OLMo-1B decode
+    ((8, 16, 16, 32768, 32768, H100_D128), (1, 1)),    # OLMo, 32k
+    ((8, 32, 8, 32768, 32768, H100_D128), (1, 2)),     # granite 32k
+    ((8, 32, 8, 544, 543, H100_D128), (1, 2)),         # granite decode
+    ((8, 48, 8, 544, 543, H100_D128), (1, 2)),         # dbrx's 6:1 decode
+    ((8, 16, 16, 1500, 1500, H100_D64), (1, 1)),       # whisper's cross cache
+    ((2, 128, 8, 4096, 4096, H100_D128), (1, 6)),      # 16:1 GQA
+    ((1, 8, 1, 4096, 4096, H100_D128), (1, 8)),        # one pair
+    ((4, 32, 8, 32768, 32768, H100_D128), (1, 3)),     # 30 clusters of 4
+    ((4, 96, 2, 300, 300, H100_D128), (3, 2)),         # 48:1 (3 chunks)
+    ((8, 16, 16, 544, 0, H100_D128), (1, 1)),          # nothing to attend to
+    ((1, 4, 4, 128, 17, H100_D128), (1, 1)),           # shorter than a tile
 ])
 def test_decode_attention_launch_plan(case):
-    """Query heads per block, key splits and keys per split on 132 SMs."""
-    (b, hq, hkv, s, n), want = case
-    assert tda.plan(b, hq, hkv, s, n, 132) == want
+    """Query-head chunks and key splits at the paths' shapes on an H100's
+    capacities."""
+    (b, hq, hkv, s, n, clusters), want = case
+    p = tda.plan(b, hq, hkv, s, n, _cap(clusters))
+    assert (p.chunks, p.splits) == want
+    assert p.span == min(n, s) and p.pairs == b * hkv * p.chunks
+
+
+def _plan_cover(p, b, hq, hkv):
+    """A numpy model of the kernel's grid: for each block (pair, rank) the
+    query heads and keys it takes, counted per (batch, query head, key)."""
+    group = hq // hkv
+    cover = np.zeros((b, hq, max(p.span, 1)), np.int64)
+    lengths = []
+    for blk in range(p.blocks):
+        pair, rank = divmod(blk, p.splits)
+        pair, c = divmod(pair, p.chunks)
+        bb, hk = divmod(pair, hkv)
+        h0 = hk * group + c * tda.ROWS
+        rows = min(tda.ROWS, group - c * tda.ROWS)
+        t0 = rank * p.span // p.splits
+        t1 = (rank + 1) * p.span // p.splits
+        cover[bb, h0:h0 + rows, t0:t1] += 1
+        lengths.append(t1 - t0)
+    return cover, lengths
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 16, 16, 544), (8, 32, 8, 32768), (8, 48, 8, 544), (8, 16, 16, 1500),
+    (2, 128, 8, 4096), (3, 4, 1, 512), (1, 40, 2, 1000), (5, 96, 4, 300),
+    (1, 8, 8, 65), (2, 12, 1, 130)])
+@pytest.mark.parametrize("clusters", [H100_D128, H100_D64,
+                                      (8, 4, 2, 2, 1, 1, 1, 1)])
+def test_decode_attention_plan_covers_every_key_once(shape, clusters):
+    """Every (batch, query head, key) below the span lies in exactly one
+    block; at most CLUSTER_MAX splits a cluster; no split shorter than a
+    tile; and a split grid is one wave: at most a block an SM, and no more
+    clusters than the card holds at once."""
+    b, hq, hkv, s = shape
+    cap = _cap(clusters)
+    for n in sorted({0, 1, 127, 128, 300, s // 2, s - 1, s}):
+        n = max(0, min(n, s))
+        p = tda.plan(b, hq, hkv, s, n, cap)
+        assert 1 <= p.splits <= tda.CLUSTER_MAX
+        assert p.chunks * tda.ROWS >= hq // hkv > (p.chunks - 1) * tda.ROWS
+        cover, lengths = _plan_cover(p, b, hq, hkv)
+        assert (cover[:, :, :n] == 1).all() and (cover[:, :, n:] == 0).all()
+        if p.splits > 1:
+            assert min(lengths) >= cap.tile
+            assert p.blocks <= cap.sms
+            assert p.pairs <= clusters[p.splits - 1]
 
 
 # ---------------------------------------------------------------------------
