@@ -9,8 +9,10 @@ Phases (any failed check raises and the run exits nonzero):
 1. Device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``,
    ptxas's registers and spills per kernel, and the SASS of kernel 7's ten
-   instances: each must hold tensor-core products (HMMA) and cp.async
-   copies (LDGSTS), the bfloat16 ones ldmatrix loads (LDSM).  Kernel 8's
+   instances (and the four that also store the rows' lse): each must hold
+   tensor-core products (HMMA) and cp.async copies (LDGSTS), the bfloat16
+   ones ldmatrix loads (LDSM) and no spill.  The backward's eight
+   instances: 0 spill bytes, the bfloat16 ones HMMA, LDSM and LDGSTS.  Kernel 8's
    sixteen instances (q float32 or bfloat16 x cache in q's dtype or
    float8_e4m3fn x D in {16, 32, 64, 128}): cp.async (LDGSTS) in all, HMMA
    and LDSM in the bfloat16-q ones, and 0 spill bytes in every one.
@@ -243,6 +245,39 @@ Kernel 8's 4:1 GQA path and the float8 cache:
     to the first near tie) and the bf16 wave held as phase 20 holds its
     models.
 
+LM training (kernel 7 with its row log-sum-exp, and its hand-written
+backward, ``csrc/flash_attention_bwd.cu``):
+
+22. The backward's dQ, dK, dV (and the forward's lse) against
+    ``flash_attention_bwd_plain`` on the same CUDA tensors and against
+    autograd of ``flash_attention_plain`` in float32, at OLMo-1B's
+    (8, 512, 16, 128) causal, granite's 32 / 8 and dbrx's 48 / 8 GQA,
+    whisper's encoder (8, 1500, 16, 64) and cross-attention (8, 448
+    against 1,500 keys) non-causal, and a ragged causal shape, in float32
+    (1e-4) and bfloat16 (2e-2) relative to the largest gradient.  Kernels
+    1-6 and 8 under grad with an input that requires grad raise (kernel 6
+    names ROADMAP's "kernel 6 backward").  Then
+    ``repro_torch.launch.train.main`` with OLMo-1B at full width and depth
+    (bf16 weights, ``default_adam``: float32 master and moments), 40 steps
+    of 8 x 512 tokens, a checkpoint under ``build/``: exactly 16 x 40
+    launches of kernel 7 and of its backward, no plain call, finite losses
+    whose last-10 mean is below the first-10's; ms a step (median of steps
+    5-39, synchronized), tokens/s, MFU (``roofline.cell_flops``' model
+    FLOPs over the step and 989 TFLOP/s), peak memory, and torch.profiler
+    over steps 2-4 (busy share, top device operations).  A crash with
+    ``--fail-at 12`` (exit 17) and the rerun's resume (smoke OLMo at head
+    width 64, losses within 1e-3 of the uninterrupted run's); OLMo-1B's
+    width cut to 2 layers in float32, one step and its gradients through
+    the kernels and through ``attn_mode="plain"`` (loss within 1e-5,
+    gradients within 1e-4 of a leaf's largest element); whisper-medium at
+    full width with 2 encoder and 2 decoder layers, 3 steps (exactly 18
+    launches of each); falcon-mamba's loss backward on the card raises the
+    named NotImplementedError.  Timings of the backward at OLMo's shape and
+    whisper's two (device time from a CUDA graph, 2 device kernels a call)
+    beside its bound and SDPA's backward alone from a CUDA graph
+    (``library_ms``), and of kernel 7's training forward with the lse
+    stored against the serving launch without it, in turns.
+
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
 table; the last line is
@@ -426,6 +461,12 @@ def graph_time_ms(fn, iters: int, reps: int = 5) -> float:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return replay_ms(graph, iters, reps)
+
+
+def replay_ms(graph, iters: int, reps: int = 5) -> float:
+    """Median over ``reps`` replays of a captured graph of ``iters`` calls,
+    between CUDA events, per call."""
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -804,7 +845,8 @@ def wrappers():
     return {fn.__name__: fn for fn in (
         ss.sdqn_score_afterstate, ss.sdqn_score, ss.sdqn_score_cols,
         ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk,
-        ms.mamba_scan, fa.flash_attention, da.decode_attention)}
+        ms.mamba_scan, fa.flash_attention, da.decode_attention,
+        fa.flash_attention_bwd)}
 
 
 def zero_counts():
@@ -2078,6 +2120,7 @@ class _PlainSpy:
 
         self.calls = 0
         self._saved = [(fa, "flash_attention_plain"),
+                       (fa, "flash_attention_bwd_plain"),
                        (da, "decode_attention_plain"),
                        (ms, "mamba_scan_plain")]
         self._fns = [getattr(m, a) for m, a in self._saved]
@@ -3255,6 +3298,13 @@ def profile_steps(run, steps, label):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return profile_report(prof, wall, steps, label)
+
+
+def profile_report(prof, wall, steps, label, top=8):
+    """Device operations per step, the busy share of ``wall`` seconds and
+    the ``top`` device operations of a finished profile of ``steps``
+    steps; None when the profiler delivered no device event."""
     dev = {e.key: (e.self_device_time_total, e.count)
            for e in prof.key_averages()
            if e.device_type != torch.autograd.DeviceType.CPU
@@ -3269,10 +3319,10 @@ def profile_steps(run, steps, label):
           f"device_busy_ms_per_step={1e3 * busy / steps} "
           f"device_busy_share={busy / wall} "
           f"device_ops_per_step={n_ops / steps}")
-    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:8]:
+    for key in sorted(dev, key=lambda x: dev[x][0], reverse=True)[:top]:
         t, c = dev[key]
         print(f"{label} device time {key[:100]}: per_step_us={t / steps} "
-              f"calls_per_step={c / steps}")
+              f"calls_per_step={c / steps} share={t / 1e6 / busy}")
     return n_ops / steps
 
 
@@ -4273,6 +4323,533 @@ def phase_rest(device):
             chaos_err, drain_err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: LM training (kernel 7 with its row log-sum-exp, and its
+# hand-written backward)
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, Hq, Hkv, D, causal): every training shape the port reaches
+# at its configs' widths, and one ragged causal shape
+FA_BWD_SHAPES = {
+    "olmo_train": (8, 512, 512, 16, 16, 128, True),
+    "granite_train": (8, 512, 512, 32, 8, 128, True),
+    "dbrx_train": (8, 512, 512, 48, 8, 128, True),
+    "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False),
+    "whisper_cross": (8, 448, 1500, 16, 16, 64, False),
+    "ragged": (2, 77, 300, 6, 2, 64, True),
+}
+FA_BWD_TIMED = ("olmo_train", "whisper_encoder", "whisper_cross")
+# Relative to the largest element of each gradient.  float32: the kernels
+# sum in another order than the plain version.  bfloat16: the kernels round
+# P and dS to bfloat16 as the A operands of their products (2^-9 relative
+# each, summed over up to 1,500 keys of either sign) and the gradients to
+# bfloat16 on output (2^-9); an H100 measured 0.8% at most at these
+# shapes, and the bound is 2.5 times that.
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FA_FWD_LSE_TOL = 1e-4                 # the forward's lse against plain's
+TRAIN_STEPS = 40
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", str(TRAIN_STEPS), "--batch",
+              "8", "--seq", "512", "--log-every", "5"]
+TRAIN_PROFILED = (2, 3, 4)            # steps under torch.profiler
+TRAIN_MEDIAN_FROM = 5                 # ms a step: median of steps 5-39
+# the resume check: smoke OLMo at head width 64 (the backward's), 2 layers
+RESUME_ARGS = ["--arch", "olmo-1b", "--smoke", "--d-model", "256",
+               "--layers", "2", "--steps", "21", "--batch", "8", "--seq",
+               "128", "--ckpt-every", "4", "--log-every", "100"]
+RESUME_FAIL_AT = 12
+RESUME_TOL = 1e-3                     # relative; embedding atomics
+TRAIN_PLAIN_LAYERS = 2                # full width, float32, kernels vs plain
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4                 # relative to a leaf's largest element
+WHISPER_TRAIN = dict(layers=2, batch=8, seq=448, steps=3)
+
+
+def _bwd_case(shape, dtype, device, seed):
+    b, sq, skv, hq, hkv, d, _ = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(dtype)
+                 for s in ((b, sq, hq, d), (b, skv, hkv, d),
+                           (b, skv, hkv, d), (b, sq, hq, d)))
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def check_bwd_kernels(device):
+    """Kernel 7's forward with its lse and the backward kernels against the
+    plain versions on the same tensors, and against autograd of the plain
+    forward in float32, at every ``FA_BWD_SHAPES`` shape in float32 and
+    bfloat16.  Returns the largest absolute gradient error per dtype."""
+    from repro_torch.kernels import flash_attention as fa
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape in FA_BWD_SHAPES.items():
+            causal = shape[6]
+            q, k, v, do = _bwd_case(shape, dtype, device, SEED + len(label))
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            pout, plse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_lse=True)
+            lse_err = float((lse - plse).abs().max())
+            out_err = float((out.float() - pout.float()).abs().max())
+            got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse,
+                                                causal=causal)
+            live = [t.float().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(
+                fa.flash_attention_plain(*live, causal=causal), live,
+                do.float())
+            rel = [_rel_err(g, w) for g, w in zip(got, want)]
+            rel_auto = [_rel_err(g, w) for g, w in zip(got, auto)]
+            abs_err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+            errs[str(dtype).split(".")[1]] = max(
+                errs.get(str(dtype).split(".")[1], 0.0), abs_err)
+            print(f"flash_attention_bwd {label} {shape} {dtype}: dq, dk, dv "
+                  f"relative to the largest gradient vs plain {rel}, vs "
+                  f"autograd of the plain forward {rel_auto}; lse max_abs_err "
+                  f"{lse_err}; out max_abs_err {out_err}")
+            tol = FA_BWD_TOL[dtype]
+            assert max(rel + rel_auto) <= tol, (label, dtype, rel, rel_auto)
+            assert lse_err <= FA_FWD_LSE_TOL, (label, dtype, lse_err)
+            assert out_err <= LM_TOL[dtype], (label, dtype, out_err)
+            del q, k, v, do, out, got, want, auto, live
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_kernels_refuse_grad(device):
+    """Kernels 1-6 and 8 raise on the card under grad mode when an input
+    requires grad, instead of returning an output cut off from the graph;
+    kernel 6's error names ROADMAP's "kernel 6 backward"."""
+    from repro_torch.kernels import ops
+
+    cfg, state, params, pods = make_case(300, 4, device, SEED)
+    live = {k: p.clone().requires_grad_() for k, p in params.items()}
+    cols = tuple(torch.rand(64, device=device) for _ in range(6))
+    deltas = torch.rand((2, 6), device=device)
+    q = torch.randn((2, 4, 64), device=device, requires_grad=True)
+    kv = torch.randn((2, 2, 32, 64), device=device)
+    s = 32
+    scan = [torch.randn((1, s, 8), device=device, requires_grad=True),
+            torch.rand((1, s, 8), device=device),
+            -torch.rand((8, 4), device=device), torch.randn((1, s, 4),
+                                                            device=device),
+            torch.randn((1, s, 4), device=device), torch.ones(8, device=device),
+            torch.zeros((1, 8, 4), device=device)]
+    calls = {
+        "sdqn_score_afterstate": lambda: ops.sdqn_score_afterstate(
+            state, pods, cfg, live),
+        "sdqn_score_afterstate_topk": lambda: ops.sdqn_topk_afterstate(
+            state, pods, cfg, live, k=4),
+        "sdqn_score": lambda: ops.sdqn_score(torch.rand((64, 6),
+                                                        device=device), live),
+        "sdqn_score_cols": lambda: ops.sdqn_score_delta(cols, deltas, live),
+        "sdqn_score_cols_topk": lambda: ops.sdqn_topk_delta(cols, deltas, live,
+                                                            k=4),
+        "decode_attention": lambda: ops.decode_attention(q, kv, kv, 32),
+        "mamba_scan": lambda: ops.mamba_scan(*scan),
+    }
+    before = read_counts()
+    for key, call in calls.items():
+        want = NotImplementedError if key == "mamba_scan" else ValueError
+        try:
+            call()
+        except want as e:
+            assert key != "mamba_scan" or "kernel 6 backward" in str(e), e
+            print(f"no backward: {key} under grad raises "
+                  f"{type(e).__name__}: {str(e)[:100]}")
+        else:
+            raise AssertionError(f"{key} ran under grad with an input that "
+                                 f"requires grad")
+    assert read_counts() == before, "a refused call launched"
+
+
+def _train_spy(steps_mod, times, profiles):
+    """A ``make_train_step`` that times every step (synchronized) and
+    profiles steps ``TRAIN_PROFILED``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    orig = steps_mod.make_train_step
+
+    def make(*args, **kwargs):
+        step, adam_cfg = orig(*args, **kwargs)
+
+        def run(params, opt_state, batch):
+            i = len(times)
+            if i == TRAIN_PROFILED[0]:
+                profiles["prof"] = profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                profiles["prof"].__enter__()
+                profiles["t0"] = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == TRAIN_PROFILED[-1]:
+                profiles["wall"] = time.perf_counter() - profiles["t0"]
+                profiles["prof"].__exit__(None, None, None)
+            return out
+
+        return run, adam_cfg
+
+    return orig, make
+
+
+def _train_path():
+    """``launch.train.main`` with OLMo-1B at full width and depth:
+    ``TRAIN_STEPS`` steps of 8 x 512 tokens, bf16 weights, ``default_adam``,
+    a checkpoint under the ignored ``build/``."""
+    import shutil
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import steps as steps_mod, train
+    from repro_torch.roofline import HW, cell_flops
+
+    ckpt = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    times, profiles = [], {}
+    orig, spy = _train_spy(steps_mod, times, profiles)
+    steps_mod.make_train_step = spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _PlainSpy() as plain:
+            t0 = time.perf_counter()
+            zero_counts()                                  # the path starts here
+            losses = train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt)])
+            torch.cuda.synchronize()
+            counts = read_counts()                         # ... and ends here
+            wall = time.perf_counter() - t0
+    finally:
+        steps_mod.make_train_step = orig
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("olmo-1b")
+    layers, micro = cfg.num_layers, 1
+    want = layers * micro * TRAIN_STEPS
+    print(f"LM training olmo-1b launches: {counts}")
+    assert plain.calls == 0, plain.calls
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == want
+    assert sum(counts.values()) == 2 * want, counts
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    assert last < first, (first, last)
+    step_s = statistics.median(times[TRAIN_MEDIAN_FROM:])
+    tokens = 8 * 512
+    model_flops = cell_flops(cfg, ShapeConfig("train", 512, 8,
+                                              "train"))["model_flops"]
+    print(f"LM training olmo-1b (16 layers, d_model 2048, vocab 50304, "
+          f"{cfg.param_count()} parameters, bf16 weights, float32 master and "
+          f"moments), batch 8 x 512, {TRAIN_STEPS} steps through "
+          f"launch.train.main: ms_per_step={1e3 * step_s} (median of steps "
+          f"{TRAIN_MEDIAN_FROM}-{TRAIN_STEPS - 1}, synchronized) "
+          f"tokens_per_s={tokens / step_s} mfu={model_flops / (step_s * HW.peak_flops)} "
+          f"(model_flops {model_flops} = 6 N D over the step and {HW.peak_flops} "
+          f"FLOP/s) first_step_ms={1e3 * times[0]} peak_memory_gb={peak / 1e9} "
+          f"loss first-10 mean {first} -> last-10 mean {last} wall_s={wall} "
+          f"(init, steps, the final 16.5 GB checkpoint)")
+    report = profile_report(profiles["prof"], profiles["wall"],
+                            len(TRAIN_PROFILED), "LM training olmo-1b",
+                            top=10)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return counts, dict(ms_per_step=1e3 * step_s, tokens_per_s=tokens / step_s,
+                        mfu=model_flops / (step_s * HW.peak_flops),
+                        peak_memory_gb=peak / 1e9, loss_first10=first,
+                        loss_last10=last, device_ops_per_step=report)
+
+
+def _resume_check():
+    """``--fail-at`` exits 17; a rerun resumes from the last checkpoint and
+    its losses match the uninterrupted run's within ``RESUME_TOL``."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    base = ROOT / "build" / "lm_resume"
+    shutil.rmtree(base, ignore_errors=True)
+    full = train.main(RESUME_ARGS + ["--ckpt-dir", str(base / "a")])
+    try:
+        train.main(RESUME_ARGS + ["--ckpt-dir", str(base / "b"), "--fail-at",
+                                  str(RESUME_FAIL_AT)])
+    except SystemExit as e:
+        assert e.code == 17, e.code
+    else:
+        raise AssertionError("--fail-at did not exit")
+    rest = train.main(RESUME_ARGS + ["--ckpt-dir", str(base / "b")])
+    start = len(full) - len(rest)
+    rel = float(np.max(np.abs(np.array(rest) - np.array(full[start:]))
+                       / np.abs(np.array(full[start:]))))
+    print(f"LM training resume: --fail-at {RESUME_FAIL_AT} exited 17; the "
+          f"rerun resumed at step {start} and ran steps {start}-"
+          f"{len(full) - 1}; losses vs the uninterrupted run: max relative "
+          f"difference {rel}")
+    assert start <= 13 and rel <= RESUME_TOL, (start, rel)
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def _plain_step_check(device):
+    """OLMo-1B at full width cut to ``TRAIN_PLAIN_LAYERS`` layers in float32:
+    one ``make_train_step`` step and its gradients through the kernels and
+    through ``attn_mode="plain"``, from the same params and batch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.serve import seed_generator
+    from repro_torch.optim import tree_leaves
+
+    cfg = dataclasses.replace(get_config("olmo-1b"),
+                              num_layers=TRAIN_PLAIN_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    params, opt = steps_mod.init_train_state(seed_generator(SEED, 0, device),
+                                             cfg, device=device)
+    batch = {k: x.to(device) for k, x in next(synthetic_batches(
+        SEED, 8, 512, cfg.vocab_size)).items()}
+    runs = {}
+    for mode in ("cuda", "plain"):
+        zero_counts()
+        metrics, grads = steps_mod.value_and_grad(cfg, params, batch,
+                                                  attn_mode=mode)
+        step, _ = steps_mod.make_train_step(cfg, attn_mode=mode)
+        new, _, step_metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        runs[mode] = (metrics, grads, new, step_metrics, read_counts())
+    kernel, plain = runs["cuda"], runs["plain"]
+    want = 2 * TRAIN_PLAIN_LAYERS                   # value_and_grad and step
+    assert (kernel[4]["flash_attention"], kernel[4]["flash_attention_bwd"]) \
+        == (want, want), kernel[4]
+    assert not any(plain[4].values()), plain[4]
+    loss_err = abs(float(kernel[0]["loss"]) - float(plain[0]["loss"]))
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(tree_leaves(kernel[1]),
+                                   tree_leaves(plain[1])))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(tree_leaves(kernel[2]),
+                                    tree_leaves(plain[2])))
+    print(f"LM training kernels vs plain (olmo-1b width, {TRAIN_PLAIN_LAYERS} "
+          f"layers, float32, 8 x 512): loss {float(kernel[0]['loss'])} vs "
+          f"{float(plain[0]['loss'])} (diff {loss_err}); gradient leaves max "
+          f"relative diff {grad_err}; params after one step max_abs_diff "
+          f"{param_err}")
+    assert loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL, (
+        loss_err, grad_err)
+    assert param_err <= TRAIN_LOSS_TOL, param_err
+    del runs, params, opt, kernel, plain
+    torch.cuda.empty_cache()
+
+
+def _whisper_train(device):
+    """whisper-medium at full width, 2 encoder and 2 decoder layers, 3
+    train steps: kernel 7 and its backward non-causal (the encoder over
+    1,500 frames, cross-attention against them) and causal, at D = 64."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.serve import seed_generator
+
+    w = WHISPER_TRAIN
+    cfg = dataclasses.replace(get_config("whisper-medium"),
+                              num_layers=w["layers"], enc_layers=w["layers"])
+    params, opt = steps_mod.init_train_state(seed_generator(SEED, 0, device),
+                                             cfg, device=device)
+    step, _ = steps_mod.make_train_step(cfg, total_steps=w["steps"])
+    data = synthetic_batches(SEED, w["batch"], w["seq"], cfg.vocab_size,
+                             cfg=cfg)
+    losses = []
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        for _ in range(w["steps"]):
+            batch = {k: x.to(device) for k, x in next(data).items()}
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+        counts = read_counts()                         # ... and ends here
+    want = w["steps"] * 3 * w["layers"]         # encoder, self, cross
+    print(f"LM training whisper-medium (full width, {w['layers']} + "
+          f"{w['layers']} layers, {w['batch']} x {w['seq']} tokens, 1,500 "
+          f"frames): losses {losses}; launches {counts}")
+    assert plain.calls == 0 and all(np.isfinite(losses)), losses
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == want
+    assert sum(counts.values()) == 2 * want, counts
+    del params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ssm_refuses(device):
+    """An ssm model's loss backward on the card raises the named
+    NotImplementedError (kernel 6 has no backward yet)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as mdl
+
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    params = mdl.init_params(torch.Generator().manual_seed(SEED), cfg,
+                             device=device)
+    batch = {k: x.to(device) for k, x in next(synthetic_batches(
+        SEED, 2, 32, cfg.vocab_size)).items()}
+    try:
+        steps_mod.value_and_grad(cfg, params, batch)
+    except NotImplementedError as e:
+        assert "kernel 6 backward" in str(e), e
+        print(f"LM training falcon-mamba (smoke widths) on the card raises "
+              f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("falcon-mamba trained through kernel 6")
+
+
+def attention_bwd_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
+    """(ms, by, bytes, ops, terms) of one backward call: q, o, dO, k, v and
+    lse read once and dq, dk, dv written once at the memory rate; the five
+    products (S, dP, dV, dK, dQ: 2 D operations a visible pair each) at the
+    tensor-core bf16 rate (bfloat16) or the float32 rate (the float32
+    kernels run on FMAs); one exponential a visible pair at the SFU rate;
+    dS = P (dP - Delta) and the scale, 3 float32 operations a pair."""
+    nbytes = (itemsize * 4 * b * sq * hq * d + itemsize * 4 * b * skv * hkv * d
+              + 4 * b * hq * sq)
+    n = b * hq * pairs
+    key, (f32_peak, bw) = peaks(name)
+    peak = BF16_PEAK[key] if itemsize == 2 else f32_peak
+    products = 5 * 2 * d * n
+    terms = {"bytes": nbytes / bw * 1e3, "products": products / peak * 1e3,
+             "exponentials": n / sfu_rate() * 1e3,
+             "elementwise": 3 * n / f32_peak * 1e3}
+    by = max(terms, key=terms.get)
+    return (terms[by], "bytes" if by == "bytes" else "operations", nbytes,
+            products + 4 * n, terms)
+
+
+def _library_backward_ms(q, k, v, do, causal, iters=10):
+    """``scaled_dot_product_attention``'s backward alone at these inputs:
+    its forward runs once on a side stream, then ``iters`` backward calls
+    (``torch.autograd.grad`` with the graph kept) are captured in a CUDA
+    graph on that stream (autograd runs a backward on its forward's
+    stream) and replayed between CUDA events."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = sdpa(qt, kt, vt, is_causal=causal,
+                   enable_gqa=qt.shape[1] != kt.shape[1])
+        for _ in range(3):
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return replay_ms(graph, iters)
+
+
+def train_timings(device, name):
+    """The backward at ``FA_BWD_TIMED`` shapes in bfloat16 (device time
+    from a CUDA graph), its plain version, its bound and SDPA's backward
+    (``library_ms``); and kernel 7's forward at OLMo-1B's training shape
+    with the lse stored and without, in turns (null, lse, lse, null)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = read_counts()
+    rows = {}
+    for label in FA_BWD_TIMED:
+        b, sq, skv, hq, hkv, d, causal = shape = FA_BWD_SHAPES[label]
+        q, k, v, do = _bwd_case(shape, torch.bfloat16, device, SEED + 24)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        call = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, do, lse, causal=causal)
+        names = device_kernels(call)
+        assert len(names) == 2 and all("fa_bwd" in n for n in names), names
+        ms = graph_time_ms(call, 10)
+        plain_ms = graph_time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, causal=causal), 2, reps=3)
+        library_ms = _library_backward_ms(q, k, v, do, causal)
+        pairs = causal_pairs(sq, skv) if causal else sq * skv
+        b_ms, b_by, nbytes, n_ops, terms = attention_bwd_bound(
+            b, hq, hkv, sq, skv, d, pairs, 2, name)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=library_ms,
+                           shape=list(shape), bound_terms_ms=terms,
+                           path=label)
+        print(f"timing flash_attention_bwd {label} (B, Sq, Skv, Hq, Hkv, D, "
+              f"causal)={shape} bf16: kernel_ms={ms} (2 device kernels: "
+              f"{[n[:40] for n in names]}) plain_ms={plain_ms} library_ms="
+              f"{library_ms} (SDPA's backward alone, CUDA graph) bound_ms="
+              f"{b_ms} ({b_by}; bytes={nbytes} ops={n_ops}; terms_ms "
+              f"{terms}) kernel/bound={ms / b_ms} kernel/library="
+              f"{ms / library_ms}")
+        del q, k, v, do, out, lse
+    b, sq, skv, hq, hkv, d, causal = FA_BWD_SHAPES["olmo_train"]
+    q, k, v, _ = _bwd_case(FA_BWD_SHAPES["olmo_train"], torch.bfloat16,
+                           device, SEED + 25)
+    null = lambda: fa.flash_attention(q, k, v, causal=True)    # noqa: E731
+    with_lse = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    turns = [graph_time_ms(fn, 20) for fn in (null, with_lse, with_lse, null)]
+    b_ms, b_by, nbytes, n_ops, terms = attention_bound(
+        b, hq, hkv, sq, skv, d, causal_pairs(sq, skv), 2, name)
+    rows["forward_lse"] = dict(
+        ms=statistics.mean(turns[1:3]), null_lse_ms=[turns[0], turns[3]],
+        plain_ms=graph_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, return_lse=True), 3, reps=3),
+        bound_ms=b_ms + 4 * b * hq * sq / peaks(name)[1][1] * 1e3,
+        bound_by=b_by, shape=list(FA_BWD_SHAPES["olmo_train"][:6]),
+        path="LM training forward (lse stored)")
+    print(f"timing flash_attention LM training forward (8, 512, 16, 128) "
+          f"bf16 causal, in turns null / lse / lse / null: {turns} ms "
+          f"(lse/null = {(turns[1] + turns[2]) / (turns[0] + turns[3])})")
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    return rows
+
+
+def check_kernel7_bwd_build():
+    """The backward's eight instances (dQ and dK/dV x bf16 and float32 x D
+    in {64, 128}) spill nothing; the bf16 ones run on the tensor cores
+    (HMMA) from ldmatrix loads (LDSM) and cp.async copies (LDGSTS).  Kernel
+    7's forward instances' spills are printed, the bf16 ones (with and
+    without the lse store) must be 0."""
+    counts = sass_counts("flash_attention_bwd")
+    spills = ptxas_spills("flash_attention_bwd")
+    kernels = {fn: c for fn, c in counts.items() if "fa_bwd" in fn}
+    assert len(kernels) == 8 and set(kernels) == set(spills), (
+        sorted(counts), sorted(spills))
+    for fn, c in sorted(kernels.items()):
+        regs, stores, loads = spills[fn]
+        print(f"sass[flash_attention_bwd] {fn}: {c} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads}")
+        assert stores == loads == 0, (fn, spills[fn])
+        assert "bf16" not in fn or (c["HMMA"] > 0 and c["LDSM"] > 0
+                                    and c["LDGSTS"] > 0), (fn, c)
+    for fn, (regs, stores, loads) in sorted(
+            ptxas_spills("flash_attention").items()):
+        print(f"ptxas[flash_attention] {fn}: registers={regs} "
+              f"spill_stores={stores} spill_loads={loads}")
+        assert "bf16" not in fn or stores == loads == 0, fn
+
+
+def phase_lm_train(device, name):
+    """Phase 22: LM training on the card.  Returns ({kernel: {path:
+    launches}}, {dtype: backward max_abs_err}, figures, timing rows)."""
+    t0 = time.perf_counter()
+    errs = check_bwd_kernels(device)
+    check_kernels_refuse_grad(device)
+    counts, figures = _train_path()
+    torch.cuda.empty_cache()
+    _resume_check()
+    _plain_step_check(device)
+    whisper = _whisper_train(device)
+    _ssm_refuses(device)
+    rows = train_timings(device, name)
+    print(f"phase 22 seconds={time.perf_counter() - t0}")
+    paths = {key: {"LM training": counts[key],
+                   "LM training, whisper-medium 2 + 2 layers": whisper[key]}
+             for key in ("flash_attention", "flash_attention_bwd")}
+    return paths, errs, figures, rows
+
+
 def sass_counts(source):
     """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
     library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
@@ -4296,13 +4873,14 @@ def sass_counts(source):
 
 
 def check_kernel7_sass():
-    """Every instance of kernel 7 runs its products on the tensor cores
-    (HMMA) and loads K/V tiles with cp.async (LDGSTS); the bfloat16 ones
-    read their fragments with ldmatrix (LDSM)."""
+    """Every instance of kernel 7 (ten, and four more that store the rows'
+    lse for training) runs its products on the tensor cores (HMMA) and
+    loads K/V tiles with cp.async (LDGSTS); the bfloat16 ones read their
+    fragments with ldmatrix (LDSM)."""
     counts = sass_counts("flash_attention")
     kernels = {fn: c for fn, c in counts.items()
                if "flash_attention_" in fn}
-    assert len(kernels) == 10, sorted(counts)
+    assert len(kernels) == 14, sorted(counts)
     for fn, c in sorted(kernels.items()):
         print(f"sass[flash_attention] {fn}: {c}")
         assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
@@ -4387,6 +4965,7 @@ def main(argv=None) -> int:
                 print(f"ptxas[{src}]: {line.strip()}")
     check_kernel7_sass()
     check_kernel8_build()
+    check_kernel7_bwd_build()
 
     max_err = phase_kernels(device)
     errs = phase_new_kernels(device)
@@ -4424,6 +5003,8 @@ def main(argv=None) -> int:
     family_errs = phase_family_kernels(device)
     granite_paths, granite_figures = phase_lm_granite(device)
     family_figures.update(granite_figures)
+    train_paths, train_errs, train_figures, train_rows = phase_lm_train(
+        device, name)
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],
@@ -4445,13 +5026,17 @@ def main(argv=None) -> int:
                                  "LM wave routing":
                                  lm_counts["sdqn_score_cols"]}}
     paths["mamba_scan"] = {"mamba policy class": launches["mamba_scan"]}
+    paths["flash_attention_bwd"] = {}
     for key, per_path in (list(rest_paths.items())
                           + list(family_paths.items())
-                          + list(granite_paths.items())):
+                          + list(granite_paths.items())
+                          + list(train_paths.items())):
         paths[key].update(per_path)
     for key, per_path in paths.items():
         launches[key] = sum(per_path.values())
     errs["decode_attention"] = max(lm_errs["decode_attention"].values())
+    errs["flash_attention_bwd"] = max(train_errs.values())
+    lm_errs["flash_attention_bwd"] = train_errs
     timing = phase_new_timings(device, name)
     timing["sdqn_score_afterstate"] = phase_timings(device, name, fill)
     timing.update(phase_seq_timings(device, name))
@@ -4463,6 +5048,10 @@ def main(argv=None) -> int:
     timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
     for key, rows in phase_family_timings(device, name).items():
         timing[key].setdefault("other_shapes", []).extend(rows)
+    timing["flash_attention"]["other_shapes"].append(train_rows["forward_lse"])
+    timing["flash_attention_bwd"] = dict(
+        train_rows[FA_BWD_TIMED[0]],
+        other_shapes=[train_rows[label] for label in FA_BWD_TIMED[1:]])
     t8 = timing["decode_attention"]       # every timed row held to plain
     errs["decode_attention"] = max([errs["decode_attention"], t8["max_abs_err"]]
                                    + [r["max_abs_err"]
@@ -4484,23 +5073,33 @@ def main(argv=None) -> int:
     phase_sharded_breakdown(device)
     phase_policy_breakdown(device)
 
-    # (wrapper, CUDA source, the TPU kernel's function line).  No single
-    # PyTorch call computes the fused SDQN functions or a selective scan
-    # (library_ms null); kernels 7's and 8's is scaled_dot_product_attention.
+    # (wrapper, CUDA source, the TPU kernel's function line; for kernel 7's
+    # backward, which no Pallas kernel has, the attention the JAX model
+    # trains through by XLA's autodiff).  No single PyTorch call computes
+    # the fused SDQN functions or a selective scan (library_ms null);
+    # kernels 7's and 8's is scaled_dot_product_attention, the backward's
+    # its backward.
     # A kernel on more than one path reports their launches summed, per
     # path under "paths"; its timing at the first path's shape, the others'
     # under "other_shapes".
+    kernels_src = "src/repro/kernels/"
     table = (
         ("sdqn_score_afterstate", "sdqn_score_afterstate.cu",
-         "sdqn_score.py:171"),
-        ("sdqn_score", "sdqn_score.cu", "sdqn_score.py:51"),
-        ("sdqn_score_cols", "sdqn_score_cols.cu", "sdqn_score.py:249"),
+         kernels_src + "sdqn_score.py:171"),
+        ("sdqn_score", "sdqn_score.cu", kernels_src + "sdqn_score.py:51"),
+        ("sdqn_score_cols", "sdqn_score_cols.cu",
+         kernels_src + "sdqn_score.py:249"),
         ("sdqn_score_afterstate_topk", "sdqn_score_afterstate_topk.cu",
-         "sdqn_score.py:386"),
-        ("sdqn_score_cols_topk", "sdqn_score_cols.cu", "sdqn_score.py:486"),
-        ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:61"),
-        ("flash_attention", "flash_attention.cu", "flash_attention.py:77"),
-        ("decode_attention", "decode_attention.cu", "decode_attention.py:69"),
+         kernels_src + "sdqn_score.py:386"),
+        ("sdqn_score_cols_topk", "sdqn_score_cols.cu",
+         kernels_src + "sdqn_score.py:486"),
+        ("mamba_scan", "mamba_scan.cu", kernels_src + "mamba_scan.py:61"),
+        ("flash_attention", "flash_attention.cu",
+         kernels_src + "flash_attention.py:77"),
+        ("decode_attention", "decode_attention.cu",
+         kernels_src + "decode_attention.py:69"),
+        ("flash_attention_bwd", "flash_attention_bwd.cu",
+         "src/repro/models/layers.py:124"),
     )
     kernels = []
     for key, src, line in table:
@@ -4509,7 +5108,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": f"src/repro/kernels/{line}",
+            "replaces": line,
             "launches": launches[key], "max_abs_err": errs[key],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -4527,6 +5126,7 @@ def main(argv=None) -> int:
             if extra in t:
                 kernels[-1][extra] = t[extra]
     print(f"lm_families {json.dumps(family_figures)}")
+    print(f"lm_train {json.dumps(train_figures)}")
     print(f"chip_smoke seconds={time.perf_counter() - t_start}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

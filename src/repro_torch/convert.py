@@ -79,7 +79,9 @@ def baseline_params_from_numpy(params: Mapping[str, np.ndarray], kind: str,
 def opt_state_from_numpy(state: Mapping, device=None) -> dict:
     """An Adam state (``optim.adam_init``'s keys: ``step``, ``m``, ``v``
     and, with a master dtype, ``master``): int32 step (``()`` or ``(S,)``),
-    the trees with their own float dtypes."""
+    the trees with their own float dtypes.  Takes a Q-net's state and an
+    LM's alike (nested trees stacked over blocks, bfloat16 moments kept
+    bfloat16)."""
     device = resolve_device(device)
     out = {"step": torch.tensor(np.asarray(state["step"], np.int32),
                                 device=device)}

@@ -11,8 +11,10 @@ is imported: the CPU tests import every module of the port.
 The wrappers of every kernel module share the checks and the launch
 below: ``check`` (dtype, shape, device, contiguity), ``on_card`` (CUDA
 launches the kernel, a CPU tensor runs the plain version, any other device
-raises) and ``launch`` (the C function on PyTorch's current stream,
-raising on a nonzero ``cudaGetLastError()``).
+raises), ``refuse_grad`` (a kernel without a backward raises on the card
+under grad mode when an input requires grad) and ``launch`` (the C
+function on PyTorch's current stream, raising on a nonzero
+``cudaGetLastError()``).
 """
 from __future__ import annotations
 
@@ -128,6 +130,26 @@ def on_card(name, device) -> bool:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
     return device.type == "cuda"
+
+
+def refuse_grad(name, tensors, error=ValueError,
+                what="it has no backward kernel"):
+    """Raise ``error`` when grad mode is on and one of ``tensors`` (nested
+    tuples and lists allowed) requires grad: a kernel without a backward
+    would return an output cut off from the graph, and the gradient would
+    be lost without a word.  Called on the card before the launch."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (tuple, list)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise error(f"{name}: an input requires grad, and {what}; call "
+                        f"it under torch.no_grad() or on detached inputs")
 
 
 def launch(name, source, argtypes, device, *args):

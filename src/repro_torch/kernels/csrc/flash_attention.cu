@@ -14,7 +14,10 @@
 // tolerance.  Its callers are the "attention" policy class (one launch
 // scores a whole daemon batch, (B pods, N candidate nodes, 2 heads, D = 8),
 // float32) and the LM prefill (one launch per attention layer,
-// (B, S, Hq, 128), bfloat16).
+// (B, S, Hq, 128), bfloat16).  LM training launches it with an `lse`
+// pointer: each row's log-sum-exp, m / sqrt(D) + ln(l) in float32, is
+// then stored beside the output for the backward (flash_attention_bwd.cu);
+// with a null pointer nothing more is stored.
 //
 // Design (FlashAttention-2's structure on mma.sync).  The TPU kernel walks
 // key blocks in the sequential last grid axis and carries (m, l, acc) in
@@ -77,17 +80,14 @@
 // wgmma reaches; the next step for the prefill is wgmma with TMA and warp
 // specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 #define FA_THREADS 128   // 4 warps
 #define FA_ROWS 64       // query rows a block, 16 a warp
 #define FA_STAGES 2      // K/V tiles in the cp.async ring
 #define FA_NEG -1e30f    // the running max before any key (finite: no NaN)
-
-typedef __nv_bfloat16 bf16;
 
 // The tiling of an instance: KEYS keys a K/V tile (bf16 32: at D = 128 the
 // lane then holds 16 score and 64 output floats in 128 registers, 4
@@ -103,75 +103,6 @@ struct Tiles {
   static constexpr int SMEM = PITCH * (FA_ROWS + 2 * FA_STAGES * KEYS);
   static_assert(SMEM <= 232448, "past a block's shared memory");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zero-filled when !full
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows r0 .. r0 + ROWS - 1 of one head (rows `stride` elements apart)
-// into a shared tile of row pitch PITCH; rows at or past `limit` are zeros
-template <typename T, int D, int PITCH, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const T* base,
-                                          size_t stride, int r0, int limit) {
-  constexpr int CH = D * (int)sizeof(T) / 16;   // 16-byte chunks per row
-  constexpr int VEC = 16 / (int)sizeof(T);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * CH; i += FA_THREADS) {
-    const int r = i / CH, c = i - r * CH;
-    const bool ok = r0 + r < limit;
-    cp_async16(dst + r * PITCH + c * 16,
-               base + (size_t)(ok ? r0 + r : 0) * stride + c * VEC, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
-                                        uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-// c (16 x 8, float32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // c (16 x 8, float32) += a (16 x 8, tf32) b (8 x 8, tf32)
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -201,21 +132,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, ah, bl0, bl1);
   mma_tf32(c, ah, bh0, bh1);
 }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float ex2(float x) {   // ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Fragment rows of a lane: g = lane / 4 and g + 8 of the warp's 16; the
-// accumulator element e of an 8-column tile is row g + 8 (e / 2), column
-// 2 (lane % 4) + e % 2.
 
 // Mask the scores of keys a row does not see (key >= kend[row]).
 template <int NT>
@@ -323,13 +239,33 @@ __device__ __forceinline__ void store_out(float (&acc)[D / 8][4],
   }
 }
 
+// The natural-log log-sum-exp of the lane's two rows, m / sqrt(D) + ln(l)
+// (the running max m in raw scores, `scale` = log2(e) / sqrt(D)), to
+// lse[row] for rows below sq; lane 0 of each quad writes its rows.
+__device__ __forceinline__ void store_lse(const float (&m)[2],
+                                          const float (&l)[2], float* lse,
+                                          int q0, int sq, float scale) {
+  const int lane = threadIdx.x & 31;
+  const int r = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float den = l[h];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    if ((lane & 3) == 0 && r + 8 * h < sq)
+      lse[r + 8 * h] = m[h] * scale * 0.6931471805599453f + logf(den);
+  }
+}
+
 // 4 blocks an SM: at D = 128 that caps a lane at 128 registers, which the
-// instance fits without spilling
-template <int D>
-__global__ void __launch_bounds__(FA_THREADS, 4) flash_attention_bf16(
+// instance fits without spilling.  The LSE instances (training's forward,
+// D in {64, 128}) also store each row's log-sum-exp; at D = 128 that costs
+// two registers more than the cap, so they run 3 blocks an SM.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(FA_THREADS, LSE ? 3 : 4) flash_attention_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int skv, int hq,
-    int hkv, int causal, float scale) {
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int sq, int skv, int hq, int hkv, int causal, float scale) {
   using TL = Tiles<bf16, D>;
   constexpr int KEYS = TL::KEYS, PITCH = TL::PITCH;
   constexpr int TILE = KEYS * PITCH;
@@ -347,10 +283,10 @@ __global__ void __launch_bounds__(FA_THREADS, 4) flash_attention_bf16(
   const bf16* kb = k + ((size_t)b * skv * hkv + hk) * D;
   const bf16* vb = v + ((size_t)b * skv * hkv + hk) * D;
 
-  load_tile<bf16, D, PITCH, FA_ROWS>(s_q, q + ((size_t)b * sq * hq + h) * D,
+  load_tile<bf16, D, PITCH, FA_ROWS, FA_THREADS>(s_q, q + ((size_t)b * sq * hq + h) * D,
                                      qstride, rows.q0, sq);
-  load_tile<bf16, D, PITCH, KEYS>(s_kv, kb, kstride, 0, skv);
-  load_tile<bf16, D, PITCH, KEYS>(s_kv + TILE, vb, kstride, 0, skv);
+  load_tile<bf16, D, PITCH, KEYS, FA_THREADS>(s_kv, kb, kstride, 0, skv);
+  load_tile<bf16, D, PITCH, KEYS, FA_THREADS>(s_kv + TILE, vb, kstride, 0, skv);
   cp_async_commit();
 
   float acc[DT][4], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
@@ -363,8 +299,8 @@ __global__ void __launch_bounds__(FA_THREADS, 4) flash_attention_bf16(
   for (int t = 0; t < rows.n_tiles; ++t) {
     if (t + 1 < rows.n_tiles) {
       const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
-      load_tile<bf16, D, PITCH, KEYS>(next, kb, kstride, (t + 1) * KEYS, skv);
-      load_tile<bf16, D, PITCH, KEYS>(next + TILE, vb, kstride,
+      load_tile<bf16, D, PITCH, KEYS, FA_THREADS>(next, kb, kstride, (t + 1) * KEYS, skv);
+      load_tile<bf16, D, PITCH, KEYS, FA_THREADS>(next + TILE, vb, kstride,
                                       (t + 1) * KEYS, skv);
     }
     cp_async_commit();              // maybe empty: keeps the count uniform
@@ -431,13 +367,16 @@ __global__ void __launch_bounds__(FA_THREADS, 4) flash_attention_bf16(
   cp_async_wait<0>();
   store_out<bf16, D, PITCH>(acc, l, smem, o + ((size_t)b * sq * hq + h) * D,
                             rows.q0, sq, qstride);
+  if constexpr (LSE)
+    store_lse(m, l, lse + ((size_t)b * hq + h) * sq, rows.q0, sq, scale);
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS) flash_attention_f32(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int sq, int skv,
-    int hq, int hkv, int causal, float scale) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int sq, int skv, int hq, int hkv, int causal,
+    float scale) {
   using TL = Tiles<float, D>;
   constexpr int KEYS = TL::KEYS, PITCH = TL::PITCH;
   constexpr int PF = PITCH / 4;             // floats a tile row
@@ -457,10 +396,10 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_f32(
   const float* kb = k + ((size_t)b * skv * hkv + hk) * D;
   const float* vb = v + ((size_t)b * skv * hkv + hk) * D;
 
-  load_tile<float, D, PITCH, FA_ROWS>(s_q, q + ((size_t)b * sq * hq + h) * D,
+  load_tile<float, D, PITCH, FA_ROWS, FA_THREADS>(s_q, q + ((size_t)b * sq * hq + h) * D,
                                       qstride, rows.q0, sq);
-  load_tile<float, D, PITCH, KEYS>(s_kv, kb, kstride, 0, skv);
-  load_tile<float, D, PITCH, KEYS>(s_kv + TILE, vb, kstride, 0, skv);
+  load_tile<float, D, PITCH, KEYS, FA_THREADS>(s_kv, kb, kstride, 0, skv);
+  load_tile<float, D, PITCH, KEYS, FA_THREADS>(s_kv + TILE, vb, kstride, 0, skv);
   cp_async_commit();
 
   float acc[DT][4], m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
@@ -474,8 +413,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_f32(
   for (int t = 0; t < rows.n_tiles; ++t) {
     if (t + 1 < rows.n_tiles) {
       const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
-      load_tile<float, D, PITCH, KEYS>(next, kb, kstride, (t + 1) * KEYS, skv);
-      load_tile<float, D, PITCH, KEYS>(next + TILE, vb, kstride,
+      load_tile<float, D, PITCH, KEYS, FA_THREADS>(next, kb, kstride, (t + 1) * KEYS, skv);
+      load_tile<float, D, PITCH, KEYS, FA_THREADS>(next + TILE, vb, kstride,
                                        (t + 1) * KEYS, skv);
     }
     cp_async_commit();
@@ -538,12 +477,15 @@ __global__ void __launch_bounds__(FA_THREADS) flash_attention_f32(
   cp_async_wait<0>();
   store_out<float, D, PITCH>(acc, l, smem, o + ((size_t)b * sq * hq + h) * D,
                              rows.q0, sq, qstride);
+  if constexpr (LSE)
+    store_lse(m, l, lse + ((size_t)b * hq + h) * sq, rows.q0, sq, scale);
 }
 
-template <typename T, int D, typename Kernel>
+template <typename T, int D, bool LSE, typename Kernel>
 static int launch(Kernel kernel, const void* q, const void* k, const void* v,
-                  void* o, int b, int sq, int skv, int hq, int hkv, int causal,
-                  int rows, int smem, float scale, cudaStream_t stream) {
+                  void* o, void* lse, int b, int sq, int skv, int hq, int hkv,
+                  int causal, int rows, int smem, float scale,
+                  cudaStream_t stream) {
   using TL = Tiles<T, D>;
   if (rows != FA_ROWS || smem != TL::SMEM)   // plan() disagrees
     return (int)cudaErrorInvalidValue;
@@ -553,22 +495,34 @@ static int launch(Kernel kernel, const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(b * hq, (sq + FA_ROWS - 1) / FA_ROWS);
   kernel<<<grid, FA_THREADS, TL::SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, hq, hkv, causal,
-      scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, sq, skv, hq,
+      hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
+#define FA_LAUNCH(T, KERNEL, DIM, LSE)                                      \
+  launch<T, DIM, LSE>(KERNEL<DIM, LSE>, q, k, v, o, lse, b, sq, skv, hq,    \
+                      hkv, causal, rows, smem, scale, st)
+// an instance without the lse store; a launch that asks for it is refused
 #define FA_CASE(T, KERNEL, DIM)                                             \
   case DIM:                                                                 \
-    return launch<T, DIM>(KERNEL<DIM>, q, k, v, o, b, sq, skv, hq, hkv,     \
-                          causal, rows, smem, scale, st);
+    return lse ? (int)cudaErrorInvalidValue                                 \
+               : FA_LAUNCH(T, KERNEL, DIM, false);
+// an instance with and one without
+#define FA_CASE_LSE(T, KERNEL, DIM)                                         \
+  case DIM:                                                                 \
+    return lse ? FA_LAUNCH(T, KERNEL, DIM, true)                            \
+               : FA_LAUNCH(T, KERNEL, DIM, false);
 
 // dtype 0: float32 (3xTF32), 1: bfloat16.  `rows` and `smem` are
 // plan(d, dtype)'s query rows a block and dynamic shared bytes in
 // kernels/flash_attention.py; a launch whose plan disagrees with this file
-// is refused.
+// is refused.  `lse` null stores no log-sum-exp; else (B, Hq, Sq) float32,
+// each row's natural-log log-sum-exp of its scaled scores (the backward's
+// saved statistic), at d in {64, 128} only.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int sq,
+                                      const void* v, void* o, void* lse,
+                                      int b, int sq,
                                       int skv, int hq, int hkv, int d,
                                       int causal, int dtype, int rows,
                                       int smem, void* stream) {
@@ -579,16 +533,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       FA_CASE(float, flash_attention_f32, 8)
       FA_CASE(float, flash_attention_f32, 16)
       FA_CASE(float, flash_attention_f32, 32)
-      FA_CASE(float, flash_attention_f32, 64)
-      FA_CASE(float, flash_attention_f32, 128)
+      FA_CASE_LSE(float, flash_attention_f32, 64)
+      FA_CASE_LSE(float, flash_attention_f32, 128)
     }
   } else if (dtype == 1) {
     switch (d) {
       FA_CASE(bf16, flash_attention_bf16, 8)
       FA_CASE(bf16, flash_attention_bf16, 16)
       FA_CASE(bf16, flash_attention_bf16, 32)
-      FA_CASE(bf16, flash_attention_bf16, 64)
-      FA_CASE(bf16, flash_attention_bf16, 128)
+      FA_CASE_LSE(bf16, flash_attention_bf16, 64)
+      FA_CASE_LSE(bf16, flash_attention_bf16, 128)
     }
   }
   return (int)cudaErrorInvalidValue;

@@ -191,6 +191,7 @@ def decode_attention(q, k, v, kv_len) -> torch.Tensor:
     device = q.device
     if not _build.on_card("decode_attention", device):
         return decode_attention_plain(q, k, v, kv_len)
+    _build.refuse_grad("decode_attention", (q, k, v))
     _build.check("q", q, q.dtype, q.shape, device)
     size = k.element_size()
     for name, t in (("k", k), ("v", v)):

@@ -18,6 +18,20 @@ at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
   ``flash_attention.launches``; on CPU tensors the plain version.  Any
   other device raises.  ``plan(d, dtype)`` is the kernel's launch plan.
 
+Training (the gradient of the same function):
+
+* On CUDA tensors under grad mode with an input that requires grad, the
+  wrapper goes through ``FlashAttentionFn``: its forward launches kernel 7
+  with the row log-sum-exp stored beside the output (``flash_attention_fwd``,
+  natural log, float32 (B, Hq, Sq)), its backward ``flash_attention_bwd``:
+  the two hand-written kernels of ``csrc/flash_attention_bwd.cu`` (dQ, then
+  dK and dV), counted once a call in ``flash_attention_bwd.launches``.
+  Only head widths ``BWD_HEAD_DIMS`` have a backward; any other raises
+  ``ValueError`` under grad.
+* ``flash_attention_bwd_plain`` is its plain twin: the same blocked
+  recurrence in PyTorch, P recomputed from the saved log-sum-exp.  On CPU
+  tensors autograd differentiates ``flash_attention_plain`` directly.
+
 The plain version keeps the probabilities in float32 for the PV product,
 as the TPU kernel does (its ``p.astype(v.dtype)`` casts to float32: v was
 cast to float32 when its tile was read).  In bfloat16 the CUDA kernel
@@ -42,6 +56,8 @@ from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
 HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's template instances
+BWD_HEAD_DIMS = (64, 128)            # the backward's instances
+SOURCE_BWD = "flash_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN_BLOCK_K = 256              # keys per step of the plain version
 SMEM_LIMIT = 232_448             # shared bytes a block may use (H100)
@@ -110,11 +126,13 @@ def _dims(q, k, v, causal):
     return b, sq, hq, skv, hkv, d
 
 
-def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
+def flash_attention_plain(q, k, v, *, causal: bool,
+                          return_lse: bool = False):
     """(B, Sq, Hq, D) attention output, plain PyTorch in float32,
     ``PLAIN_BLOCK_K`` keys at a time (online softmax; masked scores are
     ``-inf`` and key 0 is always visible, so the running max is finite
-    after the first block)."""
+    after the first block).  With ``return_lse`` also each row's
+    natural-log log-sum-exp of its scaled scores, (B, Hq, Sq) float32."""
     b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
@@ -142,34 +160,173 @@ def flash_attention_plain(q, k, v, *, causal: bool) -> torch.Tensor:
         acc = acc * corr + p @ vb
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)             # (B, Hkv, g, Sq, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, hq, sq)
+
+
+def _check_card(tensors, dtype, device):
+    """Device, dtype, shape, contiguity and 16-byte alignment (the kernels
+    read rows 16 bytes at a time) of ``(name, tensor, shape)`` triples."""
+    for name, t, shape in tensors:
+        _build.check(name, t, dtype, shape, device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+
+
+def _launch_forward(q, k, v, causal, with_lse):
+    """One launch of kernel 7 on CUDA tensors: the output, and with
+    ``with_lse`` the rows' log-sum-exp (else None)."""
+    b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
+    device = q.device
+    if with_lse and d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: no backward at head width {d} "
+                         f"(the backward and the lse store are built at "
+                         f"{BWD_HEAD_DIMS}); call it outside grad mode or on "
+                         f"inputs that need no gradient")
+    _check_card((("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape)),
+                q.dtype, device)
+    p = plan(d, q.dtype)
+    if b * hq >= 2 ** 31 or -(-sq // p.rows) > 65535:
+        raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
+                         f"Sq={sq}")
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=_F32, device=device) if with_lse
+           else None)
+    _build.launch("flash_attention", SOURCE,
+                  [_build.P] * 5 + [_build.I] * 10, device,
+                  q, k, v, out, lse, b, sq, skv, hq, hkv, d, int(causal),
+                  DTYPES[q.dtype], p.rows, p.smem_bytes)
+    flash_attention.launches += 1
+    return out, lse
 
 
 def flash_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     """(B, Sq, Hq, D) attention output: one kernel launch on CUDA, the
     plain version on CPU.  q, k, v contiguous, of one dtype, in the layout
     above (16-byte aligned on the card: the kernel reads rows 16 bytes at a
-    time)."""
-    b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
-    device = q.device
-    if not _build.on_card("flash_attention", device):
+    time).  On CUDA under grad mode, with an input that requires grad, the
+    output carries kernel 7's backward (``FlashAttentionFn``)."""
+    _dims(q, k, v, causal)
+    if not _build.on_card("flash_attention", q.device):
         return flash_attention_plain(q, k, v, causal=causal)
-    for name, t, shape in (("q", q, q.shape), ("k", k, k.shape),
-                           ("v", v, k.shape)):
-        _build.check(name, t, q.dtype, shape, device)
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
-    p = plan(d, q.dtype)
-    if b * hq >= 2 ** 31 or -(-sq // p.rows) > 65535:
-        raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
-                         f"Sq={sq}")
-    out = torch.empty_like(q)
-    _build.launch("flash_attention", SOURCE,
-                  [_build.P] * 4 + [_build.I] * 10, device,
-                  q, k, v, out, b, sq, skv, hq, hkv, d, int(causal),
-                  DTYPES[q.dtype], p.rows, p.smem_bytes)
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _launch_forward(q, k, v, causal, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool):
+    """``(out, lse)``: the output and each row's natural-log log-sum-exp,
+    (B, Hq, Sq) float32, from one launch of kernel 7 on CUDA (recording no
+    gradient), the plain version on CPU."""
+    _dims(q, k, v, causal)
+    if not _build.on_card("flash_attention", q.device):
+        return flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    return _launch_forward(q, k, v, causal, with_lse=True)
+
+
+def _bwd_dims(q, k, v, o, do, lse, causal):
+    b, sq, hq, skv, hkv, d = _dims(q, k, v, causal)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"flash_attention_bwd: {name} has shape "
+                             f"{tuple(t.shape)}, want {tuple(q.shape)}")
+    if tuple(lse.shape) != (b, hq, sq) or lse.dtype != _F32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"{(b, hq, sq)}, got {lse.dtype} {tuple(lse.shape)}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head width {d} not in "
+                         f"{BWD_HEAD_DIMS}")
+    return b, sq, hq, skv, hkv, d
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool):
+    """``(dq, dk, dv)`` of ``flash_attention`` at output ``o`` and output
+    gradient ``do``, plain PyTorch in float32 over key blocks of
+    ``PLAIN_BLOCK_K``: P recomputed from the saved ``lse``, Delta =
+    rowsum(do o), dS = P (do v^T - Delta); dq in q's dtype, dk and dv in
+    k's.  A GQA group's gradients are summed over its query heads."""
+    b, sq, hq, skv, hkv, d = _bwd_dims(q, k, v, o, do, lse, causal)
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+
+    def heads(t):                                    # (B, Hkv, g, Sq, D)
+        return t.to(_F32).reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+
+    qh, oh, doh = heads(q), heads(o), heads(do)
+    kh = k.to(_F32).permute(0, 2, 1, 3)[:, :, None]   # (B, Hkv, 1, Skv, D)
+    vh = v.to(_F32).permute(0, 2, 1, 3)[:, :, None]
+    lse_h = lse.reshape(b, hkv, g, sq, 1)
+    delta = torch.sum(doh * oh, dim=-1, keepdim=True)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    dq = torch.zeros_like(qh)
+    dk = torch.zeros((b, hkv, skv, d), dtype=_F32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for j0 in range(0, skv, PLAIN_BLOCK_K):
+        kb, vb = kh[..., j0:j0 + PLAIN_BLOCK_K, :], vh[..., j0:j0 + PLAIN_BLOCK_K, :]
+        s = (qh @ kb.transpose(-1, -2)) * scale        # (B, Hkv, g, Sq, bk)
+        if causal:
+            kpos = torch.arange(j0, j0 + kb.shape[-2], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos, -torch.inf)
+        p = torch.exp(s - lse_h)
+        ds = p * (doh @ vb.transpose(-1, -2) - delta)
+        dq = dq + (ds @ kb) * scale
+        j1 = j0 + kb.shape[-2]
+        dk[:, :, j0:j1] = (ds.transpose(-1, -2) @ qh).sum(dim=2) * scale
+        dv[:, :, j0:j1] = (p.transpose(-1, -2) @ doh).sum(dim=2)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool):
+    """``(dq, dk, dv)``: on CUDA the two kernels of
+    ``csrc/flash_attention_bwd.cu`` (dQ, which also writes Delta into a
+    float32 scratch, then dK and dV), counted once a call in
+    ``flash_attention_bwd.launches``; on CPU the plain version.  Every
+    input contiguous, of q's dtype (lse float32)."""
+    b, sq, hq, skv, hkv, d = _bwd_dims(q, k, v, o, do, lse, causal)
+    device = q.device
+    if not _build.on_card("flash_attention_bwd", device):
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    _check_card((("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape),
+                 ("o", o, q.shape), ("do", do, q.shape)), q.dtype, device)
+    _build.check("lse", lse, _F32, (b, hq, sq), device)
+    if b * hq >= 2 ** 31 or -(-max(sq, skv) // 16) > 65535:
+        raise ValueError(f"flash_attention_bwd: grid too large for B={b} "
+                         f"Hq={hq} Sq={sq} Skv={skv}")
+    delta = torch.empty((b, hq, sq), dtype=_F32, device=device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.launch("flash_attention_bwd", SOURCE_BWD,
+                  [_build.P] * 10 + [_build.I] * 8, device,
+                  q, k, v, o, do, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv,
+                  d, int(causal), DTYPES[q.dtype])
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel 7 with its backward: the forward keeps q, k, v, the output
+    and the rows' log-sum-exp; the backward runs ``flash_attention_bwd``
+    on them and the output gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _launch_forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

@@ -171,6 +171,10 @@ def mamba_scan(x, dt, a, bmat, cmat, d_skip, h0):
     device = x.device
     if not _build.on_card("mamba_scan", device):
         return mamba_scan_plain(x, dt, a, bmat, cmat, d_skip, h0)
+    _build.refuse_grad(
+        "mamba_scan", (x, dt, a, bmat, cmat, d_skip, h0), NotImplementedError,
+        "the selective scan's backward is not ported (ROADMAP queue 1, "
+        "\"kernel 6 backward\"): ssm and hybrid models train on the CPU only")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("bmat", bmat),
                     ("cmat", cmat), ("d_skip", d_skip), ("h0", h0)):
         _build.check(name, t, _F32, t.shape, device)

@@ -73,6 +73,7 @@ _F32 = torch.float32
 
 
 _check, _on_card, _launch = _build.check, _build.on_card, _build.launch
+_refuse_grad = _build.refuse_grad
 _P, _F, _I = _build.P, _build.F, _build.I
 
 
@@ -317,6 +318,8 @@ def sdqn_score_afterstate(cols, cpu_demand, mem_demand, scalars, w1, b1, w2,
     if not _on_card("sdqn_score_afterstate", device):
         return sdqn_score_afterstate_plain(cols, cpu_demand, mem_demand,
                                            scalars, w1, b1, w2, b2)
+    _refuse_grad("sdqn_score_afterstate",
+                 (cols, cpu_demand, mem_demand, w1, b1, w2, b2))
     n, b = _check_afterstate(COLUMNS, COLUMN_DTYPES, cols,
                              (cpu_demand, mem_demand), w1, b1, w2, b2)
     _check_score_shape("sdqn_score_afterstate", n, b)
@@ -348,6 +351,7 @@ def sdqn_score(feats, w1, b1, w2, b2) -> torch.Tensor:
     device = feats.device
     if not _on_card("sdqn_score", device):
         return sdqn_score_plain(feats, w1, b1, w2, b2)
+    _refuse_grad("sdqn_score", (feats, w1, b1, w2, b2))
     n = feats.shape[0]
     _check("feats", feats, _F32, (n, 6), device)
     _check_weights(w1, b1, w2, b2, device)
@@ -403,6 +407,7 @@ def sdqn_score_cols(cols, deltas, scale, w1, b1, w2, b2) -> torch.Tensor:
     device = cols[0].device
     if not _on_card("sdqn_score_cols", device):
         return sdqn_score_cols_plain(cols, deltas, scale, w1, b1, w2, b2)
+    _refuse_grad("sdqn_score_cols", (cols, deltas, w1, b1, w2, b2))
     n, b = _check_cols("sdqn_score_cols", cols, deltas, w1, b1, w2, b2)
     q = torch.empty((b, n), dtype=_F32, device=device)
     _launch("sdqn_score_cols", COLS_SOURCE,
@@ -464,6 +469,9 @@ def sdqn_score_afterstate_topk(cols, cpu_demand, mem_demand, cpu_request,
         return sdqn_score_afterstate_topk_plain(
             cols, cpu_demand, mem_demand, cpu_request, mem_request, scalars,
             w1, b1, w2, b2, k=k, shards=shards, shard_size=shard_size)
+    _refuse_grad("sdqn_score_afterstate_topk",
+                 (cols, cpu_demand, mem_demand, cpu_request, mem_request, w1,
+                  b1, w2, b2))
     n, b = _check_afterstate(TOPK_COLUMNS, TOPK_COLUMN_DTYPES, cols,
                              (cpu_demand, mem_demand, cpu_request,
                               mem_request), w1, b1, w2, b2)
@@ -512,6 +520,7 @@ def sdqn_score_cols_topk(cols, deltas, scale, w1, b1, w2, b2, ceilings, *,
         return sdqn_score_cols_topk_plain(cols, deltas, scale, w1, b1, w2,
                                           b2, ceilings, k=k, shards=shards,
                                           shard_size=shard_size)
+    _refuse_grad("sdqn_score_cols_topk", (cols, deltas, w1, b1, w2, b2))
     n, b = _check_cols("sdqn_score_cols_topk", cols, deltas, w1, b1, w2, b2)
     _check_topk("sdqn_score_cols_topk", n, k, shards, shard_size)
     out = _launch_topk(

@@ -1,5 +1,5 @@
 """The LM (port of ``repro.models.model``): every family, dense, moe,
-ssm, hybrid, vlm and audio (encoder-decoder), for inference.
+ssm, hybrid, vlm and audio (encoder-decoder), for training and inference.
 
 Layers are grouped into *blocks* (the repeating unit: one layer, or a
 period of ``attn_period`` layers for jamba) whose parameters are stacked
@@ -7,7 +7,11 @@ over blocks, ``(nb, ...)``, in the reference's tree, so
 ``convert.lm_params_from_numpy`` is a tree map.  Where the reference scans
 over the stacked blocks (``lax.scan``), the port loops over them in
 Python; ``remat`` and ``scan_layers`` set how the reference trains and
-compiles, and an eager forward pass needs neither.
+compiles, and an eager forward pass needs neither (training keeps every
+activation: no rematerialization).  ``params["layers"]`` (and the
+encoder's) may also be a list of per-block trees: ``launch.steps`` trains
+on such a list of views, so that each block's gradient is a tensor of its
+own and not a stacked one rebuilt per block.
 
 The decode cache has, per sub-layer and stacked over blocks, ``k`` and
 ``v`` (nb, B, max_len, Hkv, hd) for attention, ``conv`` (nb, B, cw - 1,
@@ -19,11 +23,10 @@ the card would copy the whole cache every step) and returns the same dict.
 
 The reference's quirks are kept: cross-attention's keys and values carry
 no bias even where ``use_bias`` holds (``_cross_kv``), and prefill returns
-the conv state in bfloat16 even in a float32 run.  ``loss_and_metrics``
-(training) is not ported yet.
+the conv state in bfloat16 even in a float32 run.
 
-Public entry points: init_params, init_cache, forward, prefill,
-decode_step, logits_from_hidden.
+Public entry points: init_params, init_cache, forward, loss_and_metrics
+(train), prefill, decode_step, logits_from_hidden.
 """
 from __future__ import annotations
 
@@ -303,7 +306,10 @@ def _block_fn(bp, x, cfg, spec, *, mode, positions, block_cache=None,
 
 
 def _index(tree, i: int):
-    """Block ``i`` of a tree stacked over blocks (views, no copies)."""
+    """Block ``i`` of a tree stacked over blocks (views, no copies), or
+    entry ``i`` of a list of per-block trees."""
+    if isinstance(tree, list):
+        return tree[i]
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
@@ -384,6 +390,26 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     return x, new_cache, aux
 
 
+class _Float32Product(torch.autograd.Function):
+    """x2 (T, D) @ head (D, V) in x's dtype with a float32 result, not
+    rounded to x's dtype (``torch.mm``'s ``out_dtype``, which has no
+    derivative): the backward's two products take the float32 output
+    gradient rounded to x's dtype, as mixed-precision training does."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, head = ctx.saved_tensors
+        grad = grad.to(x2.dtype)
+        dx = grad @ head.t() if ctx.needs_input_grad[0] else None
+        dhead = x2.t() @ grad if ctx.needs_input_grad[1] else None
+        return dx, dhead
+
+
 def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, S, Vp) float32 logits: the product accumulates in float32 and is
     not rounded to the weights' dtype (``preferred_element_type``)."""
@@ -393,8 +419,42 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
     if x.dtype == torch.float32 or x.device.type != "cuda":
         out = x2.to(torch.float32) @ head.to(torch.float32)
     else:
-        out = torch.mm(x2, head, out_dtype=torch.float32)
+        out = _Float32Product.apply(x2, head)
     return out.reshape(b, s, -1)
+
+
+def loss_and_metrics(params, cfg: ModelConfig, batch: dict, *,
+                     q_chunk: int = 512, mamba_chunk: int = 64,
+                     aux_weight: float = 0.01, z_weight: float = 1e-4,
+                     act_sharding=None, attn_mode: Optional[str] = None):
+    """Causal-LM loss and its metrics.  ``batch``: ``tokens`` and
+    ``targets`` (B, S) int64, optionally ``loss_mask`` (B, S) float32 and
+    the encoder's ``frames`` or the vlm's ``patch_embeds``.  Returns (loss,
+    {"loss", "ce", "zloss", "aux", "accuracy"}), () float32 tensors: the
+    masked mean cross-entropy of the float32 logits, plus ``z_weight``
+    times the mean squared log-partition and ``aux_weight`` times the MoE
+    load-balancing loss summed over the blocks.  ``q_chunk``,
+    ``mamba_chunk`` and ``act_sharding`` set the reference's memory and
+    layout, not its result; the port takes and ignores them."""
+    del q_chunk, mamba_chunk, act_sharding
+    x, _, aux = forward(params, cfg, batch["tokens"], batch, mode="train",
+                        attn_mode=attn_mode)
+    logits = logits_from_hidden(params, cfg, x)            # (B, S, Vp) f32
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    zloss = (torch.square(logz) * mask).sum() / denom
+    loss = ce + z_weight * zloss + aux_weight * aux
+    correct = (logits.argmax(dim=-1) == targets).to(mask.dtype)
+    metrics = {"loss": loss, "ce": ce, "zloss": zloss, "aux": aux,
+               "accuracy": (correct * mask).sum() / denom}
+    return loss, metrics
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,7 +1,7 @@
 """AdamW on dicts of tensors (port of ``repro.optim.adam``).
 
-Parameters, gradients and moments are trees of nested dicts keyed like the
-params.  Every leaf may carry a leading seed dimension ``S`` (candidate
+Parameters, gradients and moments are trees of nested dicts (and lists)
+keyed like the params.  Every leaf may carry a leading seed dimension ``S`` (candidate
 policies trained side by side): ``adam_update(..., seeds=True)`` then
 clips each seed by its own global norm, and a step counter of shape
 ``(S,)`` (the reference's, stacked over seeds) or ``()`` broadcasts over
@@ -30,17 +30,23 @@ class AdamConfig:
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``rest`` keyed alike)."""
+    """``fn`` over the leaves of nested dicts and lists (``rest`` keyed
+    alike)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves in key order of insertion, depth first."""
+    """The leaves in key order of insertion (list order), depth first."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

@@ -1,0 +1,8 @@
+"""Analytic FLOPs, bytes and the roofline on one card (port of
+``repro.roofline``)."""
+from repro_torch.roofline.analysis import HW, Hardware, roofline_terms  # noqa: F401
+from repro_torch.roofline.flops import (  # noqa: F401
+    cell_flops,
+    cell_hbm_bytes,
+    forward_flops_per_token,
+)

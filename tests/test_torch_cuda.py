@@ -1240,3 +1240,142 @@ def test_consolidator_fused_matches_plain_on_card(cuda_device):
     assert torch.equal(got[2], want[2]) and int(got[2][0]) > 0
     assert torch.equal(got[1].node, want[1].node)
     assert torch.equal(got[0].exp_pods, want[0].exp_pods)
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's backward and LM training; no kernel drops a gradient
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, Hq, Hkv, D, causal): OLMo-1B's training shape, GQA 4:1 and
+# 6:1, whisper's encoder and cross-attention, ragged causal Sq < Skv
+FA_BWD_SHAPES = [(8, 512, 512, 16, 16, 128, True), (2, 512, 512, 32, 8, 128, True),
+                 (2, 130, 130, 12, 2, 128, True), (2, 1500, 1500, 4, 4, 64, False),
+                 (2, 448, 1500, 4, 4, 64, False), (2, 77, 300, 6, 2, 64, True),
+                 (3, 65, 65, 2, 1, 64, True)]
+# relative to the largest gradient: float32 exact to 1e-4; bf16 rounds P
+# and dS to bf16 for the products and the gradients on output (PERF.md)
+FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_case(shape, dtype, device, seed):
+    b, sq, skv, hq, hkv, d, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen).to(device, dtype) for s in
+                 ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                  (b, sq, hq, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FA_BWD_SHAPES)
+def test_flash_attention_backward_matches_plain_on_card(cuda_device, shape,
+                                                        dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _bwd_case(shape, dtype, cuda_device, sum(shape[:6]))
+    causal = shape[6]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    _, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= FA_BWD_TOL[dtype] * float(w.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_flash_attention_under_grad_runs_its_backward(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _bwd_case((2, 96, 96, 4, 2, 64, True), torch.bfloat16,
+                            cuda_device, 1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    assert (fa.flash_attention.launches - f0,
+            fa.flash_attention_bwd.launches - b0) == (1, 1)
+    want = fa.flash_attention_bwd(q, k, v, out.detach(), do,
+                                  fa.flash_attention_fwd(q, k, v,
+                                                         causal=True)[1],
+                                  causal=True)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
+    small = [t.clone().requires_grad_() for t in
+             _qkv(1, 16, 16, 2, 2, 8, cuda_device, 0)]
+    with pytest.raises(ValueError, match="no backward at head width 8"):
+        ops.flash_attention(*small, causal=False)
+    with torch.no_grad():
+        ops.flash_attention(*small, causal=False)        # serving: fine
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_grad_on_card(cuda_device):
+    """Kernels 1-6 and 8 raise under grad mode when an input requires grad
+    (their raw launches would drop the gradient); kernel 6 names the
+    ROADMAP item."""
+    cfg, state, params, pods = _case(300, 4, cuda_device, 7)
+    live = {k: p.clone().requires_grad_() for k, p in params.items()}
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.sdqn_score_afterstate(state, pods, cfg, live)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.sdqn_topk_afterstate(state, pods, cfg, live, k=4)
+    feats = torch.rand((64, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.sdqn_score(feats, live)
+    cols = tuple(torch.rand(64, device=cuda_device) for _ in range(6))
+    deltas = torch.rand((2, 6), device=cuda_device)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.sdqn_score_delta(cols, deltas, live)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.sdqn_topk_delta(cols, deltas, live, k=4)
+    q = torch.randn((2, 4, 64), device=cuda_device, requires_grad=True)
+    kv = torch.randn((2, 2, 32, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.decode_attention(q, kv, kv, 32)
+    args = list(_scan(1, 32, 8, 4, cuda_device, 3))
+    args[0] = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="kernel 6 backward"):
+        ops.mamba_scan(*args)
+    with torch.no_grad():                      # outside grad mode: fine
+        ops.sdqn_score_afterstate(state, pods, cfg, live)
+        ops.mamba_scan(*args)
+        ops.decode_attention(q, kv, kv, 32)
+
+
+@pytest.mark.cuda
+def test_lm_gradients_through_the_kernels_match_plain_on_card(cuda_device):
+    """The loss and every gradient leaf of smoke OLMo-1B in float32 at head
+    width 64, through kernel 7 and its backward and through the plain
+    versions: within 1e-5, a leaf relative to its largest element."""
+    import dataclasses as dc
+
+    from repro_torch.configs import base as tbase
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_leaves
+
+    cfg = dc.replace(tbase.get_config("olmo-1b", smoke=True), head_dim=64,
+                     dtype="float32", param_dtype="float32")
+    params, _ = steps.init_train_state(torch.Generator().manual_seed(0),
+                                       cfg, device=cuda_device)
+    batch = {k: x.to(cuda_device) for k, x in next(
+        synthetic.synthetic_batches(0, 4, 64, cfg.vocab_size)).items()}
+    runs, bwd = {}, {}
+    for mode in ("cuda", "plain"):
+        b0 = fa.flash_attention_bwd.launches
+        runs[mode] = steps.value_and_grad(cfg, params, batch, attn_mode=mode)
+        bwd[mode] = fa.flash_attention_bwd.launches - b0
+    assert bwd == {"cuda": cfg.num_layers, "plain": 0}
+    torch.testing.assert_close(runs["cuda"][0]["loss"],
+                               runs["plain"][0]["loss"], rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(runs["cuda"][1]),
+                    tree_leaves(runs["plain"][1])):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
