@@ -11,8 +11,11 @@ Phases (any failed check raises and the run exits nonzero):
    ptxas's registers and spills per kernel, and the SASS of kernel 7's ten
    instances (and the four that also store the rows' lse): each must hold
    tensor-core products (HMMA) and cp.async copies (LDGSTS), the bfloat16
-   ones ldmatrix loads (LDSM) and no spill.  The backward's eight
-   instances: 0 spill bytes, the bfloat16 ones HMMA, LDSM and LDGSTS.  Kernel 8's
+   ones ldmatrix loads (LDSM) and no spill.  The backward's ten
+   instances: 0 spill bytes in every one; the bfloat16 main pass (D = 64
+   and 128) runs on wgmma (HGMMA) fed by TMA loads (UTMALDG) and adds dQ
+   with bulk reduce-adds (UBLKRED), beside its preprocess and postprocess;
+   the float32 dQ and dK/dV kernels as before.  Kernel 8's
    sixteen instances (q float32 or bfloat16 x cache in q's dtype or
    float8_e4m3fn x D in {16, 32, 64, 128}): cp.async (LDGSTS) in all, HMMA
    and LDSM in the bfloat16-q ones, and 0 spill bytes in every one.
@@ -147,7 +150,8 @@ kernel 3 for the routing):
     cache cast to bfloat16, beside it), with kernel 8's launch plan.  With
     ``--parent-src DIR`` the kernel 8 of another checkout (the parent's
     tree) is timed at every row before and after this one's
-    (``scripts/decode_timings.py``), as ``parent_ms``.
+    (``scripts/decode_timings.py``), as ``parent_ms``; phase 22 likewise
+    times the parent's kernel 7 backward (``scripts/bwd_timings.py``).
 
 The paper's main path (kernels 7 and 1 on the DQN learner's path):
 
@@ -254,9 +258,11 @@ backward, ``csrc/flash_attention_bwd.cu``):
     (8, 512, 16, 128) causal, granite's 32 / 8 and dbrx's 48 / 8 GQA,
     whisper's encoder (8, 1500, 16, 64) and cross-attention (8, 448
     against 1,500 keys) non-causal, and a ragged causal shape, in float32
-    (1e-4) and bfloat16 (2e-2) relative to the largest gradient.  Kernels
-    1-6 and 8 under grad with an input that requires grad raise (kernel 6
-    names ROADMAP's "kernel 6 backward").  Then
+    (1e-4) and bfloat16 (2e-2) relative to the largest gradient; each
+    bfloat16 shape run twice more: dK and dV bit for bit, dQ (float32
+    reduce-adds in the order the blocks finish, then bfloat16) within one
+    bfloat16 rounding step of the other call's, element by element.  Kernels 1-6 and 8 under grad with an input that requires
+    grad raise (kernel 6 names ROADMAP's "kernel 6 backward").  Then
     ``repro_torch.launch.train.main`` with OLMo-1B at full width and depth
     (bf16 weights, ``default_adam``: float32 master and moments), 40 steps
     of 8 x 512 tokens, a checkpoint under ``build/``: exactly 16 x 40
@@ -273,10 +279,13 @@ backward, ``csrc/flash_attention_bwd.cu``):
     full width with 2 encoder and 2 decoder layers, 3 steps (exactly 18
     launches of each); falcon-mamba's loss backward on the card raises the
     named NotImplementedError.  Timings of the backward at OLMo's shape and
-    whisper's two (device time from a CUDA graph, 2 device kernels a call)
-    beside its bound and SDPA's backward alone from a CUDA graph
-    (``library_ms``), and of kernel 7's training forward with the lse
-    stored against the serving launch without it, in turns.
+    whisper's two (device time from a CUDA graph, 3 device kernels a call,
+    each an ``fa_bwd`` one) beside its bound and SDPA's backward alone
+    from a CUDA graph (``library_ms``), and of kernel 7's training forward
+    with the lse stored against the serving launch without it, in turns.
+    With ``--parent-src DIR`` the backward of another checkout is timed at
+    the same rows before and after this one's (``scripts/bwd_timings.py``),
+    as ``parent_ms``.
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -2256,6 +2265,26 @@ def _leaves(tree):
     return [tree]
 
 
+def device_split_us(fn, calls: int = 10) -> dict:
+    """{device kernel: microseconds a call} of ``fn`` under torch.profiler
+    over ``calls`` calls, the device's own events only (empty when the
+    profiler delivers none, as it now and then does on the card's
+    machine).  Launches made here are restored by the caller."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0}
+
+
 def _library_attention(q, k, v, mask=None, causal=False):
     """``scaled_dot_product_attention`` on (B, H, S, D) tensors, GQA on,
     and the name of the device kernel that did the most of it."""
@@ -2356,6 +2385,23 @@ def parent_decode_times(src):
         print(f"timing decode_attention {r['row']} of the parent ({src}): "
               f"kernel_ms={r['ms']} kernel_cold_ms={r['cold_ms']} "
               f"{r.get('error', '')}".rstrip())
+    return {r["row"]: r for r in rows}
+
+
+def parent_bwd_times(src):
+    """{row: {"ms"}} of another checkout's kernel 7 backward at
+    ``FA_BWD_TIMED`` (``scripts/bwd_timings.py --src src`` in a process of
+    its own)."""
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "bwd_timings.py"),
+                          "--src", str(src), "--label", "parent"],
+                         capture_output=True, text=True, check=True).stdout
+    rows = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    for r in rows:
+        print(f"timing flash_attention_bwd {r['row']} of the parent ({src}): "
+              f"kernel_ms={r['ms']} device kernels us a call (profiler) "
+              f"{r['kernels_us']}")
     return {r["row"]: r for r in rows}
 
 
@@ -4347,6 +4393,7 @@ FA_BWD_TIMED = ("olmo_train", "whisper_encoder", "whisper_cross")
 # shapes, and the bound is 2.5 times that.
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FA_FWD_LSE_TOL = 1e-4                 # the forward's lse against plain's
+
 TRAIN_STEPS = 40
 TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", str(TRAIN_STEPS), "--batch",
               "8", "--seq", "512", "--log-every", "5"]
@@ -4416,9 +4463,46 @@ def check_bwd_kernels(device):
             assert max(rel + rel_auto) <= tol, (label, dtype, rel, rel_auto)
             assert lse_err <= FA_FWD_LSE_TOL, (label, dtype, lse_err)
             assert out_err <= LM_TOL[dtype], (label, dtype, out_err)
+            if dtype == torch.bfloat16:
+                check_bwd_repeats(q, k, v, out, do, lse, causal, label)
             del q, k, v, do, out, got, want, auto, live
     torch.cuda.empty_cache()
     return errs
+
+
+def bf16_steps_apart(a, b) -> float:
+    """The largest |a - b| over one bfloat16 rounding step at max(|a|,
+    |b|) (2^-7 of it) plus 1e-5 of the largest |a|, the float32
+    summation-order noise of elements near zero: at most 1 when two
+    float32 sums that differ only in their order round to the same or to
+    neighbouring bfloat16 values."""
+    a, b = a.float(), b.float()
+    step = (torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+            + 1e-5 * float(a.abs().max()))
+    return float(((a - b).abs() / step).max())
+
+
+def check_bwd_repeats(q, k, v, out, do, lse, causal, label):
+    """Two more calls of the bfloat16 backward on the same tensors: dK and
+    dV (summed in registers in a fixed order) bit for bit; dQ, a float32
+    sum of per-key-block partials added in the order the blocks finish and
+    then rounded to bfloat16, differs from call to call only where the two
+    float32 sums round to neighbouring bfloat16 values: every element
+    within one bfloat16 step of the other call's (``bf16_steps_apart``).
+    Relative to dQ's largest element such a step reaches 2^-7 of any
+    element's size, so that figure is printed, not bounded."""
+    from repro_torch.kernels import flash_attention as fa
+
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    second = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(first[1:], second[1:])]
+    steps = bf16_steps_apart(first[0], second[0])
+    changed = float((first[0] != second[0]).float().mean())
+    print(f"flash_attention_bwd {label} bf16 twice: dk, dv equal {same}; "
+          f"dq in bf16 steps {steps}, share of elements changed {changed}, "
+          f"relative to its largest {_rel_err(second[0], first[0])}")
+    assert all(same) and steps <= 1.0, (label, same, steps)
 
 
 def check_kernels_refuse_grad(device):
@@ -4762,8 +4846,9 @@ def train_timings(device, name):
         call = lambda: fa.flash_attention_bwd(  # noqa: E731
             q, k, v, out, do, lse, causal=causal)
         names = device_kernels(call)
-        assert len(names) == 2 and all("fa_bwd" in n for n in names), names
+        assert len(names) == 3 and all("fa_bwd" in n for n in names), names
         ms = graph_time_ms(call, 10)
+        split = {key[:24]: us for key, us in device_split_us(call).items()}
         plain_ms = graph_time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, do, lse, causal=causal), 2, reps=3)
         library_ms = _library_backward_ms(q, k, v, do, causal)
@@ -4773,14 +4858,15 @@ def train_timings(device, name):
         rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by, library_ms=library_ms,
                            shape=list(shape), bound_terms_ms=terms,
-                           path=label)
+                           kernels_us=split, path=label)
         print(f"timing flash_attention_bwd {label} (B, Sq, Skv, Hq, Hkv, D, "
-              f"causal)={shape} bf16: kernel_ms={ms} (2 device kernels: "
+              f"causal)={shape} bf16: kernel_ms={ms} (3 device kernels: "
               f"{[n[:40] for n in names]}) plain_ms={plain_ms} library_ms="
               f"{library_ms} (SDPA's backward alone, CUDA graph) bound_ms="
               f"{b_ms} ({b_by}; bytes={nbytes} ops={n_ops}; terms_ms "
               f"{terms}) kernel/bound={ms / b_ms} kernel/library="
-              f"{ms / library_ms}")
+              f"{ms / library_ms} device kernels us a call (profiler) "
+              f"{split}")
         del q, k, v, do, out, lse
     b, sq, skv, hq, hkv, d, causal = FA_BWD_SHAPES["olmo_train"]
     q, k, v, _ = _bwd_case(FA_BWD_SHAPES["olmo_train"], torch.bfloat16,
@@ -4806,23 +4892,30 @@ def train_timings(device, name):
 
 
 def check_kernel7_bwd_build():
-    """The backward's eight instances (dQ and dK/dV x bf16 and float32 x D
-    in {64, 128}) spill nothing; the bf16 ones run on the tensor cores
-    (HMMA) from ldmatrix loads (LDSM) and cp.async copies (LDGSTS).  Kernel
-    7's forward instances' spills are printed, the bf16 ones (with and
-    without the lse store) must be 0."""
+    """The backward's ten instances spill nothing: the float32 dQ and dK/dV
+    kernels at D in {64, 128}, and the bfloat16 preprocess, main pass and
+    postprocess at both; the bfloat16 main pass runs its products on
+    wgmma (HGMMA) from TMA loads (UTMALDG) and adds dQ with bulk
+    reduce-adds (UBLKRED).  Kernel 7's forward instances' spills are
+    printed, the bf16 ones (with and without the lse store) must be 0."""
+    import re
+
     counts = sass_counts("flash_attention_bwd")
     spills = ptxas_spills("flash_attention_bwd")
     kernels = {fn: c for fn, c in counts.items() if "fa_bwd" in fn}
-    assert len(kernels) == 8 and set(kernels) == set(spills), (
+    kinds = sorted(re.search(r"fa_bwd_\w+?_(?:bf16|f32)I", fn).group(0)
+                   + re.search(r"ILi(\d+)E", fn).group(1) for fn in kernels)
+    assert kinds == sorted(f"fa_bwd_{k}I{d}" for k in (
+        "dq_f32", "dkdv_f32", "pre_bf16", "main_bf16", "post_bf16")
+        for d in (64, 128)) and set(kernels) == set(spills), (
         sorted(counts), sorted(spills))
     for fn, c in sorted(kernels.items()):
         regs, stores, loads = spills[fn]
         print(f"sass[flash_attention_bwd] {fn}: {c} registers={regs} "
               f"spill_stores={stores} spill_loads={loads}")
         assert stores == loads == 0, (fn, spills[fn])
-        assert "bf16" not in fn or (c["HMMA"] > 0 and c["LDSM"] > 0
-                                    and c["LDGSTS"] > 0), (fn, c)
+        assert "main_bf16" not in fn or (c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                         and c["UBLKRED"] > 0), (fn, c)
     for fn, (regs, stores, loads) in sorted(
             ptxas_spills("flash_attention").items()):
         print(f"ptxas[flash_attention] {fn}: registers={regs} "
@@ -4850,10 +4943,15 @@ def phase_lm_train(device, name):
     return paths, errs, figures, rows
 
 
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG", "UBLKCP", "UBLKRED")
+
+
 def sass_counts(source):
     """{kernel function: {opcode: count}} of ``csrc/<source>.cu``'s built
-    library (``cuobjdump -sass``): tensor-core products (HMMA), cp.async
-    copies (LDGSTS) and ldmatrix loads (LDSM)."""
+    library (``cuobjdump -sass``): tensor-core products (HMMA; HGMMA on
+    wgmma), cp.async copies (LDGSTS), ldmatrix loads (LDSM), TMA tensor
+    loads (UTMALDG), bulk copies (UBLKCP) and bulk reduce-adds
+    (UBLKRED)."""
     import re
 
     from repro_torch.kernels import _build
@@ -4865,9 +4963,9 @@ def sass_counts(source):
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(("HMMA", "LDGSTS", "LDSM"), 0)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
         elif fn:
-            for op in re.findall(r"\b(HMMA|LDGSTS|LDSM)\b", line):
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
                 counts[fn][op] += 1
     return counts
 
@@ -4939,7 +5037,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parent-src", default="",
                     help="another checkout's src directory: phases 14 and "
                          "20 also time its kernel 8 at every row, before "
-                         "and after this one's (scripts/decode_timings.py)")
+                         "and after this one's (scripts/decode_timings.py), "
+                         "phase 22 its kernel 7 backward "
+                         "(scripts/bwd_timings.py)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -5003,8 +5103,22 @@ def main(argv=None) -> int:
     family_errs = phase_family_kernels(device)
     granite_paths, granite_figures = phase_lm_granite(device)
     family_figures.update(granite_figures)
+    bwd_parents = ([parent_bwd_times(args.parent_src)] if args.parent_src
+                   else [])
     train_paths, train_errs, train_figures, train_rows = phase_lm_train(
         device, name)
+    if args.parent_src:         # parent, this, parent: in turns on one card
+        bwd_parents.append(parent_bwd_times(args.parent_src))
+        for label in FA_BWD_TIMED:
+            row = train_rows[label]
+            row["parent_ms"] = [p.get(label, {}).get("ms")
+                                for p in bwd_parents]
+            print(f"timing flash_attention_bwd {label}: kernel_ms="
+                  f"{row['ms']} parent_ms={row['parent_ms']} (before, after) "
+                  f"library_ms={row['library_ms']} (SDPA's backward) "
+                  f"bound_ms={row['bound_ms']} kernel/parent="
+                  f"{row['ms'] / statistics.mean(row['parent_ms'])} "
+                  f"kernel/library={row['ms'] / row['library_ms']}")
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],

@@ -1,0 +1,71 @@
+"""Time kernel 7's backward on one CUDA card at the training paths'
+shapes, for this checkout's package or another's.
+
+    python3 scripts/bwd_timings.py [--src DIR] [--label NAME]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
+this checkout's), so that one run on a card can time another checkout's
+backward beside this one's, in turns (``chip_smoke.py --parent-src DIR``
+runs it so, before and after its own timings).  Every row of
+``chip_smoke.FA_BWD_TIMED`` (``chip_smoke.FA_BWD_SHAPES``: OLMo-1B's
+causal (8, 512, 16, 128), whisper's encoder and cross-attention at D = 64)
+in bfloat16, inputs from ``chip_smoke._bwd_case`` (seed
+``chip_smoke.SEED + 24``, as phase 22's timings), the lse from the
+package's own ``flash_attention_fwd``: device time per call of
+``flash_attention_bwd`` from a CUDA graph of 10 calls (median of 5
+replays; ``chip_smoke.graph_time_ms``), and each device kernel's
+microseconds a call under torch.profiler (``chip_smoke.device_split_us``).
+Prints one JSON object a line, the card's name and power limit in each.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from chip_smoke import (FA_BWD_SHAPES, FA_BWD_TIMED, SEED,  # noqa: E402
+                        _bwd_case, device_split_us, graph_time_ms)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_timings: no CUDA device is visible")
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    device = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    _build.build(["flash_attention", "flash_attention_bwd"])
+    for row in FA_BWD_TIMED:
+        shape = FA_BWD_SHAPES[row]
+        causal = shape[6]
+        q, k, v, do = _bwd_case(shape, torch.bfloat16, device, SEED + 24)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+
+        def call():
+            fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+
+        ms = graph_time_ms(call, 10)
+        split = {key[:24]: us for key, us in device_split_us(call).items()}
+        print(json.dumps(dict(kind="time", label=args.label, card=smi,
+                              row=row, shape=list(shape), ms=ms,
+                              kernels_us=split)), flush=True)
+        del q, k, v, do, out, lse
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-// Blocked attention backward for Hopper (sm_90a): dQ, dK and dV of kernel
-// 7's o = softmax(q k^T / sqrt(D)) v.
+// Attention backward for Hopper (sm_90a): dQ, dK and dV of kernel 7's
+// o = softmax(q k^T / sqrt(D)) v.
 //
 // Replaces no Pallas kernel: the JAX model trains through XLA's autodiff
 // of its attention (src/repro/models/layers.py:124, no custom_vjp), while
@@ -8,383 +8,439 @@
 // the backward of that launch, bound by kernels/flash_attention.py's
 // autograd Function.  Layouts as the forward's: q, o, dO (B, Sq, Hq, D),
 // k, v (B, Skv, Hkv, D), GQA groups of Hq / Hkv query heads, under
-// `causal` the diagonal at Skv - Sq; ragged Sq and Skv masked by index;
-// lse (B, Hq, Sq) float32, the forward's natural-log log-sum-exp of each
-// row's scaled scores; D in {64, 128}; bfloat16 or float32.
-//
-// Design (FlashAttention-2's backward order, two kernels, no atomics, so
-// a step's gradients repeat bit for bit).  P is recomputed from the saved
-// lse, P = exp(q k / sqrt(D) - lse), and with Delta = rowsum(dO o),
-// dS = P (dO v^T - Delta):
-//   * the dQ kernel, one block per (batch, query head, 64 query rows), 16
-//     a warp, first computes Delta of its rows from o and dO and stores it
-//     (delta, (B, Hq, Sq) float32), then walks the K/V tiles its rows see
-//     and sums dQ += dS k / sqrt(D) in registers;
-//   * the dK/dV kernel, launched after it on the same stream, one block
-//     per (batch, KV head, 64 keys), 16 a warp, walks every query head of
-//     its group and every Q/dO tile that sees its keys, recomputes P^T and
-//     dS^T on its keys' rows and sums dV += P^T dO and dK += dS^T q /
-//     sqrt(D): a group's sum stays in registers.
-// bfloat16 runs its products (three a tile in the dQ kernel, four in the
-// dK/dV kernel) on mma.sync.m16n8k16 (float32 accumulators, fragments from
-// ldmatrix, tiles in shared memory by 16-byte cp.async with the next
-// tile's copy in flight), P and dS rounded to bfloat16 as the A operand of
-// the next product, as the forward rounds P.
-// float32 runs on FMAs from shared memory (rows padded by one float, so
-// the dot products read without bank conflicts); no path trains in
-// float32 at speed, the instance holds the bfloat16 one to an exact
-// reference.  Key blocks run heaviest first under `causal` (the first
-// keys are seen by the most queries).
+// `causal` the diagonal at Skv - Sq; ragged Sq and Skv; lse (B, Hq, Sq)
+// float32, the forward's natural-log log-sum-exp of each row's scaled
+// scores; D in {64, 128}; bfloat16 or float32.  P is recomputed from the
+// saved lse, P = exp(q k / sqrt(D) - lse); with Delta = rowsum(dO o),
+// dS = P (dO v^T - Delta), dV = P^T dO, dK = dS^T q / sqrt(D), dQ = dS k /
+// sqrt(D).
 //
 // What bounds it (chip_smoke.py's attention bound for the backward: the
 // larger of the bytes, q, k, v, o, dO read and dq, dk, dv written once,
 // and the five products over the visible pairs at the bf16 tensor-core
-// rate).  At OLMo-1B's training shape (8, 512, 16, 128), causal: 134 MB
-// (0.040 ms at 3.35 TB/s) against 21.5 GFLOP (0.022 ms at 989 TFLOP/s):
-// bytes.  The two-kernel split recomputes S and dP in both (seven
-// products, not five) and reads q, k, v, dO twice; mma.sync, not wgmma.
+// rate).  OLMo-1B's training shape (8, 512, 16, 128), causal: 134 MB
+// (0.040 ms at 3.35 TB/s) against 21.5 GFLOP (0.022 ms at 989 TFLOP/s),
+// bytes.  whisper's encoder (8, 1500, 16, 64), non-causal: 184 GFLOP
+// (0.186 ms) against 25 MB, products; its cross-attention (448 queries
+// against 1,500 keys) likewise.  So the kernel must run its products on
+// the tensor cores near their rate and read each input once.
+//
+// bfloat16: three launches a call, FlashAttention-3's backward order.
+//   * fa_bwd_pre_bf16: lse2 = lse log2(e) (+inf on the pad rows past Sq,
+//     so P = 0 there) and Delta of every row, into a float32 scratch of
+//     (B, Hq, query tile, 2, BM), a tile's rows contiguous; the float32 dQ
+//     accumulator zeroed.
+//   * fa_bwd_main_bf16: one block per (batch, KV head, BN = 128 keys);
+//     the key blocks of one (batch, KV head) launch one after another,
+//     the first keys (the heaviest under `causal`) first, so the blocks
+//     resident together share their Q and dO tiles and their rows of the
+//     dQ accumulator in the L2 (launched KV head by KV head instead, the
+//     accumulators of every resident head outgrow the L2 at whisper's
+//     encoder, and the reduce-adds go to device memory).  A
+//     producer warpgroup (24 registers a thread after setmaxnreg) loads
+//     the block's K and V tiles once and then, for every query head of
+//     the GQA group and every BM-row query tile that sees the block's
+//     keys, the Q and dO tiles by TMA (128-byte swizzle, rows past Sq
+//     zero-filled) and the rows' lse2 and Delta by one bulk copy, into a
+//     2-stage mbarrier ring.  Two consumer warpgroups (240 registers),
+//     64 keys each, compute per tile on wgmma: S^T = K Q^T and dP^T = V
+//     dO^T (both operands in shared memory); P^T = exp2(S^T scale log2(e)
+//     - lse2) and dS^T = P^T (dP^T - Delta) in registers (masked by index
+//     on a tile that crosses the diagonal or the last key); dV += P^T dO
+//     and dK += dS^T Q with P^T and dS^T rounded to bf16 as the A operand
+//     from registers (so a group's sum stays in registers, no atomics);
+//     dS^T stored to shared memory (bf16, 128-byte swizzle, two buffers);
+//     and the tile's dQ = dS K, each warpgroup a 64 x 64 piece (D = 128:
+//     its 64 columns; D = 64: its 64 query rows) over all 128 keys, the
+//     transposed operands read through wgmma's transpose bits.  The piece
+//     goes to shared memory and is added to the float32 accumulator with
+//     one cp.reduce.async.bulk add.f32.  Five products a tile pair, not
+//     the seven of a split dQ / dK-dV pair of kernels; q, k, v and dO
+//     read once from device memory, the Q/dO re-reads of later key blocks
+//     from the L2.
+//   * fa_bwd_post_bf16: dQ = accumulator / sqrt(D) in bf16, (B, Sq, Hq, D).
+// dK and dV are summed in registers in a fixed order and repeat bit for
+// bit; dQ is a float32 sum of per-key-block partials added in the order
+// the blocks finish, so it does not (PERF.md §6 measures the spread).
+// float32 runs on FMAs from shared memory, a dQ kernel (which also writes
+// Delta) then a dK/dV kernel, no atomics: no path trains in float32 at
+// speed, it holds the bfloat16 path to an exact reference.
 
 #include <math.h>
 
-#include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
-#define FB_THREADS 128   // 4 warps
-#define FB_ROWS 64       // rows a block of either kernel, 16 a warp
-#define FB_TILE 32       // keys (dQ) or queries (dK/dV) a streamed tile
+#define FB_THREADS 128   // float32 kernels: 4 warps
 #define FB_LOG2E 1.4426950408889634f
 
-// bf16 tile rows: an odd number of 16-byte chunks (ldmatrix without bank
-// conflicts), as the forward's
+// The bf16 tiles at head width D; bwd_plan(d) in kernels/flash_attention.py
+// mirrors it, and the launch refuses a plan that disagrees.
 template <int D>
-struct Bf16Tiles {
-  static constexpr int PITCH = 16 * ((D / 8) | 1);
-  // dQ: Q and dO tiles of FB_ROWS rows, a 2-stage ring of K and V tiles
-  static constexpr int SMEM_DQ = PITCH * (2 * FB_ROWS + 2 * 2 * FB_TILE);
-  // dK/dV: K and V tiles of FB_ROWS rows, a 2-stage ring of Q and dO tiles
-  // and of their rows' lse (base 2) and Delta
-  static constexpr int SMEM_DKV =
-      PITCH * (2 * FB_ROWS + 2 * 2 * FB_TILE) + 2 * 2 * FB_TILE * 4;
-  static_assert(SMEM_DKV <= 232448, "past a block's shared memory");
+struct BwdTiles {
+  static constexpr int BM = D == 128 ? 64 : 128;   // queries a tile
+  static constexpr int BN = 128;        // keys a block, 64 a consumer
+  static constexpr int STAGES = 2;      // Q/dO tiles in the ring
+  static constexpr int THREADS = 384;   // 2 consumer warpgroups + producer
+  static constexpr int SLABS = D / 64;  // 64-column slabs of a row
+  static constexpr int KV_SLAB = BN * 128, Q_SLAB = BM * 128;
+  static constexpr int KV_BYTES = BN * D * 2, Q_BYTES = BM * D * 2;
+  static constexpr int DS_BYTES = BN * BM * 2;   // dS^T, keys x queries
+  static constexpr int DS_SLAB = BN * 128;       // 64 queries of it
+  static constexpr int DQ_BYTES = 64 * 64 * 4;   // a warpgroup's dQ piece
+  static constexpr int STAT_BYTES = 2 * BM * 4;  // lse2, then Delta, of a tile
+  static constexpr int OFF_K = 0, OFF_V = KV_BYTES, OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_DO = OFF_Q + STAGES * Q_BYTES;
+  static constexpr int OFF_DS = OFF_DO + STAGES * Q_BYTES;
+  static constexpr int OFF_DQ = OFF_DS + 2 * DS_BYTES;
+  static constexpr int OFF_STAT = OFF_DQ + 2 * DQ_BYTES;
+  static constexpr int OFF_BAR = OFF_STAT + STAGES * STAT_BYTES;
+  static constexpr int N_BAR = 1 + 2 * STAGES;   // K/V, full[], empty[]
+  // + 1024: the dynamic base rounded up to a swizzle atom
+  static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;
+  // dK and dV of both warpgroups staged for the store, after the loop,
+  // over K, V and the ring (rows padded by 16 bytes: no bank conflicts)
+  static constexpr int EPI_PITCH = 2 * D + 16;
+  static_assert(BM % 64 == 0 && BN == 128 && D % 64 == 0, "tile shapes");
+  static_assert(SMEM <= 232448, "past a block's shared memory");
+  static_assert(4 * 64 * EPI_PITCH <= OFF_DS, "dK/dV staging");
 };
-
-// The warp's 16 rows of acc (16 x D, float32) times `mul` in bfloat16,
-// through its own rows of a shared tile at `stage` (pitch PITCH), to rows
-// row0 + 16 warp .. of `out` (rows `stride` elements apart) below
-// `limit`, 16 bytes at a time.
-template <int D, int PITCH>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
-                                           float mul, unsigned char* stage,
-                                           bf16* out, int row0, int limit,
-                                           size_t stride) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  unsigned char* rows = stage + warp * 16 * PITCH;
-  __syncwarp();
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      unsigned char* p =
-          rows + (g + 8 * h) * PITCH + (n * 8 + 2 * tig) * 2;
-      *reinterpret_cast<uint32_t*>(p) =
-          pack_bf16(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-    }
-  __syncwarp();
-  constexpr int CH = D / 8;         // 16-byte chunks a row
-#pragma unroll
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = i - r * CH;
-    const int row = row0 + warp * 16 + r;
-    if (row < limit)
-      *reinterpret_cast<uint4*>(out + (size_t)row * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(rows + r * PITCH + c * 16);
-  }
-}
+// bwd_plan(d) in kernels/flash_attention.py (its test reads these lines)
+static_assert(BwdTiles<128>::BM == 64 && BwdTiles<128>::SMEM == 198696,
+              "bwd_plan(128)");
+static_assert(BwdTiles<64>::BM == 128 && BwdTiles<64>::SMEM == 199720,
+              "bwd_plan(64)");
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS, 2) fa_bwd_dq_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ o,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, bf16* __restrict__ dq, int sq, int skv, int hq,
-    int hkv, int causal, float scale_log2, float scale) {
-  constexpr int PITCH = Bf16Tiles<D>::PITCH;
-  constexpr int TILE = FB_TILE * PITCH;
-  constexpr int KS = D / 16;        // k-steps over D
-  constexpr int NT = FB_TILE / 8;   // 8-key score tiles
-  constexpr int DT = D / 8;         // 8-wide dQ tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  const uint32_t s_q = smem_addr(smem);
-  const uint32_t s_do = s_q + FB_ROWS * PITCH;
-  const uint32_t s_kv = s_do + FB_ROWS * PITCH;
-  const int b = blockIdx.x / hq, h = blockIdx.x - b * hq;
-  const int hk = h / (hq / hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, mi = lane >> 3, r8 = lane & 7;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * FB_ROWS;   // heaviest first
-  const int diag = skv - sq;
-  const int n_keys = causal ? min(skv, min(sq, q0 + FB_ROWS) + diag) : skv;
-  const int n_tiles = (n_keys + FB_TILE - 1) / FB_TILE;
-  const size_t qstride = (size_t)hq * D, kstride = (size_t)hkv * D;
-  const size_t qoff = ((size_t)b * sq * hq + h) * D;
-  const size_t soff = ((size_t)b * hq + h) * sq;          // lse, delta row 0
-  const bf16* kb = k + ((size_t)b * skv * hkv + hk) * D;
-  const bf16* vb = v + ((size_t)b * skv * hkv + hk) * D;
-
-  load_tile<bf16, D, PITCH, FB_ROWS, FB_THREADS>(s_q, q + qoff, qstride, q0,
-                                                 sq);
-  load_tile<bf16, D, PITCH, FB_ROWS, FB_THREADS>(s_do, dout + qoff, qstride,
-                                                 q0, sq);
-  load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(s_kv, kb, kstride, 0, skv);
-  load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(s_kv + TILE, vb, kstride, 0,
-                                                 skv);
-  cp_async_commit();
-
-  // Delta of the warp's 16 rows, two lanes a row and half of D each, from
-  // o and dO in device memory; stored for the dK/dV kernel.  The lane's
-  // fragment rows are r and r + 8; rows past sq get lse = +inf (P = 0).
-  const int r = q0 + warp * 16 + g;
-  float dl[2], ls[2];
-  {
-    const int row = q0 + warp * 16 + (lane >> 1);
-    float acc = 0.f;
+__global__ void __launch_bounds__(256) fa_bwd_pre_bf16(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ stats,
+    float* __restrict__ dq_acc, int sq, int hq) {
+  constexpr int BM = BwdTiles<D>::BM;
+  const int bh = blockIdx.x, m = blockIdx.y;
+  const int b = bh / hq, h = bh - b * hq;
+  const size_t tile = (size_t)bh * gridDim.y + m;   // (b, h, query tile)
+  float4* acc = reinterpret_cast<float4*>(dq_acc + tile * BM * D);
+  for (int i = threadIdx.x; i < BM * D / 4; i += 256)
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // 8 threads a row, each 16-byte chunks 8 sub, 8 sub + 64, ...
+  const int sub = threadIdx.x & 7;
+  for (int r = threadIdx.x >> 3; r < BM; r += 32) {
+    const int row = m * BM + r;
+    float sum = 0.f;
     if (row < sq) {
-      const size_t at = qoff + (size_t)row * qstride + (lane & 1) * (D / 2);
+      const size_t at = (((size_t)b * sq + row) * hq + h) * D;
 #pragma unroll
-      for (int c = 0; c < D / 2; c += 8) {
+      for (int c = sub * 8; c < D; c += 64) {
         const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c);
         const bf16* op = reinterpret_cast<const bf16*>(&ov);
         const bf16* dp = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          acc = fmaf(__bfloat162float(op[e]), __bfloat162float(dp[e]), acc);
+          sum = fmaf(__bfloat162float(op[e]), __bfloat162float(dp[e]), sum);
       }
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((lane & 1) == 0 && row < sq) delta[soff + row] = acc;
-    dl[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
-    dl[1] = __shfl_sync(0xffffffffu, acc, 2 * g + 16);
-    ls[0] = r < sq ? lse[soff + r] * FB_LOG2E : INFINITY;
-    ls[1] = r + 8 < sq ? lse[soff + r + 8] * FB_LOG2E : INFINITY;
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    if (sub == 0) {   // the tile's lse2 row, then its Delta row
+      stats[tile * 2 * BM + r] =
+          row < sq ? lse[(size_t)bh * sq + row] * FB_LOG2E : INFINITY;
+      stats[tile * 2 * BM + BM + r] = sum;
+    }
   }
-  const int kend0 = causal ? min(skv, r + diag + 1) : skv;
-  const int kend1 = causal ? min(skv, r + 8 + diag + 1) : skv;
-
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const uint32_t qrow = s_q + warp * 16 * PITCH;
-  const uint32_t dorow = s_do + warp * 16 * PITCH;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
-      load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(next, kb, kstride,
-                                                     (t + 1) * FB_TILE, skv);
-      load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(next + TILE, vb, kstride,
-                                                     (t + 1) * FB_TILE, skv);
-    }
-    cp_async_commit();              // maybe empty: keeps the count uniform
-    cp_async_wait<1>();             // tile t (and Q, dO) have landed
-    __syncthreads();
-    const uint32_t sk = s_kv + (t & 1) * 2 * TILE, sv = sk + TILE;
-    // S = Q K^T and dP = dO V^T of the warp's 16 rows and the tile's keys
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t qa[4], da[4];
-      const int aoff = ((mi & 1) * 8 + r8) * PITCH + (ks * 16 + (mi >> 1) * 8) * 2;
-      ldsm_x4(qa, qrow + aoff);
-      ldsm_x4(da, dorow + aoff);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kf[4], vf[4];
-        const int boff =
-            ((j + (mi >> 1)) * 8 + r8) * PITCH + (ks * 16 + (mi & 1) * 8) * 2;
-        ldsm_x4(kf, sk + boff);
-        ldsm_x4(vf, sv + boff);
-        mma_bf16(s[j], qa, kf[0], kf[1]);
-        mma_bf16(s[j + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[j], da, vf[0], vf[1]);
-        mma_bf16(dp[j + 1], da, vf[2], vf[3]);
-      }
-    }
-    // P from lse, masked by index; s becomes dS = P (dP - Delta)
-    const int c0 = t * FB_TILE + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        const bool vis = c0 + j * 8 + (e & 1) < (hh ? kend1 : kend0);
-        const float p = vis ? ex2(fmaf(s[j][e], scale_log2, -ls[hh])) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[hh]);
-      }
-    // dQ += dS K, 16 keys a step (K read transposed)
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int n = 0; n < DT; n += 2) {
-        uint32_t kf[4];
-        ldsm_x4_t(kf, sk + (kk * 16 + (mi & 1) * 8 + r8) * PITCH +
-                          (n + (mi >> 1)) * 16);
-        mma_bf16(acc[n], a, kf[0], kf[1]);
-        mma_bf16(acc[n + 1], a, kf[2], kf[3]);
-      }
-    }
-    __syncthreads();                // stage t & 1 is free for tile t + 2
-  }
-  cp_async_wait<0>();
-  store_rows<D, PITCH>(acc, scale, smem, dq + qoff, q0, sq, qstride);
 }
 
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS, 2) fa_bwd_dkdv_bf16(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
+__global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ stats, float* __restrict__ dq_acc,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv, int hq,
     int hkv, int causal, float scale_log2, float scale) {
-  constexpr int PITCH = Bf16Tiles<D>::PITCH;
-  constexpr int TILE = FB_TILE * PITCH;
-  constexpr int KS = D / 16;
-  constexpr int NT = FB_TILE / 8;   // 8-query score tiles
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const uint32_t s_k = smem_addr(smem);
-  const uint32_t s_v = s_k + FB_ROWS * PITCH;
-  const uint32_t s_ring = s_v + FB_ROWS * PITCH;   // 2 x (Q tile, dO tile)
-  float* s_stat = reinterpret_cast<float*>(smem + (2 * FB_ROWS + 4 * FB_TILE) *
-                                                      PITCH);   // 2 x (lse2, Delta)
-  const int b = blockIdx.x / hkv, hk = blockIdx.x - b * hkv;
+  using T = BwdTiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + T::OFF_BAR;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_kv + 8 * (1 + ST);
+  const int b = blockIdx.y / hkv, hk = blockIdx.y - b * hkv;
   const int group = hq / hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, mi = lane >> 3, r8 = lane & 7;
-  const int k0 = blockIdx.y * FB_ROWS;     // heaviest first under causal
+  const int k0 = blockIdx.x * BN;        // heaviest first under causal
   const int diag = skv - sq;
+  const int n_mt = (sq + BM - 1) / BM;
   // the first query tile with a row that sees one of the block's keys
-  const int qstart = causal ? max(0, k0 - diag) / FB_TILE * FB_TILE : 0;
-  const int n_qt = (sq - qstart + FB_TILE - 1) / FB_TILE;
-  const int n_it = group * n_qt;           // (head of the group, query tile)
-  const size_t qstride = (size_t)hq * D, kstride = (size_t)hkv * D;
-  const size_t koff = ((size_t)b * skv * hkv + hk) * D;
+  const int m0 = causal ? max(0, k0 - diag) / BM : 0;
 
-  // the Q and dO tiles of iteration `it` and their rows' lse (base 2;
-  // +inf past sq, so P = 0 there) and Delta into ring stage `st`
-  auto issue = [&](int it, int st) {
-    const int h = hk * group + it / n_qt;
-    const int qt0 = qstart + (it % n_qt) * FB_TILE;
-    const size_t qoff = ((size_t)b * sq * hq + h) * D;
-    const uint32_t dst = s_ring + st * 2 * TILE;
-    load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(dst, q + qoff, qstride, qt0,
-                                                   sq);
-    load_tile<bf16, D, PITCH, FB_TILE, FB_THREADS>(dst + TILE, dout + qoff,
-                                                   qstride, qt0, sq);
-    const size_t soff = ((size_t)b * hq + h) * sq;
-    const int i = threadIdx.x & (FB_TILE - 1), row = qt0 + i;
-    float* stat = s_stat + st * 2 * FB_TILE;
-    if (threadIdx.x < FB_TILE)
-      stat[i] = row < sq ? lse[soff + row] * FB_LOG2E : INFINITY;
-    else if (threadIdx.x < 2 * FB_TILE)
-      stat[FB_TILE + i] = row < sq ? delta[soff + row] : 0.f;
-  };
-
-  load_tile<bf16, D, PITCH, FB_ROWS, FB_THREADS>(s_k, k + koff, kstride, k0,
-                                                 skv);
-  load_tile<bf16, D, PITCH, FB_ROWS, FB_THREADS>(s_v, v + koff, kstride, k0,
-                                                 skv);
-  issue(0, 0);
-  cp_async_commit();
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  const uint32_t krow = s_k + warp * 16 * PITCH;
-  const uint32_t vrow = s_v + warp * 16 * PITCH;
-  const int kr = k0 + warp * 16 + g;       // the lane's keys kr, kr + 8
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) issue(it + 1, (it + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t sq_t = s_ring + (it & 1) * 2 * TILE, sdo = sq_t + TILE;
-    const float* stat = s_stat + (it & 1) * 2 * FB_TILE;
-    const int qt0 = qstart + (it % n_qt) * FB_TILE;
-    // S^T = K Q^T and dP^T = V dO^T of the warp's 16 keys and the tile's
-    // queries
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      const int aoff = ((mi & 1) * 8 + r8) * PITCH + (ks * 16 + (mi >> 1) * 8) * 2;
-      ldsm_x4(ka, krow + aoff);
-      ldsm_x4(va, vrow + aoff);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t qf[4], df[4];
-        const int boff =
-            ((j + (mi >> 1)) * 8 + r8) * PITCH + (ks * 16 + (mi & 1) * 8) * 2;
-        ldsm_x4(qf, sq_t + boff);
-        ldsm_x4(df, sdo + boff);
-        mma_bf16(st[j], ka, qf[0], qf[1]);
-        mma_bf16(st[j + 1], ka, qf[2], qf[3]);
-        mma_bf16(dpt[j], va, df[0], df[1]);
-        mma_bf16(dpt[j + 1], va, df[2], df[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);   // every consumer thread
     }
-    // P^T from lse (causal: key kr sees query qc when kr <= qc + diag);
-    // dpt becomes dS^T = P^T (dP^T - Delta)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * (lane & 3) + (e & 1);
-        const bool vis = !causal || kr + 8 * (e >> 1) <= qt0 + qi + diag;
-        const float p = vis ? ex2(fmaf(st[j][e], scale_log2, -stat[qi])) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - stat[FB_TILE + qi]);
-      }
-    // dV += P^T dO and dK += dS^T Q, 16 queries a step (read transposed)
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
-      uint32_t ap[4], as[4];
-      acc_to_a(ap, st, kk);
-      acc_to_a(as, dpt, kk);
-#pragma unroll
-      for (int n = 0; n < DT; n += 2) {
-        uint32_t df[4], qf[4];
-        const int toff = (kk * 16 + (mi & 1) * 8 + r8) * PITCH + (n + (mi >> 1)) * 16;
-        ldsm_x4_t(df, sdo + toff);
-        ldsm_x4_t(qf, sq_t + toff);
-        mma_bf16(dva[n], ap, df[0], df[1]);
-        mma_bf16(dva[n + 1], ap, df[2], df[3]);
-        mma_bf16(dka[n], as, qf[0], qf[1]);
-        mma_bf16(dka[n + 1], as, qf[2], qf[3]);
-      }
-    }
-    __syncthreads();
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
-  // each warp read only its own rows of the K and V tiles: they stage its
-  // dK and dV rows
-  store_rows<D, PITCH>(dka, scale, smem, dk + koff, k0, skv, kstride);
-  store_rows<D, PITCH>(dva, 1.f, smem + FB_ROWS * PITCH, dv + koff, k0,
-                             skv, kstride);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(bar_kv, 2 * T::KV_BYTES);
+#pragma unroll
+      for (int s = 0; s < T::SLABS; ++s) {
+        tma_load_4d(base + T::OFF_K + s * T::KV_SLAB, &tm_k, bar_kv, 64 * s,
+                    hk, k0, b);
+        tma_load_4d(base + T::OFF_V + s * T::KV_SLAB, &tm_v, bar_kv, 64 * s,
+                    hk, k0, b);
+      }
+      int st = 0;
+      uint32_t phase = 1;                // a free stage passes at once
+      for (int hh = 0; hh < group; ++hh) {
+        const int h = hk * group + hh;
+        const float* src = stats + ((size_t)(b * hq + h) * n_mt + m0) * 2 * BM;
+        for (int m = m0; m < n_mt; ++m, src += 2 * BM) {
+          const uint32_t full = bar_full + 8 * st;
+          mbar_wait(bar_empty + 8 * st, phase);
+          mbar_expect_tx(full, 2 * T::Q_BYTES + T::STAT_BYTES);
+#pragma unroll
+          for (int s = 0; s < T::SLABS; ++s) {
+            tma_load_4d(base + T::OFF_Q + st * T::Q_BYTES + s * T::Q_SLAB,
+                        &tm_q, full, 64 * s, h, m * BM, b);
+            tma_load_4d(base + T::OFF_DO + st * T::Q_BYTES + s * T::Q_SLAB,
+                        &tm_do, full, 64 * s, h, m * BM, b);
+          }
+          bulk_load(base + T::OFF_STAT + st * T::STAT_BYTES, src,
+                    T::STAT_BYTES, full);
+          if (++st == ST) st = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups 0 and 1: keys k0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, q4 = lane & 3;
+    const int key = k0 + 64 * wg + 16 * warp + g;   // and key + 8
+    const int dsrow = 64 * wg + 16 * warp + g;      // its row of dS^T
+    // dQ piece: D = 128 its 64 columns (A: dS^T's one slab, B: K slab wg);
+    // D = 64 its 64 query rows (A: dS^T slab wg, B: K's one slab)
+    const int a_slab = BM == 128 ? wg : 0, b_slab = D == 128 ? wg : 0;
+    float dva[D / 2], dka[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dva[i] = dka[i] = 0.f;
+    mbar_wait(bar_kv, 0);
+
+    int st = 0, it = 0;
+    uint32_t phase = 0;
+    for (int hh = 0; hh < group; ++hh) {
+      for (int m = m0; m < n_mt; ++m, ++it) {
+        const int h = hk * group + hh, q0 = m * BM;
+        const uint32_t sQ = base + T::OFF_Q + st * T::Q_BYTES;
+        const uint32_t sDO = base + T::OFF_DO + st * T::Q_BYTES;
+        const uint32_t sDS = base + T::OFF_DS + (it & 1) * T::DS_BYTES;
+        const uint32_t stat = base + T::OFF_STAT + st * T::STAT_BYTES;
+        mbar_wait(bar_full + 8 * st, phase);
+
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x BM queries, over D
+        float s_acc[BM / 2], dp_acc[BM / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * T::KV_SLAB + (kk & 3) * 32;
+          const uint32_t qoff = (kk >> 2) * T::Q_SLAB + (kk & 3) * 32;
+          wgmma_ss<BM, 0, 0>(
+              s_acc, sw128_desc(base + T::OFF_K + off + wg * 64 * 128, 16),
+              sw128_desc(sQ + qoff, 16), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk >> 2) * T::KV_SLAB + (kk & 3) * 32;
+          const uint32_t qoff = (kk >> 2) * T::Q_SLAB + (kk & 3) * 32;
+          wgmma_ss<BM, 0, 0>(
+              dp_acc, sw128_desc(base + T::OFF_V + off + wg * 64 * 128, 16),
+              sw128_desc(sDO + qoff, 16), kk > 0);
+        }
+        wgmma_commit();
+
+        // P^T from lse2, masked by index where the tile crosses the causal
+        // diagonal or the last key
+        const bool edge =
+            k0 + BN > skv || (causal && k0 + BN - 1 > q0 + diag);
+        wgmma_wait<1>();
+        fence_regs(s_acc);
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 l2 = ld_shared_f2(stat + (8 * j + 2 * q4) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l = (e & 1) ? l2.y : l2.x;
+            float p = ex2(fmaf(s_acc[4 * j + e], scale_log2, -l));
+            if (edge) {
+              const int kr = key + 8 * (e >> 1);
+              const int qc = q0 + 8 * j + 2 * q4 + (e & 1);
+              if (kr >= skv || (causal && kr > qc + diag)) p = 0.f;
+            }
+            s_acc[4 * j + e] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp_acc);
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 dl = ld_shared_f2(stat + (BM + 8 * j + 2 * q4) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp_acc[4 * j + e] = s_acc[4 * j + e] *
+                                (dp_acc[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+        // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 as
+        // the A operand from registers (B MN-major: queries are the rows
+        // of the Q and dO tiles)
+        uint32_t pa[BM / 4], dsa[BM / 4];
+        acc_to_afrag<BM / 16>(pa, s_acc);
+        acc_to_afrag<BM / 16>(dsa, dp_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_rs<D, 1>(dva, pa + 4 * kk,
+                         sw128_desc(sDO + kk * 2048, T::Q_SLAB));
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_rs<D, 1>(dka, dsa + 4 * kk,
+                         sw128_desc(sQ + kk * 2048, T::Q_SLAB));
+        wgmma_commit();
+        // meanwhile dS^T into shared memory for dQ: row dsrow (+ 8),
+        // queries 8 j + 2 q4 (+ 1), 128-byte swizzle
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = dsrow + 8 * i;
+            st_shared_u32(sDS + (j >> 3) * T::DS_SLAB + r * 128 +
+                              (((j & 7) ^ (r & 7)) << 4) + q4 * 4,
+                          dsa[2 * j + i]);
+          }
+        fence_proxy_async();
+        named_bar_sync(1, 256);   // both halves of dS^T are in
+
+        // dQ = dS K (A and B MN-major), this warpgroup's 64 x 64 piece
+        float dqa[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_ss<64, 1, 1>(
+              dqa,
+              sw128_desc(sDS + a_slab * T::DS_SLAB + kk * 2048, T::DS_SLAB),
+              sw128_desc(base + T::OFF_K + b_slab * T::KV_SLAB + kk * 2048,
+                         T::KV_SLAB),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pa);
+        fence_regs(dsa);
+        mbar_arrive(bar_empty + 8 * st);   // this thread is done with the stage
+        if (++st == ST) st = 0, phase ^= 1;
+        wgmma_wait<0>();
+        fence_regs(dqa);
+
+        // the piece to shared memory, each thread's 4 values of an 8-column
+        // chunk as one float4 (the accumulator's tile layout, which
+        // fa_bwd_post_bf16 reads back), then one bulk reduce-add
+        const uint32_t stage_dq = base + T::OFF_DQ + wg * T::DQ_BYTES;
+        if (t == 0) bulk_wait_read<0>();   // the previous piece has been read
+        named_bar_sync(2 + wg, 128);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          st_shared_f4(stage_dq + (j * 128 + t) * 16, dqa[4 * j],
+                       dqa[4 * j + 1], dqa[4 * j + 2], dqa[4 * j + 3]);
+        fence_proxy_async();
+        named_bar_sync(2 + wg, 128);
+        if (t == 0) {
+          bulk_reduce_add_f32(
+              dq_acc + ((size_t)(b * hq + h) * n_mt + m) * BM * D + wg * 4096,
+              stage_dq, T::DQ_BYTES);
+          bulk_commit();
+        }
+      }
+    }
+    if (t == 0) bulk_wait<0>();
+
+    // dK / sqrt(D) and dV in bf16 through shared memory (K, V and the ring
+    // are free once both warpgroups are past their last product)
+    named_bar_sync(1, 256);
+    unsigned char* epi = sbase + 2 * wg * 64 * T::EPI_PITCH;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int off =
+            (16 * warp + g + 8 * i) * T::EPI_PITCH + (8 * j + 2 * q4) * 2;
+        *reinterpret_cast<uint32_t*>(epi + off) = pack_bf16(
+            dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(epi + 64 * T::EPI_PITCH + off) =
+            pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+      }
+    named_bar_sync(2 + wg, 128);
+    constexpr int CH = D / 8;   // 16-byte chunks a row
+    for (int i = t; i < 2 * 64 * CH; i += 128) {
+      const int which = i / (64 * CH), r = (i / CH) % 64, c = i % CH;
+      const int kr = k0 + 64 * wg + r;
+      if (kr < skv) {
+        bf16* out = which ? dv : dk;
+        const size_t at = (((size_t)b * skv + kr) * hkv + hk) * D + c * 8;
+        *reinterpret_cast<uint4*>(out + at) = *reinterpret_cast<const uint4*>(
+            epi + (which * 64 + r) * T::EPI_PITCH + c * 16);
+      }
+    }
+  }
+}
+
+// dQ = accumulator / sqrt(D) in bf16: the tile's pieces back to (row,
+// column) through shared memory, then 16-byte stores of rows below sq.
+template <int D>
+__global__ void __launch_bounds__(256) fa_bwd_post_bf16(
+    const float* __restrict__ dq_acc, bf16* __restrict__ dq, int sq, int hq,
+    float scale) {
+  constexpr int BM = BwdTiles<D>::BM, P = D + 4;
+  __shared__ float tile[BM * P];
+  const int bh = blockIdx.x, m = blockIdx.y;
+  const int b = bh / hq, h = bh - b * hq;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_acc + ((size_t)bh * gridDim.y + m) * BM * D);
+  for (int i = threadIdx.x; i < BM * D / 4; i += 256) {
+    // piece w, chunk j, consumer thread t (fa_bwd_main_bf16's layout)
+    const int w = i >> 10, j = (i >> 7) & 7, t = i & 127;
+    const int row = (BM == 128 ? 64 * w : 0) + 16 * (t >> 5) + ((t & 31) >> 2);
+    const int col = (D == 128 ? 64 * w : 0) + 8 * j + 2 * (t & 3);
+    const float4 x = src[i];
+    tile[row * P + col] = x.x;
+    tile[row * P + col + 1] = x.y;
+    tile[(row + 8) * P + col] = x.z;
+    tile[(row + 8) * P + col + 1] = x.w;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM * D / 8; i += 256) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int row = m * BM + r;
+    if (row < sq) {
+      const float* x = tile + r * P + c;
+      uint4 out;
+      out.x = pack_bf16(x[0] * scale, x[1] * scale);
+      out.y = pack_bf16(x[2] * scale, x[3] * scale);
+      out.z = pack_bf16(x[4] * scale, x[5] * scale);
+      out.w = pack_bf16(x[6] * scale, x[7] * scale);
+      *reinterpret_cast<uint4*>(dq + (((size_t)b * sq + row) * hq + h) * D +
+                                c) = out;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -591,6 +647,7 @@ static int smem_f32_dkdv() {
               2 * FP_ROWS * (FP_TILE + 1) + 2 * FP_TILE);
 }
 
+
 // Set a kernel's dynamic shared memory once per instance and launch it;
 // returns the launch's error.
 template <typename Kernel, typename... Args>
@@ -603,22 +660,41 @@ static int launch_one(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
+// bf16: the preprocess, main and postprocess launches; `block_m` and
+// `smem` are bwd_plan(d)'s, refused when they disagree with BwdTiles<D>.
 template <int D>
 static int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                        const bf16* o, const bf16* dout, const float* lse,
-                       float* delta, bf16* dq, bf16* dk, bf16* dv, int b,
-                       int sq, int skv, int hq, int hkv, int causal,
-                       float scale_log2, float scale, cudaStream_t st) {
-  using TL = Bf16Tiles<D>;
-  int err = launch_one(fa_bwd_dq_bf16<D>, TL::SMEM_DQ,
-                       dim3(b * hq, (sq + FB_ROWS - 1) / FB_ROWS), st, q, k, v,
-                       o, dout, lse, delta, dq, sq, skv, hq, hkv, causal,
-                       scale_log2, scale);
-  if (err) return err;
-  return launch_one(fa_bwd_dkdv_bf16<D>, TL::SMEM_DKV,
-                    dim3(b * hkv, (skv + FB_ROWS - 1) / FB_ROWS), st, q, k, v,
-                    dout, lse, (const float*)delta, dk, dv, sq, skv, hq, hkv,
-                    causal, scale_log2, scale);
+                       float* stats, float* dq_acc, bf16* dq,
+                       bf16* dk, bf16* dv, int b, int sq, int skv, int hq,
+                       int hkv, int causal, int block_m, int smem,
+                       cudaStream_t st) {
+  using T = BwdTiles<D>;
+  if (block_m != T::BM || smem != T::SMEM) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = head_rows_map(&tq, q, b, sq, hq, D, T::BM)) ||
+      (err = head_rows_map(&tdo, dout, b, sq, hq, D, T::BM)) ||
+      (err = head_rows_map(&tk, k, b, skv, hkv, D, T::BN)) ||
+      (err = head_rows_map(&tv, v, b, skv, hkv, D, T::BN)))
+    return err;
+  const dim3 rows(b * hq, (sq + T::BM - 1) / T::BM);
+  fa_bwd_pre_bf16<D><<<rows, 256, 0, st>>>(o, dout, lse, stats, dq_acc, sq,
+                                           hq);
+  if ((err = (int)cudaGetLastError())) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_bwd_main_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  fa_bwd_main_bf16<D><<<dim3((skv + T::BN - 1) / T::BN, b * hkv), T::THREADS,
+                        T::SMEM, st>>>(tq, tk, tv, tdo, stats, dq_acc, dk, dv,
+                                       sq, skv, hq, hkv, causal, scale_log2,
+                                       scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  fa_bwd_post_bf16<D><<<rows, 256, 0, st>>>(dq_acc, dq, sq, hq, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -626,7 +702,9 @@ static int launch_f32(const float* q, const float* k, const float* v,
                       const float* o, const float* dout, const float* lse,
                       float* delta, float* dq, float* dk, float* dv, int b,
                       int sq, int skv, int hq, int hkv, int causal,
-                      float scale_log2, float scale, cudaStream_t st) {
+                      cudaStream_t st) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   int err = launch_one(fa_bwd_dq_f32<D>, smem_f32_dq<D>(),
                        dim3(b * hq, (sq + FP_ROWS - 1) / FP_ROWS), st, q, k, v,
                        o, dout, lse, delta, dq, sq, skv, hq, hkv, causal,
@@ -638,26 +716,36 @@ static int launch_f32(const float* q, const float* k, const float* v,
                     causal, scale_log2, scale);
 }
 
-// dtype 0: float32 (FMAs), 1: bfloat16 (mma.sync); d in {64, 128}.  Two
-// launches on `stream`, the dQ kernel (which also writes `delta`, (B, Hq,
-// Sq) float32 scratch) then the dK/dV kernel; q, o, dout, dq (B, Sq, Hq,
-// d), k, v, dk, dv (B, Skv, Hkv, d) contiguous, lse (B, Hq, Sq) float32.
+// dtype 0: float32 (two launches: the dQ kernel, which also writes
+// `delta`, (B, Hq, Sq) float32 scratch, then the dK/dV kernel), 1:
+// bfloat16 (three launches; `delta` is the (B, Hq, Sq_pad / block_m, 2,
+// block_m) lse2 / Delta scratch and `dq_acc` the (B, Hq, Sq_pad, d)
+// float32 accumulator, Sq_pad = Sq rounded up to `block_m`); d in {64,
+// 128}.  q, o, dout, dq (B, Sq, Hq,
+// d), k, v, dk, dv (B, Skv, Hkv, d) contiguous and 16-byte aligned, lse
+// (B, Hq, Sq) float32.  All on `stream`; returns 0 or a CUDA error (a
+// refused launch, a tensor map cuTensorMapEncodeTiled refuses, a plan
+// that disagrees).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int b, int sq, int skv, int hq, int hkv, int d, int causal,
-    int dtype, void* stream) {
-  const float scale = (float)(1.0 / sqrt((double)d));
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+    const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
+    void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+    int d, int causal, int dtype, int block_m, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define FB_ARGS(T)                                                          \
-  (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,       \
-      (const float*)lse, (float*)delta, (T*)dq, (T*)dk, (T*)dv, b, sq, skv, \
-      hq, hkv, causal, scale_log2, scale, st
-  if (dtype == 1 && d == 64) return launch_bf16<64>(FB_ARGS(bf16));
-  if (dtype == 1 && d == 128) return launch_bf16<128>(FB_ARGS(bf16));
-  if (dtype == 0 && d == 64) return launch_f32<64>(FB_ARGS(float));
-  if (dtype == 0 && d == 128) return launch_f32<128>(FB_ARGS(float));
-#undef FB_ARGS
+#define FB_BF16                                                              \
+  (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,            \
+      (const bf16*)dout, (const float*)lse, (float*)delta, (float*)dq_acc,   \
+      (bf16*)dq, (bf16*)dk, (bf16*)dv, b, sq, skv, hq, hkv, causal, block_m, \
+      smem, st
+#define FB_F32                                                               \
+  (const float*)q, (const float*)k, (const float*)v, (const float*)o,        \
+      (const float*)dout, (const float*)lse, (float*)delta, (float*)dq,      \
+      (float*)dk, (float*)dv, b, sq, skv, hq, hkv, causal, st
+  if (dtype == 1 && d == 64) return launch_bf16<64>(FB_BF16);
+  if (dtype == 1 && d == 128) return launch_bf16<128>(FB_BF16);
+  if (dtype == 0 && d == 64) return launch_f32<64>(FB_F32);
+  if (dtype == 0 && d == 128) return launch_f32<128>(FB_F32);
+#undef FB_BF16
+#undef FB_F32
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
-// Tile copies and warp-level tensor-core products shared by kernel 7's
-// forward (flash_attention.cu) and backward (flash_attention_bwd.cu):
-// 16-byte cp.async copies of a tile of rows into shared memory,
-// ldmatrix fragment loads, mma.sync products and the base-2 exponential.
+// Tile copies and warp-level tensor-core products of kernel 7's forward
+// (flash_attention.cu): 16-byte cp.async copies of a tile of rows into
+// shared memory, ldmatrix fragment loads, mma.sync products, bf16 packing
+// and the base-2 exponential; wgmma_tiles.cuh includes it for `bf16`,
+// `smem_addr`, `pack_bf16` and `ex2`.
 //
 // Fragment rows of a lane: g = lane / 4 and g + 8 of a warp's 16; the
 // m16n8 accumulator element e of an 8-column tile is row g + 8 (e / 2),
@@ -87,18 +88,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The A operand (16 x 16, bf16) of one 16-column step kk from the
-// accumulators of two 8-column tiles 2 kk and 2 kk + 1: the m16n8k16
-// accumulator layout of the pair is the A layout of the step.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&s)[NT][4], int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
 __device__ __forceinline__ float ex2(float x) {   // ex2(-inf) = 0

@@ -24,10 +24,16 @@ Training (the gradient of the same function):
   wrapper goes through ``FlashAttentionFn``: its forward launches kernel 7
   with the row log-sum-exp stored beside the output (``flash_attention_fwd``,
   natural log, float32 (B, Hq, Sq)), its backward ``flash_attention_bwd``:
-  the two hand-written kernels of ``csrc/flash_attention_bwd.cu`` (dQ, then
-  dK and dV), counted once a call in ``flash_attention_bwd.launches``.
-  Only head widths ``BWD_HEAD_DIMS`` have a backward; any other raises
-  ``ValueError`` under grad.
+  the hand-written kernels of ``csrc/flash_attention_bwd.cu``, counted
+  once a call in ``flash_attention_bwd.launches``.  In bfloat16 that is
+  three device kernels: Delta and the base-2 lse, then one wgmma pass fed
+  by TMA over (batch, KV head, 128 keys) blocks (``bwd_plan``,
+  ``bwd_walk``) that sums dK and dV in registers and adds each tile's dQ
+  into a float32 accumulator with bulk reduce-adds, then dQ in bfloat16.
+  dK and dV repeat bit for bit; dQ's float32 sum is taken in the order
+  the blocks finish, so it does not.  float32 runs two kernels (dQ, then
+  dK and dV), bit for bit.  Only head widths ``BWD_HEAD_DIMS`` have a
+  backward; any other raises ``ValueError`` under grad.
 * ``flash_attention_bwd_plain`` is its plain twin: the same blocked
   recurrence in PyTorch, P recomputed from the saved log-sum-exp.  On CPU
   tensors autograd differentiates ``flash_attention_plain`` directly.
@@ -91,6 +97,60 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
     pitch = 16 * ((d // 8) | 1) if dtype == torch.bfloat16 else 4 * (d + 4)
     return Plan(threads, rows, keys, stages, pitch,
                 pitch * (rows + 2 * stages * keys))
+
+
+class BwdPlan(NamedTuple):
+    """The bfloat16 backward's main launch (``csrc/flash_attention_bwd.cu``,
+    whose ``BwdTiles`` this mirrors; it refuses a launch whose ``block_m``
+    or ``smem_bytes`` differ from its own)."""
+    threads: int          # 2 consumer warpgroups + 1 producer warpgroup
+    consumers: int        # consumer warpgroups, 64 keys each
+    block_m: int          # queries a Q/dO tile
+    block_n: int          # keys a block
+    stages: int           # Q/dO tiles in the TMA ring
+    smem_bytes: int       # dynamic shared memory a block
+    blocks_per_sm: int    # resident blocks an SM (shared memory bound)
+
+
+def bwd_plan(d: int) -> BwdPlan:
+    """The bfloat16 backward's tiles at head width ``d``: K and V tiles of
+    128 keys, a 2-stage ring of Q and dO tiles with their rows' lse2 and
+    Delta, two dS^T buffers (keys x queries, bf16) and each consumer's
+    64 x 64 float32 dQ piece, plus the barriers and 1,024 bytes to round
+    the base up to a 128-byte-swizzle atom."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: no kernel instance at head "
+                         f"width {d}")
+    bm, bn, stages = (64 if d == 128 else 128), 128, 2
+    kv, qt, ds, dq = bn * d * 2, bm * d * 2, bn * bm * 2, 64 * 64 * 4
+    stat, bars = stages * 2 * bm * 4, 8 * (1 + 2 * stages)
+    smem = 2 * kv + 2 * stages * qt + 2 * ds + 2 * dq + stat + bars + 1024
+    return BwdPlan(384, 2, bm, bn, stages, smem, SMEM_LIMIT // smem)
+
+
+def bwd_walk(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+             causal: bool) -> list:
+    """The bfloat16 backward's main kernel in launch order (``blockIdx.x``
+    = key block fastest, then ``blockIdx.y`` = batch and KV head: a
+    (batch, KV head)'s key blocks one after another, the first keys, the
+    heaviest under ``causal``, first): ``(batch, KV head, first key,
+    [(query head, first query), ...])``, the block's Q/dO tiles in the
+    order its producer loads them: every head of the GQA group, each from
+    the first query tile with a row that sees one of the block's keys
+    (the diagonal at ``skv - sq``)."""
+    p = bwd_plan(d)
+    bm, bn, group = p.block_m, p.block_n, hq // hkv
+    n_mt = -(-sq // bm)
+    out = []
+    for y in range(b * hkv):
+        bb, hk = divmod(y, hkv)
+        for x in range(-(-skv // bn)):
+            k0 = x * bn
+            m0 = max(0, k0 - (skv - sq)) // bm if causal else 0
+            out.append((bb, hk, k0, [(hk * group + hh, m * bm)
+                                     for hh in range(group)
+                                     for m in range(m0, n_mt)]))
+    return out
 
 
 def query_block_order(n_blocks: int) -> list:
@@ -284,11 +344,13 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool):
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool):
-    """``(dq, dk, dv)``: on CUDA the two kernels of
-    ``csrc/flash_attention_bwd.cu`` (dQ, which also writes Delta into a
-    float32 scratch, then dK and dV), counted once a call in
+    """``(dq, dk, dv)``: on CUDA the kernels of
+    ``csrc/flash_attention_bwd.cu`` (bfloat16: Delta and lse2, the wgmma
+    pass, dQ's cast; float32: dQ, then dK and dV), counted once a call in
     ``flash_attention_bwd.launches``; on CPU the plain version.  Every
-    input contiguous, of q's dtype (lse float32)."""
+    input contiguous and 16-byte aligned, of q's dtype (lse float32); the
+    tensor maps' row strides, Hq D and Hkv D bf16 elements, are multiples
+    of 16 bytes at every width of ``BWD_HEAD_DIMS``."""
     b, sq, hq, skv, hkv, d = _bwd_dims(q, k, v, o, do, lse, causal)
     device = q.device
     if not _build.on_card("flash_attention_bwd", device):
@@ -296,15 +358,27 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool):
     _check_card((("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape),
                  ("o", o, q.shape), ("do", do, q.shape)), q.dtype, device)
     _build.check("lse", lse, _F32, (b, hq, sq), device)
-    if b * hq >= 2 ** 31 or -(-max(sq, skv) // 16) > 65535:
+    if (b * hq >= 2 ** 31 or b * hkv > 65535
+            or -(-max(sq, skv) // 16) > 65535):
         raise ValueError(f"flash_attention_bwd: grid too large for B={b} "
-                         f"Hq={hq} Sq={sq} Skv={skv}")
-    delta = torch.empty((b, hq, sq), dtype=_F32, device=device)
+                         f"Hq={hq} Hkv={hkv} Sq={sq} Skv={skv}")
+    p = bwd_plan(d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        # each query tile's base-2 lse rows, then its Delta rows
+        n_mt = -(-sq // p.block_m)
+        delta = torch.empty((b, hq, n_mt, 2, p.block_m), dtype=_F32,
+                            device=device)
+        dq_acc = torch.empty((b, hq, n_mt * p.block_m, d), dtype=_F32,
+                             device=device)
+    else:
+        delta = torch.empty((b, hq, sq), dtype=_F32, device=device)
+        dq_acc = None
     _build.launch("flash_attention_bwd", SOURCE_BWD,
-                  [_build.P] * 10 + [_build.I] * 8, device,
-                  q, k, v, o, do, lse, delta, dq, dk, dv, b, sq, skv, hq, hkv,
-                  d, int(causal), DTYPES[q.dtype])
+                  [_build.P] * 11 + [_build.I] * 10, device,
+                  q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, b, sq, skv,
+                  hq, hkv, d, int(causal), DTYPES[q.dtype], p.block_m,
+                  p.smem_bytes)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

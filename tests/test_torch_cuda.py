@@ -1247,14 +1247,27 @@ def test_consolidator_fused_matches_plain_on_card(cuda_device):
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Skv, Hq, Hkv, D, causal): OLMo-1B's training shape, GQA 4:1 and
-# 6:1, whisper's encoder and cross-attention, ragged causal Sq < Skv
+# 6:1, whisper's encoder and cross-attention, ragged causal Sq < Skv (6:1
+# at D = 128 too)
 FA_BWD_SHAPES = [(8, 512, 512, 16, 16, 128, True), (2, 512, 512, 32, 8, 128, True),
                  (2, 130, 130, 12, 2, 128, True), (2, 1500, 1500, 4, 4, 64, False),
                  (2, 448, 1500, 4, 4, 64, False), (2, 77, 300, 6, 2, 64, True),
-                 (3, 65, 65, 2, 1, 64, True)]
+                 (3, 65, 65, 2, 1, 64, True), (2, 77, 300, 12, 2, 128, True)]
 # relative to the largest gradient: float32 exact to 1e-4; bf16 rounds P
 # and dS to bf16 for the products and the gradients on output (PERF.md)
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bf16_steps_apart(a, b) -> float:
+    """The largest |a - b| over one bfloat16 rounding step at max(|a|,
+    |b|) (2^-7 of it) plus 1e-5 of the largest |a|, the float32
+    summation-order noise of elements near zero: at most 1 when two
+    float32 sums that differ only in their order round to the same or to
+    neighbouring bfloat16 values."""
+    a, b = a.float(), b.float()
+    step = (torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
+            + 1e-5 * float(a.abs().max()))
+    return float(((a - b).abs() / step).max())
 
 
 def _bwd_case(shape, dtype, device, seed):
@@ -1287,6 +1300,18 @@ def test_flash_attention_backward_matches_plain_on_card(cuda_device, shape,
         assert g.dtype == w.dtype and g.shape == w.shape
         err = float((g.float() - w.float()).abs().max())
         assert err <= FA_BWD_TOL[dtype] * float(w.float().abs().max()), err
+    # a second call: dK and dV bit for bit (summed in registers in a fixed
+    # order); bf16 dQ is a float32 sum of per-key-block partials added in
+    # the order the blocks finish, then rounded to bf16: within one bf16
+    # step of the first call's, element by element (_bf16_steps_apart)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g, a)
+    if dtype == torch.float32:
+        assert torch.equal(got[0], again[0])
+    else:
+        assert _bf16_steps_apart(got[0], again[0]) <= 1.0
 
 
 @pytest.mark.cuda
@@ -1305,8 +1330,10 @@ def test_flash_attention_under_grad_runs_its_backward(cuda_device):
                                   fa.flash_attention_fwd(q, k, v,
                                                          causal=True)[1],
                                   causal=True)
-    for leaf, w in zip(leaves, want):
+    # dK, dV bit for bit; dQ's partials add in the order the blocks finish
+    for leaf, w in zip(leaves[1:], want[1:]):
         torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)
+    assert _bf16_steps_apart(leaves[0].grad, want[0]) <= 1.0
     small = [t.clone().requires_grad_() for t in
              _qkv(1, 16, 16, 2, 2, 8, cuda_device, 0)]
     with pytest.raises(ValueError, match="no backward at head width 8"):
