@@ -19,6 +19,8 @@ Phases (any failed check raises and the run exits nonzero):
    sixteen instances (q float32 or bfloat16 x cache in q's dtype or
    float8_e4m3fn x D in {16, 32, 64, 128}): cp.async (LDGSTS) in all, HMMA
    and LDSM in the bfloat16-q ones, and 0 spill bytes in every one.
+   Kernel 6's six training instances (the chunk states written) and its
+   backward's seven kernels: 0 spill bytes in every one.
 2. Kernels against their plain PyTorch versions on the card, at
    N in {1, 37, 1000, 5000, 131072} nodes x B in {1, 32} pods, on resets
    with unhealthy nodes and randomized workloads (rtol = atol = 1e-5), and
@@ -249,8 +251,9 @@ Kernel 8's 4:1 GQA path and the float8 cache:
     to the first near tie) and the bf16 wave held as phase 20 holds its
     models.
 
-LM training (kernel 7 with its row log-sum-exp, and its hand-written
-backward, ``csrc/flash_attention_bwd.cu``):
+LM training (kernel 7 with its row log-sum-exp and kernel 6 with its
+chunk states, and their hand-written backwards,
+``csrc/flash_attention_bwd.cu`` and ``csrc/mamba_scan_bwd.cu``):
 
 22. The backward's dQ, dK, dV (and the forward's lse) against
     ``flash_attention_bwd_plain`` on the same CUDA tensors and against
@@ -261,8 +264,17 @@ backward, ``csrc/flash_attention_bwd.cu``):
     (1e-4) and bfloat16 (2e-2) relative to the largest gradient; each
     bfloat16 shape run twice more: dK and dV bit for bit, dQ (float32
     reduce-adds in the order the blocks finish, then bfloat16) within one
-    bfloat16 rounding step of the other call's, element by element.  Kernels 1-6 and 8 under grad with an input that requires
-    grad raise (kernel 6 names ROADMAP's "kernel 6 backward").  Then
+    bfloat16 rounding step of the other call's, element by element.
+    Kernels 1-5 and 8 under grad with an input that requires grad raise;
+    kernel 6 under grad runs its training forward and its backward once
+    each, dx held to autograd of the plain version.  Kernel 6's training
+    forward (y, hT bit for bit the serving launch's; the chunk states) and
+    its backward's seven gradients, with dhT and without, against
+    ``mamba_scan_plain(..., return_states=True)`` and
+    ``mamba_scan_bwd_plain`` at each state size, ragged S, one batch row
+    and several, (2, 256, 1024, 16) and falcon-mamba-7b's (8, 512, 8192,
+    16), 1e-4 of each gradient's largest element, each backward twice: bit
+    for bit.  Then
     ``repro_torch.launch.train.main`` with OLMo-1B at full width and depth
     (bf16 weights, ``default_adam``: float32 master and moments), 40 steps
     of 8 x 512 tokens, a checkpoint under ``build/``: exactly 16 x 40
@@ -277,15 +289,26 @@ backward, ``csrc/flash_attention_bwd.cu``):
     the kernels and through ``attn_mode="plain"`` (loss within 1e-5,
     gradients within 1e-4 of a leaf's largest element); whisper-medium at
     full width with 2 encoder and 2 decoder layers, 3 steps (exactly 18
-    launches of each); falcon-mamba's loss backward on the card raises the
-    named NotImplementedError.  Timings of the backward at OLMo's shape and
+    launches of each).  falcon-mamba-7b at its published widths cut to 8
+    of its 64 layers through ``launch.train.main``, 30 steps of 8 x 512:
+    exactly 8 x 30 launches of kernel 6 and of its backward and no other,
+    no plain call, finite and falling losses, ms a step, tokens/s, MFU,
+    peak memory and a profile of steps 2-4; its width cut to 2 layers in
+    float32, one step through the kernels and through the plain versions
+    (loss within 1e-5, gradients within 1e-4 of a leaf's largest
+    element); jamba at its smoke widths with head width 64, 3 steps:
+    kernels 6 and 7 and both backwards as often as ``block_spec`` says.
+    Timings of the backward at OLMo's shape and
     whisper's two (device time from a CUDA graph, 3 device kernels a call,
     each an ``fa_bwd`` one) beside its bound and SDPA's backward alone
     from a CUDA graph (``library_ms``), and of kernel 7's training forward
     with the lse stored against the serving launch without it, in turns.
     With ``--parent-src DIR`` the backward of another checkout is timed at
     the same rows before and after this one's (``scripts/bwd_timings.py``),
-    as ``parent_ms``.
+    as ``parent_ms``.  Kernel 6's backward at falcon-mamba-7b's training
+    shape, (1, 32, 8, 4) and (2, 256, 1024, 16) (CUDA graph, two device
+    kernels a call, their split), beside its plain twin and its bound, and
+    its training forward against the serving launch in turns.
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -855,7 +878,7 @@ def wrappers():
         ss.sdqn_score_afterstate, ss.sdqn_score, ss.sdqn_score_cols,
         ss.sdqn_score_afterstate_topk, ss.sdqn_score_cols_topk,
         ms.mamba_scan, fa.flash_attention, da.decode_attention,
-        fa.flash_attention_bwd)}
+        fa.flash_attention_bwd, ms.mamba_scan_bwd)}
 
 
 def zero_counts():
@@ -2131,7 +2154,8 @@ class _PlainSpy:
         self._saved = [(fa, "flash_attention_plain"),
                        (fa, "flash_attention_bwd_plain"),
                        (da, "decode_attention_plain"),
-                       (ms, "mamba_scan_plain")]
+                       (ms, "mamba_scan_plain"),
+                       (ms, "mamba_scan_bwd_plain")]
         self._fns = [getattr(m, a) for m, a in self._saved]
 
     def __enter__(self):
@@ -4409,6 +4433,30 @@ TRAIN_PLAIN_LAYERS = 2                # full width, float32, kernels vs plain
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4                 # relative to a leaf's largest element
 WHISPER_TRAIN = dict(layers=2, batch=8, seq=448, steps=3)
+# falcon-mamba-7b at its published widths cut to 8 of its 64 layers (7.0 B
+# parameters whole are ~112 GB of bf16 weights, gradients and float32
+# master and moments), 30 steps of 8 x 512: kernel 6 at (8, 512, 8192, 16)
+SSM_TRAIN_LAYERS = 8
+SSM_TRAIN_STEPS = 30
+SSM_TRAIN_ARGS = ["--arch", "falcon-mamba-7b", "--layers",
+                  str(SSM_TRAIN_LAYERS), "--steps", str(SSM_TRAIN_STEPS),
+                  "--batch", "8", "--seq", "512", "--log-every", "5"]
+# jamba at its smoke widths with kernel 7's backward's head width
+JAMBA_TRAIN = dict(head_dim=64, batch=8, seq=256, steps=3)
+# kernel 6's backward against its plain twin: each state size, ragged S,
+# one batch row and several, falcon-mamba-7b's training shape
+SCAN_BWD_SHAPES = ((1, 32, 8, 4), (2, 64, 16, 8), (1, 128, 32, 16),
+                   (2, 37, 12, 4), (3, 300, 200, 8), (1, 257, 1024, 16),
+                   SCAN_WIDE, SCAN_FALCON)
+SCAN_BWD_TIMED = (SCAN_FALCON, SCAN_PATH, SCAN_WIDE)
+# relative to each gradient's largest element: the kernel sums over the
+# states, segments, channels and steps in another order than the plain
+# twin (an H100 measured 1.1e-6 at most at these shapes)
+SCAN_BWD_TOL = 1e-4
+# the backward's float32 operations a (batch, step, channel, state): the
+# forward again (3), G, P, the dB / dC terms, the three sums (13); and a
+# (batch, step, channel): dx, ddt, dD
+SCAN_BWD_OPS_PER_STATE, SCAN_BWD_OPS_PER_CHANNEL = 16, 6
 
 
 def _bwd_case(shape, dtype, device, seed):
@@ -4506,10 +4554,12 @@ def check_bwd_repeats(q, k, v, out, do, lse, causal, label):
 
 
 def check_kernels_refuse_grad(device):
-    """Kernels 1-6 and 8 raise on the card under grad mode when an input
+    """Kernels 1-5 and 8 raise on the card under grad mode when an input
     requires grad, instead of returning an output cut off from the graph;
-    kernel 6's error names ROADMAP's "kernel 6 backward"."""
-    from repro_torch.kernels import ops
+    kernel 6 under grad returns outputs that carry its backward: one
+    launch of the training forward and one of ``mamba_scan_bwd``, the
+    gradients those of autograd through ``mamba_scan_plain``."""
+    from repro_torch.kernels import mamba_scan as ms, ops
 
     cfg, state, params, pods = make_case(300, 4, device, SEED)
     live = {k: p.clone().requires_grad_() for k, p in params.items()}
@@ -4535,21 +4585,32 @@ def check_kernels_refuse_grad(device):
         "sdqn_score_cols_topk": lambda: ops.sdqn_topk_delta(cols, deltas, live,
                                                             k=4),
         "decode_attention": lambda: ops.decode_attention(q, kv, kv, 32),
-        "mamba_scan": lambda: ops.mamba_scan(*scan),
     }
     before = read_counts()
     for key, call in calls.items():
-        want = NotImplementedError if key == "mamba_scan" else ValueError
         try:
             call()
-        except want as e:
-            assert key != "mamba_scan" or "kernel 6 backward" in str(e), e
+        except ValueError as e:
             print(f"no backward: {key} under grad raises "
                   f"{type(e).__name__}: {str(e)[:100]}")
         else:
             raise AssertionError(f"{key} ran under grad with an input that "
                                  f"requires grad")
     assert read_counts() == before, "a refused call launched"
+    y, h_t = ops.mamba_scan(*scan)
+    (y.square().sum() + h_t.sum()).backward()
+    after = read_counts()
+    live = scan[0].detach().clone().requires_grad_()
+    wy, wh = ms.mamba_scan_plain(live, *scan[1:])
+    (wy.square().sum() + wh.sum()).backward()
+    err = _rel_err(scan[0].grad, live.grad)
+    print(f"mamba_scan under grad: dx through kernel 6's backward vs autograd "
+          f"of the plain version, relative to the largest {err}; launches "
+          f"mamba_scan +{after['mamba_scan'] - before['mamba_scan']}, "
+          f"mamba_scan_bwd +{after['mamba_scan_bwd'] - before['mamba_scan_bwd']}")
+    assert err <= SCAN_BWD_TOL, err
+    assert after["mamba_scan"] - before["mamba_scan"] == 1, after
+    assert after["mamba_scan_bwd"] - before["mamba_scan_bwd"] == 1, after
 
 
 def _train_spy(steps_mod, times, profiles):
@@ -4584,18 +4645,13 @@ def _train_spy(steps_mod, times, profiles):
     return orig, make
 
 
-def _train_path():
-    """``launch.train.main`` with OLMo-1B at full width and depth:
-    ``TRAIN_STEPS`` steps of 8 x 512 tokens, bf16 weights, ``default_adam``,
-    a checkpoint under the ignored ``build/``."""
-    import shutil
-
-    from repro_torch.configs.base import ShapeConfig, get_config
+def _train_main(argv):
+    """``launch.train.main(argv)`` with every step timed (synchronized) and
+    steps ``TRAIN_PROFILED`` profiled, the launch counts zeroed just before
+    and read just after, the plain versions' calls counted:
+    ``(losses, counts, step seconds, profiles, wall s, peak bytes)``."""
     from repro_torch.launch import steps as steps_mod, train
-    from repro_torch.roofline import HW, cell_flops
 
-    ckpt = ROOT / "build" / "lm_train_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
     times, profiles = [], {}
     orig, spy = _train_spy(steps_mod, times, profiles)
     steps_mod.make_train_step = spy
@@ -4604,18 +4660,34 @@ def _train_path():
         with _PlainSpy() as plain:
             t0 = time.perf_counter()
             zero_counts()                                  # the path starts here
-            losses = train.main(TRAIN_ARGS + ["--ckpt-dir", str(ckpt)])
+            losses = train.main(argv)
             torch.cuda.synchronize()
             counts = read_counts()                         # ... and ends here
             wall = time.perf_counter() - t0
     finally:
         steps_mod.make_train_step = orig
-    peak = torch.cuda.max_memory_allocated()
+    assert plain.calls == 0, plain.calls
+    return (losses, counts, times, profiles, wall,
+            torch.cuda.max_memory_allocated())
+
+
+def _train_path():
+    """``launch.train.main`` with OLMo-1B at full width and depth:
+    ``TRAIN_STEPS`` steps of 8 x 512 tokens, bf16 weights, ``default_adam``,
+    a checkpoint under the ignored ``build/``."""
+    import shutil
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.roofline import HW, cell_flops
+
+    ckpt = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses, counts, times, profiles, wall, peak = _train_main(
+        TRAIN_ARGS + ["--ckpt-dir", str(ckpt)])
     cfg = get_config("olmo-1b")
     layers, micro = cfg.num_layers, 1
     want = layers * micro * TRAIN_STEPS
     print(f"LM training olmo-1b launches: {counts}")
-    assert plain.calls == 0, plain.calls
     assert counts["flash_attention"] == counts["flash_attention_bwd"] == want
     assert sum(counts.values()) == 2 * want, counts
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
@@ -4674,17 +4746,19 @@ def _resume_check():
     shutil.rmtree(base, ignore_errors=True)
 
 
-def _plain_step_check(device):
-    """OLMo-1B at full width cut to ``TRAIN_PLAIN_LAYERS`` layers in float32:
-    one ``make_train_step`` step and its gradients through the kernels and
-    through ``attn_mode="plain"``, from the same params and batch."""
+def _plain_step_check(device, arch="olmo-1b"):
+    """``arch`` at full width cut to ``TRAIN_PLAIN_LAYERS`` layers in
+    float32: one ``make_train_step`` step and its gradients through the
+    kernels (kernel 7 and its backward, or for the ssm family kernel 6 and
+    its backward) and through ``attn_mode="plain"``, from the same params
+    and batch."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import synthetic_batches
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.serve import seed_generator
     from repro_torch.optim import tree_leaves
 
-    cfg = dataclasses.replace(get_config("olmo-1b"),
+    cfg = dataclasses.replace(get_config(arch),
                               num_layers=TRAIN_PLAIN_LAYERS, dtype="float32",
                               param_dtype="float32")
     params, opt = steps_mod.init_train_state(seed_generator(SEED, 0, device),
@@ -4702,8 +4776,10 @@ def _plain_step_check(device):
         runs[mode] = (metrics, grads, new, step_metrics, read_counts())
     kernel, plain = runs["cuda"], runs["plain"]
     want = 2 * TRAIN_PLAIN_LAYERS                   # value_and_grad and step
-    assert (kernel[4]["flash_attention"], kernel[4]["flash_attention_bwd"]) \
-        == (want, want), kernel[4]
+    keys = (("mamba_scan", "mamba_scan_bwd") if cfg.family == "ssm"
+            else ("flash_attention", "flash_attention_bwd"))
+    assert all(kernel[4][k] == want for k in keys), kernel[4]
+    assert sum(kernel[4].values()) == 2 * want, kernel[4]
     assert not any(plain[4].values()), plain[4]
     loss_err = abs(float(kernel[0]["loss"]) - float(plain[0]["loss"]))
     grad_err = max(float((a - b).abs().max() / b.abs().max())
@@ -4712,7 +4788,7 @@ def _plain_step_check(device):
     param_err = max(float((a - b).abs().max())
                     for a, b in zip(tree_leaves(kernel[2]),
                                     tree_leaves(plain[2])))
-    print(f"LM training kernels vs plain (olmo-1b width, {TRAIN_PLAIN_LAYERS} "
+    print(f"LM training kernels vs plain ({arch} width, {TRAIN_PLAIN_LAYERS} "
           f"layers, float32, 8 x 512): loss {float(kernel[0]['loss'])} vs "
           f"{float(plain[0]['loss'])} (diff {loss_err}); gradient leaves max "
           f"relative diff {grad_err}; params after one step max_abs_diff "
@@ -4761,27 +4837,224 @@ def _whisper_train(device):
     return counts
 
 
-def _ssm_refuses(device):
-    """An ssm model's loss backward on the card raises the named
-    NotImplementedError (kernel 6 has no backward yet)."""
+def _ssm_train_path():
+    """``launch.train.main`` with falcon-mamba-7b at its published widths
+    cut to ``SSM_TRAIN_LAYERS`` layers: ``SSM_TRAIN_STEPS`` steps of 8 x
+    512 tokens, bf16 weights, ``default_adam``, no checkpoint."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.roofline import HW, cell_flops
+
+    losses, counts, times, profiles, wall, peak = _train_main(SSM_TRAIN_ARGS)
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              num_layers=SSM_TRAIN_LAYERS)
+    want = SSM_TRAIN_LAYERS * SSM_TRAIN_STEPS
+    print(f"LM training falcon-mamba-7b launches: {counts}")
+    assert counts["mamba_scan"] == counts["mamba_scan_bwd"] == want, counts
+    assert sum(counts.values()) == 2 * want, counts      # no attention
+    assert len(losses) == SSM_TRAIN_STEPS and all(np.isfinite(losses)), losses
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    assert last < first, (first, last)
+    step_s = statistics.median(times[TRAIN_MEDIAN_FROM:])
+    tokens = 8 * 512
+    model_flops = cell_flops(cfg, ShapeConfig("train", 512, 8,
+                                              "train"))["model_flops"]
+    mfu = model_flops / (step_s * HW.peak_flops)
+    print(f"LM training falcon-mamba-7b ({SSM_TRAIN_LAYERS} of 64 layers, "
+          f"d_model 4096, d_inner 8192, N 16, vocab 65024, "
+          f"{cfg.param_count()} parameters, bf16 weights, float32 master and "
+          f"moments), batch 8 x 512, {SSM_TRAIN_STEPS} steps through "
+          f"launch.train.main: ms_per_step={1e3 * step_s} (median of steps "
+          f"{TRAIN_MEDIAN_FROM}-{SSM_TRAIN_STEPS - 1}, synchronized) "
+          f"tokens_per_s={tokens / step_s} mfu={mfu} (model_flops "
+          f"{model_flops} over the step and {HW.peak_flops} FLOP/s) "
+          f"first_step_ms={1e3 * times[0]} peak_memory_gb={peak / 1e9} "
+          f"loss first-10 mean {first} -> last-10 mean {last} wall_s={wall}")
+    report = profile_report(profiles["prof"], profiles["wall"],
+                            len(TRAIN_PROFILED), "LM training falcon-mamba-7b",
+                            top=10)
+    return counts, dict(ms_per_step=1e3 * step_s, tokens_per_s=tokens / step_s,
+                        mfu=mfu, peak_memory_gb=peak / 1e9,
+                        loss_first10=first, loss_last10=last,
+                        device_ops_per_step=report)
+
+
+def _jamba_train(device):
+    """jamba-1.5-large-398b at its smoke widths with head width 64 (kernel
+    7's backward's), ``JAMBA_TRAIN["steps"]`` train steps: kernel 6 and its
+    backward in every mamba layer, kernel 7 and its backward in every
+    attention layer, counted from ``block_spec``."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import synthetic_batches
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.models import model as mdl
+    from repro_torch.launch.serve import seed_generator
+    from repro_torch.models.model import block_spec, num_blocks
 
-    cfg = get_config("falcon-mamba-7b", smoke=True)
-    params = mdl.init_params(torch.Generator().manual_seed(SEED), cfg,
-                             device=device)
-    batch = {k: x.to(device) for k, x in next(synthetic_batches(
-        SEED, 2, 32, cfg.vocab_size)).items()}
-    try:
-        steps_mod.value_and_grad(cfg, params, batch)
-    except NotImplementedError as e:
-        assert "kernel 6 backward" in str(e), e
-        print(f"LM training falcon-mamba (smoke widths) on the card raises "
-              f"NotImplementedError: {e}")
-    else:
-        raise AssertionError("falcon-mamba trained through kernel 6")
+    j = JAMBA_TRAIN
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True),
+                              head_dim=j["head_dim"])
+    params, opt = steps_mod.init_train_state(seed_generator(SEED, 0, device),
+                                             cfg, device=device)
+    step, _ = steps_mod.make_train_step(cfg, total_steps=j["steps"])
+    data = synthetic_batches(SEED, j["batch"], j["seq"], cfg.vocab_size)
+    losses = []
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        for _ in range(j["steps"]):
+            batch = {k: x.to(device) for k, x in next(data).items()}
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+        counts = read_counts()                         # ... and ends here
+    spec, blocks = block_spec(cfg), num_blocks(cfg)
+    mamba = j["steps"] * blocks * sum(s.mixer == "mamba" for s in spec)
+    attn = j["steps"] * blocks * sum(s.mixer == "attn" for s in spec)
+    print(f"LM training jamba-1.5-large-398b (smoke widths, head width "
+          f"{j['head_dim']}, {cfg.num_layers} layers, {j['batch']} x "
+          f"{j['seq']} tokens): losses {losses}; launches {counts}")
+    assert plain.calls == 0 and all(np.isfinite(losses)), losses
+    assert counts["mamba_scan"] == counts["mamba_scan_bwd"] == mamba, counts
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == attn
+    assert sum(counts.values()) == 2 * (mamba + attn), counts
+    del params, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_scan_bwd_kernels(device):
+    """Kernel 6's training forward and its backward against the plain
+    twins on the same CUDA tensors at ``SCAN_BWD_SHAPES``: y bit for bit
+    the serving launch's, y, hT and the chunk states within ``SCAN_TOL``
+    of ``mamba_scan_plain(..., return_states=True)``, the seven gradients
+    (with dhT and without) within ``SCAN_BWD_TOL`` of each gradient's
+    largest element; each backward twice, bit for bit.  Returns the
+    largest absolute gradient error."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    worst = 0.0
+    for shape in SCAN_BWD_SHAPES:
+        b, s, di, n = shape
+        args = _scan_args(shape, device, SEED + s)
+        serve_y, serve_h = ms.mamba_scan(*args)
+        y, h_t, states = ms.mamba_scan_fwd(*args)
+        py, ph, pst = ms.mamba_scan_plain(*args, return_states=True)
+        fwd_err = max(float((u - v).abs().max()) for u, v in
+                      ((y, py), (h_t, ph), (states, pst)))
+        same = torch.equal(y, serve_y) and torch.equal(h_t, serve_h)
+        print(f"mamba_scan training forward {shape}: y, hT bit for bit the "
+              f"serving launch's {same}; y, hT, chunk states {tuple(states.shape)}"
+              f" vs plain max_abs_err {fwd_err}")
+        assert same and fwd_err <= SCAN_TOL, (shape, same, fwd_err)
+        gen = torch.Generator(device=device).manual_seed(SEED + s)
+        dy = torch.randn((b, s, di), generator=gen, device=device)
+        dht = torch.randn((b, di, n), generator=gen, device=device) * 0.5
+        for dh in (dht, None):
+            got = ms.mamba_scan_bwd(*args[:6], states, dy, dh)
+            again = ms.mamba_scan_bwd(*args[:6], states, dy, dh)
+            torch.cuda.synchronize()
+            want = ms.mamba_scan_bwd_plain(*args[:6], states, dy, dh)
+            rel = [_rel_err(g, w) for g, w in zip(got, want)]
+            repeat = all(torch.equal(g, h) for g, h in zip(got, again))
+            worst = max([worst] + [float((g - w).abs().max())
+                                   for g, w in zip(got, want)])
+            print(f"mamba_scan_bwd {shape} dhT {'given' if dh is not None else 'absent'}: "
+                  f"dx, ddt, dA, dB, dC, dD, dh0 relative to the largest vs "
+                  f"plain {rel}; twice bit for bit {repeat}")
+            assert max(rel) <= SCAN_BWD_TOL and repeat, (shape, rel, repeat)
+        del args, dy, dht, states, got, again, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def scan_bwd_bound(shape, name, chunk):
+    """(ms, by, bytes, ops, terms) of one backward call in training (dhT
+    absent, no dh0): x, dt, dy, B, C, A, D and the chunk states read once,
+    dx, ddt, dB, dC, dA, dD written once at the memory rate; the float32
+    operations at the float32 peak; one exponential a (batch, step,
+    channel, state) at ``sfu_rate`` (dA is recomputed, not stored)."""
+    b, s, di, n = shape
+    nbytes = 4 * (5 * b * s * di + 4 * b * s * n + b * -(-s // chunk) * di * n
+                  + 2 * di * n + 2 * di)
+    ops = b * s * di * (n * SCAN_BWD_OPS_PER_STATE + SCAN_BWD_OPS_PER_CHANNEL)
+    _, (flops, bw) = peaks(name)
+    terms = {"bytes": nbytes / bw * 1e3, "operations": ops / flops * 1e3,
+             "exponentials": b * s * di * n / sfu_rate() * 1e3}
+    by = max(terms, key=terms.get)
+    return (terms[by], "bytes" if by == "bytes" else "operations", nbytes,
+            ops, terms)
+
+
+def scan_train_timings(device, name):
+    """Kernel 6's backward at ``SCAN_BWD_TIMED`` (device time from a CUDA
+    graph, two device kernels a call), its plain twin, its bound, the two
+    kernels' split (profiler); and the training forward (chunk states
+    written) against the serving launch at falcon-mamba-7b's shape, in
+    turns (null, states, states, null)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    saved = read_counts()
+    rows = {}
+    for shape in SCAN_BWD_TIMED:
+        b, s, di, n = shape
+        args = _scan_args(shape, device, SEED + 26)
+        _, _, states = ms.mamba_scan_fwd(*args)
+        dy = torch.randn((b, s, di), device=device)
+        call = lambda: ms.mamba_scan_bwd(  # noqa: E731
+            *args[:6], states, dy, None, need_dh0=False)
+        names = device_kernels(call)
+        assert len(names) == 2 and all("mamba_scan_bwd" in k
+                                       for k in names), names
+        got = call()
+        want = ms.mamba_scan_bwd_plain(*args[:6], states, dy, None,
+                                       need_dh0=False)
+        err = max(float((g - w).abs().max()) for g, w in zip(got[:6],
+                                                             want[:6]))
+        kernel_ms = graph_time_ms(call, 10)
+        split = {key[:32]: us for key, us in device_split_us(call).items()}
+        plain_ms = graph_time_ms(lambda: ms.mamba_scan_bwd_plain(
+            *args[:6], states, dy, None, need_dh0=False), 1, reps=2)
+        plan = ms.scan_bwd_plan(b, di, n)
+        b_ms, b_by, nbytes, n_ops, terms = scan_bwd_bound(shape, name,
+                                                          plan.chunk)
+        label = ("falcon-mamba-7b training" if shape == SCAN_FALCON
+                 else f"{shape}")
+        rows[shape] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None, shape=list(shape),
+                           bound_terms_ms=terms, kernels_us=split,
+                           max_abs_err=err, plan=dataclasses.asdict(plan),
+                           path=label)
+        print(f"timing mamba_scan_bwd {label} (B, S, di, N)={shape}: "
+              f"kernel_ms={kernel_ms} (2 device kernels: "
+              f"{[k[:40] for k in names]}) plain_ms={plain_ms} bound_ms={b_ms} "
+              f"({b_by}; bytes={nbytes} ops={n_ops}; terms_ms {terms}) "
+              f"kernel/bound={kernel_ms / b_ms} device kernels us a call "
+              f"(profiler) {split} max_abs_err vs plain {err} plan {plan} "
+              f"blocks={plan.blocks} shared_bytes={plan.bwd_shared_bytes}")
+        del args, states, dy, got, want
+    args = _scan_args(SCAN_FALCON, device, SEED + 27)
+    null = lambda: ms.mamba_scan(*args)               # noqa: E731
+    with_states = lambda: ms.mamba_scan_fwd(*args)    # noqa: E731
+    turns = [graph_time_ms(fn, 20) for fn in (null, with_states, with_states,
+                                               null)]
+    b_ms, b_by, nbytes, _ = scan_bound(SCAN_FALCON, name)
+    b, s, di, n = SCAN_FALCON
+    chunks = ms.scan_plan(b, di, n).chunks(s)
+    bytes_ms = (nbytes + 4 * b * chunks * di * n) / peaks(name)[1][1] * 1e3
+    rows["forward_states"] = dict(
+        ms=statistics.mean(turns[1:3]), null_states_ms=[turns[0], turns[3]],
+        plain_ms=graph_time_ms(lambda: ms.mamba_scan_plain(
+            *args, return_states=True), 1, reps=2),
+        bound_ms=max(b_ms, bytes_ms),
+        bound_by="bytes" if bytes_ms >= b_ms else b_by,
+        shape=list(SCAN_FALCON),
+        path="LM training forward (chunk states stored)")
+    print(f"timing mamba_scan LM training forward {SCAN_FALCON} with the "
+          f"chunk states ({chunks} chunks), in turns null / states / states "
+          f"/ null: {turns} ms (states/null = "
+          f"{(turns[1] + turns[2]) / (turns[0] + turns[3])})")
+    del args
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    torch.cuda.empty_cache()
+    return rows
 
 
 def attention_bwd_bound(b, hq, hkv, sq, skv, d, pairs, itemsize, name):
@@ -4925,22 +5198,49 @@ def check_kernel7_bwd_build():
 
 def phase_lm_train(device, name):
     """Phase 22: LM training on the card.  Returns ({kernel: {path:
-    launches}}, {dtype: backward max_abs_err}, figures, timing rows)."""
+    launches}}, {dtype: kernel 7 backward max_abs_err}, figures, kernel 7
+    timing rows, kernel 6 backward max_abs_err, kernel 6 timing rows)."""
     t0 = time.perf_counter()
     errs = check_bwd_kernels(device)
     check_kernels_refuse_grad(device)
+    scan_err = check_scan_bwd_kernels(device)
     counts, figures = _train_path()
+    torch.cuda.empty_cache()
+    ssm_counts, figures["falcon-mamba-7b"] = _ssm_train_path()
     torch.cuda.empty_cache()
     _resume_check()
     _plain_step_check(device)
+    _plain_step_check(device, "falcon-mamba-7b")
     whisper = _whisper_train(device)
-    _ssm_refuses(device)
+    jamba = _jamba_train(device)
     rows = train_timings(device, name)
+    scan_rows = scan_train_timings(device, name)
     print(f"phase 22 seconds={time.perf_counter() - t0}")
+    jamba_path = "LM training, jamba smoke widths, head width 64"
     paths = {key: {"LM training": counts[key],
-                   "LM training, whisper-medium 2 + 2 layers": whisper[key]}
+                   "LM training, whisper-medium 2 + 2 layers": whisper[key],
+                   jamba_path: jamba[key]}
              for key in ("flash_attention", "flash_attention_bwd")}
-    return paths, errs, figures, rows
+    for key in ("mamba_scan", "mamba_scan_bwd"):
+        paths[key] = {"LM training, falcon-mamba-7b 8 layers": ssm_counts[key],
+                      jamba_path: jamba[key]}
+    return paths, errs, figures, rows, scan_err, scan_rows
+
+
+def check_kernel6_build():
+    """Kernel 6's twelve forward instances (six serving, six that also
+    write the chunk states) and its backward's seven kernels (the reverse
+    scan at each (N, SPL, L), the fixed-order sums) spill nothing."""
+    fwd = ptxas_spills("mamba_scan")
+    bwd = ptxas_spills("mamba_scan_bwd")
+    states = {fn: v for fn, v in fwd.items() if "Lb1E" in fn}
+    assert len(fwd) == 12 and len(states) == 6 and len(bwd) == 7, (
+        sorted(fwd), sorted(bwd))
+    for fn, (regs, stores, loads) in sorted(states.items()) + sorted(
+            bwd.items()):
+        print(f"ptxas[mamba_scan{'_bwd' if fn in bwd else ''}] {fn}: "
+              f"registers={regs} spill_stores={stores} spill_loads={loads}")
+        assert stores == loads == 0, (fn, regs, stores, loads)
 
 
 SASS_OPS = ("HMMA", "LDGSTS", "LDSM", "HGMMA", "UTMALDG", "UBLKCP", "UBLKRED")
@@ -5066,6 +5366,7 @@ def main(argv=None) -> int:
     check_kernel7_sass()
     check_kernel8_build()
     check_kernel7_bwd_build()
+    check_kernel6_build()
 
     max_err = phase_kernels(device)
     errs = phase_new_kernels(device)
@@ -5105,8 +5406,8 @@ def main(argv=None) -> int:
     family_figures.update(granite_figures)
     bwd_parents = ([parent_bwd_times(args.parent_src)] if args.parent_src
                    else [])
-    train_paths, train_errs, train_figures, train_rows = phase_lm_train(
-        device, name)
+    (train_paths, train_errs, train_figures, train_rows, scan_err,
+     scan_rows) = phase_lm_train(device, name)
     if args.parent_src:         # parent, this, parent: in turns on one card
         bwd_parents.append(parent_bwd_times(args.parent_src))
         for label in FA_BWD_TIMED:
@@ -5141,6 +5442,7 @@ def main(argv=None) -> int:
                                  lm_counts["sdqn_score_cols"]}}
     paths["mamba_scan"] = {"mamba policy class": launches["mamba_scan"]}
     paths["flash_attention_bwd"] = {}
+    paths["mamba_scan_bwd"] = {}
     for key, per_path in (list(rest_paths.items())
                           + list(family_paths.items())
                           + list(granite_paths.items())
@@ -5166,6 +5468,13 @@ def main(argv=None) -> int:
     timing["flash_attention_bwd"] = dict(
         train_rows[FA_BWD_TIMED[0]],
         other_shapes=[train_rows[label] for label in FA_BWD_TIMED[1:]])
+    timing["mamba_scan"].setdefault("other_shapes", []).append(
+        scan_rows["forward_states"])
+    timing["mamba_scan_bwd"] = dict(
+        scan_rows[SCAN_BWD_TIMED[0]],
+        other_shapes=[scan_rows[shape] for shape in SCAN_BWD_TIMED[1:]])
+    errs["mamba_scan_bwd"] = max([scan_err] + [scan_rows[shape]["max_abs_err"]
+                                               for shape in SCAN_BWD_TIMED])
     t8 = timing["decode_attention"]       # every timed row held to plain
     errs["decode_attention"] = max([errs["decode_attention"], t8["max_abs_err"]]
                                    + [r["max_abs_err"]
@@ -5187,9 +5496,9 @@ def main(argv=None) -> int:
     phase_sharded_breakdown(device)
     phase_policy_breakdown(device)
 
-    # (wrapper, CUDA source, the TPU kernel's function line; for kernel 7's
-    # backward, which no Pallas kernel has, the attention the JAX model
-    # trains through by XLA's autodiff).  No single PyTorch call computes
+    # (wrapper, CUDA source, the TPU kernel's function line; for kernels
+    # 7's and 6's backwards, which no Pallas kernel has, the attention and
+    # the chunked scan the JAX model trains through by XLA's autodiff).  No single PyTorch call computes
     # the fused SDQN functions or a selective scan (library_ms null);
     # kernels 7's and 8's is scaled_dot_product_attention, the backward's
     # its backward.
@@ -5214,6 +5523,8 @@ def main(argv=None) -> int:
          kernels_src + "decode_attention.py:69"),
         ("flash_attention_bwd", "flash_attention_bwd.cu",
          "src/repro/models/layers.py:124"),
+        ("mamba_scan_bwd", "mamba_scan_bwd.cu",
+         "src/repro/models/mamba.py:62"),
     )
     kernels = []
     for key, src, line in table:

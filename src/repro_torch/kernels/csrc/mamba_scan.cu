@@ -8,7 +8,11 @@
 // over float32 x, dt (B, S, di), A (di, N), B, C (B, S, N), D (di,);
 // returns y (B, S, di) and hT (B, di, N).  Its caller on the serving path
 // is the "mamba" policy class: one launch encodes a daemon batch's
-// arrival history, (1, 32, di = 8, N = 4), with the history carry as h0.
+// arrival history, (1, 32, di = 8, N = 4), with the history carry as h0;
+// the LM mixer's prefill launches it once a mamba layer.  A second
+// instance, for training, also writes the state at each chunk's start,
+// which the backward (mamba_scan_bwd.cu) reruns its chunks from; the
+// serving instance's code is unchanged by it.
 //
 // Design.  The TPU kernel keeps a (block_d, N) state tile in VMEM and
 // walks the sequence with a fori_loop inside a sequential grid axis.  Here
@@ -61,131 +65,14 @@
 // with 8.4 M accurate expf and the second pass a lane issues ~600
 // instructions a chunk at ~0.4 a cycle a scheduler.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mamba_scan.cuh"
 
-#define MS_MAX_WARPS 16
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 4 or 16 bytes global -> shared; zero-filled when !full
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-template <int N, int SPL, int L>
-struct Scan {
-  static constexpr int G = N / SPL;      // lanes a step
-  static constexpr int SEG = 32 / G;     // segments a warp
-  static constexpr int CH = SEG * L;     // steps a chunk
-  static_assert(G >= 1 && G <= 32 && 32 % G == 0, "lanes a step");
-  // The B and C tiles hold a segment's L rows of N floats at a stride of
-  // SS floats, SS = N (mod 32): the 32 / N segments whose states one
-  // shared-memory wavefront serves then fall on disjoint banks (at SS =
-  // L N they would share them, up to 8-way).  SS is a multiple of 4, so a
-  // lane's SPL states load as one vector.
-  static constexpr int SS = L * N + ((N * (1 - L)) % 32 + 32) % 32;
-  static constexpr int BC = SEG * SS;    // floats of a B or C tile
-  static constexpr int TP = CH + 1;      // pitch of a channel's row in the
-                                         // x, dt and y tiles (odd: fewer
-                                         // bank conflicts)
-
-  // floats of one buffer for W warps: the B and C tiles, then x and dt
-  // (W x TP each), rounded up to 16 bytes; of the whole block: two
-  // buffers and the y tile (W x TP)
-  __host__ __device__ static constexpr int buf_floats(int w) {
-    return (2 * BC + 2 * w * TP + 3) / 4 * 4;
-  }
-  __host__ __device__ static constexpr int smem_floats(int w) {
-    return 2 * buf_floats(w) + w * TP;
-  }
-};
-
-// SPL consecutive floats from 4 * SPL-byte aligned shared memory
-template <int SPL>
-__device__ __forceinline__ void ld_states(const float* p, float (&v)[SPL]) {
-  if constexpr (SPL == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else if constexpr (SPL == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x; v[1] = q.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < SPL; ++k) v[k] = p[k];
-  }
-}
-
-struct ScanArgs {
-  const float *x, *dt, *a, *bm, *cm, *d, *h0;
-  float *y, *hT;
-  int s, di;
-};
-
-// The chunk starting at step t0 into one buffer: B, C as [segment][j][n]
-// (Scan::SS), x, dt as [w][t].  Every thread of the block takes part: the
-// x and dt elements of channel w_ld at steps t_ld, t_ld + 32, ... (the
-// block's 32 W threads cover 32 steps of W channels a pass), and the B
-// and C rows in 16-byte pieces where both are 16-byte aligned, else in
-// floats.  Steps past S and channels past di are zero-filled.
-template <int N, int SPL, int L>
-__device__ __forceinline__ void load_chunk(const ScanArgs& p, float* buf,
-                                           int w_count, int b, int ch0,
-                                           int t0, int w_ld, int t_ld,
-                                           bool bc16) {
-  using S = Scan<N, SPL, L>;
-  float* sb = buf;
-  float* sc = sb + S::BC;
-  float* sx = sc + S::BC;
-  float* sdt = sx + w_count * S::TP;
-  const bool ch_ok = ch0 + w_ld < p.di;
-#pragma unroll
-  for (int t = t_ld; t < S::CH; t += 32) {
-    const bool ok = ch_ok && t0 + t < p.s;
-    const size_t off =
-        ok ? ((size_t)b * p.s + t0 + t) * p.di + ch0 + w_ld : 0;
-    cp_async4(smem_u32(sx + w_ld * S::TP + t), p.x + off, ok);
-    cp_async4(smem_u32(sdt + w_ld * S::TP + t), p.dt + off, ok);
-  }
-  const size_t row0 = ((size_t)b * p.s + t0) * N;
-  const int nthr = w_count * 32;
-  if (bc16) {
-    for (int q = threadIdx.x; q < S::CH * N / 4; q += nthr) {
-      const int t = q / (N / 4), seg = t / L;
-      const int dst = seg * S::SS + (t - seg * L) * N + 4 * q - t * N;
-      const bool ok = t0 + t < p.s;
-      const size_t off = ok ? row0 + 4 * q : 0;
-      cp_async16(smem_u32(sb + dst), p.bm + off, ok);
-      cp_async16(smem_u32(sc + dst), p.cm + off, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < S::CH * N; i += nthr) {
-      const int t = i / N, seg = t / L;
-      const int dst = seg * S::SS + (t - seg * L) * N + i - t * N;
-      const bool ok = t0 + t < p.s;
-      const size_t off = ok ? row0 + i : 0;
-      cp_async4(smem_u32(sb + dst), p.bm + off, ok);
-      cp_async4(smem_u32(sc + dst), p.cm + off, ok);
-    }
-  }
-}
-
-template <int N, int SPL, int L>
+// STATES: the training instance, which also writes the state at each
+// chunk's start (the carry before its first step, h0 for chunk 0) to
+// p.states, (B, chunks, di, N); the backward reruns a chunk from it.  The
+// serving instance (STATES false) compiles to the same code as before the
+// training instance existed.
+template <int N, int SPL, int L, bool STATES>
 __global__ void __launch_bounds__(MS_MAX_WARPS * 32)
     mamba_scan_kernel(const ScanArgs p) {
   using S = Scan<N, SPL, L>;
@@ -223,6 +110,14 @@ __global__ void __launch_bounds__(MS_MAX_WARPS * 32)
   const float dsk = p.d[chc];
 
   for (int c = 0; c < nch; ++c) {
+    if constexpr (STATES) {
+      if (live && seg == 0) {
+        float* st = p.states + (((size_t)b * nch + c) * p.di + ch) * N +
+                    g * SPL;
+#pragma unroll
+        for (int k = 0; k < SPL; ++k) st[k] = h[k];
+      }
+    }
     const float* buf = smem + (c & 1) * buf_floats;
     const float* sb = buf + seg * S::SS + g * SPL;
     const float* sc = sb + S::BC;
@@ -312,17 +207,17 @@ __global__ void __launch_bounds__(MS_MAX_WARPS * 32)
   }
 }
 
-template <int N, int SPL, int L>
+template <int N, int SPL, int L, bool STATES>
 static int launch(const ScanArgs& p, int warps, dim3 grid, cudaStream_t st) {
   using S = Scan<N, SPL, L>;
   const size_t bytes = sizeof(float) * S::smem_floats(warps);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mamba_scan_kernel<N, SPL, L>,
+        mamba_scan_kernel<N, SPL, L, STATES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  mamba_scan_kernel<N, SPL, L><<<grid, warps * 32, bytes, st>>>(p);
+  mamba_scan_kernel<N, SPL, L, STATES><<<grid, warps * 32, bytes, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -331,6 +226,26 @@ static int launch(const ScanArgs& p, int warps, dim3 grid, cudaStream_t st) {
 // kernels/mamba_scan.py (SCAN_BUILT there lists the same).
 #define MS_INSTANCES(X)                                                    \
   X(4, 2, 2) X(4, 2, 8) X(8, 4, 2) X(8, 4, 8) X(16, 4, 4) X(16, 4, 8)
+
+template <bool STATES>
+static int launch_plan(const ScanArgs& p, int bsz, int n, int states,
+                       int seg_len, int warps, int grid_x, int grid_y,
+                       void* stream) {
+  const bool ok = bsz >= 1 && p.s >= 1 && p.di >= 1 && warps >= 1 &&
+                  warps <= MS_MAX_WARPS && (warps & (warps - 1)) == 0 &&
+                  grid_y == bsz && grid_y <= 65535 &&
+                  (long long)grid_x * warps >= p.di &&
+                  (long long)(grid_x - 1) * warps < p.di;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define MS_CASE(NN, SS, LL) \
+  if (n == NN && states == SS && seg_len == LL) \
+    return launch<NN, SS, LL, STATES>(p, warps, grid, st);
+  MS_INSTANCES(MS_CASE)
+#undef MS_CASE
+  return (int)cudaErrorInvalidValue;
+}
 
 // One launch of the plan (states SPL, seg_len L, warps W, grid); returns a
 // CUDA error code (0 = launched).  The grid must cover every channel of
@@ -343,19 +258,23 @@ extern "C" int mamba_scan_launch(const void* x, const void* dt, const void* a,
                                  int grid_x, int grid_y, void* stream) {
   const ScanArgs p{(const float*)x, (const float*)dt, (const float*)a,
                    (const float*)bm, (const float*)cm, (const float*)d,
-                   (const float*)h0, (float*)y, (float*)hT, s, di};
-  const bool ok = bsz >= 1 && s >= 1 && di >= 1 && warps >= 1 &&
-                  warps <= MS_MAX_WARPS && (warps & (warps - 1)) == 0 &&
-                  grid_y == bsz && grid_y <= 65535 &&
-                  (long long)grid_x * warps >= di &&
-                  (long long)(grid_x - 1) * warps < di;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_x, grid_y);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define MS_CASE(NN, SS, LL) \
-  if (n == NN && states == SS && seg_len == LL) \
-    return launch<NN, SS, LL>(p, warps, grid, st);
-  MS_INSTANCES(MS_CASE)
-#undef MS_CASE
-  return (int)cudaErrorInvalidValue;
+                   (const float*)h0, (float*)y, (float*)hT, nullptr, s, di};
+  return launch_plan<false>(p, bsz, n, states, seg_len, warps, grid_x,
+                            grid_y, stream);
+}
+
+// The training instance's launch: the same plan, and the chunk-start
+// states into `chunk_states`, (B, ceil(S / CH), di, N) float32.
+extern "C" int mamba_scan_states_launch(
+    const void* x, const void* dt, const void* a, const void* bm,
+    const void* cm, const void* d, const void* h0, void* y, void* hT,
+    void* chunk_states, int bsz, int s, int di, int n, int states,
+    int seg_len, int warps, int grid_x, int grid_y, void* stream) {
+  if (chunk_states == nullptr) return (int)cudaErrorInvalidValue;
+  const ScanArgs p{(const float*)x, (const float*)dt, (const float*)a,
+                   (const float*)bm, (const float*)cm, (const float*)d,
+                   (const float*)h0, (float*)y, (float*)hT,
+                   (float*)chunk_states, s, di};
+  return launch_plan<true>(p, bsz, n, states, seg_len, warps, grid_x,
+                           grid_y, stream);
 }

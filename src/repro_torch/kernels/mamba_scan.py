@@ -1,5 +1,5 @@
-"""Mamba-1 selective-scan forward (port of ``repro.kernels.mamba_scan``),
-kernel 6 of ROADMAP queue 2.
+"""Mamba-1 selective scan (port of ``repro.kernels.mamba_scan``), kernel 6
+of ROADMAP queue 2, with its backward.
 
 From ``h0`` (B, di, N), for every step t of x, dt (B, S, di):
 
@@ -14,8 +14,23 @@ with A (di, N), B and C (B, S, N), D (di,), all float32.  Returns
   holds the kernel to it.
 * ``mamba_scan`` — the wrapper: on CUDA tensors ONE launch of the
   hand-written kernel ``csrc/mamba_scan.cu``, counted in
-  ``mamba_scan.launches``; on CPU tensors the plain version.  Any other
-  device raises.
+  ``mamba_scan.launches``; on CPU tensors the plain version (under
+  autograd too).  Any other device raises.
+
+Training (the gradient of the same function):
+
+* On CUDA tensors under grad mode with an input that requires grad, the
+  wrapper goes through ``MambaScanFn``: its forward is the kernel's
+  training instance (``mamba_scan_fwd``, one launch counted in
+  ``mamba_scan.launches``), which also writes the state at the start of
+  each chunk of ``scan_plan``'s CH steps, (B, ceil(S / CH), di, N); its
+  backward ``mamba_scan_bwd``: ``csrc/mamba_scan_bwd.cu``, two device
+  kernels (the reverse scan, which reruns each chunk from its state, then
+  a fixed-order sum of the dB, dC, dA and dD partials) counted once a call
+  in ``mamba_scan_bwd.launches``.  Every gradient repeats bit for bit.
+* ``mamba_scan_plain(..., return_states=True)`` and
+  ``mamba_scan_bwd_plain`` are their plain twins: the recurrence and its
+  reverse step by step, h recomputed in each chunk from its state.
 
 Both refuse, on every device, what the kernel does not take: another
 dtype than float32, a state size outside ``STATE_SIZES``, and mismatched
@@ -24,7 +39,8 @@ shapes.  Any S is taken (the TPU kernel needs ``S % block_s == 0``).
 ``scan_plan`` is the kernel's launch geometry: W warps a block (a channel
 each), SPL states a lane and L steps a lane's segment, so that a warp's
 chunk of ``32 / (N / SPL) * L`` steps is one scan of step maps
-(``csrc/mamba_scan.cu``).
+(``csrc/mamba_scan.cu``); ``scan_bwd_plan`` the backward's, on the same
+chunks.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "mamba_scan"
+SOURCE_BWD = "mamba_scan_bwd"
 STATE_SIZES = (4, 8, 16)         # the kernel's state sizes
 
 _F32 = torch.float32
@@ -60,6 +77,9 @@ SCAN_BUILT = tuple(sorted({(n, *lanes[n]) for lanes in (SCAN_LANES_FEW,
                            for n in STATE_SIZES}))
 SCAN_WARPS = 8                   # channels a block, at most
 SCAN_MAX_WARPS = 16              # the kernel's launch bound (512 threads)
+SCAN_BWD_MAX_WARPS = 8           # the backward's launch bound (256 threads)
+SCAN_REDUCE_THREADS = 256        # the backward's fixed-order sums
+SCAN_REDUCE_MAX_BLOCKS = 132 * 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +125,21 @@ class ScanPlan:
            warps: int) -> "ScanPlan":
         return cls((-(-di // warps), b, 1), warps, states, seg_len, n)
 
+    @property
+    def bwd_shared_bytes(self) -> int:
+        """Dynamic shared memory a block of the backward
+        (``BwdTiles::smem_floats``): the B and C tiles, the x, dt, dy, dx
+        and ddt tiles (W rows of CH + 1 floats), rounded up to 16 bytes,
+        and two slabs of W B-tile sizes (each warp's G u and dy h)."""
+        ss = self.seg_len * self.n + (self.n * (1 - self.seg_len)) % 32
+        bc = self.segments * ss
+        slab = -(-(2 * bc + 5 * self.warps * (self.chunk + 1)) // 4) * 4
+        return 4 * (slab + 2 * self.warps * bc)
+
+    def chunks(self, s: int) -> int:
+        """Chunks of S steps: the chunk states' second dimension."""
+        return -(-s // self.chunk)
+
     def args(self) -> tuple:
         """The launch function's (states, seg_len, warps, grid_x, grid_y)."""
         return (self.states, self.seg_len, self.warps, self.grid[0],
@@ -122,6 +157,16 @@ def scan_plan(b: int, di: int, n: int) -> ScanPlan:
     blocks = -(-di // warps) * b
     lanes = SCAN_LANES_FEW if blocks < SCAN_FEW_BLOCKS else SCAN_LANES
     return ScanPlan.of(b, di, n, *lanes[n], warps)
+
+
+@functools.lru_cache(maxsize=256)
+def scan_bwd_plan(b: int, di: int, n: int) -> ScanPlan:
+    """The backward's launch: ``scan_plan``'s (SPL, L), so that its chunks
+    are the forward's and the chunk states line up, and its W (at most
+    ``SCAN_BWD_MAX_WARPS``), a block for W channels of a batch row."""
+    fwd = scan_plan(b, di, n)
+    warps = min(fwd.warps, SCAN_BWD_MAX_WARPS)
+    return ScanPlan.of(b, di, n, fwd.states, fwd.seg_len, warps)
 
 
 def _dims(x, dt, a, bmat, cmat, d_skip, h0):
@@ -151,43 +196,208 @@ def _dims(x, dt, a, bmat, cmat, d_skip, h0):
     return b, s, di, n
 
 
-def mamba_scan_plain(x, dt, a, bmat, cmat, d_skip, h0):
-    """``(y, hT)``, plain PyTorch: one step of the recurrence per t."""
-    _dims(x, dt, a, bmat, cmat, d_skip, h0)
+def mamba_scan_plain(x, dt, a, bmat, cmat, d_skip, h0, *,
+                     return_states: bool = False):
+    """``(y, hT)``, plain PyTorch: one step of the recurrence per t.  With
+    ``return_states``, ``(y, hT, states)``: also the state at the start of
+    every chunk of ``scan_plan``'s CH steps, (B, ceil(S / CH), di, N), as
+    the kernel's training instance writes them."""
+    b, s, di, n = _dims(x, dt, a, bmat, cmat, d_skip, h0)
+    chunk = scan_plan(b, di, n).chunk
     h = h0
-    ys = []
-    for t in range(x.shape[1]):
+    ys, states = [], []
+    for t in range(s):
+        if t % chunk == 0:
+            states.append(h)
         x_t, dt_t = x[:, t], dt[:, t]                        # (B, di)
         da = torch.exp(dt_t[..., None] * a)                  # (B, di, N)
         h = da * h + (dt_t * x_t)[..., None] * bmat[:, t, None, :]
         ys.append(torch.sum(h * cmat[:, t, None, :], dim=-1) + x_t * d_skip)
+    if return_states:
+        return torch.stack(ys, dim=1), h, torch.stack(states, dim=1)
     return torch.stack(ys, dim=1), h
+
+
+def _bwd_dims(x, dt, a, bmat, cmat, d_skip, states, dy, dht):
+    """(B, S, di, N, chunk), raising on what the backward does not take."""
+    b, s, di, n = _dims(x, dt, a, bmat, cmat, d_skip, states[:, 0])
+    plan = scan_plan(b, di, n)
+    want = {"states": (b, plan.chunks(s), di, n), "dy": (b, s, di),
+            "dht": (b, di, n)}
+    for name, t in (("states", states), ("dy", dy), ("dht", dht)):
+        if t is None and name == "dht":
+            continue
+        if t.dtype != _F32 or tuple(t.shape) != want[name]:
+            raise ValueError(f"mamba_scan_bwd: {name} must be float32 "
+                             f"{want[name]}, got {t.dtype} {tuple(t.shape)}")
+    return b, s, di, n, plan.chunk
+
+
+def mamba_scan_bwd_plain(x, dt, a, bmat, cmat, d_skip, states, dy, dht=None,
+                         *, need_dh0: bool = True):
+    """``(dx, ddt, da, dbmat, dcmat, dd_skip, dh0)`` of the scan, plain
+    PyTorch: with P_t = dA_t G_t (G_t = dL/dh_t), one step of the reverse
+    recurrence P_t = dA_t (P_{t+1} + dy_t C_t) per t, from the last step
+    (P_S = ``dht``, zero when None) to the first; h_{t-1} and h_t from the
+    chunk's state in ``states`` (``mamba_scan_plain(...,
+    return_states=True)``).  ``dh0`` is None unless ``need_dh0``."""
+    b, s, di, n, chunk = _bwd_dims(x, dt, a, bmat, cmat, d_skip, states, dy,
+                                   dht)
+    p = torch.zeros_like(states[:, 0]) if dht is None else dht
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
+    da = torch.zeros_like(a)
+    for c in range(states.shape[1] - 1, -1, -1):
+        t0, t1 = c * chunk, min(s, (c + 1) * chunk)
+        hs, h = [], states[:, c]                  # h_{t0 - 1} .. h_{t1 - 1}
+        for t in range(t0, t1):
+            hs.append(h)
+            e = torch.exp(dt[:, t, :, None] * a)
+            h = e * h + (dt[:, t] * x[:, t])[..., None] * bmat[:, t, None, :]
+        hs.append(h)
+        for t in range(t1 - 1, t0 - 1, -1):
+            x_t, dt_t, dy_t = x[:, t], dt[:, t], dy[:, t]     # (B, di)
+            e = torch.exp(dt_t[..., None] * a)                # (B, di, N)
+            g = p + dy_t[..., None] * cmat[:, t, None, :]     # G_t
+            p = e * g                                         # P_t
+            gb = torch.sum(g * bmat[:, t, None, :], dim=-1)
+            dx[:, t] = d_skip * dy_t + dt_t * gb
+            ddt[:, t] = x_t * gb + torch.sum(p * a * hs[t - t0], dim=-1)
+            da = da + torch.sum(p * dt_t[..., None] * hs[t - t0], dim=0)
+            dbm[:, t] = torch.sum(g * (dt_t * x_t)[..., None], dim=1)
+            dcm[:, t] = torch.sum(dy_t[..., None] * hs[t - t0 + 1], dim=1)
+    dd = torch.sum(dy * x, dim=(0, 1))
+    return dx, ddt, da, dbm, dcm, dd, (p if need_dh0 else None)
+
+
+_INPUTS = ("x", "dt", "a", "bmat", "cmat", "d_skip", "h0")
+
+
+def _launch_forward(x, dt, a, bmat, cmat, d_skip, h0, with_states):
+    """The serving launch, or the training instance's with the chunk
+    states: ``(y, hT, states or None)``, counted in ``mamba_scan``."""
+    b, s, di, n = _dims(x, dt, a, bmat, cmat, d_skip, h0)
+    device = x.device
+    for name, t in zip(_INPUTS, (x, dt, a, bmat, cmat, d_skip, h0)):
+        _build.check(name, t, _F32, t.shape, device)
+    if b > 65535:                                            # grid.y = B
+        raise ValueError(f"mamba_scan: batch {b} > 65535")
+    plan = scan_plan(b, di, n)
+    y = torch.empty_like(x)
+    h_t = torch.empty_like(h0)
+    if with_states:
+        states = torch.empty((b, plan.chunks(s), di, n), dtype=_F32,
+                             device=device)
+        _build.launch("mamba_scan_states", SOURCE,
+                      [_build.P] * 10 + [_build.I] * 9, device,
+                      x, dt, a, bmat, cmat, d_skip, h0, y, h_t, states, b, s,
+                      di, n, *plan.args())
+    else:
+        states = None
+        _build.launch("mamba_scan", SOURCE,
+                      [_build.P] * 9 + [_build.I] * 9, device,
+                      x, dt, a, bmat, cmat, d_skip, h0, y, h_t, b, s, di, n,
+                      *plan.args())
+    mamba_scan.launches += 1
+    return y, h_t, states
 
 
 def mamba_scan(x, dt, a, bmat, cmat, d_skip, h0):
     """``(y (B, S, di), hT (B, di, N))``: one kernel launch on CUDA, the
-    plain version on CPU.  Every input contiguous float32 on one device."""
-    b, s, di, n = _dims(x, dt, a, bmat, cmat, d_skip, h0)
-    device = x.device
-    if not _build.on_card("mamba_scan", device):
+    plain version on CPU.  Every input contiguous float32 on one device.
+    On CUDA under grad mode, with an input that requires grad, the outputs
+    carry the hand-written backward (``MambaScanFn``)."""
+    _dims(x, dt, a, bmat, cmat, d_skip, h0)
+    if not _build.on_card("mamba_scan", x.device):
         return mamba_scan_plain(x, dt, a, bmat, cmat, d_skip, h0)
-    _build.refuse_grad(
-        "mamba_scan", (x, dt, a, bmat, cmat, d_skip, h0), NotImplementedError,
-        "the selective scan's backward is not ported (ROADMAP queue 1, "
-        "\"kernel 6 backward\"): ssm and hybrid models train on the CPU only")
-    for name, t in (("x", x), ("dt", dt), ("a", a), ("bmat", bmat),
-                    ("cmat", cmat), ("d_skip", d_skip), ("h0", h0)):
-        _build.check(name, t, _F32, t.shape, device)
-    if b > 65535:                                            # grid.y = B
-        raise ValueError(f"mamba_scan: batch {b} > 65535")
-    y = torch.empty_like(x)
-    h_t = torch.empty_like(h0)
-    _build.launch("mamba_scan", SOURCE,
-                  [_build.P] * 9 + [_build.I] * 9, device,
-                  x, dt, a, bmat, cmat, d_skip, h0, y, h_t, b, s, di, n,
-                  *scan_plan(b, di, n).args())
-    mamba_scan.launches += 1
+    inputs = (x, dt, a, bmat, cmat, d_skip, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return MambaScanFn.apply(*inputs)
+    y, h_t, _ = _launch_forward(*inputs, with_states=False)
     return y, h_t
 
 
 mamba_scan.launches = 0
+
+
+def mamba_scan_fwd(x, dt, a, bmat, cmat, d_skip, h0):
+    """``(y, hT, states)``: the training forward, the kernel's instance
+    that also writes the chunk states (one launch, counted in
+    ``mamba_scan.launches``) on CUDA, ``mamba_scan_plain(...,
+    return_states=True)`` on CPU."""
+    _dims(x, dt, a, bmat, cmat, d_skip, h0)
+    if not _build.on_card("mamba_scan", x.device):
+        return mamba_scan_plain(x, dt, a, bmat, cmat, d_skip, h0,
+                                return_states=True)
+    return _launch_forward(x, dt, a, bmat, cmat, d_skip, h0, with_states=True)
+
+
+def mamba_scan_bwd(x, dt, a, bmat, cmat, d_skip, states, dy, dht=None, *,
+                   need_dh0: bool = True):
+    """``(dx, ddt, da, dbmat, dcmat, dd_skip, dh0)``: on CUDA the kernels
+    of ``csrc/mamba_scan_bwd.cu`` (the reverse scan on ``scan_bwd_plan``,
+    then the fixed-order sums), counted once a call in
+    ``mamba_scan_bwd.launches``; on CPU the plain version.  ``states`` from
+    ``mamba_scan_fwd``; ``dht`` None is zero; ``dh0`` None unless
+    ``need_dh0``.  Every input contiguous float32 on one device."""
+    b, s, di, n, _ = _bwd_dims(x, dt, a, bmat, cmat, d_skip, states, dy, dht)
+    device = x.device
+    if not _build.on_card("mamba_scan_bwd", device):
+        return mamba_scan_bwd_plain(x, dt, a, bmat, cmat, d_skip, states, dy,
+                                    dht, need_dh0=need_dh0)
+    for name, t in zip(_INPUTS[:6] + ("states", "dy", "dht"),
+                       (x, dt, a, bmat, cmat, d_skip, states, dy, dht)):
+        if t is not None:
+            _build.check(f"mamba_scan_bwd: {name}", t, _F32, t.shape, device)
+    if b > 65535:
+        raise ValueError(f"mamba_scan_bwd: batch {b} > 65535")
+    plan = scan_bwd_plan(b, di, n)
+    nbx = plan.grid[0]
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    db_part = torch.empty((b, nbx, s, n), dtype=_F32, device=device)
+    dc_part = torch.empty_like(db_part)
+    da_part = torch.empty((b, di, n), dtype=_F32, device=device)
+    dd_part = torch.empty((b, di), dtype=_F32, device=device)
+    dh0 = torch.empty((b, di, n), dtype=_F32, device=device) if need_dh0 \
+        else None
+    dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
+    da, dd = torch.empty_like(a), torch.empty_like(d_skip)
+    total = 2 * b * s * n + di * n + di
+    blocks = min(-(-total // SCAN_REDUCE_THREADS), SCAN_REDUCE_MAX_BLOCKS)
+    _build.launch("mamba_scan_bwd", SOURCE_BWD,
+                  [_build.P] * 20 + [_build.I] * 10, device,
+                  x, dt, a, bmat, cmat, d_skip, states, dy, dht, dx, ddt,
+                  db_part, dc_part, da_part, dd_part, dh0, dbm, dcm, da, dd,
+                  b, s, di, n, *plan.args(), blocks)
+    mamba_scan_bwd.launches += 1
+    return dx, ddt, da, dbm, dcm, dd, dh0
+
+
+mamba_scan_bwd.launches = 0
+
+
+class MambaScanFn(torch.autograd.Function):
+    """Kernel 6 with its backward: the forward keeps the inputs and the
+    chunk states (``mamba_scan_fwd``); the backward runs ``mamba_scan_bwd``
+    on them, dy and dhT (None where hT was not used), and returns the
+    gradient of every input that needs one.  On CPU tensors both run the
+    plain twins."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, d_skip, h0):
+        y, h_t, states = mamba_scan_fwd(x, dt, a, bmat, cmat, d_skip, h0)
+        ctx.save_for_backward(x, dt, a, bmat, cmat, d_skip, states)
+        ctx.set_materialize_grads(False)
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dht):
+        x, dt, a, bmat, cmat, d_skip, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = mamba_scan_bwd(
+            x, dt, a, bmat, cmat, d_skip, states, dy.contiguous(),
+            None if dht is None else dht.contiguous(),
+            need_dh0=ctx.needs_input_grad[6])
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))

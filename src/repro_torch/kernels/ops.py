@@ -241,7 +241,9 @@ def decode_attention(q, k, v, kv_len, *,
 def mamba_scan(x, dt, a, bmat, cmat, d_skip, h0, *,
                mode: Optional[str] = None):
     """The Mamba-1 selective scan (kernel 6), one launch per call:
-    ``(y (B, S, di), hT (B, di, N))``."""
+    ``(y (B, S, di), hT (B, di, N))``.  Under grad, "cuda" carries kernel
+    6's hand-written backward; "plain" and "ref" are autograd of their
+    versions."""
     mode = _mode(mode, x.device)
     if mode == "ref":
         return ref.mamba_scan_ref(x, dt, a, bmat, cmat, d_skip, h0)

@@ -1,9 +1,14 @@
 """The Mamba-1 selective-state-space block (port of ``repro.models.mamba``):
 the mixer of the ssm (falcon-mamba) and hybrid (jamba) families.
 
-Prefill runs the selective scan through ``kernels.ops.mamba_scan``: kernel
-6 (``csrc/mamba_scan.cu``) on CUDA tensors, ONE launch a mamba layer, and
-its plain version on the CPU.  The reference runs its own chunked XLA
+Prefill and training run the selective scan through
+``kernels.ops.mamba_scan``: kernel 6 (``csrc/mamba_scan.cu``) on CUDA
+tensors, ONE launch a mamba layer, and its plain version on the CPU.  In
+training the launch is ``MambaScanFn``'s (the forward that keeps the
+chunk states, then the hand-written backward ``csrc/mamba_scan_bwd.cu``);
+autograd carries ``selective_scan``'s casts of x to float32 and of y back
+and ``a = -exp(A_log)`` around it, so ``A_log`` gets its gradient through
+the kernel's dA.  The reference runs its own chunked XLA
 scan there (``lax.scan`` over chunks of an ``associative_scan``); the
 kernel computes the same recurrence from ``h0`` and takes any S, so the
 reference's ``chunk`` (and its ``S % chunk == 0``) is ignored, as

@@ -1342,11 +1342,81 @@ def test_flash_attention_under_grad_runs_its_backward(cuda_device):
         ops.flash_attention(*small, causal=False)        # serving: fine
 
 
+# kernel 6's backward: the plain twins' shapes (the mamba class's batch
+# and the wide one), ragged S across chunk edges, several batch rows
+SCAN_BWD_SHAPES = [(1, 32, 8, 4), (2, 256, 1024, 16), (3, 77, 200, 8),
+                   (2, 129, 13, 16)]
+SCAN_BWD_TOL = 1e-4         # relative to each gradient's largest element
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dht", [True, False])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+def test_mamba_scan_bwd_matches_plain_on_card(cuda_device, shape, dht):
+    """The training forward's chunk states and y (bit for bit the serving
+    launch's), and the seven gradients against ``mamba_scan_bwd_plain``
+    on the same tensors; a second call bit for bit; two device kernels."""
+    b, s, di, n = shape
+    args = _scan(b, s, di, n, cuda_device, s + di)
+    serve_y, serve_h = tms.mamba_scan(*args)
+    y, h_t, states = tms.mamba_scan_fwd(*args)
+    _, _, want_states = tms.mamba_scan_plain(*args, return_states=True)
+    assert torch.equal(y, serve_y) and torch.equal(h_t, serve_h)
+    torch.testing.assert_close(states, want_states, rtol=4e-5, atol=4e-5)
+    gen = torch.Generator().manual_seed(s)
+    dy = torch.randn((b, s, di), generator=gen).to(cuda_device)
+    dh = torch.randn((b, di, n), generator=gen).to(cuda_device) if dht \
+        else None
+    before = tms.mamba_scan_bwd.launches
+    got = tms.mamba_scan_bwd(*args[:6], states, dy, dh)
+    torch.cuda.synchronize()
+    assert tms.mamba_scan_bwd.launches == before + 1
+    want = tms.mamba_scan_bwd_plain(*args[:6], states, dy, dh)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = float((g - w).abs().max())
+        assert err <= SCAN_BWD_TOL * float(w.abs().max()), err
+    again = tms.mamba_scan_bwd(*args[:6], states, dy, dh)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    kernels = _one_call_kernels(lambda: tms.mamba_scan_bwd(
+        *args[:6], states, dy, dh))
+    assert len(kernels) == 2 and all("mamba_scan_bwd" in k for k in kernels)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_under_grad_runs_its_backward(cuda_device):
+    """Under grad, ``ops.mamba_scan`` launches the training forward and, on
+    backward, ``mamba_scan_bwd`` once: every input's gradient (A's through
+    a = -exp(A_log) too) is autograd's of the plain version, and an input
+    that needs no gradient gets none."""
+    args = _scan(2, 100, 24, 16, cuda_device, 4)
+    a_log = torch.log(-args[2])
+    runs = []
+    for fn in (ops.mamba_scan, tms.mamba_scan_plain):
+        live = [t.clone().requires_grad_() for t in args]
+        log_a = a_log.clone().requires_grad_()
+        f0, b0 = tms.mamba_scan.launches, tms.mamba_scan_bwd.launches
+        y, h_t = fn(live[0], live[1], -torch.exp(log_a), *live[3:])
+        (y.square().sum() + h_t.sum()).backward()
+        runs.append(([t.grad for t in live[:2]] + [log_a.grad]
+                     + [t.grad for t in live[3:]],
+                     (tms.mamba_scan.launches - f0,
+                      tms.mamba_scan_bwd.launches - b0)))
+    assert runs[0][1] == (1, 1) and runs[1][1] == (0, 0), runs
+    for g, w in zip(runs[0][0], runs[1][0]):
+        assert float((g - w).abs().max()) <= SCAN_BWD_TOL * float(
+            w.abs().max())
+    x = args[0].clone().requires_grad_()
+    y, _ = ops.mamba_scan(x, *args[1:])
+    y.sum().backward()
+    assert x.grad is not None and all(t.grad is None for t in args[1:])
+
+
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_grad_on_card(cuda_device):
-    """Kernels 1-6 and 8 raise under grad mode when an input requires grad
-    (their raw launches would drop the gradient); kernel 6 names the
-    ROADMAP item."""
+    """Kernels 1-5 and 8 raise under grad mode when an input requires grad
+    (their raw launches would drop the gradient); kernel 6, which has a
+    backward, runs outside grad mode as before."""
     cfg, state, params, pods = _case(300, 4, cuda_device, 7)
     live = {k: p.clone().requires_grad_() for k, p in params.items()}
     with pytest.raises(ValueError, match="requires grad"):
@@ -1368,8 +1438,6 @@ def test_kernels_without_a_backward_refuse_grad_on_card(cuda_device):
         ops.decode_attention(q, kv, kv, 32)
     args = list(_scan(1, 32, 8, 4, cuda_device, 3))
     args[0] = args[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="kernel 6 backward"):
-        ops.mamba_scan(*args)
     with torch.no_grad():                      # outside grad mode: fine
         ops.sdqn_score_afterstate(state, pods, cfg, live)
         ops.mamba_scan(*args)
