@@ -153,7 +153,8 @@ kernel 3 for the routing):
     ``--parent-src DIR`` the kernel 8 of another checkout (the parent's
     tree) is timed at every row before and after this one's
     (``scripts/decode_timings.py``), as ``parent_ms``; phase 22 likewise
-    times the parent's kernel 7 backward (``scripts/bwd_timings.py``).
+    times the parent's kernel 7 and kernel 6 backwards
+    (``scripts/bwd_timings.py``).
 
 The paper's main path (kernels 7 and 1 on the DQN learner's path):
 
@@ -307,8 +308,13 @@ chunk states, and their hand-written backwards,
     the same rows before and after this one's (``scripts/bwd_timings.py``),
     as ``parent_ms``.  Kernel 6's backward at falcon-mamba-7b's training
     shape, (1, 32, 8, 4) and (2, 256, 1024, 16) (CUDA graph, two device
-    kernels a call, their split), beside its plain twin and its bound, and
-    its training forward against the serving launch in turns.
+    kernels a call, their split), beside its plain twin and its bound,
+    with its plan, blocks an SM (the runtime's occupancy calculator: at
+    least 2 at falcon's shape) and dB / dC partial bytes (at most
+    ``SCAN_BWD_MAX_PARTIALS`` there), the parent's backward before and
+    after under ``--parent-src``, and its training forward against the
+    serving launch in turns.  Phase 1 checks that every instance of both
+    backwards spills nothing (ptxas).
 
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
@@ -2413,20 +2419,23 @@ def parent_decode_times(src):
 
 
 def parent_bwd_times(src):
-    """{row: {"ms"}} of another checkout's kernel 7 backward at
-    ``FA_BWD_TIMED`` (``scripts/bwd_timings.py --src src`` in a process of
-    its own)."""
+    """{kernel: {row: {"ms"}}} of another checkout's backwards, kernel 7's
+    at ``FA_BWD_TIMED`` and kernel 6's at ``SCAN_BWD_TIMED`` (rows keyed
+    by the shape's ``str``), from ``scripts/bwd_timings.py --src src`` in
+    a process of its own."""
     out = subprocess.run([sys.executable, str(ROOT / "scripts" /
                                               "bwd_timings.py"),
                           "--src", str(src), "--label", "parent"],
                          capture_output=True, text=True, check=True).stdout
     rows = [json.loads(line) for line in out.splitlines()
             if line.startswith("{")]
+    times = {"flash_attention_bwd": {}, "mamba_scan_bwd": {}}
     for r in rows:
-        print(f"timing flash_attention_bwd {r['row']} of the parent ({src}): "
+        print(f"timing {r['kernel']} {r['row']} of the parent ({src}): "
               f"kernel_ms={r['ms']} device kernels us a call (profiler) "
               f"{r['kernels_us']}")
-    return {r["row"]: r for r in rows}
+        times[r["kernel"]][r["row"]] = r
+    return times
 
 
 PHASE14_DECODE = ("path", "olmo_32k", "granite_32k", "granite_32k_e4m3",
@@ -4457,6 +4466,9 @@ SCAN_BWD_TOL = 1e-4
 # forward again (3), G, P, the dB / dC terms, the three sums (13); and a
 # (batch, step, channel): dx, ddt, dD
 SCAN_BWD_OPS_PER_STATE, SCAN_BWD_OPS_PER_CHANNEL = 16, 6
+# the backward's dB / dC block partials at falcon's shape, at most (a block
+# for 8 channels wrote 0.54 GB; 32 channels a block: 0.134)
+SCAN_BWD_MAX_PARTIALS = 0.14e9
 
 
 def _bwd_case(shape, dtype, device, seed):
@@ -5020,6 +5032,8 @@ def scan_train_timings(device, name):
                            bound_by=b_by, library_ms=None, shape=list(shape),
                            bound_terms_ms=terms, kernels_us=split,
                            max_abs_err=err, plan=dataclasses.asdict(plan),
+                           blocks_per_sm=ms.scan_bwd_occupancy(plan),
+                           partial_bytes=2 * 4 * int(np.prod(plan.partials(s))),
                            path=label)
         print(f"timing mamba_scan_bwd {label} (B, S, di, N)={shape}: "
               f"kernel_ms={kernel_ms} (2 device kernels: "
@@ -5027,7 +5041,13 @@ def scan_train_timings(device, name):
               f"({b_by}; bytes={nbytes} ops={n_ops}; terms_ms {terms}) "
               f"kernel/bound={kernel_ms / b_ms} device kernels us a call "
               f"(profiler) {split} max_abs_err vs plain {err} plan {plan} "
-              f"blocks={plan.blocks} shared_bytes={plan.bwd_shared_bytes}")
+              f"blocks={plan.blocks} shared_bytes={plan.shared_bytes} "
+              f"blocks_per_sm={rows[shape]['blocks_per_sm']} "
+              f"partial_bytes={rows[shape]['partial_bytes']}")
+        if shape == SCAN_FALCON:    # two blocks an SM, a quarter of the
+            row = rows[shape]       # partials of a block for 8 channels
+            assert row["blocks_per_sm"] >= 2, row
+            assert row["partial_bytes"] <= SCAN_BWD_MAX_PARTIALS, row
         del args, states, dy, got, want
     args = _scan_args(SCAN_FALCON, device, SEED + 27)
     null = lambda: ms.mamba_scan(*args)               # noqa: E731
@@ -5229,12 +5249,16 @@ def phase_lm_train(device, name):
 
 def check_kernel6_build():
     """Kernel 6's twelve forward instances (six serving, six that also
-    write the chunk states) and its backward's seven kernels (the reverse
-    scan at each (N, SPL, L), the fixed-order sums) spill nothing."""
+    write the chunk states) and its backward's kernels (the reverse scan
+    at each built (N, SPL, L, K), ``SCAN_BWD_BUILT``, and the fixed-order
+    sums) spill nothing."""
+    from repro_torch.kernels import mamba_scan as ms
+
     fwd = ptxas_spills("mamba_scan")
     bwd = ptxas_spills("mamba_scan_bwd")
     states = {fn: v for fn, v in fwd.items() if "Lb1E" in fn}
-    assert len(fwd) == 12 and len(states) == 6 and len(bwd) == 7, (
+    n_bwd = sum(len(ks) for ks in ms.SCAN_BWD_BUILT.values()) + 1
+    assert len(fwd) == 12 and len(states) == 6 and len(bwd) == n_bwd, (
         sorted(fwd), sorted(bwd))
     for fn, (regs, stores, loads) in sorted(states.items()) + sorted(
             bwd.items()):
@@ -5338,7 +5362,7 @@ def main(argv=None) -> int:
                     help="another checkout's src directory: phases 14 and "
                          "20 also time its kernel 8 at every row, before "
                          "and after this one's (scripts/decode_timings.py), "
-                         "phase 22 its kernel 7 backward "
+                         "phase 22 its kernel 7 and kernel 6 backwards "
                          "(scripts/bwd_timings.py)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5412,14 +5436,24 @@ def main(argv=None) -> int:
         bwd_parents.append(parent_bwd_times(args.parent_src))
         for label in FA_BWD_TIMED:
             row = train_rows[label]
-            row["parent_ms"] = [p.get(label, {}).get("ms")
-                                for p in bwd_parents]
+            row["parent_ms"] = [
+                p["flash_attention_bwd"].get(label, {}).get("ms")
+                for p in bwd_parents]
             print(f"timing flash_attention_bwd {label}: kernel_ms="
                   f"{row['ms']} parent_ms={row['parent_ms']} (before, after) "
                   f"library_ms={row['library_ms']} (SDPA's backward) "
                   f"bound_ms={row['bound_ms']} kernel/parent="
                   f"{row['ms'] / statistics.mean(row['parent_ms'])} "
                   f"kernel/library={row['ms'] / row['library_ms']}")
+        for shape in SCAN_BWD_TIMED:
+            row = scan_rows[shape]
+            row["parent_ms"] = [
+                p["mamba_scan_bwd"].get(str(shape), {}).get("ms")
+                for p in bwd_parents]
+            print(f"timing mamba_scan_bwd {shape}: kernel_ms={row['ms']} "
+                  f"parent_ms={row['parent_ms']} (before, after) "
+                  f"bound_ms={row['bound_ms']} kernel/parent="
+                  f"{row['ms'] / statistics.mean(row['parent_ms'])}")
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],

@@ -1,18 +1,28 @@
-"""Time kernel 7's backward on one CUDA card at the training paths'
-shapes, for this checkout's package or another's.
+"""Time the port's hand-written backwards (kernel 7's and kernel 6's) on
+one CUDA card at the training paths' shapes, for this checkout's package
+or another's.
 
     python3 scripts/bwd_timings.py [--src DIR] [--label NAME]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that one run on a card can time another checkout's
-backward beside this one's, in turns (``chip_smoke.py --parent-src DIR``
-runs it so, before and after its own timings).  Every row of
-``chip_smoke.FA_BWD_TIMED`` (``chip_smoke.FA_BWD_SHAPES``: OLMo-1B's
-causal (8, 512, 16, 128), whisper's encoder and cross-attention at D = 64)
-in bfloat16, inputs from ``chip_smoke._bwd_case`` (seed
-``chip_smoke.SEED + 24``, as phase 22's timings), the lse from the
-package's own ``flash_attention_fwd``: device time per call of
-``flash_attention_bwd`` from a CUDA graph of 10 calls (median of 5
+backwards beside this one's, in turns (``chip_smoke.py --parent-src DIR``
+runs it so, before and after its own timings).
+
+* Kernel 7 (``flash_attention_bwd``) at every row of
+  ``chip_smoke.FA_BWD_TIMED`` (``chip_smoke.FA_BWD_SHAPES``: OLMo-1B's
+  causal (8, 512, 16, 128), whisper's encoder and cross-attention at D =
+  64) in bfloat16, inputs from ``chip_smoke._bwd_case`` (seed
+  ``chip_smoke.SEED + 24``, as phase 22's timings), the lse from the
+  package's own ``flash_attention_fwd``.
+* Kernel 6 (``mamba_scan_bwd``) at every shape of
+  ``chip_smoke.SCAN_BWD_TIMED`` (falcon-mamba-7b's training shape (8, 512,
+  8192, 16), the mamba class's (1, 32, 8, 4), (2, 256, 1024, 16)), inputs
+  from ``chip_smoke._scan_args`` (seed ``chip_smoke.SEED + 26``, as phase
+  22's), the chunk states from the package's own ``mamba_scan_fwd``, dhT
+  absent and no dh0, as in training.
+
+Each: device time per call from a CUDA graph of 10 calls (median of 5
 replays; ``chip_smoke.graph_time_ms``), and each device kernel's
 microseconds a call under torch.profiler (``chip_smoke.device_split_us``).
 Prints one JSON object a line, the card's name and power limit in each.
@@ -29,8 +39,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (FA_BWD_SHAPES, FA_BWD_TIMED, SEED,  # noqa: E402
-                        _bwd_case, device_split_us, graph_time_ms)
+from chip_smoke import (FA_BWD_SHAPES, FA_BWD_TIMED,  # noqa: E402
+                        SCAN_BWD_TIMED, SEED, _bwd_case, _scan_args,
+                        device_split_us, graph_time_ms)
 
 
 def main() -> int:
@@ -43,12 +54,14 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as scan
 
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    _build.build(["flash_attention", "flash_attention_bwd"])
+    _build.build(["flash_attention", "flash_attention_bwd", "mamba_scan",
+                  "mamba_scan_bwd"])
     for row in FA_BWD_TIMED:
         shape = FA_BWD_SHAPES[row]
         causal = shape[6]
@@ -60,10 +73,29 @@ def main() -> int:
 
         ms = graph_time_ms(call, 10)
         split = {key[:24]: us for key, us in device_split_us(call).items()}
-        print(json.dumps(dict(kind="time", label=args.label, card=smi,
-                              row=row, shape=list(shape), ms=ms,
-                              kernels_us=split)), flush=True)
+        print(json.dumps(dict(kind="time", kernel="flash_attention_bwd",
+                              label=args.label, card=smi, row=row,
+                              shape=list(shape), ms=ms, kernels_us=split)),
+              flush=True)
         del q, k, v, do, out, lse
+    for shape in SCAN_BWD_TIMED:
+        b, s, di, _ = shape
+        inputs = _scan_args(shape, device, SEED + 26)
+        _, _, states = scan.mamba_scan_fwd(*inputs)
+        dy = torch.randn((b, s, di), device=device)
+
+        def scan_call():
+            scan.mamba_scan_bwd(*inputs[:6], states, dy, None,
+                                need_dh0=False)
+
+        t_ms = graph_time_ms(scan_call, 10)
+        split = {key[:32]: us for key, us in device_split_us(
+            scan_call).items()}
+        print(json.dumps(dict(kind="time", kernel="mamba_scan_bwd",
+                              label=args.label, card=smi, row=str(shape),
+                              shape=list(shape), ms=t_ms, kernels_us=split)),
+              flush=True)
+        del inputs, states, dy
     return 0
 
 

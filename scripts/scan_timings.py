@@ -2,6 +2,7 @@
 CUDA card, beside the launch floor.
 
     python3 scripts/scan_timings.py [--src DIR] [--label NAME] [--variants]
+                                    [--bwd-variants]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that one run on a card can time another checkout's
@@ -18,7 +19,15 @@ package beside this one's, in turns.  Prints one JSON object a line:
   kernel 6 at every built (SPL, L) of the shape's N and 4, 8 and 16 warps
   a block, at the two shapes above and at both with the other state
   sizes, each held to the plain version within 4e-5; and kernel 2 at
-  every R of its launch plan (``sdqn_score.score_plan(n, 1)``).
+  every R of its launch plan (``sdqn_score.score_plan(n, 1)``);
+* with ``--bwd-variants`` (a checkout that has ``mamba_scan.ScanBwdPlan``):
+  kernel 6's backward at ``chip_smoke.SCAN_BWD_TIMED``, at every K its
+  (N, SPL, L) is built for (``SCAN_BWD_BUILT``) and 4 and 8 warps a
+  block: device time per call (CUDA graph of 10 calls), blocks an SM
+  (``scan_bwd_occupancy``), the partials' bytes, and the largest error
+  relative to each gradient's largest element against
+  ``mamba_scan_bwd_plain`` (``chip_smoke.SCAN_BWD_TOL``).  Only these
+  rows run under ``--bwd-variants`` alone.
 """
 from __future__ import annotations
 
@@ -32,8 +41,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (SCAN_PATH, SCAN_TOL, SCAN_WIDE,  # noqa: E402
-                        _scan_args, device_kernels, graph_time_ms)
+from chip_smoke import (SCAN_BWD_TIMED, SCAN_BWD_TOL,  # noqa: E402
+                        SCAN_PATH, SCAN_TOL, SCAN_WIDE, _rel_err, _scan_args,
+                        device_kernels, graph_time_ms)
 
 ROWS_N = (131072, 5000)
 # the path's and the wide shape at the other state sizes, for their plans
@@ -47,6 +57,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--bwd-variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("scan_timings: no CUDA device is visible")
@@ -64,6 +75,10 @@ def main() -> int:
         print(json.dumps(dict(kind=kind, label=args.label, card=smi, **kw)),
               flush=True)
 
+    if args.bwd_variants and not args.variants:
+        _build.build(["mamba_scan", "mamba_scan_bwd"])
+        bwd_variants(ms, device, emit)
+        return 0
     _build.build(["mamba_scan", "sdqn_score"])
     for src, log in _build.BUILD_LOG.items():
         for line in log["ptxas"].splitlines():
@@ -140,7 +155,51 @@ def main() -> int:
                          max_abs_err=err((fn(),), (want,)))
                 finally:
                     ss.score_plan = score_plan
+    if args.bwd_variants:
+        bwd_variants(ms, device, emit)
     return 0
+
+
+def bwd_variants(ms, device, emit):
+    """Kernel 6's backward at every built K and 4 and 8 warps a block, at
+    ``SCAN_BWD_TIMED`` (see the module docstring)."""
+    plan_of = ms.scan_bwd_plan
+    for shape in SCAN_BWD_TIMED:
+        b, s, di, n = shape
+        a = _scan_args(shape, device, SEED)
+        _, _, states = ms.mamba_scan_fwd(*a)
+        dy = torch.randn((b, s, di), device=device,
+                         generator=torch.Generator(device).manual_seed(SEED))
+
+        def call(a=a, states=states, dy=dy):
+            return ms.mamba_scan_bwd(*a[:6], states, dy, None, need_dh0=False)
+        want = ms.mamba_scan_bwd_plain(*a[:6], states, dy, None,
+                                       need_dh0=False)
+        chosen = plan_of(b, di, n)
+        emit("scan_bwd_plan", shape=shape, plan=str(chosen))
+        for k in ms.SCAN_BWD_BUILT[(n, chosen.states, chosen.seg_len)]:
+            for warps in (4, 8):
+                plan = ms.ScanBwdPlan.of(b, di, n, chosen.states,
+                                         chosen.seg_len, warps, k)
+                ms.scan_bwd_plan = lambda b_, di_, n_, plan=plan: plan
+                try:
+                    got = call()
+                    rel = max(_rel_err(g, w) for g, w in zip(got[:6],
+                                                              want[:6]))
+                    emit("scan_bwd_variant", shape=shape, per_warp=k,
+                         warps=warps, blocks=plan.blocks,
+                         blocks_per_sm=ms.scan_bwd_occupancy(plan),
+                         shared_bytes=plan.shared_bytes,
+                         partial_bytes=8 * b * plan.grid[0] * s * n,
+                         ms=graph_time_ms(call, 10), max_rel_err=rel,
+                         ok=rel <= SCAN_BWD_TOL)
+                except RuntimeError as ex:
+                    emit("scan_bwd_variant", shape=shape, per_warp=k,
+                         warps=warps, error=str(ex)[:300])
+                finally:
+                    ms.scan_bwd_plan = plan_of
+        del a, states, dy, want
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ below: ``check`` (dtype, shape, device, contiguity), ``on_card`` (CUDA
 launches the kernel, a CPU tensor runs the plain version, any other device
 raises), ``refuse_grad`` (a kernel without a backward raises on the card
 under grad mode when an input requires grad) and ``launch`` (the C
-function on PyTorch's current stream, raising on a nonzero
-``cudaGetLastError()``).
+function on PyTorch's current stream, raising on a nonzero code, with the
+library's ``launch_why()`` text where it has one).
 """
 from __future__ import annotations
 
@@ -157,7 +157,8 @@ def launch(name, source, argtypes, device, *args):
     (tensors pass as device pointers); raise on a CUDA error."""
     import torch
 
-    fn = getattr(load(source), f"{name}_launch")
+    lib = load(source)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = list(argtypes) + [P]      # + the stream
         fn.restype = ctypes.c_int
@@ -165,4 +166,17 @@ def launch(name, source, argtypes, device, *args):
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}"
+                           f"{_why(lib)}")
+
+
+def _why(lib) -> str:
+    """``": <text>"`` of a library's ``launch_why()`` (``csrc/
+    launch_status.cuh``: which check refused the call), or ``""`` for a
+    library without one."""
+    why = getattr(lib, "launch_why", None)
+    if why is None:
+        return ""
+    why.restype = ctypes.c_char_p
+    text = why().decode(errors="replace")
+    return f": {text}" if text else ""

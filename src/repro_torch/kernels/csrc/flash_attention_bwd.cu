@@ -68,6 +68,7 @@
 
 #include <math.h>
 
+#include "launch_status.cuh"
 #include "wgmma_tiles.cuh"
 
 #define FB_THREADS 128   // float32 kernels: 4 warps
@@ -655,9 +656,11 @@ static int launch_one(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
                       Args... args) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
+  if (attr != cudaSuccess)
+    return launch_fail((int)attr, "float32 backward: %d bytes of shared "
+                       "memory refused: %s", smem, cudaGetErrorString(attr));
   kernel<<<grid, FB_THREADS, smem, st>>>(args...);
-  return (int)cudaGetLastError();
+  return launch_check("float32 backward launch");
 }
 
 // bf16: the preprocess, main and postprocess launches; `block_m` and
@@ -670,31 +673,38 @@ static int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                        int hkv, int causal, int block_m, int smem,
                        cudaStream_t st) {
   using T = BwdTiles<D>;
-  if (block_m != T::BM || smem != T::SMEM) return (int)cudaErrorInvalidValue;
+  if (block_m != T::BM || smem != T::SMEM)
+    return launch_fail((int)cudaErrorInvalidValue,
+                       "plan (block_m %d, %d shared bytes) disagrees with "
+                       "BwdTiles<%d> (%d, %d)", block_m, smem, D, T::BM,
+                       T::SMEM);
   const float scale = (float)(1.0 / sqrt((double)D));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   CUtensorMap tq, tk, tv, tdo;
   int err;
-  if ((err = head_rows_map(&tq, q, b, sq, hq, D, T::BM)) ||
-      (err = head_rows_map(&tdo, dout, b, sq, hq, D, T::BM)) ||
-      (err = head_rows_map(&tk, k, b, skv, hkv, D, T::BN)) ||
-      (err = head_rows_map(&tv, v, b, skv, hkv, D, T::BN)))
+  if ((err = bind_primary_context()) ||
+      (err = head_rows_map(&tq, "q", q, b, sq, hq, D, T::BM)) ||
+      (err = head_rows_map(&tdo, "do", dout, b, sq, hq, D, T::BM)) ||
+      (err = head_rows_map(&tk, "k", k, b, skv, hkv, D, T::BN)) ||
+      (err = head_rows_map(&tv, "v", v, b, skv, hkv, D, T::BN)))
     return err;
   const dim3 rows(b * hq, (sq + T::BM - 1) / T::BM);
   fa_bwd_pre_bf16<D><<<rows, 256, 0, st>>>(o, dout, lse, stats, dq_acc, sq,
                                            hq);
-  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_check("preprocess launch"))) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_bwd_main_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       T::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
+  if (attr != cudaSuccess)
+    return launch_fail((int)attr, "main pass: %d bytes of shared memory "
+                       "refused: %s", T::SMEM, cudaGetErrorString(attr));
   fa_bwd_main_bf16<D><<<dim3((skv + T::BN - 1) / T::BN, b * hkv), T::THREADS,
                         T::SMEM, st>>>(tq, tk, tv, tdo, stats, dq_acc, dk, dv,
                                        sq, skv, hq, hkv, causal, scale_log2,
                                        scale);
-  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_check("main pass launch"))) return err;
   fa_bwd_post_bf16<D><<<rows, 256, 0, st>>>(dq_acc, dq, sq, hq, scale);
-  return (int)cudaGetLastError();
+  return launch_check("dQ cast launch");
 }
 
 template <int D>
@@ -725,12 +735,13 @@ static int launch_f32(const float* q, const float* k, const float* v,
 // d), k, v, dk, dv (B, Skv, Hkv, d) contiguous and 16-byte aligned, lse
 // (B, Hq, Sq) float32.  All on `stream`; returns 0 or a CUDA error (a
 // refused launch, a tensor map cuTensorMapEncodeTiled refuses, a plan
-// that disagrees).
+// that disagrees; `launch_why` says which).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
     void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
     int d, int causal, int dtype, int block_m, int smem, void* stream) {
+  const LaunchScope scope;
   cudaStream_t st = (cudaStream_t)stream;
 #define FB_BF16                                                              \
   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,            \
@@ -747,5 +758,6 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype == 0 && d == 128) return launch_f32<128>(FB_F32);
 #undef FB_BF16
 #undef FB_F32
-  return (int)cudaErrorInvalidValue;
+  return launch_fail((int)cudaErrorInvalidValue, "no instance for dtype %d "
+                     "at d = %d", dtype, d);
 }

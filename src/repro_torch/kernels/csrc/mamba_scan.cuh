@@ -82,21 +82,51 @@ struct ScanArgs {
   int s, di;
 };
 
+// The B and C rows of the chunk starting at step t0 into tiles `sb` and
+// `sb + BC`, as [segment][j][n] (Scan::SS), by every thread of the block
+// (`tid` its index): in 16-byte pieces where both are 16-byte aligned,
+// else in floats.  Steps past S are zero-filled.
+template <int N, int SPL, int L>
+__device__ __forceinline__ void load_bc(const ScanArgs& p, float* sb, int b,
+                                        int t0, bool bc16,
+                                        int tid = threadIdx.x) {
+  using S = Scan<N, SPL, L>;
+  float* sc = sb + S::BC;
+  const size_t row0 = ((size_t)b * p.s + t0) * N;
+  const int nthr = blockDim.x;
+  if (bc16) {
+    for (int q = tid; q < S::CH * N / 4; q += nthr) {
+      const int t = q / (N / 4), seg = t / L;
+      const int dst = seg * S::SS + (t - seg * L) * N + 4 * q - t * N;
+      const bool ok = t0 + t < p.s;
+      const size_t off = ok ? row0 + 4 * q : 0;
+      cp_async16(smem_u32(sb + dst), p.bm + off, ok);
+      cp_async16(smem_u32(sc + dst), p.cm + off, ok);
+    }
+  } else {
+    for (int i = tid; i < S::CH * N; i += nthr) {
+      const int t = i / N, seg = t / L;
+      const int dst = seg * S::SS + (t - seg * L) * N + i - t * N;
+      const bool ok = t0 + t < p.s;
+      const size_t off = ok ? row0 + i : 0;
+      cp_async4(smem_u32(sb + dst), p.bm + off, ok);
+      cp_async4(smem_u32(sc + dst), p.cm + off, ok);
+    }
+  }
+}
+
 // The chunk starting at step t0 into one buffer: B, C as [segment][j][n]
-// (Scan::SS), x, dt as [w][t].  Every thread of the block takes part: the
+// (load_bc), x, dt as [w][t].  Every thread of the block takes part: the
 // x and dt elements of channel w_ld at steps t_ld, t_ld + 32, ... (the
 // block's 32 W threads cover 32 steps of W channels a pass), and the B
-// and C rows in 16-byte pieces where both are 16-byte aligned, else in
-// floats.  Steps past S and channels past di are zero-filled.
+// and C rows.  Steps past S and channels past di are zero-filled.
 template <int N, int SPL, int L>
 __device__ __forceinline__ void load_chunk(const ScanArgs& p, float* buf,
                                            int w_count, int b, int ch0,
                                            int t0, int w_ld, int t_ld,
                                            bool bc16) {
   using S = Scan<N, SPL, L>;
-  float* sb = buf;
-  float* sc = sb + S::BC;
-  float* sx = sc + S::BC;
+  float* sx = buf + 2 * S::BC;
   float* sdt = sx + w_count * S::TP;
   const bool ch_ok = ch0 + w_ld < p.di;
 #pragma unroll
@@ -107,25 +137,5 @@ __device__ __forceinline__ void load_chunk(const ScanArgs& p, float* buf,
     cp_async4(smem_u32(sx + w_ld * S::TP + t), p.x + off, ok);
     cp_async4(smem_u32(sdt + w_ld * S::TP + t), p.dt + off, ok);
   }
-  const size_t row0 = ((size_t)b * p.s + t0) * N;
-  const int nthr = w_count * 32;
-  if (bc16) {
-    for (int q = threadIdx.x; q < S::CH * N / 4; q += nthr) {
-      const int t = q / (N / 4), seg = t / L;
-      const int dst = seg * S::SS + (t - seg * L) * N + 4 * q - t * N;
-      const bool ok = t0 + t < p.s;
-      const size_t off = ok ? row0 + 4 * q : 0;
-      cp_async16(smem_u32(sb + dst), p.bm + off, ok);
-      cp_async16(smem_u32(sc + dst), p.cm + off, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < S::CH * N; i += nthr) {
-      const int t = i / N, seg = t / L;
-      const int dst = seg * S::SS + (t - seg * L) * N + i - t * N;
-      const bool ok = t0 + t < p.s;
-      const size_t off = ok ? row0 + i : 0;
-      cp_async4(smem_u32(sb + dst), p.bm + off, ok);
-      cp_async4(smem_u32(sc + dst), p.cm + off, ok);
-    }
-  }
+  load_bc<N, SPL, L>(p, buf, b, t0, bc16);
 }

@@ -23,6 +23,7 @@
 
 #include <cuda.h>          // CUtensorMap and its enums; no libcuda link
 
+#include "launch_status.cuh"
 #include "mma_tiles.cuh"   // bf16, smem_addr, pack_bf16, ex2
 
 // ---------------------------------------------------------------------------
@@ -381,34 +382,79 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup, once a
-// process (null where it is missing)
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+typedef CUresult (*CtxSetCurrentFn)(CUcontext);
+typedef CUresult (*PrimaryCtxRetainFn)(CUcontext*, CUdevice);
+
+// A libcuda function through the runtime's entry-point lookup (null where
+// it is missing); each is looked up once a process by its caller's static.
+static void* cu_entry_point(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &p, 12000, cudaEnableDefault, &found);
 #else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? p
+                                                                    : nullptr;
+}
+
+static EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn =
+      reinterpret_cast<EncodeTiledFn>(cu_entry_point("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// cuTensorMapEncodeTiled is a libcuda call and refuses to run
+// (CUDA_ERROR_INVALID_CONTEXT) on a thread with no current context.  A
+// thread gets one from its first runtime call that needs the device, but a
+// backward can reach the launch function first: PyTorch's autograd engine
+// runs it on a device thread of its own, where the output's allocation may
+// come from the caching allocator without a CUDA call.  So the launch binds
+// the runtime device's primary context (the one PyTorch and the runtime
+// use) to the calling thread where none is current.  Returns 0 or a CUDA
+// error, recording why (launch_status.cuh).
+static int bind_primary_context() {
+  static const auto get = reinterpret_cast<CtxGetCurrentFn>(
+      cu_entry_point("cuCtxGetCurrent"));
+  static const auto set = reinterpret_cast<CtxSetCurrentFn>(
+      cu_entry_point("cuCtxSetCurrent"));
+  static const auto retain = reinterpret_cast<PrimaryCtxRetainFn>(
+      cu_entry_point("cuDevicePrimaryCtxRetain"));
+  if (!get || !set || !retain)
+    return launch_fail((int)cudaErrorNotSupported, "libcuda lacks the "
+                       "context entry points");
+  CUcontext ctx = nullptr;
+  CUresult r = get(&ctx);
+  if (r == CUDA_SUCCESS && ctx != nullptr) return 0;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess)
+    return launch_fail((int)e, "cudaGetDevice: %s", cudaGetErrorString(e));
+  // the primary context stays retained for the process, as the runtime's
+  if ((r = retain(&ctx, (CUdevice)dev)) != CUDA_SUCCESS ||
+      (r = set(ctx)) != CUDA_SUCCESS)
+    return launch_fail((int)cudaErrorInvalidValue, "binding device %d's "
+                       "primary context to this thread failed (CUresult %d)",
+                       dev, (int)r);
+  return 0;
 }
 
 // The rows of one head of a contiguous (B, S, H, D) bfloat16 tensor as
 // 128-byte-swizzled tiles: a 4-D map (D, H, S, B) whose box is 64 columns
 // x 1 head x `rows` rows x 1 batch; rows past S read as zeros.  Returns 0
-// or a CUDA error.
-static int head_rows_map(CUtensorMap* map, const void* base, int b, int s,
-                         int h, int d, int rows) {
+// or a CUDA error, recording which tensor's map was refused and why
+// (launch_status.cuh).
+static int head_rows_map(CUtensorMap* map, const char* name,
+                         const void* base, int b, int s, int h, int d,
+                         int rows) {
   const EncodeTiledFn encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
+  if (!encode)
+    return launch_fail((int)cudaErrorNotSupported, "tensor map of %s: "
+                       "libcuda has no cuTensorMapEncodeTiled", name);
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s,
                               (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
@@ -420,5 +466,10 @@ static int head_rows_map(CUtensorMap* map, const void* base, int b, int s,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return r == CUDA_SUCCESS
+             ? 0
+             : launch_fail((int)cudaErrorInvalidValue,
+                           "tensor map of %s refused (CUresult %d): base %p, "
+                           "(B, S, H, D) = (%d, %d, %d, %d), box rows %d",
+                           name, (int)r, base, b, s, h, d, rows);
 }

@@ -39,8 +39,8 @@ shapes.  Any S is taken (the TPU kernel needs ``S % block_s == 0``).
 ``scan_plan`` is the kernel's launch geometry: W warps a block (a channel
 each), SPL states a lane and L steps a lane's segment, so that a warp's
 chunk of ``32 / (N / SPL) * L`` steps is one scan of step maps
-(``csrc/mamba_scan.cu``); ``scan_bwd_plan`` the backward's, on the same
-chunks.
+(``csrc/mamba_scan.cu``); ``scan_bwd_plan`` the backward's
+(``ScanBwdPlan``), on the same chunks, K channels a warp.
 """
 from __future__ import annotations
 
@@ -78,6 +78,20 @@ SCAN_BUILT = tuple(sorted({(n, *lanes[n]) for lanes in (SCAN_LANES_FEW,
 SCAN_WARPS = 8                   # channels a block, at most
 SCAN_MAX_WARPS = 16              # the kernel's launch bound (512 threads)
 SCAN_BWD_MAX_WARPS = 8           # the backward's launch bound (256 threads)
+# The backward's channels a warp (K), walked in turn, for each (N, SPL, L)
+# it is built for (MSB_INSTANCES of csrc/mamba_scan_bwd.cu): the few-blocks
+# regime's pairs at K = 1, the wide regime's also at the K whose R = 8 K
+# channels a block still fit two blocks an SM (H100: 233,472 bytes of
+# shared memory an SM, 1,024 of them reserved a block).
+SCAN_BWD_BUILT = {(4, 2, 2): (1,), (8, 4, 2): (1,), (16, 4, 4): (1,),
+                  (4, 2, 8): (1, 2), (8, 4, 8): (1, 2), (16, 4, 8): (1, 2, 4)}
+# The plan takes the largest built K whose grid still has this many blocks
+# (about one an SM), else K = 1: chosen by timing every built K on an H100
+# (scripts/scan_timings.py --bwd-variants, PERF.md section 6): at
+# falcon-mamba-7b's (8, 512, 8192, 16) K = 4 (2,048 blocks) is the
+# fastest, at (2, 256, 1024, 16) K = 2 (128 blocks), and K = 4 there (64
+# blocks) the slowest.
+SCAN_BWD_MIN_BLOCKS = 128
 SCAN_REDUCE_THREADS = 256        # the backward's fixed-order sums
 SCAN_REDUCE_MAX_BLOCKS = 132 * 8
 
@@ -125,17 +139,6 @@ class ScanPlan:
            warps: int) -> "ScanPlan":
         return cls((-(-di // warps), b, 1), warps, states, seg_len, n)
 
-    @property
-    def bwd_shared_bytes(self) -> int:
-        """Dynamic shared memory a block of the backward
-        (``BwdTiles::smem_floats``): the B and C tiles, the x, dt, dy, dx
-        and ddt tiles (W rows of CH + 1 floats), rounded up to 16 bytes,
-        and two slabs of W B-tile sizes (each warp's G u and dy h)."""
-        ss = self.seg_len * self.n + (self.n * (1 - self.seg_len)) % 32
-        bc = self.segments * ss
-        slab = -(-(2 * bc + 5 * self.warps * (self.chunk + 1)) // 4) * 4
-        return 4 * (slab + 2 * self.warps * bc)
-
     def chunks(self, s: int) -> int:
         """Chunks of S steps: the chunk states' second dimension."""
         return -(-s // self.chunk)
@@ -159,14 +162,99 @@ def scan_plan(b: int, di: int, n: int) -> ScanPlan:
     return ScanPlan.of(b, di, n, *lanes[n], warps)
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanBwdPlan:
+    """The backward's launch geometry (``csrc/mamba_scan_bwd.cu``): a
+    block of W warps serves R = W K channels of one batch row, each warp
+    walking its K channels in turn, on the forward's chunks."""
+    grid: tuple          # (ceil(di / (warps per_warp)), B, 1)
+    warps: int           # W
+    per_warp: int        # K: channels a warp
+    states: int          # SPL
+    seg_len: int         # L
+    n: int               # N
+
+    lanes = ScanPlan.lanes
+    segments = ScanPlan.segments
+    chunk = ScanPlan.chunk
+    blocks = ScanPlan.blocks
+    chunks = ScanPlan.chunks
+
+    @property
+    def channels(self) -> int:
+        """R: channels a block, W K."""
+        return self.warps * self.per_warp
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory a block (``BwdTiles::smem_floats``): two
+        stages, each the B and C tiles (SEG segments of L rows at a stride
+        of SS = N mod 32 floats), the x and dt rows of the R channels (2 CH
+        + 1 floats a channel) and their chunk-start states, rounded up to
+        16 bytes; the warps' slabs of dC (then dB) slots, CH N floats each,
+        and half slabs of dB slots, L / 2 steps of 32 SPL floats each; each
+        channel's carry, dA sums and row of A; each lane's state before its
+        segment; each channel's dD sum."""
+        ss = self.seg_len * self.n + (self.n * (1 - self.seg_len)) % 32
+        r = self.channels
+        stage = -(-(2 * self.segments * ss + r * (2 * self.chunk + 1)
+                    + r * self.n) // 4) * 4
+        slabs = self.warps * (self.chunk * self.n
+                              + self.seg_len // 2 * 32 * self.states)
+        return 4 * (2 * stage + slabs + r * (3 * self.n + 1)
+                    + self.warps * 32 * self.states)
+
+    def partials(self, s: int) -> tuple:
+        """Shape of each of the dB and dC block partials, (B, blocks, S,
+        N)."""
+        return (self.grid[1], self.grid[0], s, self.n)
+
+    @classmethod
+    def of(cls, b: int, di: int, n: int, states: int, seg_len: int,
+           warps: int, per_warp: int) -> "ScanBwdPlan":
+        return cls((-(-di // (warps * per_warp)), b, 1), warps, per_warp,
+                   states, seg_len, n)
+
+    def args(self) -> tuple:
+        """The launch function's (states, seg_len, per_warp, warps,
+        grid_x, grid_y)."""
+        return (self.states, self.seg_len, self.per_warp, self.warps,
+                self.grid[0], self.grid[1])
+
+
 @functools.lru_cache(maxsize=256)
-def scan_bwd_plan(b: int, di: int, n: int) -> ScanPlan:
+def scan_bwd_plan(b: int, di: int, n: int) -> ScanBwdPlan:
     """The backward's launch: ``scan_plan``'s (SPL, L), so that its chunks
-    are the forward's and the chunk states line up, and its W (at most
-    ``SCAN_BWD_MAX_WARPS``), a block for W channels of a batch row."""
+    are the forward's and the chunk states line up; its W (at most
+    ``SCAN_BWD_MAX_WARPS``); the largest K of ``SCAN_BWD_BUILT`` that
+    leaves no warp without a channel and whose grid has at least
+    ``SCAN_BWD_MIN_BLOCKS`` blocks, else 1."""
     fwd = scan_plan(b, di, n)
     warps = min(fwd.warps, SCAN_BWD_MAX_WARPS)
-    return ScanPlan.of(b, di, n, fwd.states, fwd.seg_len, warps)
+    ks = SCAN_BWD_BUILT[(n, fwd.states, fwd.seg_len)]
+    per_warp = max((k for k in ks if warps * k <= di
+                    and -(-di // (warps * k)) * b >= SCAN_BWD_MIN_BLOCKS),
+                   default=1)
+    return ScanBwdPlan.of(b, di, n, fwd.states, fwd.seg_len, warps, per_warp)
+
+
+def scan_bwd_occupancy(plan: ScanBwdPlan) -> int:
+    """Blocks of ``plan``'s reverse-scan instance that one SM of the
+    current card holds at once (the runtime's occupancy calculator, at the
+    plan's warps and shared memory).  Needs a card."""
+    import ctypes
+
+    lib = _build.load(SOURCE_BWD)
+    fn = lib.mamba_scan_bwd_occupancy
+    fn.argtypes = [_build.I] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(plan.n, plan.states, plan.seg_len, plan.per_warp, plan.warps,
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd_occupancy: CUDA error {err}"
+                           f"{_build._why(lib)}")
+    return blocks.value
 
 
 def _dims(x, dt, a, bmat, cmat, d_skip, h0):
@@ -352,9 +440,8 @@ def mamba_scan_bwd(x, dt, a, bmat, cmat, d_skip, states, dy, dht=None, *,
     if b > 65535:
         raise ValueError(f"mamba_scan_bwd: batch {b} > 65535")
     plan = scan_bwd_plan(b, di, n)
-    nbx = plan.grid[0]
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    db_part = torch.empty((b, nbx, s, n), dtype=_F32, device=device)
+    db_part = torch.empty(plan.partials(s), dtype=_F32, device=device)
     dc_part = torch.empty_like(db_part)
     da_part = torch.empty((b, di, n), dtype=_F32, device=device)
     dd_part = torch.empty((b, di), dtype=_F32, device=device)
@@ -365,7 +452,7 @@ def mamba_scan_bwd(x, dt, a, bmat, cmat, d_skip, states, dy, dht=None, *,
     total = 2 * b * s * n + di * n + di
     blocks = min(-(-total // SCAN_REDUCE_THREADS), SCAN_REDUCE_MAX_BLOCKS)
     _build.launch("mamba_scan_bwd", SOURCE_BWD,
-                  [_build.P] * 20 + [_build.I] * 10, device,
+                  [_build.P] * 20 + [_build.I] * 11, device,
                   x, dt, a, bmat, cmat, d_skip, states, dy, dht, dx, ddt,
                   db_part, dc_part, da_part, dd_part, dh0, dbm, dcm, da, dd,
                   b, s, di, n, *plan.args(), blocks)

@@ -1383,6 +1383,56 @@ def test_mamba_scan_bwd_matches_plain_on_card(cuda_device, shape, dht):
     assert len(kernels) == 2 and all("mamba_scan_bwd" in k for k in kernels)
 
 
+# every branch of the backward's launch plan: each built (N, SPL, L) at
+# each K (channels a warp) and W (warps a block) the plan can choose
+SCAN_BWD_BRANCHES = [(n, spl, seg, k, w) for (n, spl, seg), ks in
+                     sorted(tms.SCAN_BWD_BUILT.items()) for k in ks
+                     for w in (1, 2, 4, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dht", [True, False])
+@pytest.mark.parametrize("branch", SCAN_BWD_BRANCHES)
+def test_mamba_scan_bwd_every_plan_branch_matches_plain(cuda_device, branch,
+                                                       dht, monkeypatch):
+    """The backward at every plan branch, forced (the forward on the same
+    (SPL, L), so that the chunk states line up): S across three chunks,
+    ragged, and di ragged against W K (the last block's last warps have no
+    channel); the seven gradients within ``SCAN_BWD_TOL`` of
+    ``mamba_scan_bwd_plain``'s, a second call bit for bit."""
+    n, spl, seg, k, warps = branch
+    chunk = 32 // (n // spl) * seg
+    b, s, di = 2, 2 * chunk + 5, 2 * warps * k + 3
+    fwd = tms.ScanPlan.of(b, di, n, spl, seg, 8)
+    plan = tms.ScanBwdPlan.of(b, di, n, spl, seg, warps, k)
+    monkeypatch.setattr(tms, "scan_plan", lambda *_: fwd)
+    monkeypatch.setattr(tms, "scan_bwd_plan", lambda *_: plan)
+    args = _scan(b, s, di, n, cuda_device, sum(branch))
+    _, _, states = tms.mamba_scan_fwd(*args)
+    gen = torch.Generator().manual_seed(s + k)
+    dy = torch.randn((b, s, di), generator=gen).to(cuda_device)
+    dh = torch.randn((b, di, n), generator=gen).to(cuda_device) if dht \
+        else None
+    got = tms.mamba_scan_bwd(*args[:6], states, dy, dh)
+    again = tms.mamba_scan_bwd(*args[:6], states, dy, dh)
+    torch.cuda.synchronize()
+    want = tms.mamba_scan_bwd_plain(*args[:6], states, dy, dh)
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= SCAN_BWD_TOL * float(w.abs().max()), (branch, err)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_mamba_scan_bwd_plan_holds_two_blocks_an_sm(cuda_device):
+    """Every built instance of the backward, at 8 warps a block, fits two
+    blocks on one SM of the card (the runtime's occupancy calculator)."""
+    for (n, spl, seg), ks in tms.SCAN_BWD_BUILT.items():
+        for k in ks:
+            plan = tms.ScanBwdPlan.of(1, 4096, n, spl, seg, 8, k)
+            assert tms.scan_bwd_occupancy(plan) >= 2, (n, spl, seg, k)
+
+
 @pytest.mark.cuda
 def test_mamba_scan_under_grad_runs_its_backward(cuda_device):
     """Under grad, ``ops.mamba_scan`` launches the training forward and, on

@@ -15,14 +15,15 @@ chunked associative scan).
   against the reference's state at each chunk edge;
 * ``scan_bwd_model``: the backward kernel's association in numpy float32
   for a launch plan (``scan_bwd_plan``): chunks walked from the last to
-  the first with P = dA G carried between them; in a chunk, the forward
-  rerun from the chunk state in the forward kernel's association, each
-  segment's reverse maps composed from its last step to its first, an
-  inclusive suffix Hillis-Steele scan over the segments, the steps run
+  the first with P = dA G carried between them; in a chunk, each
+  segment's forward maps and its reverse maps composed in forward order,
+  an inclusive Hillis-Steele scan over the segments for each (up and
+  down), the states rerun from each segment's start, the steps run
   again in reverse; sums over a lane's SPL states, then over the G lanes
-  by the kernel's butterfly; dB and dC summed over a block's warps, then
-  over the blocks, in order; dA and dD over the segments by a butterfly,
-  then over the batch rows;
+  by the kernel's butterfly; dB and dC summed over a warp's K channels by
+  fused multiply-adds, then over a block's warps and over the blocks, in
+  order; dA and dD over the segments by a butterfly a chunk, then over
+  the chunks and the batch rows;
 * ``MambaScanFn.apply`` on CPU tensors (its plain twins) against autograd
   of ``mamba_scan_plain``, the gradient reaching ``A_log`` through ``a =
   -exp(A_log)`` included.
@@ -180,17 +181,18 @@ def _butterfly(v, axis):
 
 def scan_bwd_model(x, dt, a, bm, cm, d_skip, states, dy, dht, plan):
     """The seven gradients in the backward kernel's association for
-    ``plan`` (``scan_bwd_plan``), numpy float32."""
+    ``plan`` (``scan_bwd_plan``, a ``ScanBwdPlan``), numpy float32."""
     b, s, di = x.shape
     n = a.shape[1]
     spl, seg_len, lanes = plan.states, plan.seg_len, plan.lanes
-    segs, ch, warps, nbx = plan.segments, plan.chunk, plan.warps, plan.grid[0]
+    segs, ch, nbx = plan.segments, plan.chunk, plan.grid[0]
+    warps, per_warp = plan.warps, plan.per_warp
     dx = np.zeros((b, s, di), F32)
     ddt = np.zeros((b, s, di), F32)
     db_part = np.zeros((b, nbx, s, n), F32)
     dc_part = np.zeros((b, nbx, s, n), F32)
-    da_acc = np.zeros((b, di, segs, n), F32)
-    dd_acc = np.zeros((b, di, segs), F32)
+    da_tot = np.zeros((b, di, n), F32)
+    dd_tot = np.zeros((b, di), F32)
     carry = np.zeros((b, di, n), F32) if dht is None else dht.copy()
     for c in range(-(-s // ch) - 1, -1, -1):
         t0, m = c * ch, min(ch, s - c * ch)
@@ -204,45 +206,44 @@ def scan_bwd_model(x, dt, a, bm, cm, d_skip, states, dy, dht, plan):
         u = dts * xs                                       # (B, di, SEG, L)
         da = np.exp(dts[..., None] * a[None, :, None, None, :])
         ub = u[..., None] * bt[:, None]                # (B, di, SEG, L, N)
+        ec = dys[..., None] * ct[:, None]              # dy_t C_t
         hc = states[:, c]
-        # the forward again, as csrc/mamba_scan.cu associates it
+        # A. the forward maps and the reverse maps, both composed in
+        # forward order, and the scans over the segments
         sa = np.ones((b, di, segs, n), F32)
         sb = np.zeros((b, di, segs, n), F32)
         sb[:, :, 0] = hc
+        rb = np.zeros((b, di, segs, n), F32)
         for j in range(seg_len):
             sa = da[:, :, :, j] * sa
             sb = _fma(da[:, :, :, j], sb, ub[:, :, :, j])
+            rb = _fma(sa, ec[:, :, :, j], rb)
+        ra = sa.copy()
+        rb[:, :, segs - 1] = _fma(ra[:, :, segs - 1], carry,
+                                  rb[:, :, segs - 1])
         d = 1
         while d < segs:
             nb, na = sb.copy(), sa.copy()
             nb[:, :, d:] = _fma(sa[:, :, d:], sb[:, :, :-d], sb[:, :, d:])
             na[:, :, d:] = sa[:, :, d:] * sa[:, :, :-d]
-            sa, sb, d = na, nb, 2 * d
-        h_in = np.concatenate([hc[:, :, None], sb[:, :, :-1]], axis=2)
-        hs, h = [], h_in
-        for j in range(seg_len):
-            h = _fma(da[:, :, :, j], h, ub[:, :, :, j])
-            hs.append(h)
-        # the reverse maps, last segment from the carry; the suffix scan
-        ra = np.ones((b, di, segs, n), F32)
-        rb = np.zeros((b, di, segs, n), F32)
-        rb[:, :, segs - 1] = carry
-        for j in range(seg_len - 1, -1, -1):
-            e = _fma(dys[:, :, :, j, None], ct[:, None, :, j], rb)
-            rb = da[:, :, :, j] * e
-            ra = da[:, :, :, j] * ra
-        d = 1
-        while d < segs:
+            sa, sb = na, nb
             nb, na = rb.copy(), ra.copy()
             nb[:, :, :-d] = _fma(ra[:, :, :-d], rb[:, :, d:], rb[:, :, :-d])
             na[:, :, :-d] = ra[:, :, :-d] * ra[:, :, d:]
             ra, rb, d = na, nb, 2 * d
+        h_in = np.concatenate([hc[:, :, None], sb[:, :, :-1]], axis=2)
         v = np.concatenate([rb[:, :, 1:], carry[:, :, None]], axis=2)
-        # the steps in reverse
-        gu = np.zeros((b, di, segs, seg_len, n), F32)
-        yh = np.zeros((b, di, segs, seg_len, n), F32)
+        # B. the states again, from each segment's start
+        hs, h = [], h_in
+        for j in range(seg_len):
+            h = _fma(da[:, :, :, j], h, ub[:, :, :, j])
+            hs.append(h)
+        # C. the steps in reverse
+        gks = np.zeros((b, di, segs, seg_len, n), F32)
         dxc = np.zeros((b, di, segs, seg_len), F32)
         ddtc = np.zeros((b, di, segs, seg_len), F32)
+        da_acc = np.zeros((b, di, segs, n), F32)
+        dd_acc = np.zeros((b, di, segs), F32)
         for j in range(seg_len - 1, -1, -1):
             hp = hs[j - 1] if j else h_in
             dtj, xj, dyj = dts[:, :, :, j], xs[:, :, :, j], dys[:, :, :, j]
@@ -252,32 +253,45 @@ def scan_bwd_model(x, dt, a, bm, cm, d_skip, states, dy, dht, plan):
                            spl, lanes)
             gah = _lane_dot(pk * a[None, :, None, :], hp, spl, lanes)
             da_acc = _fma(pk * dtj[..., None], hp, da_acc)
-            gu[:, :, :, j] = gk * u[:, :, :, j, None]
-            yh[:, :, :, j] = dyj[..., None] * hs[j]
+            gks[:, :, :, j] = gk
             v = pk
             dxc[..., j] = _fma(d_skip[None, :, None], dyj, dtj * gb)
             ddtc[..., j] = _fma(xj, gb, gah)
             dd_acc = _fma(dyj, xj, dd_acc)
         dx[:, t0:t0 + m] = np.moveaxis(dxc.reshape(b, di, ch), 1, 2)[:, :m]
         ddt[:, t0:t0 + m] = np.moveaxis(ddtc.reshape(b, di, ch), 1, 2)[:, :m]
-        # a block's warps in order, one partial a block
-        gu = np.moveaxis(gu.reshape(b, di, ch, n), 1, 2)[:, :m]
-        yh = np.moveaxis(yh.reshape(b, di, ch, n), 1, 2)[:, :m]
-        for bx in range(nbx):
-            sb_, sc_ = np.zeros((b, m, n), F32), np.zeros((b, m, n), F32)
-            for ww in range(warps):
-                chan = bx * warps + ww
-                if chan < di:
-                    sb_, sc_ = sb_ + gu[:, :, chan], sc_ + yh[:, :, chan]
-            db_part[:, bx, t0:t0 + m], dc_part[:, bx, t0:t0 + m] = sb_, sc_
+        # dA and dD: each chunk's sum over the segments, then the chunks
+        da_tot = da_tot + _butterfly(da_acc, 2)
+        dd_tot = dd_tot + _butterfly(dd_acc, 2)
         carry = v[:, :, 0]
+        # dB and dC: a warp's channels in order into its slab (fused
+        # multiply-adds), the block's warps' slabs summed in order
+        gu = np.moveaxis(gks.reshape(b, di, ch, n), 1, 2)[:, :m]
+        us = np.moveaxis(u.reshape(b, di, ch), 1, 2)[:, :m, :, None]
+        dyt = np.moveaxis(dys.reshape(b, di, ch), 1, 2)[:, :m, :, None]
+        hst = np.moveaxis(np.stack(hs, axis=3).reshape(b, di, ch, n), 1,
+                          2)[:, :m]
+        for bx in range(nbx):
+            slabs_b, slabs_c = [], []
+            for w in range(warps):
+                sb_, sc_ = np.zeros((b, m, n), F32), np.zeros((b, m, n), F32)
+                for kc in range(per_warp):
+                    chan = bx * warps * per_warp + w * per_warp + kc
+                    if chan < di:
+                        sb_ = _fma(gu[:, :, chan], us[:, :, chan], sb_)
+                        sc_ = _fma(dyt[:, :, chan], hst[:, :, chan], sc_)
+                slabs_b.append(sb_)
+                slabs_c.append(sc_)
+            tb, tc = slabs_b[0], slabs_c[0]
+            for w in range(1, warps):
+                tb, tc = tb + slabs_b[w], tc + slabs_c[w]
+            db_part[:, bx, t0:t0 + m], dc_part[:, bx, t0:t0 + m] = tb, tc
     dbm, dcm = np.zeros((b, s, n), F32), np.zeros((b, s, n), F32)
     for bx in range(nbx):
         dbm, dcm = dbm + db_part[:, bx], dcm + dc_part[:, bx]
-    da_rows, dd_rows = _butterfly(da_acc, 2), _butterfly(dd_acc, 2)
     dA, dD = np.zeros((di, n), F32), np.zeros((di,), F32)
     for bb in range(b):
-        dA, dD = dA + da_rows[bb], dD + dd_rows[bb]
+        dA, dD = dA + da_tot[bb], dD + dd_tot[bb]
     return dx, ddt, dA, dbm, dcm, dD, carry
 
 
@@ -299,21 +313,29 @@ def test_model_of_the_backward_matches_vjp(shape, dht):
     assert_grads_close(got, want, ("model", shape, dht))
 
 
-@pytest.mark.parametrize("n,states,seg_len", ms.SCAN_BUILT)
+# every built instance of the backward, (N, SPL, L, K)
+BWD_BUILT = [(n, spl, seg_len, k) for (n, spl, seg_len), ks in
+             sorted(ms.SCAN_BWD_BUILT.items()) for k in ks]
+
+
+@pytest.mark.parametrize("n,states,seg_len,per_warp", BWD_BUILT)
 @pytest.mark.parametrize("warps", [1, 4, 8])
-def test_model_holds_for_every_built_variant(n, states, seg_len, warps):
-    """Every (SPL, L) the backward is built for (the forward's), S across
-    three chunks of the longest (CH = 128), di ragged against W."""
+def test_model_holds_for_every_built_variant(n, states, seg_len, per_warp,
+                                             warps):
+    """Every (SPL, L, K) the backward is built for, S across three chunks
+    of the longest (CH = 128), di ragged against W K (a block's last warps
+    without a channel)."""
     shape = (2, 300, 11, n)
     args, dy, dh = grad_inputs(*shape, seed=n + 10 * states + seg_len)
-    plan = ms.ScanPlan.of(2, 11, n, states, seg_len, warps)
+    plan = ms.ScanBwdPlan.of(2, 11, n, states, seg_len, warps, per_warp)
     fwd = ms.ScanPlan.of(2, 11, n, states, seg_len, 8)
     st = np.stack([args[6]] + [scan_model(*(      # the chunk states
         v[:, :c * plan.chunk] if v.ndim == 3 and v.shape[1] == 300 else v
         for v in args), fwd)[1] for c in range(1, plan.chunks(300))], axis=1)
     got = scan_bwd_model(*args[:6], st, dy, dh, plan)
     want = reference_grads(jref.mamba_scan_ref, args, dy, dh)
-    assert_grads_close(got, want, ("variant", n, states, seg_len, warps))
+    assert_grads_close(got, want, ("variant", n, states, seg_len, per_warp,
+                                   warps))
 
 
 def test_model_at_long_sequences_with_strong_decay():
@@ -337,26 +359,36 @@ def test_model_at_long_sequences_with_strong_decay():
                                    (1, 1, 1, 4), (65535, 4, 8, 4)])
 def test_backward_plan_takes_the_forwards_chunks(shape):
     """The backward's chunks are the forward's (the chunk states line up),
-    its (N, SPL, L) is built, its block fits the launch bound and the
-    H100's shared memory, and its grid covers every channel."""
+    its (N, SPL, L, K) is built, its block fits the launch bound and two
+    blocks the H100's shared memory, and its grid covers every channel."""
     b, s, di, n = shape
     fwd, plan = ms.scan_plan(b, di, n), ms.scan_bwd_plan(b, di, n)
     assert (plan.states, plan.seg_len, plan.chunk) == (fwd.states,
                                                        fwd.seg_len, fwd.chunk)
-    assert (n, plan.states, plan.seg_len) in ms.SCAN_BUILT
+    assert plan.per_warp in ms.SCAN_BWD_BUILT[(n, plan.states, plan.seg_len)]
     assert 1 <= plan.warps <= ms.SCAN_BWD_MAX_WARPS
     assert plan.warps & (plan.warps - 1) == 0
     assert plan.grid[1] == b <= 65535
-    assert (plan.grid[0] - 1) * plan.warps < di <= plan.grid[0] * plan.warps
-    assert plan.bwd_shared_bytes <= 232448 // 2      # two blocks an SM
+    r = plan.channels
+    assert (plan.grid[0] - 1) * r < di <= plan.grid[0] * r
+    assert plan.per_warp == 1 or plan.warps * plan.per_warp <= di
+    # two blocks an SM: the H100's 233,472 bytes, 1,024 reserved a block
+    assert 2 * (plan.shared_bytes + 1024) <= 233_472
     assert plan.chunks(s) == -(-s // fwd.chunk)
 
 
 def test_backward_plan_at_falcons_training_shape():
-    """(8, 512, 8192, 16): CH = 64, 8 chunks, 33.5 MB of chunk states."""
+    """(8, 512, 8192, 16): CH = 64, 8 chunks, 33.5 MB of chunk states; 8
+    warps of 4 channels a block, 2,048 blocks, and 134 MB of dB / dC
+    partials (a quarter of one block for 8 channels)."""
     plan = ms.scan_bwd_plan(8, 8192, 16)
     assert plan.chunk == 64 and plan.chunks(512) == 8
     assert 4 * 8 * plan.chunks(512) * 8192 * 16 == 33_554_432
+    assert (plan.warps, plan.per_warp, plan.channels) == (8, 4, 32)
+    assert plan.grid == (256, 8, 1) and plan.blocks == 2048
+    assert plan.partials(512) == (8, 256, 512, 16)
+    assert 2 * 4 * int(np.prod(plan.partials(512))) == 134_217_728
+    assert plan.shared_bytes == 115_072
 
 
 # ---------------------------------------------------------------------------

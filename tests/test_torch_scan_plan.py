@@ -15,10 +15,22 @@ within the kernel's 4e-5, for the plan and for every built (SPL, L);
 ``dt = 0`` pad rows must leave its hT bit for bit that of the truncated
 sequence, and a NaN at step t must reach no earlier output.  The plan's
 thread map must cover every (batch, step, channel, state) exactly once.
+
+The backward's plan (``scan_bwd_plan``, a ``ScanBwdPlan``): every
+channel walked once by one warp of one block for ragged di, the
+forward's chunks wherever the forward takes a built (SPL, L), shared
+bytes equal to the kernel's static asserts and two blocks an SM, and
+the dB / dC partials the wrapper allocates (the launch captured on the
+CPU).  Its association is held to the reference in
+``tests/test_torch_scan_grad.py``.
 """
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.kernels import ops as jops, ref as jref
 from repro_torch.kernels import mamba_scan as ms
@@ -264,3 +276,111 @@ def test_both_regimes_are_built_and_one_chunk_covers_the_paths_steps(n):
         assert (n, *lanes[n]) in ms.SCAN_BUILT
     few = ms.ScanPlan.of(1, 8, n, *ms.SCAN_LANES_FEW[n], 8)
     assert few.chunk == 32
+
+
+# ---------------------------------------------------------------------------
+# the backward's launch plan (csrc/mamba_scan_bwd.cu, ``scan_bwd_plan``)
+# ---------------------------------------------------------------------------
+
+BWD_CSRC = (pathlib.Path(ms.__file__).resolve().parent / "csrc"
+            / "mamba_scan_bwd.cu")
+BWD_BUILT = [(n, spl, seg, k) for (n, spl, seg), ks in
+             sorted(ms.SCAN_BWD_BUILT.items()) for k in ks]
+SM_SHARED, BLOCK_RESERVED = 233_472, 1_024      # an H100 SM's, a block's
+
+
+def _bwd_channels(plan, di):
+    """The channel each (block, warp, turn) of the plan's grid walks, as
+    the kernel maps them (block x serves channels x R .. x R + R - 1, warp
+    w its K consecutive ones in turn), those past di dropped."""
+    bx, w, kc = (v.ravel() for v in np.meshgrid(
+        np.arange(plan.grid[0]), np.arange(plan.warps),
+        np.arange(plan.per_warp), indexing="ij"))
+    ch = bx * plan.channels + w * plan.per_warp + kc
+    return ch[ch < di]
+
+
+@pytest.mark.parametrize("n,states,seg_len,per_warp", BWD_BUILT)
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("di", [1, 3, 37, 200, 1024])
+def test_bwd_plan_covers_every_channel_exactly_once(n, states, seg_len,
+                                                   per_warp, warps, di):
+    """Every channel of a batch row is walked by exactly one warp of one
+    block, for ragged di too (the last block's last warps idle)."""
+    plan = ms.ScanBwdPlan.of(3, di, n, states, seg_len, warps, per_warp)
+    np.testing.assert_array_equal(np.sort(_bwd_channels(plan, di)),
+                                  np.arange(di))
+    assert plan.grid[1] == 3
+    assert (plan.grid[0] - 1) * plan.channels < di
+
+
+@pytest.mark.parametrize("n,states,seg_len", ms.SCAN_BUILT)
+def test_bwd_plan_keeps_the_forwards_chunks_at_every_built_instance(
+        n, states, seg_len):
+    """Wherever ``scan_plan`` takes a built (SPL, L), in either regime,
+    ``scan_bwd_plan`` takes the same, so its chunks are the forward's, and
+    a K it is built for."""
+    few = (states, seg_len) == ms.SCAN_LANES_FEW[n]
+    shapes = [(1, 8), (2, 40)] if few else [(2, 1024), (8, 8192), (512, 8)]
+    for b, di in shapes:
+        fwd, plan = ms.scan_plan(b, di, n), ms.scan_bwd_plan(b, di, n)
+        if (fwd.states, fwd.seg_len) != (states, seg_len):
+            continue
+        assert (plan.states, plan.seg_len, plan.chunk) == (
+            fwd.states, fwd.seg_len, fwd.chunk)
+        assert plan.per_warp in ms.SCAN_BWD_BUILT[(n, states, seg_len)]
+        break
+    else:
+        pytest.fail(f"no shape takes {(n, states, seg_len)}")
+
+
+def test_bwd_shared_bytes_are_the_kernels_and_fit_two_blocks_an_sm():
+    """The plan's shared bytes are ``BwdTiles::smem_floats``'s (the
+    kernel's static asserts at 8 warps), the instances are
+    ``SCAN_BWD_BUILT``'s, and two blocks fit an H100 SM at every warp
+    count the plan may take."""
+    text = BWD_CSRC.read_text()
+    built = re.findall(r"X\((\d+), (\d+), (\d+), (\d+)\)", text)
+    assert sorted(tuple(map(int, x)) for x in built) == BWD_BUILT
+    found = {tuple(map(int, m[:4])): int(m[4]) for m in re.findall(
+        r"BwdTiles<(\d+), (\d+), (\d+), (\d+)>::smem_floats\(8\) ==\s*"
+        r"(\d+)", text)}
+    assert sorted(found) == BWD_BUILT
+    for (n, spl, seg, k), nbytes in found.items():
+        assert ms.ScanBwdPlan.of(1, 4096, n, spl, seg, 8,
+                                 k).shared_bytes == nbytes
+        for warps in (1, 2, 4, 8):
+            plan = ms.ScanBwdPlan.of(1, 4096, n, spl, seg, warps, k)
+            assert 2 * (plan.shared_bytes + BLOCK_RESERVED) <= SM_SHARED
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 8192, 16), (2, 256, 1024, 16),
+                                   (1, 32, 8, 4), (3, 77, 200, 8)])
+def test_bwd_partials_are_the_ones_the_wrapper_allocates(shape,
+                                                        monkeypatch):
+    """``mamba_scan_bwd`` on the card path (the launch captured, not run)
+    allocates the dB and dC partials at ``plan.partials(S)`` and passes
+    the plan's (SPL, L, K, W, grid)."""
+    from repro_torch.kernels import _build
+
+    b, s, di, n = shape
+    if b * s * di > 2 ** 22:            # falcon's: the plan alone, no tensors
+        plan = ms.scan_bwd_plan(b, di, n)
+        assert plan.partials(s) == (b, plan.grid[0], s, n)
+        return
+    calls = []
+    monkeypatch.setattr(_build, "on_card", lambda name, device: True)
+    monkeypatch.setattr(_build, "check", lambda *a: None)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, src, types, device, *args:
+                        calls.append(args))
+    x, dt, a, bm, cm, d_skip, h0 = (torch.from_numpy(v) for v in
+                                    scan_inputs(b, s, di, n))
+    _, _, states = ms.mamba_scan_plain(x, dt, a, bm, cm, d_skip, h0,
+                                       return_states=True)
+    ms.mamba_scan_bwd(x, dt, a, bm, cm, d_skip, states, torch.ones_like(x))
+    plan = ms.scan_bwd_plan(b, di, n)
+    (args,) = calls
+    assert tuple(args[11].shape) == tuple(args[12].shape) == \
+        plan.partials(s) == (b, plan.grid[0], s, n)
+    assert args[24:30] == plan.args()
