@@ -316,6 +316,27 @@ chunk states, and their hand-written backwards,
     serving launch in turns.  Phase 1 checks that every instance of both
     backwards spills nothing (ptxas).
 
+The dry run for one card (kernel 7 and its backward at 4,096 tokens):
+
+23. ``repro_torch.launch.dryrun.plan_cells`` plans every (arch, shape)
+    cell of the 10 archs x 4 shapes for one card on fake tensors (the
+    CPU; 32 planned, the 8 ``long_500k`` cells of full-attention archs
+    skipped, none failed), one line a cell and its JSON under
+    ``dryrun_out``.  Then ``check_cell`` runs two cells the plan
+    says fit on the card, every launch counted: OLMo-1B ``train_4k`` at
+    ``--micro 256`` (one 4,096-token sequence a microbatch, cut to 2
+    microbatches), 3 steps: exactly 16 x 2 x 3 launches of kernel 7 and of
+    its backward at (1, 4096, 16, 128) causal, no plain call, the loss
+    finite; and falcon-mamba-7b ``long_500k`` at full width and depth, one
+    decode step at index 524,287 (no kernel: the mixer's decode is plain).
+    For both the arguments allocated on the card equal the plan's to the
+    byte, and the measured peak is printed beside the plan's
+    ``hbm_bytes_per_chip`` with their ratio.  Kernel 7's forward with its
+    lse and its backward at (1, 4096, 16, 128) against their plain twins
+    (``LM_TOL``, ``FA_BWD_TOL``; the backward twice more, as phase 22),
+    then timed in CUDA graphs beside their bounds and SDPA's forward and
+    backward.
+
 Each path zeroes every kernel's launch count just before it runs and
 reads the counts just after.  The line before last is the JSON kernel
 table; the last line is
@@ -328,6 +349,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -4426,6 +4448,24 @@ FA_BWD_TIMED = ("olmo_train", "whisper_encoder", "whisper_cross")
 # shapes, and the bound is 2.5 times that.
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FA_FWD_LSE_TOL = 1e-4                 # the forward's lse against plain's
+# Relative to each row's scale (``row_rel_err``: a query's output or dQ
+# row, a key's dK or dV row), for the output and the gradients alike.  At
+# 4,096 causal keys a late query's output is ~1/40 of an early one's, so a
+# check against the whole tensor's largest element (``LM_TOL``,
+# ``FA_BWD_TOL``) would pass a wrong tile in the late rows.  A row's scale
+# is its largest element, or where larger the largest root-sum-square of
+# the terms that sum to an element (``attention_rss``): a dQ row whose
+# terms cancel to near zero (the first query's, which sees one key, is 0)
+# carries the rounding of its terms, not of its value.  bfloat16: both
+# sides round each element to bfloat16 (one step, 2^-8 of the element at
+# most) and the kernels round P and dS to bfloat16 as above: an H100
+# read one step at a row's largest element (2^-7) at every shape.  One
+# shifted 32-key tile in the last rows at 4,096 keys reads 0.58 (output)
+# and 2.3-12 (gradients), where dV's whole-tensor error, 0.0177, passes
+# ``FA_BWD_TOL`` (``check_row_tol_catches_shifted_tiles``; at two heads on
+# the CPU the output's passes ``LM_TOL`` too, ``tests/test_torch_dryrun.py``).
+FA_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FA_FAULT_ROWS = 32                    # one of the forward's 32-key tiles
 
 TRAIN_STEPS = 40
 TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", str(TRAIN_STEPS), "--batch",
@@ -4484,50 +4524,169 @@ def _rel_err(got, want) -> float:
                  / want.float().abs().max())
 
 
+def row_rel_err(got, want, rss=None) -> float:
+    """The largest |got - want| of a row (the last dimension) over the
+    row's scale: its largest |want|, or the largest of ``rss`` (the
+    root-sum-square of each element's terms) where that is larger; each
+    row's scale floored at 1e-6 of the largest row's."""
+    got, want = got.float(), want.float()
+    size = want.abs() if rss is None else torch.maximum(want.abs(), rss)
+    size = size.amax(dim=-1)
+    size = torch.clamp_min(size, 1e-6 * float(size.max()))
+    return float(((got - want).abs().amax(dim=-1) / size).max())
+
+
+@torch.no_grad()
+def attention_rss(q, k, v, o, do, lse, causal, block=512):
+    """(out, dq, dk, dv): for each element of attention's output and
+    gradients the root-sum-square of the terms that sum to it, in float32
+    over key blocks as ``flash_attention_bwd_plain``: out_id = sum_j P_ij
+    v_jd, dq_id = scale sum_j dS_ij k_jd, dk_jd = scale sum_i dS_ij q_id,
+    dv_jd = sum_i P_ij do_id, each dS_ij taken at its size P_ij (|dP_ij| +
+    |Delta_i|).  A kernel that rounds P and dS moves an element by a share
+    of this, whatever the terms cancel to."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g, scale = hq // hkv, 1.0 / math.sqrt(d)
+
+    def heads(t):                                    # (B, Hkv, g, Sq, D)
+        return t.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+
+    qh, oh, doh = heads(q), heads(o), heads(do)
+    kh = k.float().permute(0, 2, 1, 3)[:, :, None]   # (B, Hkv, 1, Skv, D)
+    vh = v.float().permute(0, 2, 1, 3)[:, :, None]
+    lse_h = lse.reshape(b, hkv, g, sq, 1)
+    delta = torch.sum(doh * oh, dim=-1, keepdim=True).abs()
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    out2, dq2 = torch.zeros_like(qh), torch.zeros_like(qh)
+    dk2 = torch.zeros((b, hkv, skv, d), device=q.device)
+    dv2 = torch.zeros_like(dk2)
+    for j0 in range(0, skv, block):
+        kb, vb = kh[..., j0:j0 + block, :], vh[..., j0:j0 + block, :]
+        s = (qh @ kb.transpose(-1, -2)) * scale
+        if causal:
+            kpos = torch.arange(j0, j0 + kb.shape[-2], device=q.device)
+            s = s.masked_fill(kpos[None, :] > qpos, -torch.inf)
+        p = torch.exp(s - lse_h)
+        ds = p * ((doh @ vb.transpose(-1, -2)).abs() + delta)
+        p2, ds2 = p * p, ds * ds
+        out2 += p2 @ (vb * vb)
+        dq2 += (ds2 @ (kb * kb)) * scale ** 2
+        j1 = j0 + kb.shape[-2]
+        dk2[:, :, j0:j1] = (ds2.transpose(-1, -2) @ (qh * qh)).sum(dim=2) \
+            * scale ** 2
+        dv2[:, :, j0:j1] = (p2.transpose(-1, -2) @ (doh * doh)).sum(dim=2)
+
+    def rows(t2):
+        return t2.sqrt().permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+
+    return (rows(out2), rows(dq2), dk2.sqrt().permute(0, 2, 1, 3),
+            dv2.sqrt().permute(0, 2, 1, 3))
+
+
+def shifted_tile(t, rows=FA_FAULT_ROWS):
+    """``t`` (B, S, H, D) with its last ``rows`` rows replaced by the
+    ``rows`` before them: what a kernel that read the wrong tile there
+    would see."""
+    bad = t.clone()
+    bad[:, -rows:] = t[:, -2 * rows:-rows]
+    return bad
+
+
+def check_row_tol_catches_shifted_tiles(q, k, v, do, causal, label):
+    """Plant two faults at one shape and show that ``FA_ROW_TOL`` (per
+    row) rejects both: the output with V's last ``FA_FAULT_ROWS`` keys
+    taken from the tile before them, and the gradients with dO's last
+    ``FA_FAULT_ROWS`` queries taken so.  The whole-tensor checks
+    (``LM_TOL``, ``FA_BWD_TOL``) are printed beside.  Plain versions only
+    (no launch)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        return_lse=True)
+    bad = fa.flash_attention_plain(q, k, shifted_tile(v), causal=causal)
+    grads = fa.flash_attention_bwd_plain(q, k, v, out, do, lse,
+                                         causal=causal)
+    bad_grads = fa.flash_attention_bwd_plain(q, k, v, out, shifted_tile(do),
+                                             lse, causal=causal)
+    rss = attention_rss(q, k, v, out, do, lse, causal)
+    tol, dtype = FA_ROW_TOL[q.dtype], q.dtype
+    out_row, out_abs = row_rel_err(bad, out, rss[0]), float(
+        (bad.float() - out.float()).abs().max())
+    g_row = [row_rel_err(b, g, r)
+             for b, g, r in zip(bad_grads, grads, rss[1:])]
+    g_rel = [_rel_err(b, g) for b, g in zip(bad_grads, grads)]
+    print(f"planted faults {label}: V's last {FA_FAULT_ROWS} keys shifted "
+          f"a tile: output per row {out_row} (FA_ROW_TOL {tol}: caught "
+          f"{out_row > tol}), max_abs {out_abs} (LM_TOL {LM_TOL[dtype]}: "
+          f"caught {out_abs > LM_TOL[dtype]}); dO's last {FA_FAULT_ROWS} "
+          f"queries shifted: dq, dk, dv per row {g_row} (caught "
+          f"{[e > tol for e in g_row]}), relative to the largest {g_rel} "
+          f"(FA_BWD_TOL {FA_BWD_TOL[dtype]}: caught "
+          f"{[e > FA_BWD_TOL[dtype] for e in g_rel]})")
+    assert out_row > tol and min(g_row) > tol, (out_row, g_row)
+
+
 def check_bwd_kernels(device):
     """Kernel 7's forward with its lse and the backward kernels against the
     plain versions on the same tensors, and against autograd of the plain
     forward in float32, at every ``FA_BWD_SHAPES`` shape in float32 and
-    bfloat16.  Returns the largest absolute gradient error per dtype."""
-    from repro_torch.kernels import flash_attention as fa
-
+    bfloat16 (``check_bwd_case``).  Returns the largest absolute gradient
+    error per dtype."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
         for label, shape in FA_BWD_SHAPES.items():
-            causal = shape[6]
-            q, k, v, do = _bwd_case(shape, dtype, device, SEED + len(label))
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-            pout, plse = fa.flash_attention_plain(q, k, v, causal=causal,
-                                                  return_lse=True)
-            lse_err = float((lse - plse).abs().max())
-            out_err = float((out.float() - pout.float()).abs().max())
-            got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
-            torch.cuda.synchronize()
-            want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse,
-                                                causal=causal)
-            live = [t.float().requires_grad_() for t in (q, k, v)]
-            auto = torch.autograd.grad(
-                fa.flash_attention_plain(*live, causal=causal), live,
-                do.float())
-            rel = [_rel_err(g, w) for g, w in zip(got, want)]
-            rel_auto = [_rel_err(g, w) for g, w in zip(got, auto)]
-            abs_err = max(float((g.float() - w.float()).abs().max())
-                          for g, w in zip(got, want))
-            errs[str(dtype).split(".")[1]] = max(
-                errs.get(str(dtype).split(".")[1], 0.0), abs_err)
-            print(f"flash_attention_bwd {label} {shape} {dtype}: dq, dk, dv "
-                  f"relative to the largest gradient vs plain {rel}, vs "
-                  f"autograd of the plain forward {rel_auto}; lse max_abs_err "
-                  f"{lse_err}; out max_abs_err {out_err}")
-            tol = FA_BWD_TOL[dtype]
-            assert max(rel + rel_auto) <= tol, (label, dtype, rel, rel_auto)
-            assert lse_err <= FA_FWD_LSE_TOL, (label, dtype, lse_err)
-            assert out_err <= LM_TOL[dtype], (label, dtype, out_err)
-            if dtype == torch.bfloat16:
-                check_bwd_repeats(q, k, v, out, do, lse, causal, label)
-            del q, k, v, do, out, got, want, auto, live
+            errs[key] = max(errs.get(key, 0.0),
+                            check_bwd_case(label, shape, dtype, device)[0])
     torch.cuda.empty_cache()
     return errs
+
+
+def check_bwd_case(label, shape, dtype, device):
+    """Kernel 7's forward with its lse and its backward at ``shape`` in
+    ``dtype`` against the plain versions on the same tensors (the output
+    within ``LM_TOL``, the lse ``FA_FWD_LSE_TOL``, the gradients
+    ``FA_BWD_TOL`` of the largest, the output and the gradients
+    ``FA_ROW_TOL`` of each row's largest) and against autograd of the plain
+    forward in float32; in bfloat16 twice more (``check_bwd_repeats``).
+    Returns the largest absolute gradient error and the output's."""
+    from repro_torch.kernels import flash_attention as fa
+
+    causal = shape[6]
+    q, k, v, do = _bwd_case(shape, dtype, device, SEED + len(label))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    pout, plse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                          return_lse=True)
+    lse_err = float((lse - plse).abs().max())
+    out_err = float((out.float() - pout.float()).abs().max())
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, do, lse, causal=causal)
+    live = [t.float().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        fa.flash_attention_plain(*live, causal=causal), live, do.float())
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    rel_auto = [_rel_err(g, w) for g, w in zip(got, auto)]
+    rss = attention_rss(q, k, v, out, do, lse, causal)
+    out_row = row_rel_err(out, pout, rss[0])
+    rows = [row_rel_err(g, w, r) for g, w, r in zip(got, want, rss[1:])]
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    print(f"flash_attention_bwd {label} {shape} {dtype}: dq, dk, dv "
+          f"relative to the largest gradient vs plain {rel}, vs "
+          f"autograd of the plain forward {rel_auto}, vs plain per row "
+          f"{rows}; lse max_abs_err {lse_err}; out max_abs_err {out_err}, "
+          f"per row {out_row}")
+    tol = FA_BWD_TOL[dtype]
+    assert max(rel + rel_auto) <= tol, (label, dtype, rel, rel_auto)
+    assert max(rows + [out_row]) <= FA_ROW_TOL[dtype], (label, dtype, rows,
+                                                        out_row)
+    assert lse_err <= FA_FWD_LSE_TOL, (label, dtype, lse_err)
+    assert out_err <= LM_TOL[dtype], (label, dtype, out_err)
+    if dtype == torch.bfloat16:
+        check_bwd_repeats(q, k, v, out, do, lse, causal, label)
+    return abs_err, out_err
 
 
 def bf16_steps_apart(a, b) -> float:
@@ -5247,6 +5406,163 @@ def phase_lm_train(device, name):
     return paths, errs, figures, rows, scan_err, scan_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the dry run for one card (launch.dryrun), checked on the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, --micro) of the cells run on the card: OLMo-1B's train_4k at
+# one 4,096-token sequence a microbatch (256 of them, cut to 2), so kernel 7
+# and its backward at (1, 4096, 16, 128) causal in every layer; and
+# falcon-mamba-7b's long_500k, 64 layers at full width, one decode step at
+# index 524,287 (its mixer's decode is plain PyTorch: no kernel)
+DRYRUN_CHECKED = (("olmo-1b", "train_4k", 256),
+                  ("falcon-mamba-7b", "long_500k", 0))
+DRYRUN_STEPS = 3
+DRYRUN_CELLS = {"ok": 32, "skipped": 8}        # 10 archs x 4 shapes
+# (B, Sq, Skv, Hq, Hkv, D, causal): OLMo-1B's train_4k attention
+FA_TRAIN_4K = (1, 4096, 4096, 16, 16, 128, True)
+
+
+def phase_dryrun(device, name):
+    """Phase 23: ``launch.dryrun.plan_cells`` plans every (arch, shape)
+    cell for one card (fake tensors on the CPU, each cell's JSON under
+    ``dryrun_out``), then ``check_cell`` runs ``DRYRUN_CHECKED``
+    on the card: the arguments it allocates must be the plan's to the byte,
+    the peak is printed beside the plan's, kernel 7 and its backward at
+    ``FA_TRAIN_4K`` are held to their plain twins (per row too, a planted
+    shifted tile shown to fail that check) and timed beside SDPA's.  A
+    checked cell at the default microbatching reuses its plan from the
+    sweep; one at another ``--micro`` is planned again.
+    Returns ({kernel: {path: launches}}, {kernel: error}, {kernel: timing
+    row}, figures)."""
+    from repro_torch.configs.base import SHAPES, list_archs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cells = dryrun.plan_cells(list_archs(), list(SHAPES),
+                              out_dir=str(ROOT / dryrun.DEFAULT_OUT))
+    plan_s = time.perf_counter() - t0
+    status = {k: sum(c["status"] == k for c in cells)
+              for k in ("ok", "skipped", "failed")}
+    fits = [f"{c['arch']} {c['shape']}" for c in cells
+            if c.get("fits_hbm_80g")]
+    print(f"dry run: {len(cells)} cells planned on one card in {plan_s} s "
+          f"(budget 60): {status}; fit the card by the plan: {fits}")
+    assert status == dict(DRYRUN_CELLS, failed=0), status
+    figures = {"plan_s": plan_s, "status": status, "fit": fits}
+    paths = {"flash_attention": {}, "flash_attention_bwd": {}}
+    planned = {(c["arch"], c["shape"]): c for c in cells}
+    for arch, shape, micro in DRYRUN_CHECKED:
+        plan = (dryrun.run_cell(arch, shape, micro=micro) if micro
+                else planned[arch, shape])
+        mem = plan["memory"]
+        assert plan["fits_hbm_80g"], (arch, shape, mem)
+        torch.cuda.empty_cache()
+        with _PlainSpy() as plain:
+            zero_counts()                                  # the path starts
+            got = dryrun.check_cell(arch, shape, micro=micro, device=device,
+                                    n_steps=DRYRUN_STEPS)
+            counts = read_counts()                         # ... and ends
+        assert plain.calls == 0, plain.calls
+        ratio = got["peak_bytes"] / plan["hbm_bytes_per_chip"]
+        print(f"dry-run check {arch} {shape} --micro {micro}: {got['rows']} "
+              f"rows in {got['microbatches']} microbatches, "
+              f"{DRYRUN_STEPS} steps, ms {got['ms']}, loss {got['loss']}; "
+              f"argument bytes on the card {got['argument_bytes']} (the "
+              f"caching allocator took {got['allocated_argument_bytes']}) vs "
+              f"the plan's {mem['traced_argument_bytes']}; peak "
+              f"{got['peak_bytes']} bytes (max_memory_allocated) vs the "
+              f"plan's hbm_bytes_per_chip {plan['hbm_bytes_per_chip']} "
+              f"(argument {mem['argument_size_in_bytes']} + temp "
+              f"{mem['temp_size_in_bytes']} + output "
+              f"{mem['output_size_in_bytes']} - alias "
+              f"{mem['alias_size_in_bytes']}): measured/plan {ratio}; "
+              f"launches {counts}; {name}")
+        assert got["argument_bytes"] == mem["traced_argument_bytes"], (
+            got, mem)
+        figures[f"{arch} {shape}"] = dict(
+            got, plan_hbm_bytes_per_chip=plan["hbm_bytes_per_chip"],
+            plan_memory=mem, measured_over_plan=ratio)
+        if SHAPES[shape].kind == "train":
+            want = dryrun.cell_config(arch).num_layers * \
+                got["microbatches"] * DRYRUN_STEPS
+            assert counts["flash_attention"] == want, counts
+            assert counts["flash_attention_bwd"] == want, counts
+            assert sum(counts.values()) == 2 * want, counts
+            assert np.isfinite(got["loss"]), got
+            for key in paths:
+                paths[key][f"dry-run check, {arch} {shape}"] = counts[key]
+        else:
+            assert sum(counts.values()) == 0, counts
+        torch.cuda.empty_cache()
+    errs = check_bwd_case("olmo_train_4k", FA_TRAIN_4K, torch.bfloat16,
+                          device)
+    q, k, v, do = _bwd_case(FA_TRAIN_4K, torch.bfloat16, device,
+                            SEED + len("olmo_train_4k"))  # check_bwd_case's
+    check_row_tol_catches_shifted_tiles(q, k, v, do, FA_TRAIN_4K[6],
+                                        "olmo_train_4k")
+    del q, k, v, do
+    rows = train_4k_timings(device, name)
+    print(f"phase 23 seconds={time.perf_counter() - t0}")
+    return paths, {"flash_attention_bwd": errs[0],
+                   "flash_attention": errs[1]}, rows, figures
+
+
+def train_4k_timings(device, name):
+    """Kernel 7's training forward (the lse stored) and its backward at
+    ``FA_TRAIN_4K`` in bfloat16: device time from a CUDA graph, the plain
+    twins', the bound from these inputs and SDPA's forward and backward
+    (``library_ms``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = read_counts()
+    b, sq, skv, hq, hkv, d, causal = FA_TRAIN_4K
+    q, k, v, do = _bwd_case(FA_TRAIN_4K, torch.bfloat16, device, SEED + 28)
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
+    out, lse = fwd()
+    bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, do, lse, causal=causal)
+    names = device_kernels(bwd)
+    assert len(names) == 3 and all("fa_bwd" in n for n in names), names
+    pairs = causal_pairs(sq, skv)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib, backend = _library_attention(qt, kt, vt, causal=causal)
+    _, _, _, _, terms = attention_bound(b, hq, hkv, sq, skv, d, pairs, 2,
+                                        name)
+    terms["bytes"] += 4 * b * hq * sq / peaks(name)[1][1] * 1e3   # the lse
+    by = max(terms, key=terms.get)
+    rows = {"forward": dict(
+        ms=graph_time_ms(fwd, 10), plain_ms=graph_time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                             return_lse=True), 2, reps=3),
+        bound_ms=terms[by], bound_by="bytes" if by == "bytes"
+        else "operations", library_ms=graph_time_ms(lib, 10),
+        library_kernel=backend, bound_terms_ms=terms, shape=list(FA_TRAIN_4K),
+        path="dry-run check, olmo-1b train_4k (forward, lse stored)")}
+    b_ms, b_by, nbytes, n_ops, bterms = attention_bwd_bound(
+        b, hq, hkv, sq, skv, d, pairs, 2, name)
+    rows["backward"] = dict(
+        ms=graph_time_ms(bwd, 10), plain_ms=graph_time_ms(
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, do, lse,
+                                                 causal=causal), 2, reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=_library_backward_ms(q, k, v, do, causal),
+        bound_terms_ms=bterms, shape=list(FA_TRAIN_4K),
+        kernels_us={key[:24]: us for key, us in device_split_us(bwd).items()},
+        path="dry-run check, olmo-1b train_4k")
+    for label, row in rows.items():
+        print(f"timing flash_attention {label} (B, Sq, Skv, Hq, Hkv, D, "
+              f"causal)={FA_TRAIN_4K} bf16: kernel_ms={row['ms']} plain_ms="
+              f"{row['plain_ms']} library_ms={row['library_ms']} (SDPA's "
+              f"{label}, CUDA graph) bound_ms={row['bound_ms']} "
+              f"({row['bound_by']}; terms_ms {row['bound_terms_ms']}) "
+              f"kernel/bound={row['ms'] / row['bound_ms']} kernel/library="
+              f"{row['ms'] / row['library_ms']}")
+    for key, fn in wrappers().items():          # timing launches don't count
+        fn.launches = saved[key]
+    return rows
+
+
 def check_kernel6_build():
     """Kernel 6's twelve forward instances (six serving, six that also
     write the chunk states) and its backward's kernels (the reverse scan
@@ -5454,6 +5770,7 @@ def main(argv=None) -> int:
                   f"parent_ms={row['parent_ms']} (before, after) "
                   f"bound_ms={row['bound_ms']} kernel/parent="
                   f"{row['ms'] / statistics.mean(row['parent_ms'])}")
+    dry_paths, dry_errs, dry_rows, dry_figures = phase_dryrun(device, name)
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],
@@ -5480,11 +5797,16 @@ def main(argv=None) -> int:
     for key, per_path in (list(rest_paths.items())
                           + list(family_paths.items())
                           + list(granite_paths.items())
-                          + list(train_paths.items())):
+                          + list(train_paths.items())
+                          + list(dry_paths.items())):
         paths[key].update(per_path)
     for key, per_path in paths.items():
         launches[key] = sum(per_path.values())
     errs["decode_attention"] = max(lm_errs["decode_attention"].values())
+    train_errs["bfloat16"] = max(train_errs["bfloat16"],
+                                 dry_errs["flash_attention_bwd"])
+    lm_errs["flash_attention"]["bfloat16"] = max(
+        lm_errs["flash_attention"]["bfloat16"], dry_errs["flash_attention"])
     errs["flash_attention_bwd"] = max(train_errs.values())
     lm_errs["flash_attention_bwd"] = train_errs
     timing = phase_new_timings(device, name)
@@ -5498,10 +5820,12 @@ def main(argv=None) -> int:
     timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
     for key, rows in phase_family_timings(device, name).items():
         timing[key].setdefault("other_shapes", []).extend(rows)
-    timing["flash_attention"]["other_shapes"].append(train_rows["forward_lse"])
+    timing["flash_attention"]["other_shapes"].extend(
+        [train_rows["forward_lse"], dry_rows["forward"]])
     timing["flash_attention_bwd"] = dict(
         train_rows[FA_BWD_TIMED[0]],
-        other_shapes=[train_rows[label] for label in FA_BWD_TIMED[1:]])
+        other_shapes=[train_rows[label] for label in FA_BWD_TIMED[1:]]
+        + [dry_rows["backward"]])
     timing["mamba_scan"].setdefault("other_shapes", []).append(
         scan_rows["forward_states"])
     timing["mamba_scan_bwd"] = dict(
@@ -5586,6 +5910,7 @@ def main(argv=None) -> int:
                 kernels[-1][extra] = t[extra]
     print(f"lm_families {json.dumps(family_figures)}")
     print(f"lm_train {json.dumps(train_figures)}")
+    print(f"dry_run {json.dumps(dry_figures, default=str)}")
     print(f"chip_smoke seconds={time.perf_counter() - t_start}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

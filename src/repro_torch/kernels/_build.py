@@ -27,6 +27,8 @@ import shutil
 import subprocess
 import time
 
+from repro_torch import kernels
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -126,10 +128,11 @@ def check(name, t, dtype, shape, device):
 
 
 def on_card(name, device) -> bool:
-    """True for CUDA, False for the CPU (plain version); raises otherwise."""
+    """True on the card (``kernels.on_card``), False for the CPU (plain
+    version); raises for any other device."""
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {device}")
-    return device.type == "cuda"
+    return kernels.on_card(device)
 
 
 def refuse_grad(name, tensors, error=ValueError,

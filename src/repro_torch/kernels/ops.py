@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import dqn, env as kenv
 from repro_torch.core.types import FEATURE_DIM, ClusterState, EnvConfig, PodSpec
 from repro_torch.kernels import (decode_attention as _da,
@@ -40,10 +41,11 @@ DEFAULT_CEILINGS = (88.0, 95.0, 100.0 + 1e-6)
 
 
 def _mode(mode, device) -> str:
-    mode = mode or ("cuda" if device.type == "cuda" else "plain")
+    card = kernels.on_card(device)
+    mode = mode or ("cuda" if card else "plain")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode == "cuda" and device.type != "cuda":
+    if mode == "cuda" and not card:
         raise ValueError(f"mode='cuda' needs CUDA tensors, got {device}")
     return mode
 

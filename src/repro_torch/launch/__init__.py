@@ -1,1 +1,2 @@
-"""Entry points (port): layout planning and LM serving."""
+"""Entry points (port): layout planning, LM serving and training, and
+the dry run for one card."""

@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch import kernels
 from repro_torch.models import layers, mamba, moe
 
 
@@ -416,7 +417,7 @@ def logits_from_hidden(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tenso
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    if x.dtype == torch.float32 or x.device.type != "cuda":
+    if x.dtype == torch.float32 or not kernels.on_card(x.device):
         out = x2.to(torch.float32) @ head.to(torch.float32)
     else:
         out = _Float32Product.apply(x2, head)

@@ -33,7 +33,10 @@ def train_seeds(draws, env_cfg: EnvConfig, rl: train_rl.RLConfig,
                 n_seeds: int, carry=None, device=None) -> Tuple[dict, dict]:
     """Train ``n_seeds`` candidate policies as one batch.  ``draws`` has
     batch ``(n_seeds, rl.n_envs)``.  Returns (stacked qparams with a
-    leading seed dim, metrics dict of (S, episodes) tensors)."""
+    leading seed dim, metrics dict of (S, episodes) tensors).  The batch
+    runs unsharded on one card, as the reference's does under a one-device
+    mesh; ``launch.mesh.plan_seed_env_layout`` plans its split over
+    several devices."""
     carry, metrics = train_rl.train_carry(draws, env_cfg, rl, n_seeds,
                                           carry=carry, device=device)
     return carry.params, metrics

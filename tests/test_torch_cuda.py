@@ -1524,3 +1524,35 @@ def test_lm_gradients_through_the_kernels_match_plain_on_card(cuda_device):
     for a, b in zip(tree_leaves(runs["cuda"][1]),
                     tree_leaves(runs["plain"][1])):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape,micro", [("olmo-1b", "train_4k", 256),
+                                              ("falcon-mamba-7b",
+                                               "long_500k", 0)])
+def test_check_cell_runs_the_planned_step_on_card(cuda_device, arch, shape,
+                                                  micro):
+    """``launch.dryrun.check_cell`` at smoke widths (head width 64, the
+    backward's): the arguments it allocates are the plan's to the byte,
+    the step runs through the kernels (kernel 7 and its backward once a
+    layer a microbatch a step in training) and the loss is finite."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), head_dim=64)
+    plan = dryrun.run_cell(arch, shape, micro=micro, cfg=cfg)
+    assert plan["fits_hbm_80g"]
+    before = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    got = dryrun.check_cell(arch, shape, micro=micro, device=cuda_device,
+                            cfg=cfg, n_steps=2)
+    assert got["argument_bytes"] == plan["memory"]["traced_argument_bytes"]
+    assert got["peak_bytes"] >= got["argument_bytes"] > 0
+    runs = (fa.flash_attention.launches - before[0],
+            fa.flash_attention_bwd.launches - before[1])
+    if plan["kind"] == "train":
+        assert np.isfinite(got["loss"])
+        want = cfg.num_layers * got["microbatches"] * 2
+        assert runs == (want, want)
+    else:
+        assert runs == (0, 0) and got["loss"] is None
