@@ -8,10 +8,12 @@ Phases (any failed check raises and the run exits nonzero):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``,
-   ptxas's registers and spills per kernel, and the SASS of kernel 7's ten
-   instances (and the four that also store the rows' lse): each must hold
+   ptxas's registers and spills per kernel, and the SASS of kernel 7's
+   fourteen instances: the four bfloat16 ones at D in {64, 128} (with and
+   without the lse store) on wgmma (HGMMA) fed by TMA loads (UTMALDG), no
+   HMMA, no spill; the other ten (float32, bfloat16 at D <= 32)
    tensor-core products (HMMA) and cp.async copies (LDGSTS), the bfloat16
-   ones ldmatrix loads (LDSM) and no spill.  The backward's ten
+   ones ldmatrix loads (LDSM).  The backward's ten
    instances: 0 spill bytes in every one; the bfloat16 main pass (D = 64
    and 128) runs on wgmma (HGMMA) fed by TMA loads (UTMALDG) and adds dQ
    with bulk reduce-adds (UBLKRED), beside its preprocess and postprocess;
@@ -131,7 +133,11 @@ kernel 3 for the routing):
     dtypes, both caches; and all 256 float8 codes as the one visible V row
     (the output is each code's value, NaN at 0x7f and 0xff).  Kernel 7 in
     bfloat16 at the sweep shapes and OLMo-1B's prefill (8, 512, 16, 128),
-    causal.  Tolerances the reference's: 3e-5 float32 q, 2e-2 bfloat16 q.
+    causal; its wgmma instances (D in {64, 128}) at every row of
+    ``FA_FWD_TIMED`` and at ragged shapes (``check_wgmma_forward``: output
+    and lse, per row too, both instances equal, bit for bit twice, one
+    device kernel a call, NaN rows, a planted shifted tile caught).
+    Tolerances the reference's: 3e-5 float32 q, 2e-2 bfloat16 q.
 13. ``repro_torch.launch.serve.main`` with full-width, full-depth OLMo-1B
     (random bf16 weights from seed 0), 4 replicas, 32 requests in waves of
     8, prompts of 512 tokens, 32 generated: every wave routed and served,
@@ -153,8 +159,11 @@ kernel 3 for the routing):
     ``--parent-src DIR`` the kernel 8 of another checkout (the parent's
     tree) is timed at every row before and after this one's
     (``scripts/decode_timings.py``), as ``parent_ms``; phase 22 likewise
-    times the parent's kernel 7 and kernel 6 backwards
-    (``scripts/bwd_timings.py``).
+    times the parent's kernel 7 and kernel 6 backwards and its kernel 7
+    forward at every row of ``FA_FWD_TIMED`` (``scripts/bwd_timings.py``,
+    one build of the parent's tree a run), and each row of kernel 7's
+    bfloat16 forward timed here (phases 14, 20, 22 and 23) carries the
+    parent's as ``parent_ms``.
 
 The paper's main path (kernels 7 and 1 on the DQN learner's path):
 
@@ -2084,6 +2093,86 @@ def _ragged(b, s, device, seed):
         device)
 
 
+# kernel 7's wgmma instances (bfloat16, D in {64, 128}) beyond
+# ``FA_FWD_TIMED``'s rows: ragged Sq and Skv across the 128-row work items
+# and the 64- or 128-key tiles, GQA 3:1 and 4:1, a one-row query block
+# (B, Sq, Skv, Hq, Hkv, D, causal)
+FA_WGMMA_RAGGED = ((2, 77, 300, 6, 2, 64, True), (2, 77, 300, 6, 2, 128, False),
+                   (1, 129, 257, 3, 1, 64, False), (2, 65, 130, 8, 2, 128, True),
+                   (3, 1, 40, 4, 2, 128, True), (1, 300, 300, 2, 2, 128, True))
+
+
+def check_wgmma_forward(device):
+    """Kernel 7's wgmma instances against ``flash_attention_plain`` at every
+    row of ``FA_FWD_TIMED`` and ``FA_WGMMA_RAGGED``, both instances (with
+    and without the lse store): the output within ``LM_TOL`` and, per row,
+    ``FA_ROW_TOL``; the lse within ``FA_FWD_LSE_TOL``; the two instances'
+    outputs equal, and a second call equal bit for bit (no atomics); one
+    call one device kernel, ``flash_attention_wgmma``.  NaN in two query
+    rows gives the plain version's NaN rows.  A planted fault, V's last
+    ``FA_FAULT_ROWS`` keys taken from the rows before them (a kernel that
+    read the wrong tile there), is caught per row at the prefill and
+    whisper's encoder.  Launches made here are not counted.  Returns the
+    largest absolute error of the output."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = fa.flash_attention.launches
+    tol, dtype = FA_ROW_TOL[torch.bfloat16], torch.bfloat16
+    cases = [(label, tuple(shape[:7])) for label, shape in
+             FA_FWD_TIMED.items()] + [(f"ragged {shape}", shape)
+                                      for shape in FA_WGMMA_RAGGED]
+    worst = 0.0
+    for label, (b, sq, skv, hq, hkv, d, causal) in cases:
+        q, k, v = (t.to(dtype) for t in _qkv((b, sq, skv, hq, hkv, d),
+                                             device, SEED + 30))
+        want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  return_lse=True)
+        out = fa.flash_attention(q, k, v, causal=causal)
+        out_lse, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        again = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        rss = attention_rss(q, k, v, want, torch.zeros_like(q), want_lse,
+                            causal)[0]
+        err = float((out.float() - want.float()).abs().max())
+        row = row_rel_err(out, want, rss)
+        lse_err = float((lse - want_lse).abs().max())
+        names = device_kernels(lambda: fa.flash_attention(q, k, v,
+                                                          causal=causal))
+        print(f"flash_attention wgmma {label} (B, Sq, Skv, Hq, Hkv, D)="
+              f"{(b, sq, skv, hq, hkv, d)} causal={causal} bf16: max_abs_err="
+              f"{err} (LM_TOL {LM_TOL[dtype]}) per row {row} (FA_ROW_TOL "
+              f"{tol}) lse {lse_err} (FA_FWD_LSE_TOL {FA_FWD_LSE_TOL}); "
+              f"lse instance equal {torch.equal(out, out_lse)}, second call "
+              f"equal {torch.equal(out, again)}; device kernels {names}")
+        assert err <= LM_TOL[dtype] and row <= tol, (label, err, row)
+        assert lse_err <= FA_FWD_LSE_TOL, (label, lse_err)
+        assert torch.equal(out, out_lse) and torch.equal(out, again), label
+        assert len(names) == 1 and "flash_attention_wgmma" in names[0], names
+        worst = max(worst, err)
+        if label in ("prefill", "whisper_encoder"):
+            bad = fa.flash_attention(q, k, shifted_tile(v), causal=causal)
+            bad_row = row_rel_err(bad, want, rss)
+            print(f"planted fault {label}: V's last {FA_FAULT_ROWS} keys "
+                  f"shifted, the kernel's output per row {bad_row} "
+                  f"(FA_ROW_TOL {tol}: caught {bad_row > tol})")
+            assert bad_row > tol, (label, bad_row)
+        del q, k, v, want, want_lse, out, out_lse, lse, again, rss
+    for shape in ((2, 100, 130, 4, 2, 128), (2, 300, 300, 2, 2, 64)):
+        for causal in (False, True):
+            q, k, v = (t.to(dtype) for t in _qkv(shape, device, 5))
+            q[0, 5, 1, 3] = float("nan")
+            q[1, -1, 0, 0] = float("nan")
+            out = fa.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(q, k, v, causal=causal)
+            assert torch.equal(torch.isnan(out), torch.isnan(want)), shape
+            assert int(torch.isnan(out).sum()) == 2 * shape[-1], shape
+    print("flash_attention wgmma: NaN in two query rows gives the plain "
+          "version's NaN rows, and only those")
+    fa.flash_attention.launches = saved
+    torch.cuda.empty_cache()
+    return worst
+
+
 def phase_lm_kernels(device):
     """Kernel 8 against its plain version (sweep x kv_len in {1, 17, full,
     ragged (B,)} x {float32, bfloat16}, a strided (B, S, Hkv, D) cache
@@ -2165,6 +2254,8 @@ def phase_lm_kernels(device):
             want = ops.flash_attention(q, k, v, causal=causal, mode="plain")
             check("flash_attention", f"(B, Sq, Skv, Hq, Hkv, D)={shape} "
                   f"causal={causal}", got, want, torch.bfloat16)
+    errs["flash_attention"]["bfloat16"] = max(
+        errs["flash_attention"]["bfloat16"], check_wgmma_forward(device))
     torch.cuda.empty_cache()
     return errs
 
@@ -2441,17 +2532,18 @@ def parent_decode_times(src):
 
 
 def parent_bwd_times(src):
-    """{kernel: {row: {"ms"}}} of another checkout's backwards, kernel 7's
-    at ``FA_BWD_TIMED`` and kernel 6's at ``SCAN_BWD_TIMED`` (rows keyed
-    by the shape's ``str``), from ``scripts/bwd_timings.py --src src`` in
-    a process of its own."""
+    """{kernel: {row: {"ms"}}} of another checkout's kernel 7 forward at
+    ``FA_FWD_TIMED`` and its backwards, kernel 7's at ``FA_BWD_TIMED`` and
+    kernel 6's at ``SCAN_BWD_TIMED`` (rows keyed by the shape's ``str``),
+    from ``scripts/bwd_timings.py --src src`` in a process of its own."""
     out = subprocess.run([sys.executable, str(ROOT / "scripts" /
                                               "bwd_timings.py"),
                           "--src", str(src), "--label", "parent"],
                          capture_output=True, text=True, check=True).stdout
     rows = [json.loads(line) for line in out.splitlines()
             if line.startswith("{")]
-    times = {"flash_attention_bwd": {}, "mamba_scan_bwd": {}}
+    times = {"flash_attention": {}, "flash_attention_bwd": {},
+             "mamba_scan_bwd": {}}
     for r in rows:
         print(f"timing {r['kernel']} {r['row']} of the parent ({src}): "
               f"kernel_ms={r['ms']} device kernels us a call (profiler) "
@@ -2555,6 +2647,18 @@ DA_FAMILIES = {"whisper_self": (8, 16, 16, 416, 64, 415),
                "qwen_decode": (8, 16, 16, 544, 128, 543),
                "dbrx_decode": (8, 48, 8, 544, 128, 543)}
 FA_FAMILY_TIMED = ("whisper_encoder", "whisper_cross", "dbrx_prefill")
+# kernel 7's bfloat16 forward at every row the phases time it (14: the
+# prefill; 22: training's forward with the lse; 23: ``train_4k``; the
+# family timings): (B, Sq, Skv, Hq, Hkv, D, causal, lse).  With
+# ``--parent-src`` the parent's forward is timed at each row before and
+# after (``scripts/bwd_timings.py``, inputs ``_qkv(shape, device, SEED +
+# 29)``).
+FA_FWD_TIMED = {"prefill": (8, 512, 512, 16, 16, 128, True, False),
+                "forward_lse": (8, 512, 512, 16, 16, 128, True, True),
+                "train_4k": (1, 4096, 4096, 16, 16, 128, True, True),
+                "whisper_encoder": (8, 1500, 1500, 16, 16, 64, False, False),
+                "whisper_cross": (8, 384, 1500, 16, 16, 64, False, False),
+                "dbrx_prefill": (8, 512, 512, 48, 8, 128, True, False)}
 DA_FAMILY_TIMED = ("whisper_cross", "dbrx_decode")
 
 
@@ -4465,7 +4569,7 @@ FA_FWD_LSE_TOL = 1e-4                 # the forward's lse against plain's
 # ``FA_BWD_TOL`` (``check_row_tol_catches_shifted_tiles``; at two heads on
 # the CPU the output's passes ``LM_TOL`` too, ``tests/test_torch_dryrun.py``).
 FA_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FA_FAULT_ROWS = 32                    # one of the forward's 32-key tiles
+FA_FAULT_ROWS = 32                    # a quarter of a D = 128 tile
 
 TRAIN_STEPS = 40
 TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", str(TRAIN_STEPS), "--batch",
@@ -5348,8 +5452,7 @@ def check_kernel7_bwd_build():
     kernels at D in {64, 128}, and the bfloat16 preprocess, main pass and
     postprocess at both; the bfloat16 main pass runs its products on
     wgmma (HGMMA) from TMA loads (UTMALDG) and adds dQ with bulk
-    reduce-adds (UBLKRED).  Kernel 7's forward instances' spills are
-    printed, the bf16 ones (with and without the lse store) must be 0."""
+    reduce-adds (UBLKRED).  (The forward's: ``check_kernel7_sass``.)"""
     import re
 
     counts = sass_counts("flash_attention_bwd")
@@ -5368,11 +5471,6 @@ def check_kernel7_bwd_build():
         assert stores == loads == 0, (fn, spills[fn])
         assert "main_bf16" not in fn or (c["HGMMA"] > 0 and c["UTMALDG"] > 0
                                          and c["UBLKRED"] > 0), (fn, c)
-    for fn, (regs, stores, loads) in sorted(
-            ptxas_spills("flash_attention").items()):
-        print(f"ptxas[flash_attention] {fn}: registers={regs} "
-              f"spill_stores={stores} spill_loads={loads}")
-        assert "bf16" not in fn or stores == loads == 0, fn
 
 
 def phase_lm_train(device, name):
@@ -5611,18 +5709,37 @@ def sass_counts(source):
 
 
 def check_kernel7_sass():
-    """Every instance of kernel 7 (ten, and four more that store the rows'
-    lse for training) runs its products on the tensor cores (HMMA) and
-    loads K/V tiles with cp.async (LDGSTS); the bfloat16 ones read their
-    fragments with ldmatrix (LDSM)."""
+    """Kernel 7's fourteen instances: the four bfloat16 ones at D in {64,
+    128} (with and without the lse store) run on wgmma (HGMMA) fed by TMA
+    loads (UTMALDG), with no mma.sync (HMMA), no cp.async and no spill
+    (ptxas); no mma.sync bfloat16 instance is left at those widths; the
+    other ten (float32 at every width, bfloat16 at D in {8, 16, 32}) run
+    their products on mma.sync (HMMA) and load K/V tiles with cp.async
+    (LDGSTS), the bfloat16 ones reading fragments with ldmatrix (LDSM) and
+    spilling nothing."""
+    import re
+
     counts = sass_counts("flash_attention")
+    spills = ptxas_spills("flash_attention")
     kernels = {fn: c for fn, c in counts.items()
                if "flash_attention_" in fn}
     assert len(kernels) == 14, sorted(counts)
+    wgmma = {fn for fn in kernels if "flash_attention_wgmma" in fn}
+    assert sorted(int(re.search(r"ILi(\d+)E", fn).group(1)) for fn in
+                  wgmma) == [64, 64, 128, 128], sorted(wgmma)
     for fn, c in sorted(kernels.items()):
-        print(f"sass[flash_attention] {fn}: {c}")
-        assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
-        assert "bf16" not in fn or c["LDSM"] > 0, (fn, c)
+        regs, stores, loads = spills.get(fn, (None, None, None))
+        print(f"sass[flash_attention] {fn}: {c} registers={regs} "
+              f"spill_stores={stores} spill_loads={loads}")
+        if fn in wgmma:
+            assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, (fn, c)
+            assert c["HMMA"] == c["LDGSTS"] == 0, (fn, c)
+            assert stores == loads == 0, (fn, spills.get(fn))
+        else:
+            assert c["HMMA"] > 0 and c["LDGSTS"] > 0, (fn, c)
+            assert "bf16" not in fn or c["LDSM"] > 0, (fn, c)
+            assert "bf16" not in fn or re.search(r"ILi(8|16|32)E", fn), fn
+            assert "bf16" not in fn or stores == loads == 0, (fn, regs)
 
 
 def ptxas_spills(source):
@@ -5678,8 +5795,8 @@ def main(argv=None) -> int:
                     help="another checkout's src directory: phases 14 and "
                          "20 also time its kernel 8 at every row, before "
                          "and after this one's (scripts/decode_timings.py), "
-                         "phase 22 its kernel 7 and kernel 6 backwards "
-                         "(scripts/bwd_timings.py)")
+                         "phase 22 its kernel 7 forward and kernel 7 and "
+                         "kernel 6 backwards (scripts/bwd_timings.py)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is visible")
@@ -5822,6 +5939,24 @@ def main(argv=None) -> int:
         timing[key].setdefault("other_shapes", []).extend(rows)
     timing["flash_attention"]["other_shapes"].extend(
         [train_rows["forward_lse"], dry_rows["forward"]])
+    if args.parent_src:         # parent, this, parent: in turns on one card
+        fwd_rows = {"prefill": lm_timing["prefill"],
+                    "forward_lse": train_rows["forward_lse"],
+                    "train_4k": dry_rows["forward"]}
+        fwd_rows.update((row["path"], row) for row in
+                        timing["flash_attention"]["other_shapes"]
+                        if row.get("path") in FA_FWD_TIMED)
+        for label, row in fwd_rows.items():
+            row["parent_ms"] = [
+                p["flash_attention"].get(label, {}).get("ms")
+                for p in bwd_parents]
+            lib = row.get("library_ms")     # the lse row has none
+            print(f"timing flash_attention {label}: kernel_ms={row['ms']} "
+                  f"parent_ms={row['parent_ms']} (before, after) "
+                  f"library_ms={lib} bound_ms={row['bound_ms']} "
+                  f"kernel/parent="
+                  f"{row['ms'] / statistics.mean(row['parent_ms'])} "
+                  f"kernel/library={lib and row['ms'] / lib}")
     timing["flash_attention_bwd"] = dict(
         train_rows[FA_BWD_TIMED[0]],
         other_shapes=[train_rows[label] for label in FA_BWD_TIMED[1:]]

@@ -1,14 +1,19 @@
-"""Time the port's hand-written backwards (kernel 7's and kernel 6's) on
-one CUDA card at the training paths' shapes, for this checkout's package
-or another's.
+"""Time the port's kernel 7 forward in bfloat16 and its hand-written
+backwards (kernel 7's and kernel 6's) on one CUDA card at the paths'
+shapes, for this checkout's package or another's, from one build.
 
     python3 scripts/bwd_timings.py [--src DIR] [--label NAME]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that one run on a card can time another checkout's
-backwards beside this one's, in turns (``chip_smoke.py --parent-src DIR``
+kernels beside this one's, in turns (``chip_smoke.py --parent-src DIR``
 runs it so, before and after its own timings).
 
+* Kernel 7's forward (``flash_attention``; ``flash_attention_fwd`` where
+  the row stores the lse) at every row of ``chip_smoke.FA_FWD_TIMED`` (the
+  LM prefill, training's forward, ``train_4k``, whisper's encoder and
+  cross-attention, dbrx's 6:1 GQA) in bfloat16, inputs from
+  ``chip_smoke._qkv`` (seed ``chip_smoke.SEED + 29``).
 * Kernel 7 (``flash_attention_bwd``) at every row of
   ``chip_smoke.FA_BWD_TIMED`` (``chip_smoke.FA_BWD_SHAPES``: OLMo-1B's
   causal (8, 512, 16, 128), whisper's encoder and cross-attention at D =
@@ -22,9 +27,10 @@ runs it so, before and after its own timings).
   22's), the chunk states from the package's own ``mamba_scan_fwd``, dhT
   absent and no dh0, as in training.
 
-Each: device time per call from a CUDA graph of 10 calls (median of 5
-replays; ``chip_smoke.graph_time_ms``), and each device kernel's
-microseconds a call under torch.profiler (``chip_smoke.device_split_us``).
+Each: device time per call from a CUDA graph (20 calls for a forward, 10
+for a backward; median of 5 replays, ``chip_smoke.graph_time_ms``), and
+each device kernel's microseconds a call under torch.profiler
+(``chip_smoke.device_split_us``).
 Prints one JSON object a line, the card's name and power limit in each.
 """
 from __future__ import annotations
@@ -40,8 +46,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (FA_BWD_SHAPES, FA_BWD_TIMED,  # noqa: E402
-                        SCAN_BWD_TIMED, SEED, _bwd_case, _scan_args,
-                        device_split_us, graph_time_ms)
+                        FA_FWD_TIMED, SCAN_BWD_TIMED, SEED, _bwd_case,
+                        _qkv, _scan_args, device_split_us, graph_time_ms)
 
 
 def main() -> int:
@@ -62,6 +68,22 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     _build.build(["flash_attention", "flash_attention_bwd", "mamba_scan",
                   "mamba_scan_bwd"])
+    for row, (*shape, causal, with_lse) in FA_FWD_TIMED.items():
+        q, k, v = (t.to(torch.bfloat16)
+                   for t in _qkv(tuple(shape), device, SEED + 29))
+        fwd = fa.flash_attention_fwd if with_lse else fa.flash_attention
+
+        def fwd_call():
+            fwd(q, k, v, causal=causal)
+
+        ms = graph_time_ms(fwd_call, 20)
+        split = {key[:32]: us for key, us in device_split_us(
+            fwd_call).items()}
+        print(json.dumps(dict(kind="time", kernel="flash_attention",
+                              label=args.label, card=smi, row=row,
+                              shape=shape + [causal, with_lse], ms=ms,
+                              kernels_us=split)), flush=True)
+        del q, k, v
     for row in FA_BWD_TIMED:
         shape = FA_BWD_SHAPES[row]
         causal = shape[6]

@@ -3,8 +3,9 @@
 // descriptors for tiles in TMA's 128-byte swizzle, the wgmma fence /
 // commit / wait and product wrappers, mbarrier rings, bulk copies and
 // reduce-adds, named barriers, register rebalancing, and the host-side
-// tensor map of a (B, S, H, D) bfloat16 tensor.  First used by kernel 7's
-// backward (flash_attention_bwd.cu).
+// tensor map of a (B, S, H, D) bfloat16 tensor.  Used by kernel 7's
+// bfloat16 forward at D in {64, 128} (flash_attention.cu) and its
+// backward's main pass (flash_attention_bwd.cu).
 //
 // Tile layout (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and what
 // every descriptor below reads): a tile of R rows x 64 bf16 columns, 128
@@ -344,6 +345,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {

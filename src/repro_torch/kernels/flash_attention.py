@@ -13,10 +13,15 @@ at ``Skv - Sq`` (query row i sees keys ``0 .. i + Skv - Sq``):
   and never (B, H, Sq, Skv).  The CPU tests use it and ``chip_smoke.py``
   holds the kernel to it.
 * ``flash_attention`` — the wrapper: on CUDA tensors ONE launch of the
-  hand-written tensor-core kernel ``csrc/flash_attention.cu`` (bfloat16 on
-  ``mma.sync`` m16n8k16, float32 as 3xTF32 on m16n8k8), counted in
+  hand-written tensor-core kernel ``csrc/flash_attention.cu``, counted in
   ``flash_attention.launches``; on CPU tensors the plain version.  Any
-  other device raises.  ``plan(d, dtype)`` is the kernel's launch plan.
+  other device raises.  ``plan(d, dtype)`` is the kernel's launch plan and
+  names its design: bfloat16 at D in ``WGMMA_HEAD_DIMS`` (every LM path)
+  on ``wgmma`` fed by TMA, a producer warpgroup and two consumer
+  warpgroups over 128 query rows and K/V tiles of 128 keys (64 at D = 64;
+  ``fwd_plan``, ``fwd_walk``, ``fwd_grid``, ``fwd_deal``); bfloat16 at D
+  in {8, 16, 32} on ``mma.sync`` m16n8k16; float32 as 3xTF32 on
+  ``mma.sync`` m16n8k8.
 
 Training (the gradient of the same function):
 
@@ -62,6 +67,7 @@ from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
 HEAD_DIMS = (8, 16, 32, 64, 128)     # the kernel's template instances
+WGMMA_HEAD_DIMS = (64, 128)          # bfloat16 on wgmma fed by TMA
 BWD_HEAD_DIMS = (64, 128)            # the backward's instances
 SOURCE_BWD = "flash_attention_bwd"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,30 +79,117 @@ _F32 = torch.float32
 
 class Plan(NamedTuple):
     """One launch of the kernel (``csrc/flash_attention.cu``, whose
-    ``Tiles`` this mirrors; it refuses a launch whose ``rows`` or
-    ``smem_bytes`` differ from its own)."""
-    threads: int      # 4 warps
-    rows: int         # query rows per block, 16 a warp
+    ``Tiles`` or, for the wgmma instances, ``FwdTiles`` this mirrors; it
+    refuses a launch whose ``rows`` or ``smem_bytes`` differ from its
+    own)."""
+    threads: int      # mma.sync: 4 warps; wgmma: 3 warpgroups
+    rows: int         # query rows per block (16 a warp; 64 a warpgroup)
     keys: int         # keys per K/V tile
-    stages: int       # K/V tiles in the cp.async ring
-    pitch: int        # bytes per tile row in shared memory
+    stages: int       # K/V tiles in the cp.async or TMA ring
+    pitch: int        # bytes per tile row (wgmma: of a 64-column slab)
     smem_bytes: int   # dynamic shared memory per block: Q tile and ring
+    design: str = "mma.sync"   # or "wgmma"
 
 
-KEYS = {torch.bfloat16: 32, torch.float32: 64}   # keys per K/V tile
+KEYS = {torch.bfloat16: 32, torch.float32: 64}   # mma.sync: keys a tile
+
+
+class FwdPlan(NamedTuple):
+    """The bfloat16 wgmma forward's tiles (``csrc/flash_attention.cu``,
+    whose ``FwdTiles`` this mirrors)."""
+    threads: int          # 2 consumer warpgroups + 1 producer warpgroup
+    consumers: int        # consumer warpgroups, 64 query rows each
+    block_m: int          # query rows a block
+    block_n: int          # keys a K/V tile
+    stages: int           # K/V tiles in the TMA ring
+    smem_bytes: int       # dynamic shared memory a block
+    blocks_per_sm: int    # resident blocks an SM (the launch bound)
+    consumer_regs: int    # registers a consumer thread (setmaxnreg)
+    producer_regs: int    # registers a producer thread
+
+
+def fwd_plan(d: int) -> FwdPlan:
+    """The wgmma forward's tiles at head width ``d``: the Q tile of 128
+    rows, a 2-stage ring of K and V tiles, the output's staging tile, the
+    barriers (Q full and free; K full, V full and stage free a stage) and
+    1,024 bytes to round the base up to a 128-byte-swizzle atom.  D = 128:
+    128-key tiles, one block an SM; D = 64: 64-key tiles, two blocks an SM
+    (ptxas holds the kernel to the launch bound's registers, and two
+    blocks' 80 are too few for a 128-key score tile).  The producer keeps
+    24 registers of the block's pool and the consumers share the rest."""
+    if d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention: no wgmma instance at head width "
+                         f"{d}")
+    bm, bn, stages, threads = 128, (64 if d == 64 else 128), 2, 384
+    blocks = 2 if d == 64 else 1
+    smem = (2 * bm * d * 2 + 2 * stages * bn * d * 2 + 8 * (2 + 3 * stages)
+            + 1024)
+    pool = threads * ((65536 // (threads * blocks)) & ~7)
+    producer = 24
+    consumer = (pool - 128 * producer) // 256 & ~7
+    return FwdPlan(threads, 2, bm, bn, stages, smem, blocks, consumer,
+                   producer)
+
+
+def fwd_grid(b: int, sq: int, hq: int, d: int, sms: int) -> int:
+    """The wgmma forward's grid on ``sms`` SMs: at D = 128 persistent, one
+    block an SM (or a work item, (batch, query head, 128 query rows),
+    where there are fewer); at D = 64 a block a work item."""
+    n_items = b * hq * -(-sq // fwd_plan(d).block_m)
+    return min(n_items, sms) if d == 128 else n_items
+
+
+def fwd_deal(n_items: int, grid: int) -> list:
+    """The work items (indices into ``fwd_walk``) each block takes, in
+    order: rounds of ``grid`` items, dealt forward in even rounds and
+    backward in odd ones, so that heaviest-first items even out."""
+    return [[r * grid + (grid - 1 - j if r % 2 else j)
+             for r in range(-(-n_items // grid))
+             if r * grid + (grid - 1 - j if r % 2 else j) < n_items]
+            for j in range(grid)]
 
 
 def plan(d: int, dtype: torch.dtype) -> Plan:
-    """The launch plan at head width ``d``.  A bfloat16 tile row is padded
-    to an odd number of 16-byte chunks (ldmatrix without bank conflicts),
-    a float32 one by 4 floats (fragment reads without bank conflicts)."""
+    """The launch plan at head width ``d``.  bfloat16 at D in
+    ``WGMMA_HEAD_DIMS``: ``fwd_plan``'s tiles in TMA's 128-byte swizzle.
+    Otherwise ``mma.sync``: a bfloat16 tile row is padded to an odd number
+    of 16-byte chunks (ldmatrix without bank conflicts), a float32 one by
+    4 floats (fragment reads without bank conflicts)."""
     if d not in HEAD_DIMS or dtype not in DTYPES:
         raise ValueError(f"flash_attention: no kernel instance for {dtype} "
                          f"at head width {d}")
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        p = fwd_plan(d)
+        return Plan(p.threads, p.block_m, p.block_n, p.stages, 128,
+                    p.smem_bytes, "wgmma")
     threads, rows, stages, keys = 128, 64, 2, KEYS[dtype]
     pitch = 16 * ((d // 8) | 1) if dtype == torch.bfloat16 else 4 * (d + 4)
     return Plan(threads, rows, keys, stages, pitch,
                 pitch * (rows + 2 * stages * keys))
+
+
+def fwd_walk(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+             causal: bool) -> list:
+    """The wgmma forward's work items in order (batch and query head
+    fastest, then the query block, reversed: the heaviest first,
+    ``query_block_order``; ``fwd_deal`` deals them to the blocks): ``(batch,
+    query head, KV head, first query row, [(first key, masked), ...])``,
+    the K/V tiles the producer loads for the item in order, each marked
+    where the consumers mask it by index (it crosses the causal diagonal at
+    ``skv - sq`` or the last key)."""
+    p = fwd_plan(d)
+    bm, bn, group = p.block_m, p.block_n, hq // hkv
+    n_qb = -(-sq // bm)
+    out = []
+    for y in query_block_order(n_qb):
+        q0 = y * bm
+        n_keys = min(skv, min(sq, q0 + bm) + skv - sq) if causal else skv
+        kmin = min(skv, q0 + skv - sq + 1) if causal else skv
+        tiles = [(k0, k0 + bn > kmin) for k0 in range(0, n_keys, bn)]
+        for x in range(b * hq):
+            bb, h = divmod(x, hq)
+            out.append((bb, h, h // group, q0, tiles))
+    return out
 
 
 class BwdPlan(NamedTuple):
@@ -248,7 +341,7 @@ def _launch_forward(q, k, v, causal, with_lse):
     _check_card((("q", q, q.shape), ("k", k, k.shape), ("v", v, k.shape)),
                 q.dtype, device)
     p = plan(d, q.dtype)
-    if b * hq >= 2 ** 31 or -(-sq // p.rows) > 65535:
+    if b * hq * -(-sq // p.rows) >= 2 ** 31 or -(-sq // p.rows) > 65535:
         raise ValueError(f"flash_attention: grid too large for B={b} Hq={hq} "
                          f"Sq={sq}")
     out = torch.empty_like(q)

@@ -1058,6 +1058,129 @@ def test_flash_attention_nan_in_q_gives_the_plain_versions_nan_rows(
     assert int(torch.isnan(out).sum()) == 2 * d
 
 
+# kernel 7's wgmma instances (bf16, D in {64, 128}): chip_smoke.FA_FWD_TIMED's
+# rows (the LM prefill, train_4k, whisper's encoder and cross-attention,
+# dbrx's 6:1 GQA) and ragged Sq / Skv across the 128-row work items and the
+# 64- or 128-key tiles (B, Sq, Skv, Hq, Hkv, D, causal)
+FA_WGMMA_SHAPES = [(8, 512, 512, 16, 16, 128, True),
+                   (1, 4096, 4096, 16, 16, 128, True),
+                   (8, 1500, 1500, 16, 16, 64, False),
+                   (8, 384, 1500, 16, 16, 64, False),
+                   (8, 512, 512, 48, 8, 128, True),
+                   (2, 77, 300, 6, 2, 64, True), (2, 77, 300, 6, 2, 128, False),
+                   (1, 129, 257, 3, 1, 64, False), (2, 65, 130, 8, 2, 128, True),
+                   (3, 1, 40, 4, 2, 128, True), (1, 300, 300, 2, 2, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FA_WGMMA_SHAPES)
+def test_flash_attention_wgmma_matches_plain_on_card(cuda_device, shape):
+    """Both wgmma instances (with and without the lse store) against the
+    plain version: the output within 2e-2 and per row within
+    ``chip_smoke.FA_ROW_TOL`` of the row's scale, the lse within 1e-4; the
+    two instances' outputs equal, a second call equal bit for bit (the
+    forward has no atomics), one launch a call."""
+    import pathlib
+    import sys
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import FA_ROW_TOL, attention_rss, row_rel_err
+
+    b, sq, skv, hq, hkv, d, causal = shape
+    assert fa.plan(d, torch.bfloat16).design == "wgmma"
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _qkv(b, sq, skv, hq, hkv, d, cuda_device, sum(shape)))
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              return_lse=True)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal)
+    out_lse, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 3
+    torch.testing.assert_close(out, want, **_tol(torch.bfloat16))
+    rss = attention_rss(q, k, v, want, torch.zeros_like(q), want_lse,
+                        causal)[0]
+    assert row_rel_err(out, want, rss) <= FA_ROW_TOL[torch.bfloat16]
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    assert torch.equal(out, out_lse) and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 512, 16, 16, 128, True),
+                                   (8, 1500, 1500, 16, 16, 64, False)])
+def test_flash_attention_wgmma_catches_a_planted_tile_fault(cuda_device,
+                                                            shape):
+    """V's last 32 keys taken from the 32 before them (what a kernel that
+    read the wrong tile there would see): the kernel's output on those
+    inputs fails ``FA_ROW_TOL`` against the plain version on the true
+    ones, where its output on the true ones passes."""
+    import pathlib
+    import sys
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import FA_ROW_TOL, attention_rss, row_rel_err, shifted_tile
+
+    b, sq, skv, hq, hkv, d, causal = shape
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _qkv(b, sq, skv, hq, hkv, d, cuda_device, 29))
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              return_lse=True)
+    rss = attention_rss(q, k, v, want, torch.zeros_like(q), want_lse,
+                        causal)[0]
+    tol = FA_ROW_TOL[torch.bfloat16]
+    good = fa.flash_attention(q, k, v, causal=causal)
+    bad = fa.flash_attention(q, k, shifted_tile(v, 32), causal=causal)
+    assert row_rel_err(good, want, rss) <= tol < row_rel_err(bad, want, rss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_wgmma_call_is_one_device_kernel(cuda_device, d):
+    """One launch of a wgmma instance is one device kernel, the wgmma one,
+    with and without the lse store; a plan that disagrees with the
+    kernel's tiles is refused with the reason."""
+    from repro_torch.kernels import _build, flash_attention as fa
+
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _qkv(2, 300, 300, 4, 2, d, cuda_device, d))
+    for call in (lambda: fa.flash_attention(q, k, v, causal=True),
+                 lambda: fa.flash_attention_fwd(q, k, v, causal=True)):
+        names = _one_call_kernels(call)
+        assert len(names) == 1 and "flash_attention_wgmma" in names[0], names
+    p = fa.plan(d, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="disagrees with FwdTiles"):
+        _build.launch("flash_attention", fa.SOURCE,
+                      [_build.P] * 5 + [_build.I] * 10, q.device, q, k, v,
+                      torch.empty_like(q), None, 2, 300, 300, 4, 2, d, 1, 1,
+                      p.rows, p.smem_bytes + 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 300, 2, 2, 64),
+                                   (2, 100, 130, 4, 2, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wgmma_nan_rows_match_plain(cuda_device, shape,
+                                                    causal):
+    """NaN in two query rows of the wgmma instances gives the plain
+    version's NaN rows, and only those, with and without the lse store."""
+    from repro_torch.kernels import flash_attention as fa
+
+    d = shape[-1]
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(*shape, cuda_device, 5))
+    q[0, 5, 1, 3] = float("nan")
+    q[1, -1, 0, 0] = float("nan")
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    for out in (fa.flash_attention(q, k, v, causal=causal),
+                fa.flash_attention_fwd(q, k, v, causal=causal)[0]):
+        assert torch.equal(torch.isnan(out), torch.isnan(want))
+        assert int(torch.isnan(out).sum()) == 2 * d
+
+
 @pytest.mark.cuda
 def test_lm_wave_goes_through_kernels_7_and_8(cuda_device):
     """A smoke-size olmo-1b wave on the card: one launch of kernel 7 per

@@ -330,12 +330,22 @@ def test_flash_attention_plain_bf16_and_d128_match_pallas_interpret(
 
 
 def test_flash_attention_rows_per_block():
-    """4 warps of 16 query rows and a two-stage ring of K/V tiles, of 32
-    keys in bfloat16 and 64 in float32, at every head width."""
+    """mma.sync (float32 at every width, bfloat16 below D = 64): 4 warps of
+    16 query rows and a two-stage ring of K/V tiles, of 32 keys in
+    bfloat16 and 64 in float32.  wgmma (bfloat16 at D in {64, 128}, every
+    LM path): three warpgroups over 128 query rows and a two-stage TMA ring
+    of ``fwd_plan``'s K/V tiles."""
     for d in tfa.HEAD_DIMS:
         for dtype, keys in ((torch.bfloat16, 32), (torch.float32, 64)):
             p = tfa.plan(d, dtype)
-            assert (p.threads, p.rows, p.keys, p.stages) == (128, 64, keys, 2)
+            wgmma = dtype == torch.bfloat16 and d in tfa.WGMMA_HEAD_DIMS
+            assert p.design == ("wgmma" if wgmma else "mma.sync")
+            if wgmma:
+                assert (p.threads, p.rows, p.keys, p.stages) == (
+                    384, 128, tfa.fwd_plan(d).block_n, 2)
+            else:
+                assert (p.threads, p.rows, p.keys, p.stages) == (128, 64,
+                                                                 keys, 2)
 
 
 PLAN_CASES = [(d, dtype) for d in tfa.HEAD_DIMS
@@ -344,19 +354,24 @@ PLAN_CASES = [(d, dtype) for d in tfa.HEAD_DIMS
 
 @pytest.mark.parametrize("d,dtype", PLAN_CASES)
 def test_flash_attention_plan_fits_shared_memory(d, dtype):
-    """Dynamic shared bytes: the Q tile and the K/V ring; a block may use
-    232,448 bytes.  Rows are whole 16-byte chunks (cp.async and ldmatrix)
-    and hold a row of D elements."""
+    """Dynamic shared bytes within a block's 232,448.  mma.sync: the Q
+    tile and the K/V ring, rows whole 16-byte chunks (cp.async and
+    ldmatrix) that hold a row of D elements.  wgmma: ``fwd_plan``'s, rows
+    of 64-column slabs in TMA's 128-byte swizzle."""
     p = tfa.plan(d, dtype)
-    assert p.smem_bytes == p.pitch * (p.rows + 2 * p.stages * p.keys)
     assert p.smem_bytes <= tfa.SMEM_LIMIT == 232_448
-    assert p.pitch % 16 == 0 and p.pitch >= d * dtype.itemsize
+    if p.design == "wgmma":
+        assert p.smem_bytes == tfa.fwd_plan(d).smem_bytes and p.pitch == 128
+    else:
+        assert p.smem_bytes == p.pitch * (p.rows + 2 * p.stages * p.keys)
+        assert p.pitch % 16 == 0 and p.pitch >= d * dtype.itemsize
 
 
 def test_flash_attention_plan_at_the_paths_widths():
-    """The LM prefill's bf16 D = 128 takes 52,224 bytes (four blocks an
-    SM); the policy class's float32 D = 8 15,360."""
-    assert tfa.plan(128, torch.bfloat16).smem_bytes == 52_224
+    """The LM paths' bf16 D = 128 takes 197,696 bytes (one block an SM),
+    D = 64 66,624 (two); the policy class's float32 D = 8 15,360."""
+    assert tfa.plan(128, torch.bfloat16).smem_bytes == 197_696
+    assert tfa.plan(64, torch.bfloat16).smem_bytes == 66_624
     assert tfa.plan(128, torch.float32).smem_bytes == 168_960
     assert tfa.plan(8, torch.float32).smem_bytes == 15_360
     with pytest.raises(ValueError, match="no kernel instance"):
@@ -374,12 +389,20 @@ def _banks(words):
 
 @pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 def test_flash_attention_tile_rows_avoid_bank_conflicts(d):
-    """bf16: ldmatrix reads one 16-byte chunk of 8 consecutive rows, so the
-    8 must fall in 8 distinct 16-byte bank groups.  float32: a warp's
+    """bf16 on mma.sync: ldmatrix reads one 16-byte chunk of 8 consecutive
+    rows, so the 8 must fall in 8 distinct 16-byte bank groups; on wgmma
+    (TMA's 128-byte swizzle, 8 rows an atom of 1,024 bytes) the Q tile,
+    every K and V stage and the output's staging tile start on an atom.  float32: a warp's
     K-fragment read (key g, dim tig) and V-fragment read (key 2 tig, dim
     g), g < 8 and tig < 4, must hit 32 distinct banks."""
-    pitch = tfa.plan(d, torch.bfloat16).pitch
-    assert len({(r * pitch // 16) % 8 for r in range(8)}) == 8
+    bp = tfa.plan(d, torch.bfloat16)
+    if bp.design == "wgmma":
+        fp = tfa.fwd_plan(d)
+        tiles = ([fp.block_m * d * 2] * 2
+                 + [fp.block_n * d * 2] * (2 * fp.stages))
+        assert all(t % 1024 == 0 for t in tiles) and bp.pitch == 128
+    else:
+        assert len({(r * bp.pitch // 16) % 8 for r in range(8)}) == 8
     pf = tfa.plan(d, torch.float32).pitch // 4
     lanes = [(lane >> 2, lane & 3) for lane in range(32)]
     assert _banks([g * pf + tig for g, tig in lanes])
