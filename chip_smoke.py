@@ -287,8 +287,10 @@ chunk states, and their hand-written backwards,
     for bit.  Then
     ``repro_torch.launch.train.main`` with OLMo-1B at full width and depth
     (bf16 weights, ``default_adam``: float32 master and moments), 40 steps
-    of 8 x 512 tokens, a checkpoint under ``build/``: exactly 16 x 40
-    launches of kernel 7 and of its backward, no plain call, finite losses
+    of 8 x 512 tokens, a checkpoint under ``build/``, at the config's
+    ``remat="full"`` (each block run again inside the backward): exactly
+    2 x 16 x 40 launches of kernel 7 and 16 x 40 of its backward, no
+    plain call, finite losses
     whose last-10 mean is below the first-10's; ms a step (median of steps
     5-39, synchronized), tokens/s, MFU (``roofline.cell_flops``' model
     FLOPs over the step and 989 TFLOP/s), peak memory, and torch.profiler
@@ -296,18 +298,32 @@ chunk states, and their hand-written backwards,
     ``--fail-at 12`` (exit 17) and the rerun's resume (smoke OLMo at head
     width 64, losses within 1e-3 of the uninterrupted run's); OLMo-1B's
     width cut to 2 layers in float32, one step and its gradients through
-    the kernels and through ``attn_mode="plain"`` (loss within 1e-5,
-    gradients within 1e-4 of a leaf's largest element); whisper-medium at
-    full width with 2 encoder and 2 decoder layers, 3 steps (exactly 18
-    launches of each).  falcon-mamba-7b at its published widths cut to 8
-    of its 64 layers through ``launch.train.main``, 30 steps of 8 x 512:
-    exactly 8 x 30 launches of kernel 6 and of its backward and no other,
+    the kernels and through ``attn_mode="plain"`` at "full" (loss within
+    1e-5, gradients within 1e-4 of a leaf's largest element);
+    whisper-medium at full width with 2 encoder and 2 decoder layers, 3
+    steps at "full" (exactly 36 launches of kernel 7, 18 of its
+    backward).  falcon-mamba-7b at its published widths cut to 8 of its
+    64 layers through ``launch.train.main``, 30 steps of 8 x 512 at
+    "full": exactly 2 x 8 x 30 launches of kernel 6 and 8 x 30 of its
+    backward and no other,
     no plain call, finite and falling losses, ms a step, tokens/s, MFU,
     peak memory and a profile of steps 2-4; its width cut to 2 layers in
     float32, one step through the kernels and through the plain versions
     (loss within 1e-5, gradients within 1e-4 of a leaf's largest
     element); jamba at its smoke widths with head width 64, 3 steps:
-    kernels 6 and 7 and both backwards as often as ``block_spec`` says.
+    kernels 6 and 7 and both backwards as often as ``block_spec`` says
+    (the smoke config's "none").  Rematerialization, for OLMo-1B and
+    falcon-mamba-7b (8 layers) at 8 x 512: the aten products a training
+    forward reaches (every projection one ``aten.mm``, nothing else);
+    ``value_and_grad`` at one batch under "none" twice, "full" and
+    "dots", each call's own peak, falcon's gradients bit for bit, OLMo's
+    within twice the two "none" calls' difference (at least one bf16
+    step), and under "full" each recomputed launch of kernel 7 or 6 on
+    autograd's device thread, its outputs bit for bit the first launch's;
+    then 12 steps of ``make_train_step`` a turn in turns full, none, dots,
+    dots, none, full: exact launches, ms a step, tokens/s, MFU, the share
+    of ``cell_flops``' hlo FLOPs, peak memory and, in a setting's first
+    turn, the busy share of two profiled steps.
     Timings of the backward at OLMo's shape and
     whisper's two (device time from a CUDA graph, 3 device kernels a call,
     each an ``fa_bwd`` one) beside its bound and SDPA's backward alone
@@ -340,7 +356,13 @@ The dry run for one card (kernel 7 and its backward at 4,096 tokens):
     decode step at index 524,287 (no kernel: the mixer's decode is plain).
     For both the arguments allocated on the card equal the plan's to the
     byte, and the measured peak is printed beside the plan's
-    ``hbm_bytes_per_chip`` with their ratio.  Kernel 7's forward with its
+    ``hbm_bytes_per_chip`` with their ratio; OLMo-1B's at its config's
+    "full", 2 x 16 x 2 x 3 launches of kernel 7 and 16 x 2 x 3 of its
+    backward.  OLMo-1B ``train_4k --micro 256`` planned under "none",
+    "dots" and "full" (the three peaks); the smallest microbatch count at
+    which "full" fits 80 GB and "none" does not, and ``check_cell`` there
+    under "full": arguments to the byte, the peak within 2% of the
+    plan's, the launches the plan's.  Kernel 7's forward with its
     lse and its backward at (1, 4096, 16, 128) against their plain twins
     (``LM_TOL``, ``FA_BWD_TOL``; the backward twice more, as phase 22),
     then timed in CUDA graphs beside their bounds and SDPA's forward and
@@ -4962,9 +4984,11 @@ def _train_path():
     cfg = get_config("olmo-1b")
     layers, micro = cfg.num_layers, 1
     want = layers * micro * TRAIN_STEPS
-    print(f"LM training olmo-1b launches: {counts}")
-    assert counts["flash_attention"] == counts["flash_attention_bwd"] == want
-    assert sum(counts.values()) == 2 * want, counts
+    runs = remat_runs(cfg)
+    print(f"LM training olmo-1b (remat={cfg.remat!r}) launches: {counts}")
+    assert counts["flash_attention"] == runs * want, (runs, counts)
+    assert counts["flash_attention_bwd"] == want, counts
+    assert sum(counts.values()) == (runs + 1) * want, counts
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     assert last < first, (first, last)
@@ -4974,7 +4998,8 @@ def _train_path():
                                               "train"))["model_flops"]
     print(f"LM training olmo-1b (16 layers, d_model 2048, vocab 50304, "
           f"{cfg.param_count()} parameters, bf16 weights, float32 master and "
-          f"moments), batch 8 x 512, {TRAIN_STEPS} steps through "
+          f"moments, remat={cfg.remat!r}), batch 8 x 512, {TRAIN_STEPS} "
+          f"steps through "
           f"launch.train.main: ms_per_step={1e3 * step_s} (median of steps "
           f"{TRAIN_MEDIAN_FROM}-{TRAIN_STEPS - 1}, synchronized) "
           f"tokens_per_s={tokens / step_s} mfu={model_flops / (step_s * HW.peak_flops)} "
@@ -5051,10 +5076,11 @@ def _plain_step_check(device, arch="olmo-1b"):
         runs[mode] = (metrics, grads, new, step_metrics, read_counts())
     kernel, plain = runs["cuda"], runs["plain"]
     want = 2 * TRAIN_PLAIN_LAYERS                   # value_and_grad and step
-    keys = (("mamba_scan", "mamba_scan_bwd") if cfg.family == "ssm"
-            else ("flash_attention", "flash_attention_bwd"))
-    assert all(kernel[4][k] == want for k in keys), kernel[4]
-    assert sum(kernel[4].values()) == 2 * want, kernel[4]
+    fwd, bwd = (("mamba_scan", "mamba_scan_bwd") if cfg.family == "ssm"
+                else ("flash_attention", "flash_attention_bwd"))
+    n = remat_runs(cfg)                    # the recompute inside the backward
+    assert (kernel[4][fwd], kernel[4][bwd]) == (n * want, want), kernel[4]
+    assert sum(kernel[4].values()) == (n + 1) * want, kernel[4]
     assert not any(plain[4].values()), plain[4]
     loss_err = abs(float(kernel[0]["loss"]) - float(plain[0]["loss"]))
     grad_err = max(float((a - b).abs().max() / b.abs().max())
@@ -5064,7 +5090,7 @@ def _plain_step_check(device, arch="olmo-1b"):
                     for a, b in zip(tree_leaves(kernel[2]),
                                     tree_leaves(plain[2])))
     print(f"LM training kernels vs plain ({arch} width, {TRAIN_PLAIN_LAYERS} "
-          f"layers, float32, 8 x 512): loss {float(kernel[0]['loss'])} vs "
+          f"layers, float32, 8 x 512, remat={cfg.remat!r}): loss {float(kernel[0]['loss'])} vs "
           f"{float(plain[0]['loss'])} (diff {loss_err}); gradient leaves max "
           f"relative diff {grad_err}; params after one step max_abs_diff "
           f"{param_err}")
@@ -5101,12 +5127,14 @@ def _whisper_train(device):
             losses.append(float(metrics["loss"]))
         counts = read_counts()                         # ... and ends here
     want = w["steps"] * 3 * w["layers"]         # encoder, self, cross
+    runs = remat_runs(cfg)
     print(f"LM training whisper-medium (full width, {w['layers']} + "
           f"{w['layers']} layers, {w['batch']} x {w['seq']} tokens, 1,500 "
-          f"frames): losses {losses}; launches {counts}")
+          f"frames, remat={cfg.remat!r}): losses {losses}; launches {counts}")
     assert plain.calls == 0 and all(np.isfinite(losses)), losses
-    assert counts["flash_attention"] == counts["flash_attention_bwd"] == want
-    assert sum(counts.values()) == 2 * want, counts
+    assert counts["flash_attention"] == runs * want, (runs, counts)
+    assert counts["flash_attention_bwd"] == want, counts
+    assert sum(counts.values()) == (runs + 1) * want, counts
     del params, opt
     torch.cuda.empty_cache()
     return counts
@@ -5123,9 +5151,12 @@ def _ssm_train_path():
     cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
                               num_layers=SSM_TRAIN_LAYERS)
     want = SSM_TRAIN_LAYERS * SSM_TRAIN_STEPS
-    print(f"LM training falcon-mamba-7b launches: {counts}")
-    assert counts["mamba_scan"] == counts["mamba_scan_bwd"] == want, counts
-    assert sum(counts.values()) == 2 * want, counts      # no attention
+    runs = remat_runs(cfg)
+    print(f"LM training falcon-mamba-7b (remat={cfg.remat!r}) launches: "
+          f"{counts}")
+    assert counts["mamba_scan"] == runs * want, (runs, counts)
+    assert counts["mamba_scan_bwd"] == want, counts
+    assert sum(counts.values()) == (runs + 1) * want, counts  # no attention
     assert len(losses) == SSM_TRAIN_STEPS and all(np.isfinite(losses)), losses
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     assert last < first, (first, last)
@@ -5137,7 +5168,8 @@ def _ssm_train_path():
     print(f"LM training falcon-mamba-7b ({SSM_TRAIN_LAYERS} of 64 layers, "
           f"d_model 4096, d_inner 8192, N 16, vocab 65024, "
           f"{cfg.param_count()} parameters, bf16 weights, float32 master and "
-          f"moments), batch 8 x 512, {SSM_TRAIN_STEPS} steps through "
+          f"moments, remat={cfg.remat!r}), batch 8 x 512, {SSM_TRAIN_STEPS} "
+          f"steps through "
           f"launch.train.main: ms_per_step={1e3 * step_s} (median of steps "
           f"{TRAIN_MEDIAN_FROM}-{SSM_TRAIN_STEPS - 1}, synchronized) "
           f"tokens_per_s={tokens / step_s} mfu={mfu} (model_flops "
@@ -5182,16 +5214,290 @@ def _jamba_train(device):
     spec, blocks = block_spec(cfg), num_blocks(cfg)
     mamba = j["steps"] * blocks * sum(s.mixer == "mamba" for s in spec)
     attn = j["steps"] * blocks * sum(s.mixer == "attn" for s in spec)
+    runs = remat_runs(cfg)                       # the smoke config's "none"
     print(f"LM training jamba-1.5-large-398b (smoke widths, head width "
           f"{j['head_dim']}, {cfg.num_layers} layers, {j['batch']} x "
-          f"{j['seq']} tokens): losses {losses}; launches {counts}")
+          f"{j['seq']} tokens, remat={cfg.remat!r}): losses {losses}; "
+          f"launches {counts}")
     assert plain.calls == 0 and all(np.isfinite(losses)), losses
-    assert counts["mamba_scan"] == counts["mamba_scan_bwd"] == mamba, counts
-    assert counts["flash_attention"] == counts["flash_attention_bwd"] == attn
-    assert sum(counts.values()) == 2 * (mamba + attn), counts
+    assert counts["mamba_scan"] == runs * mamba, counts
+    assert counts["flash_attention"] == runs * attn, counts
+    assert counts["mamba_scan_bwd"] == mamba, counts
+    assert counts["flash_attention_bwd"] == attn, counts
+    assert sum(counts.values()) == (runs + 1) * (mamba + attn), counts
     del params, opt
     torch.cuda.empty_cache()
     return counts
+
+
+# rematerialization (``cfg.remat``): short runs of each setting through
+# ``steps.make_train_step``, in turns (each setting twice, "full" first and
+# last), at phase 22's widths and 8 x 512 tokens
+REMAT_SETTINGS = ("none", "dots", "full")
+REMAT_TURNS = ("full", "none", "dots", "dots", "none", "full")
+REMAT_STEPS = 12
+REMAT_TIMED = (2, 10)                 # ms a step: median of steps 2-9
+REMAT_PROFILED = (10, 11)             # then two steps under torch.profiler
+                                      # (a setting's first turn only)
+# OLMo-1B's gradients under "full" / "dots" against "none": kernel 7b's
+# bf16 dQ adds its float32 partials in the order the blocks finish, so two
+# "none" calls may differ; a remat's difference must stay within this
+# many times theirs (the largest of many leaves' differences, each one
+# draw), theirs taken as one bfloat16 step of a leaf's largest element
+# where smaller (two calls can agree bit for bit)
+REMAT_SPREAD = 2.0
+REMAT_SPREAD_FLOOR = 2.0 ** -8
+# the products with no batch dimensions a layer's forward reaches on the
+# card (every one ``aten.mm``): OLMo-1B q, k, v, o, gate, up, down;
+# falcon-mamba-7b in, x, dt, out
+REMAT_PROJECTIONS = {"olmo-1b": 7, "falcon-mamba-7b": 4}
+
+
+def remat_runs(cfg) -> int:
+    """How often a training step launches each forward kernel for one
+    launch of its backward: twice where the config rematerializes (the
+    block runs again inside the backward), else once."""
+    from repro_torch.models import model as mdl
+
+    return 1 if mdl._remat_policy(cfg) is None else 2
+
+
+class _RecomputeSpy:
+    """Every launch of kernel 7's and kernel 6's forward while entered: the
+    thread it ran on and a copy of its outputs, in order."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import mamba_scan as ms
+
+        self.calls = []
+        self._modules = (fa, ms)
+        self._real = [m._launch_forward for m in self._modules]
+
+    def __enter__(self):
+        import threading
+
+        for module, real in zip(self._modules, self._real):
+            def spy(*args, _real=real, **kwargs):
+                outs = _real(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.calls.append((threading.get_ident(), [
+                    None if t is None else t.clone() for t in outs]))
+                return outs
+            module._launch_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        for module, real in zip(self._modules, self._real):
+            module._launch_forward = real
+
+
+def _product_ops(cfg, params, batch):
+    """{aten op: calls} of the products a training forward (under grad,
+    no checkpoint) reaches on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import model as mdl
+
+    names = ("mm", "addmm", "bmm", "baddbmm", "addbmm", "mv", "addmv", "dot",
+             "convolution", "_scaled_mm")
+    seen = {}
+
+    class Products(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.__name__.split(".")[0] in names:
+                seen[str(func)] = seen.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    live = steps_mod.tree_map(lambda p: p.detach().requires_grad_(True),
+                              steps_mod._split_blocks(params))
+    with torch.enable_grad(), Products():
+        out = mdl.forward(live, dataclasses.replace(cfg, remat="none"),
+                          batch["tokens"], batch, mode="train")
+    del out, live
+    return seen
+
+
+def _remat_grads(base, params, batch, arch):
+    """``value_and_grad`` at one fixed batch under "none" twice, "full" and
+    "dots": each call's own peak (above what was allocated before it); the
+    gradients of "full" and "dots" held to "none" (bit for bit without
+    attention; else within ``REMAT_SPREAD`` times the two "none" calls'
+    difference, a leaf relative to its largest element); under "full"
+    kernel 7's or 6's forward launched again on autograd's device thread,
+    each recompute's outputs bit for bit its first launch's."""
+    import threading
+
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import tree_leaves
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in flat(v, f"{prefix}/{k}")]
+        return [(prefix, tree)]
+
+    grads, peaks = {}, {}
+    for key in ("none", "none again", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=key.split()[0])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        spy = _RecomputeSpy() if key == "full" else contextlib.nullcontext()
+        with spy:
+            _, grads[key] = steps_mod.value_and_grad(cfg, params, batch)
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated() - before
+        if key == "full":
+            calls = spy.calls
+    layers = base.num_layers
+    main = threading.get_ident()
+    assert [c[0] == main for c in calls] == [True] * layers + [False] * layers
+    for i in range(layers):                # the recompute runs last to first
+        first, again = calls[i][1], calls[2 * layers - 1 - i][1]
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(first, again)), (arch, i)
+    del calls
+    want = dict(flat(grads["none"]))
+
+    def rel(key):
+        return {path: float((g.float() - want[path].float()).abs().max()
+                            / want[path].float().abs().max().clamp_min(1e-30))
+                for path, g in flat(grads[key])}
+
+    diffs = {key: rel(key) for key in ("none again", "full", "dots")}
+    worst = {key: max(d.values()) for key, d in diffs.items()}
+    differ = {key: sorted(p for p, v in d.items() if v > 0)
+              for key, d in diffs.items()}
+    print(f"remat gradients {arch} ({layers} layers, 8 x 512, one batch): "
+          f"largest leaf difference from the first 'none' call, relative to "
+          f"the leaf's largest element: {worst}; leaves that differ "
+          f"{ {k: len(v) for k, v in differ.items()} } of "
+          f"{len(tree_leaves(grads['none']))} (first few "
+          f"{ {k: v[:4] for k, v in differ.items()} }); value_and_grad's "
+          f"own peak GB { {k: v / 1e9 for k, v in peaks.items()} }; "
+          f"recompute of kernel {'6' if base.family == 'ssm' else '7'}: "
+          f"{layers} launches on autograd's device thread, each output bit "
+          f"for bit its first launch's")
+    if base.family == "ssm":               # no attention: every op repeats
+        assert not differ["full"] and not differ["dots"], differ
+    else:
+        spread = max(worst["none again"], REMAT_SPREAD_FLOOR)
+        for key in ("full", "dots"):
+            assert worst[key] <= REMAT_SPREAD * spread, (key, worst)
+    figures = {f"value_and_grad_peak_gb_{k.replace(' ', '_')}": v / 1e9
+               for k, v in peaks.items()}
+    figures["grad_rel_diff"] = worst
+    del grads
+    torch.cuda.empty_cache()
+    return figures
+
+
+def _remat_turns(device, name, arch, layers=0):
+    """``arch`` at its published widths (cut to ``layers``), 8 x 512
+    tokens: the aten products its forward reaches, ``_remat_grads``, then
+    ``REMAT_STEPS`` steps of ``make_train_step`` a turn of
+    ``REMAT_TURNS``, every launch counted (the forward kernel twice a
+    backward launch under "full" and "dots"), from the same params, state
+    and batches each turn: ms a step, tokens/s, MFU on 6 N D, the share of
+    ``cell_flops``' hlo FLOPs (the re-forward counted under "full", as the
+    reference's dry run counts it), peak memory (the turn's state beside
+    the kept first params and state), and in a setting's first turn the
+    device's busy share over ``REMAT_PROFILED``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.serve import seed_generator
+    from repro_torch.roofline import HW, cell_flops
+
+    base = get_config(arch)
+    if layers:
+        base = dataclasses.replace(base, num_layers=layers)
+    fwd, bwd = (("mamba_scan", "mamba_scan_bwd") if base.family == "ssm"
+                else ("flash_attention", "flash_attention_bwd"))
+    params, opt = steps_mod.init_train_state(seed_generator(SEED, 0, device),
+                                             base, device=device)
+    data = synthetic_batches(SEED, 8, 512, base.vocab_size)
+    batches = [{k: x.to(device) for k, x in next(data).items()}
+               for _ in range(REMAT_STEPS)]
+    ops = _product_ops(base, params, batches[0])
+    print(f"remat {arch}: the products a training forward reaches on the "
+          f"card ({base.num_layers} layers): {ops}")
+    assert ops == {"aten.mm.default":
+                   REMAT_PROJECTIONS[arch] * base.num_layers}, ops
+    figures = {"grads": _remat_grads(base, params, batches[0], arch)}
+    shape = ShapeConfig("train", 512, 8, "train")
+    tokens = 8 * 512
+    runs, totals = {r: [] for r in REMAT_SETTINGS}, {}
+    for remat in REMAT_TURNS:
+        cfg = dataclasses.replace(base, remat=remat)
+        step, _ = steps_mod.make_train_step(cfg, total_steps=REMAT_STEPS)
+        p, o, times, losses = params, opt, [], []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        prof = (None if runs[remat] else
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]))
+        with _PlainSpy() as plain:
+            zero_counts()                              # the path starts here
+            for i, batch in enumerate(batches):
+                if i == REMAT_PROFILED[0] and prof is not None:
+                    prof.__enter__()
+                    wall = time.perf_counter()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, metrics = step(p, o, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+            if prof is not None:
+                wall = time.perf_counter() - wall
+                prof.__exit__(None, None, None)
+            counts = read_counts()                     # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        del p, o, metrics
+        ops_per_step = prof and profile_report(
+            prof, wall, len(REMAT_PROFILED), f"remat {arch} {remat!r}", top=4)
+        n = remat_runs(cfg)
+        want = base.num_layers * REMAT_STEPS
+        assert plain.calls == 0 and all(np.isfinite(losses)), losses
+        assert (counts[fwd], counts[bwd]) == (n * want, want), counts
+        assert sum(counts.values()) == (n + 1) * want, counts
+        step_s = statistics.median(times[slice(*REMAT_TIMED)])
+        flops = cell_flops(cfg, shape, remat_full=cfg.remat == "full")
+        row = dict(ms_per_step=1e3 * step_s, tokens_per_s=tokens / step_s,
+                   mfu=flops["model_flops"] / (step_s * HW.peak_flops),
+                   hlo_flops_share=flops["hlo_flops"] / (step_s
+                                                        * HW.peak_flops),
+                   peak_memory_gb=peak / 1e9, launches=counts,
+                   device_ops_per_step=ops_per_step, last_loss=losses[-1])
+        runs[remat].append(row)
+        for key in counts:
+            totals[key] = totals.get(key, 0) + counts[key]
+        print(f"remat turn {arch} remat={remat!r} ({base.num_layers} layers, "
+              f"8 x 512, {REMAT_STEPS} steps through make_train_step): "
+              f"ms_per_step={row['ms_per_step']} (median of steps "
+              f"{REMAT_TIMED[0]}-{REMAT_TIMED[1] - 1}) tokens_per_s="
+              f"{row['tokens_per_s']} mfu={row['mfu']} (6 N D) "
+              f"hlo_flops_share={row['hlo_flops_share']} (cell_flops' hlo "
+              f"FLOPs, remat_full={cfg.remat == 'full'}) peak_memory_gb="
+              f"{row['peak_memory_gb']} launches {fwd} {counts[fwd]} {bwd} "
+              f"{counts[bwd]} last loss {losses[-1]}; {name}")
+    figures["turns"] = runs
+    for remat, rows in runs.items():
+        ms = [r["ms_per_step"] for r in rows]
+        print(f"remat {arch} remat={remat!r}: ms_per_step {ms} (mean "
+              f"{statistics.mean(ms)}), mfu "
+              f"{[r['mfu'] for r in rows]}, hlo_flops_share "
+              f"{[r['hlo_flops_share'] for r in rows]}, peak_memory_gb "
+              f"{[r['peak_memory_gb'] for r in rows]}")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return totals, figures
 
 
 def check_scan_bwd_kernels(device):
@@ -5490,17 +5796,24 @@ def phase_lm_train(device, name):
     _plain_step_check(device, "falcon-mamba-7b")
     whisper = _whisper_train(device)
     jamba = _jamba_train(device)
+    t1 = time.perf_counter()
+    olmo_turns, figures["remat olmo-1b"] = _remat_turns(device, name,
+                                                        "olmo-1b")
+    ssm_turns, figures["remat falcon-mamba-7b"] = _remat_turns(
+        device, name, "falcon-mamba-7b", SSM_TRAIN_LAYERS)
+    print(f"phase 22 remat seconds={time.perf_counter() - t1}")
     rows = train_timings(device, name)
     scan_rows = scan_train_timings(device, name)
     print(f"phase 22 seconds={time.perf_counter() - t0}")
     jamba_path = "LM training, jamba smoke widths, head width 64"
+    turns_path = "LM training, remat none / dots / full in turns"
     paths = {key: {"LM training": counts[key],
                    "LM training, whisper-medium 2 + 2 layers": whisper[key],
-                   jamba_path: jamba[key]}
+                   jamba_path: jamba[key], turns_path: olmo_turns[key]}
              for key in ("flash_attention", "flash_attention_bwd")}
     for key in ("mamba_scan", "mamba_scan_bwd"):
         paths[key] = {"LM training, falcon-mamba-7b 8 layers": ssm_counts[key],
-                      jamba_path: jamba[key]}
+                      jamba_path: jamba[key], turns_path: ssm_turns[key]}
     return paths, errs, figures, rows, scan_err, scan_rows
 
 
@@ -5582,11 +5895,16 @@ def phase_dryrun(device, name):
             got, plan_hbm_bytes_per_chip=plan["hbm_bytes_per_chip"],
             plan_memory=mem, measured_over_plan=ratio)
         if SHAPES[shape].kind == "train":
-            want = dryrun.cell_config(arch).num_layers * \
-                got["microbatches"] * DRYRUN_STEPS
-            assert counts["flash_attention"] == want, counts
+            cfg = dryrun.cell_config(arch)
+            want = cfg.num_layers * got["microbatches"] * DRYRUN_STEPS
+            runs = remat_runs(cfg)            # the config's "full": twice
+            assert counts["flash_attention"] == runs * want, counts
             assert counts["flash_attention_bwd"] == want, counts
-            assert sum(counts.values()) == 2 * want, counts
+            assert sum(counts.values()) == (runs + 1) * want, counts
+            assert {k: v * DRYRUN_STEPS for k, v in
+                    mem["launches"].items()} == {
+                        "flash_attention": runs * want,
+                        "flash_attention_bwd": want}, mem["launches"]
             assert np.isfinite(got["loss"]), got
             for key in paths:
                 paths[key][f"dry-run check, {arch} {shape}"] = counts[key]
@@ -5600,10 +5918,102 @@ def phase_dryrun(device, name):
     check_row_tol_catches_shifted_tiles(q, k, v, do, FA_TRAIN_4K[6],
                                         "olmo_train_4k")
     del q, k, v, do
+    t1 = time.perf_counter()
+    remat_counts, figures["remat"] = _remat_dryrun(device, name)
+    for key in paths:
+        paths[key]["dry-run check, olmo-1b train_4k at the microbatching "
+                   "only remat full fits"] = remat_counts[key]
+    print(f"phase 23 remat seconds={time.perf_counter() - t1}")
     rows = train_4k_timings(device, name)
     print(f"phase 23 seconds={time.perf_counter() - t0}")
     return paths, {"flash_attention_bwd": errs[0],
                    "flash_attention": errs[1]}, rows, figures
+
+
+# OLMo-1B's train_4k planned under each remat against 80 GB (the issue of
+# which microbatching fits the card), the microbatch counts tried in turn
+REMAT_CELL = ("olmo-1b", "train_4k")
+REMAT_MICRO = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+REMAT_PEAK_TOL = 0.02                 # measured peak against the plan's
+
+
+def _remat_dryrun(device, name):
+    """OLMo-1B ``train_4k`` planned at ``--micro 256`` under each remat
+    (the three planned peaks), then the smallest microbatch count M of
+    ``REMAT_MICRO`` at which "full" fits 80 GB and "none" does not, and
+    ``check_cell`` at M under "full" on the card: the arguments the plan's
+    to the byte, the peak within ``REMAT_PEAK_TOL`` of the plan's, the
+    launches exactly the plan's a step (kernel 7 twice a backward launch).
+    Returns (launch counts, figures)."""
+    from repro_torch.launch import dryrun
+
+    arch, shape = REMAT_CELL
+    limit = (dryrun.HBM_80G, "80 GB")
+    figures = {"micro_256": {}}
+    for remat in REMAT_SETTINGS:
+        plan = dryrun.run_cell(arch, shape, micro=256, limit=limit,
+                               overrides={"remat": remat})
+        mem = plan["memory"]
+        figures["micro_256"][remat] = dict(
+            hbm_bytes_per_chip=plan["hbm_bytes_per_chip"],
+            temp_size_in_bytes=mem["temp_size_in_bytes"],
+            launches=mem["launches"], flops=plan["cost"]["flops"])
+    print(f"dry run {arch} {shape} --micro 256, planned peak "
+          f"(hbm_bytes_per_chip) by remat: "
+          f"{ {r: f['hbm_bytes_per_chip'] for r, f in figures['micro_256'].items()} }"
+          f"; traced launches "
+          f"{ {r: f['launches'] for r, f in figures['micro_256'].items()} }")
+    found = None
+    for micro in REMAT_MICRO:
+        full = dryrun.run_cell(arch, shape, micro=micro, limit=limit,
+                               overrides={"remat": "full"})
+        if not full["fits_hbm_80g"]:
+            continue
+        none = dryrun.run_cell(arch, shape, micro=micro, limit=limit,
+                               overrides={"remat": "none"})
+        print(f"dry run {arch} {shape} --micro {micro}: remat full fits "
+              f"({full['hbm_bytes_per_chip']} bytes planned), none "
+              f"{'fits' if none['fits_hbm_80g'] else 'does not'} "
+              f"({none['hbm_bytes_per_chip'] or none['memory']['not_traced']})")
+        if not none["fits_hbm_80g"]:
+            found = micro, full
+            break
+    assert found is not None, "no microbatching that only remat full fits"
+    micro, plan = found
+    mem = plan["memory"]
+    torch.cuda.empty_cache()
+    with _PlainSpy() as plain:
+        zero_counts()                                  # the path starts here
+        got = dryrun.check_cell(arch, shape, micro=micro, device=device,
+                                n_steps=DRYRUN_STEPS,
+                                overrides={"remat": "full"})
+        counts = read_counts()                         # ... and ends here
+    ratio = got["peak_bytes"] / plan["hbm_bytes_per_chip"]
+    print(f"dry-run check {arch} {shape} --micro {micro} remat full (the "
+          f"smallest count of microbatches only full fits in 80 GB): "
+          f"{got['rows']} rows of 4,096 tokens in {got['microbatches']} "
+          f"microbatches, {DRYRUN_STEPS} steps, ms {got['ms']}, loss "
+          f"{got['loss']}; argument bytes {got['argument_bytes']} vs the "
+          f"plan's {mem['traced_argument_bytes']}; peak {got['peak_bytes']} "
+          f"vs the plan's {plan['hbm_bytes_per_chip']}: measured/plan "
+          f"{ratio}; launches {counts} vs the plan's {mem['launches']} a "
+          f"step; {name}")
+    assert plain.calls == 0, plain.calls
+    assert got["argument_bytes"] == mem["traced_argument_bytes"], (got, mem)
+    assert abs(ratio - 1) <= REMAT_PEAK_TOL, ratio
+    want = dryrun.cell_config(arch).num_layers * got["microbatches"] * \
+        DRYRUN_STEPS
+    assert counts["flash_attention"] == 2 * want, counts
+    assert counts["flash_attention_bwd"] == want, counts
+    assert sum(counts.values()) == 3 * want, counts
+    assert {k: v * DRYRUN_STEPS for k, v in mem["launches"].items()} == {
+        "flash_attention": 2 * want, "flash_attention_bwd": want}
+    assert np.isfinite(got["loss"]), got
+    figures["check"] = dict(got, micro=micro,
+                            plan_hbm_bytes_per_chip=plan["hbm_bytes_per_chip"],
+                            measured_over_plan=ratio, launches=counts)
+    torch.cuda.empty_cache()
+    return counts, figures
 
 
 def train_4k_timings(device, name):

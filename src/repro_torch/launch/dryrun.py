@@ -53,13 +53,19 @@ A cell's JSON has the reference's keys:
   ``analytic_hbm_bytes_per_chip`` and ``roofline`` (``roofline_terms``,
   H100 constants; ``collective_s`` null where the bytes are unknown).
 
+A train cell is planned at its config's ``remat`` ("full" for every full
+config), or at ``--remat``'s (the reference's flag, into the config's
+overrides): the traced step is then the rematerialized one, its temp the
+peak with each block's recompute inside the backward, its ``cost.flops``
+the count with the re-forward (less each block's last product, which the
+recompute does not reach), its launches the recomputed ones too.
+
 ``check_cell`` runs a planned step on the card (train cells cut to the
 traced microbatches); ``--check`` does so for every cell the plan says
-fits.  The reference's ``--remat``, ``--causal-buckets``,
-``--no-seq-shard`` and ``--decode-reshard`` would change nothing here (the
-port applies no remat and ignores ``causal_buckets`` and
-``act_sharding``), so they are not taken.  The exit status is 1 if a cell
-failed.
+fits.  The reference's ``--causal-buckets``, ``--no-seq-shard`` and
+``--decode-reshard`` would change nothing here (the port ignores
+``causal_buckets`` and ``act_sharding``), so they are not taken.  The
+exit status is 1 if a cell failed.
 """
 from __future__ import annotations
 
@@ -502,7 +508,7 @@ def run_cell(arch: str, shape_name: str, mesh: MeshShape = ONE_CARD, *,
     analytic = flops.cell_flops(cfg, shape, remat_full=cfg.remat == "full")
     hbm = flops.cell_hbm_bytes(cfg, shape, mesh.n_cards, num_microbatches=nm,
                                tp=mesh.shape["model"])
-    cell.update(status="ok", n_chips=mesh.n_cards, **plan,
+    cell.update(status="ok", n_chips=mesh.n_cards, remat=cfg.remat, **plan,
                 collectives=coll, model_params=cfg.param_count(),
                 active_params=cfg.active_param_count(),
                 tokens=shape.global_batch * (1 if shape.is_decode
@@ -663,6 +669,8 @@ def main(argv=None):
                     help='a (data, model) mesh, e.g. "16,16"; default one card')
     ap.add_argument("--micro", type=int, default=0,
                     help="microbatch-count override")
+    ap.add_argument("--remat", default="", choices=["", "none", "dots",
+                                                    "full"])
     ap.add_argument("--moe-dispatch", default="",
                     choices=["", "global", "batched"])
     ap.add_argument("--cache-dtype", default="")
@@ -671,6 +679,8 @@ def main(argv=None):
                     help="run every cell that fits on the card (check_cell)")
     args = ap.parse_args(argv)
     overrides = {}
+    if args.remat:
+        overrides["remat"] = args.remat
     if args.moe_dispatch:
         overrides["moe_dispatch"] = args.moe_dispatch
     if args.cache_dtype:

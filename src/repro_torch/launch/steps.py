@@ -3,11 +3,13 @@ gradient accumulation + AdamW), prefill, decode, for one card.
 
 ``make_train_step``'s step differentiates ``model.loss_and_metrics`` with
 ``torch.autograd.grad`` on the card's kernels: every attention goes
-through kernel 7 and its hand-written backward.  The reference's
-``q_chunk``, ``mamba_chunk`` and ``act_sharding`` set its memory and
-layout, not its result, and are taken and ignored, as serving ignores
-them; the reference's ``remat`` is not applied either (an eager step keeps
-its activations).
+through kernel 7 and its hand-written backward, every selective scan
+through kernel 6 and its backward.  The config's ``remat`` applies as in
+the reference (``model``'s docstring): under "full" or "dots" each block
+runs again inside the backward, so a step launches each forward kernel
+twice for every backward launch.  The reference's ``q_chunk``,
+``mamba_chunk`` and ``act_sharding`` set its memory and layout, not its
+result, and are taken and ignored, as serving ignores them.
 """
 from __future__ import annotations
 

@@ -6,12 +6,27 @@ period of ``attn_period`` layers for jamba) whose parameters are stacked
 over blocks, ``(nb, ...)``, in the reference's tree, so
 ``convert.lm_params_from_numpy`` is a tree map.  Where the reference scans
 over the stacked blocks (``lax.scan``), the port loops over them in
-Python; ``remat`` and ``scan_layers`` set how the reference trains and
-compiles, and an eager forward pass needs neither (training keeps every
-activation: no rematerialization).  ``params["layers"]`` (and the
-encoder's) may also be a list of per-block trees: ``launch.steps`` trains
-on such a list of views, so that each block's gradient is a tensor of its
-own and not a stacked one rebuilt per block.
+Python (``scan_layers`` sets how the reference compiles, and the port
+takes and ignores it).  ``params["layers"]`` (and the encoder's) may also
+be a list of per-block trees: ``launch.steps`` trains on such a list of
+views, so that each block's gradient is a tensor of its own and not a
+stacked one rebuilt per block.
+
+Rematerialization follows ``cfg.remat`` as the reference's
+``_remat_policy`` maps it, one block (with its aux loss) a region, in the
+decoder stack and in whisper's encoder alike, and only in a forward that
+autograd records (``mode`` "train" under grad mode; prefill and decode
+run as they are): "none" keeps every activation; "full" (and any other
+value) runs each block under ``torch.utils.checkpoint`` (non-reentrant,
+so ``torch.autograd.grad`` takes it) and keeps only its inputs, the block
+running again inside the backward, kernels 7 and 6 with it, up to the
+last tensor the backward saved (a block's last product, the MLP's or the
+mixer's output projection, is not run again: the backward needs its
+inputs, not its output); "dots" keeps
+the outputs of the products with no batch dimensions, the projections
+(``aten.mm``, ``aten.addmm``), and recomputes the rest, batched products
+(``aten.bmm``: the MoE experts, the plain attention), kernels 7 and 6,
+norms and elementwise work: ``checkpoint_dots_with_no_batch_dims``' rule.
 
 The decode cache has, per sub-layer and stacked over blocks, ``k`` and
 ``v`` (nb, B, max_len, Hkv, hd) for attention, ``conv`` (nb, B, cw - 1,
@@ -31,9 +46,11 @@ Public entry points: init_params, init_cache, forward, loss_and_metrics
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch import kernels
@@ -316,25 +333,55 @@ def _index(tree, i: int):
     return tree[i]
 
 
+# the products with no batch dimensions: the projections reach these
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_policy(cfg: ModelConfig) -> Optional[str]:
+    """The reference's ``_remat_policy``: None for "none" (no checkpoint),
+    "dots" for "dots", "full" (nothing saved) for every other value."""
+    if cfg.remat == "none":
+        return None
+    return "dots" if cfg.remat == "dots" else "full"
+
+
+def checkpointed(policy: Optional[str], fn, *args):
+    """``fn(*args)`` under ``policy``'s checkpoint (None: none).  The
+    blocks draw no random numbers, so no generator state is kept for the
+    recompute."""
+    if policy is None:
+        return fn(*args)
+    context = {} if policy == "full" else {"context_fn": functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            preserve_rng_state=False, **context)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
 
 def _encode(params, cfg: ModelConfig, frames: torch.Tensor,
-            attn_mode=None) -> torch.Tensor:
+            attn_mode=None, policy: Optional[str] = None) -> torch.Tensor:
     """The whisper encoder over precomputed (stub) frame embeddings
     (B, enc_seq, D): sinusoidal positions added in the frames' dtype, then
-    the stack in the weights' dtype, non-causal (kernel 7)."""
+    the stack in the weights' dtype, non-causal (kernel 7), each layer
+    under ``policy``'s checkpoint."""
     x = frames + _sinusoidal(frames.shape[1], cfg.d_model,
                              frames.device).to(frames.dtype)
     x = x.to(params["embed"].dtype)
     positions = torch.arange(frames.shape[1], device=x.device)
     enc = params["encoder"]
     for i in range(cfg.enc_layers):
-        x, _, _ = _block_fn(_index(enc["layers"], i), x, cfg, ENCODER_SPEC,
-                            mode="train", positions=positions,
-                            attn_mode=attn_mode)
+        x, _, _ = checkpointed(policy, functools.partial(
+            _block_fn, _index(enc["layers"], i), cfg=cfg, spec=ENCODER_SPEC,
+            mode="train", positions=positions, attn_mode=attn_mode), x)
     return layers.apply_norm(cfg.norm, enc["final_norm"], x)
 
 
@@ -356,11 +403,15 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``cache``, written in place and returned.  An encoder-decoder arch
     takes its encoder input as ``extra["frames"]`` (B, enc_seq, D) in
     train and prefill.  ``attn_mode`` picks the kernels' mode
-    (``kernels.ops``) for attention and the selective scan alike.
+    (``kernels.ops``) for attention and the selective scan alike.  A
+    "train" forward under grad mode runs each block under ``cfg.remat``'s
+    checkpoint (the module's docstring).
     """
     spec = block_spec(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
+    policy = (_remat_policy(cfg) if mode == "train" and torch.is_grad_enabled()
+              else None)
     x = _embed_tokens(params, cfg, tokens, extra)
     enc_out = None
     if cfg.is_encoder_decoder and mode != "decode":
@@ -368,7 +419,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder: {mode} needs the encoder "
                 f"input extra['frames'] (B, {cfg.enc_seq}, {cfg.d_model})")
-        enc_out = _encode(params, cfg, extra["frames"], attn_mode)
+        enc_out = _encode(params, cfg, extra["frames"], attn_mode, policy)
     if mode == "decode":
         cache_index = int(cache_index)
         positions = torch.full((1,), cache_index, device=x.device)
@@ -377,12 +428,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     blocks = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(num_blocks(cfg)):
-        x, nc, a = _block_fn(_index(params["layers"], i), x, cfg, spec,
-                             mode=mode, positions=positions,
-                             block_cache=(_index(cache, i) if mode == "decode"
-                                          else None),
-                             cache_index=cache_index, enc_out=enc_out,
-                             attn_mode=attn_mode)
+        x, nc, a = checkpointed(policy, functools.partial(
+            _block_fn, _index(params["layers"], i), cfg=cfg, spec=spec,
+            mode=mode, positions=positions,
+            block_cache=_index(cache, i) if mode == "decode" else None,
+            cache_index=cache_index, enc_out=enc_out, attn_mode=attn_mode), x)
         aux = aux + a
         blocks.append(nc)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)

@@ -1585,6 +1585,76 @@ def test_mamba_scan_under_grad_runs_its_backward(cuda_device):
     assert x.grad is not None and all(t.grad is None for t in args[1:])
 
 
+def _recorded(monkeypatch, module):
+    """Spy on ``module._launch_forward``: each call's thread and a copy of
+    its outputs, in order."""
+    import threading
+
+    calls, real = [], module._launch_forward
+
+    def spy(*args, **kwargs):
+        outs = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((threading.get_ident(),
+                      [None if t is None else t.clone() for t in outs]))
+        return outs
+
+    monkeypatch.setattr(module, "_launch_forward", spy)
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("kernel", ["attention_d128", "attention_d64",
+                                    "scan"])
+def test_kernels_7_and_6_recompute_inside_the_backward_on_card(
+        cuda_device, kernel, policy, monkeypatch):
+    """Kernel 7's LSE instance (bf16) and kernel 6's training instance
+    under ``model.checkpointed`` inside ``torch.autograd.grad``: the
+    recompute launches the kernel again, on autograd's device thread (not
+    the caller's), with outputs bit for bit the first forward's, and the
+    gradients are the unwrapped call's: bit for bit, but kernel 7's dQ
+    (its float32 partials add in the order the blocks finish) within one
+    bf16 step.  Counts: two forward launches and one backward."""
+    import threading
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if kernel == "scan":
+        module, bwd = tms, tms.mamba_scan_bwd
+        inputs = _scan(2, 200, 64, 16, cuda_device, 5)
+        grad_out = torch.randn((2, 200, 64), generator=torch.Generator()
+                               .manual_seed(6)).to(cuda_device)
+        fn = lambda *t: ops.mamba_scan(*t)[0]           # noqa: E731
+    else:
+        d = 128 if kernel == "attention_d128" else 64
+        module, bwd = fa, fa.flash_attention_bwd
+        *inputs, grad_out = _bwd_case((2, 300, 300, 8, 4, d, True),
+                                      torch.bfloat16, cuda_device, d)
+        fn = lambda *t: ops.flash_attention(*t, causal=True)  # noqa: E731
+    from repro_torch.models.model import checkpointed
+
+    fwd = module.mamba_scan if kernel == "scan" else module.flash_attention
+    calls = _recorded(monkeypatch, module)
+    runs = []
+    for call in (fn, lambda *t: checkpointed(policy, fn, *t)):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        f0, b0 = fwd.launches, bwd.launches
+        grads = torch.autograd.grad(call(*leaves), leaves, grad_out)
+        torch.cuda.synchronize()
+        runs.append((grads, (fwd.launches - f0, bwd.launches - b0)))
+    assert [r[1] for r in runs] == [(1, 1), (2, 1)], runs
+    main = threading.get_ident()
+    assert [c[0] == main for c in calls] == [True, True, False]
+    for first, again in zip(calls[1][1], calls[2][1]):
+        assert (first is None and again is None) or torch.equal(first, again)
+    for i, (got, want) in enumerate(zip(runs[1][0], runs[0][0])):
+        if kernel != "scan" and i == 0:
+            assert _bf16_steps_apart(got, want) <= 1.0
+        else:
+            assert torch.equal(got, want), i
+
+
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_grad_on_card(cuda_device):
     """Kernels 1-5 and 8 raise under grad mode when an input requires grad
@@ -1650,20 +1720,24 @@ def test_lm_gradients_through_the_kernels_match_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
 @pytest.mark.parametrize("arch,shape,micro", [("olmo-1b", "train_4k", 256),
                                               ("falcon-mamba-7b",
                                                "long_500k", 0)])
 def test_check_cell_runs_the_planned_step_on_card(cuda_device, arch, shape,
-                                                  micro):
+                                                  micro, remat):
     """``launch.dryrun.check_cell`` at smoke widths (head width 64, the
     backward's): the arguments it allocates are the plan's to the byte,
     the step runs through the kernels (kernel 7 and its backward once a
-    layer a microbatch a step in training) and the loss is finite."""
+    layer a microbatch a step in training, the forward twice under "full",
+    its recompute inside the backward, as the plan's launches say) and
+    the loss is finite."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun
 
-    cfg = dataclasses.replace(get_config(arch, smoke=True), head_dim=64)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), head_dim=64,
+                              remat=remat)
     plan = dryrun.run_cell(arch, shape, micro=micro, cfg=cfg)
     assert plan["fits_hbm_80g"]
     before = fa.flash_attention.launches, fa.flash_attention_bwd.launches
@@ -1676,6 +1750,9 @@ def test_check_cell_runs_the_planned_step_on_card(cuda_device, arch, shape,
     if plan["kind"] == "train":
         assert np.isfinite(got["loss"])
         want = cfg.num_layers * got["microbatches"] * 2
-        assert runs == (want, want)
+        assert runs == ((1 if remat == "none" else 2) * want, want)
+        planned = plan["memory"]["launches"]
+        assert (2 * planned["flash_attention"],
+                2 * planned["flash_attention_bwd"]) == runs
     else:
         assert runs == (0, 0) and got["loss"] is None

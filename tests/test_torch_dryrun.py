@@ -29,6 +29,7 @@ from repro_torch import kernels
 from repro_torch.kernels import (_build, decode_attention as da,
                                  flash_attention as fa, mamba_scan as ms, ops)
 from repro_torch.launch import dryrun, sharding as tsh
+from repro_torch.models import model as mdl
 
 CELLS = [("olmo-1b", "train_4k", 256), ("qwen2-moe-a2.7b", "decode_32k", 0),
          ("whisper-medium", "prefill_32k", 0),
@@ -124,8 +125,25 @@ def test_counted_flops_between_model_and_implementation_flops(planned, arch,
     assert 0.95 * roof["model_flops"] <= counted <= roof["hlo_flops_global"]
 
 
-def test_plans_of_the_two_checked_cells(planned):
-    olmo, _ = planned["olmo-1b", "train_4k"]
+@pytest.fixture(scope="module")
+def olmo_train_4k(planned):
+    """{remat: OLMo-1B's train_4k at --micro 256 on one card}: the
+    config's "full" from ``planned``, "none" planned here."""
+    none = dryrun.run_cell("olmo-1b", "train_4k", micro=256,
+                           overrides={"remat": "none"}, limit=(HBM, "test"))
+    return {"full": planned["olmo-1b", "train_4k"][0], "none": none}
+
+
+# kernel 7's launches in the traced step (16 layers x 2 microbatches): the
+# forward's once a layer, and again in the backward under "full"
+OLMO_LAUNCHES = {"none": {"flash_attention": 32, "flash_attention_bwd": 32},
+                 "full": {"flash_attention": 64, "flash_attention_bwd": 32}}
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_plans_of_the_two_checked_cells(planned, olmo_train_4k, remat):
+    olmo = olmo_train_4k[remat]
+    assert olmo["remat"] == remat
     mem = olmo["memory"]
     assert olmo["fits_hbm_80g"] is True
     assert olmo["hbm_bytes_per_chip"] == (
@@ -137,8 +155,7 @@ def test_plans_of_the_two_checked_cells(planned):
     assert mem["traced_argument_bytes"] == (
         parts["params"] + parts["opt_state"] + parts["batch"] * 2 // 256)
     # 16 layers x 2 microbatches, each through kernel 7 and its backward
-    assert mem["launches"] == {"flash_attention": 32,
-                               "flash_attention_bwd": 32}
+    assert mem["launches"] == OLMO_LAUNCHES[remat]
     falcon, _ = planned["falcon-mamba-7b", "long_500k"]
     fm = falcon["memory"]
     assert falcon["fits_hbm_80g"] is True
@@ -263,6 +280,81 @@ def test_live_bytes_follow_storages():
     with mode, pytest.raises(dryrun.PastLimit):
         with dryrun.LiveBytes(limit=100):
             torch.empty(100)
+
+
+def _cut_olmo(remat):
+    """OLMo-1B at smoke widths, head width 64 (the card's backward's)."""
+    return dataclasses.replace(tget_config("olmo-1b", smoke=True),
+                               head_dim=64, remat=remat)
+
+
+@pytest.fixture(scope="module")
+def cut_train_4k():
+    """{remat: the cut OLMo-1B's train_4k cell at --micro 256}."""
+    return {remat: dryrun.run_cell("olmo-1b", "train_4k", micro=256,
+                                   cfg=_cut_olmo(remat), limit=(HBM, "test"))
+            for remat in ("none", "dots", "full")}
+
+
+def test_remat_orders_the_traced_temp(cut_train_4k):
+    temp = {r: c["memory"]["temp_size_in_bytes"]
+            for r, c in cut_train_4k.items()}
+    assert 0 < temp["full"] < temp["dots"] < temp["none"], temp
+    assert all(c["remat"] == r for r, c in cut_train_4k.items())
+
+
+def _forward_flops(cfg, rows):
+    """``FlopCounterMode``'s count of one forward of the blocks on ``rows``
+    of 4,096 tokens through the card's path (kernel 7's launches counted
+    as its plain version's), outside grad mode: no checkpoint."""
+    mode = FakeTensorMode()
+    with mode:
+        cell = dryrun.build_cell("olmo-1b", "train_4k", micro=256,
+                                 microbatches=rows, cfg=cfg, mode=mode)
+        with torch.no_grad(), dryrun.CardStandIn() as card, \
+                FlopCounterMode(display=False) as fc:
+            mdl.forward(cell.parts["params"], cfg,
+                        cell.parts["batch"]["tokens"], mode="train")
+    return fc.get_total_flops() + card.flops, card.flops
+
+
+def test_remat_adds_one_forward_of_the_blocks_to_the_flops(cut_train_4k):
+    """"full" counts the blocks' forward once more over the global batch,
+    but for each block's last product, the MLP's down projection: the
+    recompute stops once the backward has every tensor it saved, and that
+    product's output is not one.  "dots" counts only what it recomputes
+    that is a product: kernel 7's forward (the projections' outputs are
+    kept)."""
+    cfg = _cut_olmo("none")
+    flops = {r: c["cost"]["flops"] for r, c in cut_train_4k.items()}
+    forward, attention = _forward_flops(cfg, 1)
+    down = 2 * 4096 * cfg.d_ff * cfg.d_model * cfg.num_layers
+    assert flops["full"] - flops["none"] == 256 * (forward - down)
+    assert flops["dots"] - flops["none"] == 256 * attention > 0
+
+
+def test_remat_launches_each_forward_twice_a_backward(cut_train_4k):
+    layers = _cut_olmo("none").num_layers
+    for remat, cell in cut_train_4k.items():
+        launches = cell["memory"]["launches"]
+        runs = 1 if remat == "none" else 2
+        assert launches == {"flash_attention": runs * 2 * layers,
+                            "flash_attention_bwd": 2 * layers}, remat
+
+
+def test_main_takes_remat_into_the_overrides(tmp_path, monkeypatch):
+    seen = []
+    monkeypatch.setattr(dryrun, "plan_cells", lambda *a, **k: seen.append(
+        k["overrides"]) or [])
+    for flag, want in (([], None), (["--remat", "dots"], {"remat": "dots"}),
+                       (["--remat", "none", "--cache-dtype", "float32"],
+                        {"remat": "none", "cache_dtype": "float32"})):
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(["--arch", "olmo-1b", "--out", str(tmp_path)] + flag)
+        assert e.value.code == 0 and seen.pop() == want
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--remat", "some"])
+    assert e.value.code == 2                     # argparse refuses it
 
 
 def test_main_writes_a_file_a_cell_and_the_summary(tmp_path, capsys):
