@@ -272,9 +272,8 @@ chunk states, and their hand-written backwards,
     whisper's encoder (8, 1500, 16, 64) and cross-attention (8, 448
     against 1,500 keys) non-causal, and a ragged causal shape, in float32
     (1e-4) and bfloat16 (2e-2) relative to the largest gradient; each
-    bfloat16 shape run twice more: dK and dV bit for bit, dQ (float32
-    reduce-adds in the order the blocks finish, then bfloat16) within one
-    bfloat16 rounding step of the other call's, element by element.
+    bfloat16 shape run twice more: dQ (its pieces added in ascending
+    key-block order), dK and dV of the three calls bit for bit.
     Kernels 1-5 and 8 under grad with an input that requires grad raise;
     kernel 6 under grad runs its training forward and its backward once
     each, dx held to autograd of the plain version.  Kernel 6's training
@@ -316,10 +315,12 @@ chunk states, and their hand-written backwards,
     falcon-mamba-7b (8 layers) at 8 x 512: the aten products a training
     forward reaches (every projection one ``aten.mm``, nothing else);
     ``value_and_grad`` at one batch under "none" twice, "full" and
-    "dots", each call's own peak, falcon's gradients bit for bit, OLMo's
-    within twice the two "none" calls' difference (at least one bf16
-    step), and under "full" each recomputed launch of kernel 7 or 6 on
-    autograd's device thread, its outputs bit for bit the first launch's;
+    "dots", each call's own peak within 5% of the dry run's plan of it on
+    fake tensors (``scripts/remat_plans.py --backward``, run beside the
+    card's work in a process of its own), the gradients of every call bit
+    for bit the first "none" call's; then "full" once more with every
+    recomputed launch of kernel 7 or 6 on autograd's device thread, its
+    outputs bit for bit the first launch's;
     then 12 steps of ``make_train_step`` a turn in turns full, none, dots,
     dots, none, full: exact launches, ms a step, tokens/s, MFU, the share
     of ``cell_flops``' hlo FLOPs, peak memory and, in a setting's first
@@ -4811,43 +4812,24 @@ def check_bwd_case(label, shape, dtype, device):
     assert lse_err <= FA_FWD_LSE_TOL, (label, dtype, lse_err)
     assert out_err <= LM_TOL[dtype], (label, dtype, out_err)
     if dtype == torch.bfloat16:
-        check_bwd_repeats(q, k, v, out, do, lse, causal, label)
+        check_bwd_repeats(got, q, k, v, out, do, lse, causal, label)
     return abs_err, out_err
 
 
-def bf16_steps_apart(a, b) -> float:
-    """The largest |a - b| over one bfloat16 rounding step at max(|a|,
-    |b|) (2^-7 of it) plus 1e-5 of the largest |a|, the float32
-    summation-order noise of elements near zero: at most 1 when two
-    float32 sums that differ only in their order round to the same or to
-    neighbouring bfloat16 values."""
-    a, b = a.float(), b.float()
-    step = (torch.maximum(a.abs(), b.abs()) * 2.0 ** -7
-            + 1e-5 * float(a.abs().max()))
-    return float(((a - b).abs() / step).max())
-
-
-def check_bwd_repeats(q, k, v, out, do, lse, causal, label):
-    """Two more calls of the bfloat16 backward on the same tensors: dK and
-    dV (summed in registers in a fixed order) bit for bit; dQ, a float32
-    sum of per-key-block partials added in the order the blocks finish and
-    then rounded to bfloat16, differs from call to call only where the two
-    float32 sums round to neighbouring bfloat16 values: every element
-    within one bfloat16 step of the other call's (``bf16_steps_apart``).
-    Relative to dQ's largest element such a step reaches 2^-7 of any
-    element's size, so that figure is printed, not bounded."""
+def check_bwd_repeats(got, q, k, v, out, do, lse, causal, label):
+    """Two more calls of the bfloat16 backward on the same tensors: dQ
+    (its pieces added in ascending key-block order), dK and dV (summed in
+    registers in a fixed order) bit for bit the first call's ``got``."""
     from repro_torch.kernels import flash_attention as fa
 
-    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
-    second = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    calls = [got] + [fa.flash_attention_bwd(q, k, v, out, do, lse,
+                                            causal=causal) for _ in range(2)]
     torch.cuda.synchronize()
-    same = [bool(torch.equal(a, b)) for a, b in zip(first[1:], second[1:])]
-    steps = bf16_steps_apart(first[0], second[0])
-    changed = float((first[0] != second[0]).float().mean())
-    print(f"flash_attention_bwd {label} bf16 twice: dk, dv equal {same}; "
-          f"dq in bf16 steps {steps}, share of elements changed {changed}, "
-          f"relative to its largest {_rel_err(second[0], first[0])}")
-    assert all(same) and steps <= 1.0, (label, same, steps)
+    same = [[bool(torch.equal(a, b)) for a, b in zip(calls[0], again)]
+            for again in calls[1:]]
+    print(f"flash_attention_bwd {label} bf16 three calls: dq, dk, dv of the "
+          f"second and third bit for bit the first's {same}")
+    assert all(all(s) for s in same), (label, same)
 
 
 def check_kernels_refuse_grad(device):
@@ -5239,14 +5221,8 @@ REMAT_STEPS = 12
 REMAT_TIMED = (2, 10)                 # ms a step: median of steps 2-9
 REMAT_PROFILED = (10, 11)             # then two steps under torch.profiler
                                       # (a setting's first turn only)
-# OLMo-1B's gradients under "full" / "dots" against "none": kernel 7b's
-# bf16 dQ adds its float32 partials in the order the blocks finish, so two
-# "none" calls may differ; a remat's difference must stay within this
-# many times theirs (the largest of many leaves' differences, each one
-# draw), theirs taken as one bfloat16 step of a leaf's largest element
-# where smaller (two calls can agree bit for bit)
-REMAT_SPREAD = 2.0
-REMAT_SPREAD_FLOOR = 2.0 ** -8
+# each setting's backward peak on the card against the dry run's plan of it
+REMAT_PLAN_TOL = 0.05
 # the products with no batch dimensions a layer's forward reaches on the
 # card (every one ``aten.mm``): OLMo-1B q, k, v, o, gate, up, down;
 # falcon-mamba-7b in, x, dt, out
@@ -5319,38 +5295,65 @@ def _product_ops(cfg, params, batch):
     return seen
 
 
-def _remat_grads(base, params, batch, arch):
+def start_remat_plans():
+    """``scripts/remat_plans.py --backward`` in a process of its own, so
+    that its fake-tensor traces on the CPU run beside the card's work
+    until ``remat_plans`` reads them."""
+    return subprocess.Popen([sys.executable, str(ROOT / "scripts" /
+                                                 "remat_plans.py"),
+                             "--backward"], stdout=subprocess.PIPE, text=True)
+
+
+def remat_plans(proc):
+    """{(arch, remat): planned backward peak bytes} from
+    ``start_remat_plans``' process, waited for."""
+    out, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, proc.returncode
+    return {(r["arch"], r["remat"]): r["backward_peak_bytes"]
+            for r in (json.loads(line) for line in out.splitlines()
+                      if line.startswith("{"))}
+
+
+def _remat_grads(base, params, batch, arch, planned):
     """``value_and_grad`` at one fixed batch under "none" twice, "full" and
-    "dots": each call's own peak (above what was allocated before it); the
-    gradients of "full" and "dots" held to "none" (bit for bit without
-    attention; else within ``REMAT_SPREAD`` times the two "none" calls'
-    difference, a leaf relative to its largest element); under "full"
+    "dots": each call's own peak (above what was allocated before it)
+    within ``REMAT_PLAN_TOL`` of ``planned``, the dry run's plan of it on
+    fake tensors; then "full" once more under ``_RecomputeSpy``, whose
+    copies of every forward launch's outputs the peaks above leave out:
     kernel 7's or 6's forward launched again on autograd's device thread,
-    each recompute's outputs bit for bit its first launch's."""
+    each recompute's outputs bit for bit its first launch's.  Every call's
+    gradients bit for bit the first "none" call's."""
     import threading
 
     from repro_torch.launch import steps as steps_mod
-    from repro_torch.optim import tree_leaves
 
     def flat(tree, prefix=""):
         if isinstance(tree, dict):
             return [x for k, v in tree.items() for x in flat(v, f"{prefix}/{k}")]
         return [(prefix, tree)]
 
-    grads, peaks = {}, {}
-    for key in ("none", "none again", "full", "dots"):
-        cfg = dataclasses.replace(base, remat=key.split()[0])
+    want, differ, peaks = None, {}, {}
+    for key in ("none", "none again", "full", "dots", "full, spied"):
+        cfg = dataclasses.replace(base, remat=key.split()[0].rstrip(","))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        spy = _RecomputeSpy() if key == "full" else contextlib.nullcontext()
+        spied = key == "full, spied"
+        spy = _RecomputeSpy() if spied else contextlib.nullcontext()
         with spy:
-            _, grads[key] = steps_mod.value_and_grad(cfg, params, batch)
+            _, grads = steps_mod.value_and_grad(cfg, params, batch)
         torch.cuda.synchronize()
-        peaks[key] = torch.cuda.max_memory_allocated() - before
-        if key == "full":
+        if spied:
             calls = spy.calls
+        else:
+            peaks[key] = torch.cuda.max_memory_allocated() - before
+        if want is None:
+            want = dict(flat(grads))
+        else:
+            differ[key] = sorted(path for path, g in flat(grads)
+                                 if not torch.equal(g, want[path]))
+        del grads
     layers = base.num_layers
     main = threading.get_ident()
     assert [c[0] == main for c in calls] == [True] * layers + [False] * layers
@@ -5359,44 +5362,35 @@ def _remat_grads(base, params, batch, arch):
         assert all((a is None and b is None) or torch.equal(a, b)
                    for a, b in zip(first, again)), (arch, i)
     del calls
-    want = dict(flat(grads["none"]))
-
-    def rel(key):
-        return {path: float((g.float() - want[path].float()).abs().max()
-                            / want[path].float().abs().max().clamp_min(1e-30))
-                for path, g in flat(grads[key])}
-
-    diffs = {key: rel(key) for key in ("none again", "full", "dots")}
-    worst = {key: max(d.values()) for key, d in diffs.items()}
-    differ = {key: sorted(p for p, v in d.items() if v > 0)
-              for key, d in diffs.items()}
+    plan = {key: planned[arch, key.split()[0]] for key in peaks}
+    ratio = {key: peaks[key] / plan[key] for key in peaks}
     print(f"remat gradients {arch} ({layers} layers, 8 x 512, one batch): "
-          f"largest leaf difference from the first 'none' call, relative to "
-          f"the leaf's largest element: {worst}; leaves that differ "
-          f"{ {k: len(v) for k, v in differ.items()} } of "
-          f"{len(tree_leaves(grads['none']))} (first few "
-          f"{ {k: v[:4] for k, v in differ.items()} }); value_and_grad's "
-          f"own peak GB { {k: v / 1e9 for k, v in peaks.items()} }; "
-          f"recompute of kernel {'6' if base.family == 'ssm' else '7'}: "
-          f"{layers} launches on autograd's device thread, each output bit "
-          f"for bit its first launch's")
-    if base.family == "ssm":               # no attention: every op repeats
-        assert not differ["full"] and not differ["dots"], differ
-    else:
-        spread = max(worst["none again"], REMAT_SPREAD_FLOOR)
-        for key in ("full", "dots"):
-            assert worst[key] <= REMAT_SPREAD * spread, (key, worst)
+          f"leaves that differ from the first 'none' call's "
+          f"{ {k: len(v) for k, v in differ.items()} } of {len(want)} (first "
+          f"few { {k: v[:4] for k, v in differ.items()} }); value_and_grad's "
+          f"own peak GB { {k: v / 1e9 for k, v in peaks.items()} } against "
+          f"the dry run's plan GB { {k: v / 1e9 for k, v in plan.items()} }: "
+          f"measured/plan {ratio} (tolerance {REMAT_PLAN_TOL}); recompute of "
+          f"kernel {'6' if base.family == 'ssm' else '7'}: {layers} launches "
+          f"on autograd's device thread, each output bit for bit its first "
+          f"launch's")
+    del want
+    assert not any(differ.values()), differ
+    assert all(abs(r - 1) <= REMAT_PLAN_TOL for r in ratio.values()), ratio
     figures = {f"value_and_grad_peak_gb_{k.replace(' ', '_')}": v / 1e9
                for k, v in peaks.items()}
-    figures["grad_rel_diff"] = worst
-    del grads
+    figures.update({f"planned_peak_gb_{k}": v / 1e9
+                    for k, v in plan.items() if k in REMAT_SETTINGS})
+    figures["measured_over_plan"] = ratio
+    figures["leaves_differing"] = {k: len(v) for k, v in differ.items()}
     torch.cuda.empty_cache()
     return figures
 
 
-def _remat_turns(device, name, arch, layers=0):
+def _remat_turns(device, name, arch, planned, layers=0):
     """``arch`` at its published widths (cut to ``layers``), 8 x 512
-    tokens: the aten products its forward reaches, ``_remat_grads``, then
+    tokens: the aten products its forward reaches, ``_remat_grads``
+    (against ``planned``, ``remat_plans``'), then
     ``REMAT_STEPS`` steps of ``make_train_step`` a turn of
     ``REMAT_TURNS``, every launch counted (the forward kernel twice a
     backward launch under "full" and "dots"), from the same params, state
@@ -5428,7 +5422,8 @@ def _remat_turns(device, name, arch, layers=0):
           f"card ({base.num_layers} layers): {ops}")
     assert ops == {"aten.mm.default":
                    REMAT_PROJECTIONS[arch] * base.num_layers}, ops
-    figures = {"grads": _remat_grads(base, params, batches[0], arch)}
+    figures = {"grads": _remat_grads(base, params, batches[0], arch,
+                                     planned)}
     shape = ShapeConfig("train", 512, 8, "train")
     tokens = 8 * 512
     runs, totals = {r: [] for r in REMAT_SETTINGS}, {}
@@ -5738,16 +5733,28 @@ def train_timings(device, name):
     turns = [graph_time_ms(fn, 20) for fn in (null, with_lse, with_lse, null)]
     b_ms, b_by, nbytes, n_ops, terms = attention_bound(
         b, hq, hkv, sq, skv, d, causal_pairs(sq, skv), 2, name)
+    # the library's forward that returns the rows' lse: PyTorch's flash
+    # attention op on (B, H, S, D), natural-log lse (B, H, S) float32
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+        qt, kt, vt, 0.0, True)
+    lib_lse_err = float((lib()[1] - with_lse()[1]).abs().max())
     rows["forward_lse"] = dict(
         ms=statistics.mean(turns[1:3]), null_lse_ms=[turns[0], turns[3]],
         plain_ms=graph_time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, return_lse=True), 3, reps=3),
         bound_ms=b_ms + 4 * b * hq * sq / peaks(name)[1][1] * 1e3,
-        bound_by=b_by, shape=list(FA_BWD_SHAPES["olmo_train"][:6]),
+        bound_by=b_by, library_ms=graph_time_ms(lib, 20),
+        library_kernel="aten._scaled_dot_product_flash_attention",
+        shape=list(FA_BWD_SHAPES["olmo_train"][:6]),
         path="LM training forward (lse stored)")
     print(f"timing flash_attention LM training forward (8, 512, 16, 128) "
           f"bf16 causal, in turns null / lse / lse / null: {turns} ms "
-          f"(lse/null = {(turns[1] + turns[2]) / (turns[0] + turns[3])})")
+          f"(lse/null = {(turns[1] + turns[2]) / (turns[0] + turns[3])}); "
+          f"library_ms={rows['forward_lse']['library_ms']} "
+          f"(aten._scaled_dot_product_flash_attention, lse returned, CUDA "
+          f"graph; its lse against the kernel's max_abs_err {lib_lse_err})")
+    del qt, kt, vt
     for key, fn in wrappers().items():          # timing launches don't count
         fn.launches = saved[key]
     return rows
@@ -5784,23 +5791,32 @@ def phase_lm_train(device, name):
     launches}}, {dtype: kernel 7 backward max_abs_err}, figures, kernel 7
     timing rows, kernel 6 backward max_abs_err, kernel 6 timing rows)."""
     t0 = time.perf_counter()
-    errs = check_bwd_kernels(device)
-    check_kernels_refuse_grad(device)
-    scan_err = check_scan_bwd_kernels(device)
-    counts, figures = _train_path()
-    torch.cuda.empty_cache()
-    ssm_counts, figures["falcon-mamba-7b"] = _ssm_train_path()
-    torch.cuda.empty_cache()
-    _resume_check()
-    _plain_step_check(device)
-    _plain_step_check(device, "falcon-mamba-7b")
-    whisper = _whisper_train(device)
-    jamba = _jamba_train(device)
-    t1 = time.perf_counter()
+    plans = start_remat_plans()
+    try:
+        errs = check_bwd_kernels(device)
+        check_kernels_refuse_grad(device)
+        scan_err = check_scan_bwd_kernels(device)
+        counts, figures = _train_path()
+        torch.cuda.empty_cache()
+        ssm_counts, figures["falcon-mamba-7b"] = _ssm_train_path()
+        torch.cuda.empty_cache()
+        _resume_check()
+        _plain_step_check(device)
+        _plain_step_check(device, "falcon-mamba-7b")
+        whisper = _whisper_train(device)
+        jamba = _jamba_train(device)
+        t1 = time.perf_counter()
+        planned = remat_plans(plans)
+        print(f"phase 22 remat plans (scripts/remat_plans.py --backward) "
+              f"waited for {time.perf_counter() - t1} s")
+    finally:
+        if plans.poll() is None:
+            plans.kill()
+            plans.wait()
     olmo_turns, figures["remat olmo-1b"] = _remat_turns(device, name,
-                                                        "olmo-1b")
+                                                        "olmo-1b", planned)
     ssm_turns, figures["remat falcon-mamba-7b"] = _remat_turns(
-        device, name, "falcon-mamba-7b", SSM_TRAIN_LAYERS)
+        device, name, "falcon-mamba-7b", planned, SSM_TRAIN_LAYERS)
     print(f"phase 22 remat seconds={time.perf_counter() - t1}")
     rows = train_timings(device, name)
     scan_rows = scan_train_timings(device, name)
@@ -6298,6 +6314,14 @@ def main(argv=None) -> int:
                   f"bound_ms={row['bound_ms']} kernel/parent="
                   f"{row['ms'] / statistics.mean(row['parent_ms'])}")
     dry_paths, dry_errs, dry_rows, dry_figures = phase_dryrun(device, name)
+    if args.parent_src:         # the parent's kernel 7b at train_4k, in turns
+        row = dry_rows["backward"]
+        row["parent_ms"] = [p["flash_attention_bwd"].get("train_4k", {})
+                            .get("ms") for p in bwd_parents]
+        print(f"timing flash_attention_bwd train_4k: kernel_ms={row['ms']} "
+              f"parent_ms={row['parent_ms']} (before, after) library_ms="
+              f"{row['library_ms']} bound_ms={row['bound_ms']} kernel/parent="
+              f"{row['ms'] / statistics.mean(row['parent_ms'])}")
     errs["mamba_scan"] = max(errs["mamba_scan"], family_errs["mamba_scan"])
     for key in ("flash_attention", "decode_attention"):
         lm_errs[key]["bfloat16"] = max(lm_errs[key]["bfloat16"],
@@ -6360,7 +6384,7 @@ def main(argv=None) -> int:
             row["parent_ms"] = [
                 p["flash_attention"].get(label, {}).get("ms")
                 for p in bwd_parents]
-            lib = row.get("library_ms")     # the lse row has none
+            lib = row.get("library_ms")
             print(f"timing flash_attention {label}: kernel_ms={row['ms']} "
                   f"parent_ms={row['parent_ms']} (before, after) "
                   f"library_ms={lib} bound_ms={row['bound_ms']} "

@@ -3,6 +3,7 @@ backwards (kernel 7's and kernel 6's) on one CUDA card at the paths'
 shapes, for this checkout's package or another's, from one build.
 
     python3 scripts/bwd_timings.py [--src DIR] [--label NAME]
+        [--only flash_attention|flash_attention_bwd|mamba_scan_bwd]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
 this checkout's), so that one run on a card can time another checkout's
@@ -19,7 +20,9 @@ runs it so, before and after its own timings).
   causal (8, 512, 16, 128), whisper's encoder and cross-attention at D =
   64) in bfloat16, inputs from ``chip_smoke._bwd_case`` (seed
   ``chip_smoke.SEED + 24``, as phase 22's timings), the lse from the
-  package's own ``flash_attention_fwd``.
+  package's own ``flash_attention_fwd``; and at OLMo-1B's ``train_4k``
+  (``chip_smoke.FA_TRAIN_4K``, (1, 4096, 16, 128) causal, row
+  ``train_4k``, seed ``chip_smoke.SEED + 28``, as phase 23's).
 * Kernel 6 (``mamba_scan_bwd``) at every shape of
   ``chip_smoke.SCAN_BWD_TIMED`` (falcon-mamba-7b's training shape (8, 512,
   8192, 16), the mamba class's (1, 32, 8, 4), (2, 256, 1024, 16)), inputs
@@ -46,15 +49,22 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (FA_BWD_SHAPES, FA_BWD_TIMED,  # noqa: E402
-                        FA_FWD_TIMED, SCAN_BWD_TIMED, SEED, _bwd_case,
-                        _qkv, _scan_args, device_split_us, graph_time_ms)
+                        FA_FWD_TIMED, FA_TRAIN_4K, SCAN_BWD_TIMED, SEED,
+                        _bwd_case, _qkv, _scan_args, device_split_us,
+                        graph_time_ms)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this")
+    ap.add_argument("--only", default="",
+                    choices=("", "flash_attention", "flash_attention_bwd",
+                             "mamba_scan_bwd"),
+                    help="time this kernel's rows alone")
     args = ap.parse_args()
+    wanted = {args.only} if args.only else {
+        "flash_attention", "flash_attention_bwd", "mamba_scan_bwd"}
     if not torch.cuda.is_available():
         raise SystemExit("bwd_timings: no CUDA device is visible")
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
@@ -68,7 +78,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     _build.build(["flash_attention", "flash_attention_bwd", "mamba_scan",
                   "mamba_scan_bwd"])
-    for row, (*shape, causal, with_lse) in FA_FWD_TIMED.items():
+    for row, (*shape, causal, with_lse) in (
+            FA_FWD_TIMED.items() if "flash_attention" in wanted else ()):
         q, k, v = (t.to(torch.bfloat16)
                    for t in _qkv(tuple(shape), device, SEED + 29))
         fwd = fa.flash_attention_fwd if with_lse else fa.flash_attention
@@ -84,10 +95,12 @@ def main() -> int:
                               shape=shape + [causal, with_lse], ms=ms,
                               kernels_us=split)), flush=True)
         del q, k, v
-    for row in FA_BWD_TIMED:
-        shape = FA_BWD_SHAPES[row]
+    bwd_rows = [(row, FA_BWD_SHAPES[row], SEED + 24) for row in FA_BWD_TIMED]
+    bwd_rows.append(("train_4k", FA_TRAIN_4K, SEED + 28))
+    for row, shape, seed in (bwd_rows if "flash_attention_bwd" in wanted
+                             else ()):
         causal = shape[6]
-        q, k, v, do = _bwd_case(shape, torch.bfloat16, device, SEED + 24)
+        q, k, v, do = _bwd_case(shape, torch.bfloat16, device, seed)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
 
         def call():
@@ -100,7 +113,7 @@ def main() -> int:
                               shape=list(shape), ms=ms, kernels_us=split)),
               flush=True)
         del q, k, v, do, out, lse
-    for shape in SCAN_BWD_TIMED:
+    for shape in SCAN_BWD_TIMED if "mamba_scan_bwd" in wanted else ():
         b, s, di, _ = shape
         inputs = _scan_args(shape, device, SEED + 26)
         _, _, states = scan.mamba_scan_fwd(*inputs)

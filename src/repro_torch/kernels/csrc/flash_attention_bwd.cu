@@ -30,17 +30,25 @@
 //     so P = 0 there) and Delta of every row, into a float32 scratch of
 //     (B, Hq, query tile, 2, BM), a tile's rows contiguous; the float32 dQ
 //     accumulator zeroed.
-//   * fa_bwd_main_bf16: one block per (batch, KV head, BN = 128 keys);
-//     the key blocks of one (batch, KV head) launch one after another,
-//     the first keys (the heaviest under `causal`) first, so the blocks
-//     resident together share their Q and dO tiles and their rows of the
-//     dQ accumulator in the L2 (launched KV head by KV head instead, the
-//     accumulators of every resident head outgrow the L2 at whisper's
-//     encoder, and the reduce-adds go to device memory).  A
-//     producer warpgroup (24 registers a thread after setmaxnreg) loads
-//     the block's K and V tiles once and then, for every query head of
-//     the GQA group and every BM-row query tile that sees the block's
-//     keys, the Q and dO tiles by TMA (128-byte swizzle, rows past Sq
+//   * fa_bwd_main_bf16: one block per (batch, KV head, BN = 128 keys),
+//     launched in groups of GROUP = 32 (batch, KV head) rows: a group's
+//     first key blocks (the heaviest under `causal`) for each of its rows,
+//     then its second, and so on, then the next group.  The blocks
+//     resident together come from at most 32 rows, whose Q, dO and dQ
+//     accumulator rows stay in the L2 (all rows' first key blocks at once,
+//     the accumulators outgrow it at whisper's encoder and the reduce-adds
+//     go to device memory), and only about 132 / 32 key blocks of a row
+//     start together, so few wait on the one before them in dQ's order
+//     below (a row's key blocks launched one after another, they all start
+//     together and each trails the one before it by an add and its
+//     completion).  Every block walks its query tiles in one order, the
+//     last first, so the blocks of a row that do run together read the
+//     same Q and dO tiles and add to the same accumulator rows at about
+//     the same time.  In a producer warpgroup (24 registers a thread
+//     after setmaxnreg) one thread loads the block's K and V tiles once
+//     and then, for every query head of the GQA group and every BM-row
+//     query tile that sees the block's keys, from the last tile down,
+//     the Q and dO tiles by TMA (128-byte swizzle, rows past Sq
 //     zero-filled) and the rows' lse2 and Delta by one bulk copy, into a
 //     2-stage mbarrier ring.  Two consumer warpgroups (240 registers),
 //     64 keys each, compute per tile on wgmma: S^T = K Q^T and dP^T = V
@@ -53,15 +61,40 @@
 //     and the tile's dQ = dS K, each warpgroup a 64 x 64 piece (D = 128:
 //     its 64 columns; D = 64: its 64 query rows) over all 128 keys, the
 //     transposed operands read through wgmma's transpose bits.  The piece
-//     goes to shared memory and is added to the float32 accumulator with
-//     one cp.reduce.async.bulk add.f32.  Five products a tile pair, not
-//     the seven of a split dQ / dK-dV pair of kernels; q, k, v and dO
-//     read once from device memory, the Q/dO re-reads of later key blocks
-//     from the L2.
+//     goes to shared memory (an mbarrier says it is in), and another
+//     thread of the producer warpgroup, the dQ writer, adds both pieces of
+//     a tile to the float32 accumulator with one cp.reduce.async.bulk
+//     add.f32 each, in the fixed order below, then frees the staging for
+//     the consumers' next tile once they are read (a second mbarrier).
+//     Five products a tile pair, not the seven of a split dQ / dK-dV pair
+//     of kernels; q, k, v and dO read once from device memory, the Q/dO
+//     re-reads of later key blocks from the L2.
 //   * fa_bwd_post_bf16: dQ = accumulator / sqrt(D) in bf16, (B, Sq, Hq, D).
-// dK and dV are summed in registers in a fixed order and repeat bit for
-// bit; dQ is a float32 sum of per-key-block partials added in the order
-// the blocks finish, so it does not (PERF.md §6 measures the spread).
+// dK and dV are summed in registers in a fixed order.  dQ is summed in a
+// fixed order too: each (batch, query head, query tile) takes its key
+// blocks' pieces in ascending key-block order (FlashAttention-3's
+// deterministic backward: a counter a tile that a block waits on before
+// its adds and raises after them, here by a dQ writer thread), so all
+// three repeat bit for bit.  The counters, (B, Hq, query tiles) int32,
+// are zeroed by fa_bwd_pre_bf16 and count the key blocks that have added
+// to their tile; under `causal` the key blocks
+// that see a tile are the first ones, so key block x's writer waits until
+// the tile's counter reads x (ld.acquire.gpu), adds the two pieces, and
+// once both adds have completed (their writes done, not only their source
+// read) raises it by one (red.release.gpu); proxy fences order the bulk
+// adds (async proxy) with the counter.  The writer frees the staging as
+// soon as the adds have read it; the consumers wait for that only a tile
+// later, when they stage the next pieces.  Walked from the first tile up
+// instead, under `causal` key block x would start at the tile that x - 1
+// reaches third, and every block would trail the one before it by two
+// tiles.
+// LAUNCH ORDER: a block waits only on the key blocks of its own (batch,
+// KV head) with a smaller blockIdx.y, in its own group (blockIdx.z) at
+// the same blockIdx.x, so with a smaller linear index, and it relies on
+// the hardware dispatching blocks in the order of their linear index
+// (blockIdx.x fastest, then y, then z), as FlashAttention-3 does: those
+// blocks are then resident or done, never unlaunched, so no resident
+// block waits forever.
 // float32 runs on FMAs from shared memory, a dQ kernel (which also writes
 // Delta) then a dK/dV kernel, no atomics: no path trains in float32 at
 // speed, it holds the bfloat16 path to an exact reference.
@@ -82,6 +115,7 @@ struct BwdTiles {
   static constexpr int BN = 128;        // keys a block, 64 a consumer
   static constexpr int STAGES = 2;      // Q/dO tiles in the ring
   static constexpr int THREADS = 384;   // 2 consumer warpgroups + producer
+  static constexpr int GROUP = 32;      // (batch, KV head) rows a group
   static constexpr int SLABS = D / 64;  // 64-column slabs of a row
   static constexpr int KV_SLAB = BN * 128, Q_SLAB = BM * 128;
   static constexpr int KV_BYTES = BN * D * 2, Q_BYTES = BM * D * 2;
@@ -95,7 +129,8 @@ struct BwdTiles {
   static constexpr int OFF_DQ = OFF_DS + 2 * DS_BYTES;
   static constexpr int OFF_STAT = OFF_DQ + 2 * DQ_BYTES;
   static constexpr int OFF_BAR = OFF_STAT + STAGES * STAT_BYTES;
-  static constexpr int N_BAR = 1 + 2 * STAGES;   // K/V, full[], empty[]
+  // K/V, full[], empty[], dQ pieces in (one a warpgroup), dQ staging free
+  static constexpr int N_BAR = 1 + 2 * STAGES + 3;
   // + 1024: the dynamic base rounded up to a swizzle atom
   static constexpr int SMEM = OFF_BAR + 8 * N_BAR + 1024;
   // dK and dV of both warpgroups staged for the store, after the loop,
@@ -106,20 +141,23 @@ struct BwdTiles {
   static_assert(4 * 64 * EPI_PITCH <= OFF_DS, "dK/dV staging");
 };
 // bwd_plan(d) in kernels/flash_attention.py (its test reads these lines)
-static_assert(BwdTiles<128>::BM == 64 && BwdTiles<128>::SMEM == 198696,
+static_assert(BwdTiles<128>::BM == 64 && BwdTiles<128>::SMEM == 198720,
               "bwd_plan(128)");
-static_assert(BwdTiles<64>::BM == 128 && BwdTiles<64>::SMEM == 199720,
+static_assert(BwdTiles<64>::BM == 128 && BwdTiles<64>::SMEM == 199744,
               "bwd_plan(64)");
+static_assert(BwdTiles<128>::GROUP == 32 && BwdTiles<64>::GROUP == 32,
+              "bwd_plan's group_rows");
 
 template <int D>
 __global__ void __launch_bounds__(256) fa_bwd_pre_bf16(
     const bf16* __restrict__ o, const bf16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ stats,
-    float* __restrict__ dq_acc, int sq, int hq) {
+    float* __restrict__ dq_acc, int* __restrict__ dq_sem, int sq, int hq) {
   constexpr int BM = BwdTiles<D>::BM;
   const int bh = blockIdx.x, m = blockIdx.y;
   const int b = bh / hq, h = bh - b * hq;
   const size_t tile = (size_t)bh * gridDim.y + m;   // (b, h, query tile)
+  if (threadIdx.x == 0) dq_sem[tile] = 0;           // no piece added yet
   float4* acc = reinterpret_cast<float4*>(dq_acc + tile * BM * D);
   for (int i = threadIdx.x; i < BM * D / 4; i += 256)
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -152,6 +190,26 @@ __global__ void __launch_bounds__(256) fa_bwd_pre_bf16(
   }
 }
 
+// dQ's order: a tile's counter read with acquire and raised with release
+// at the GPU's scope, ordered with the bulk reduce-adds (the async proxy)
+// by proxy fences.
+__device__ __forceinline__ void dq_wait(const int* cnt, int count) {
+  int seen;
+  do {
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
+                 : "=r"(seen) : "l"(cnt) : "memory");
+  } while (seen < count);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// the issuing thread's reduce-adds complete, then its tile's counter
+// raised by one
+__device__ __forceinline__ void dq_done(int* cnt) {
+  bulk_wait<0>();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(cnt)
+               : "memory");
+}
+
 template <int D>
 __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
     const __grid_constant__ CUtensorMap tm_q,
@@ -159,8 +217,9 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_do,
     const float* __restrict__ stats, float* __restrict__ dq_acc,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int skv, int hq,
-    int hkv, int causal, float scale_log2, float scale) {
+    int* __restrict__ dq_sem, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int kv_rows, int sq, int skv, int hq, int hkv, int causal,
+    float scale_log2, float scale) {
   using T = BwdTiles<D>;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -169,9 +228,12 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
   unsigned char* const sbase = smem_raw + (base - raw);
   const uint32_t bar_kv = base + T::OFF_BAR;
   const uint32_t bar_full = bar_kv + 8, bar_empty = bar_kv + 8 * (1 + ST);
-  const int b = blockIdx.y / hkv, hk = blockIdx.y - b * hkv;
+  const uint32_t bar_dq = bar_kv + 8 * (1 + 2 * ST);   // in[2], then free
+  const int kv_row = blockIdx.z * gridDim.x + blockIdx.x;  // (batch, KV head)
+  if (kv_row >= kv_rows) return;         // past the last group's rows
+  const int b = kv_row / hkv, hk = kv_row - b * hkv;
   const int group = hq / hkv;
-  const int k0 = blockIdx.x * BN;        // heaviest first under causal
+  const int kb = blockIdx.y, k0 = kb * BN;   // heaviest first under causal
   const int diag = skv - sq;
   const int n_mt = (sq + BM - 1) / BM;
   // the first query tile with a row that sees one of the block's keys
@@ -183,12 +245,15 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, 256);   // every consumer thread
     }
+    mbar_init(bar_dq, 128);                // a warpgroup's threads
+    mbar_init(bar_dq + 8, 128);
+    mbar_init(bar_dq + 16, 1);             // the dQ writer
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // ---- producer warpgroup: one thread issues every copy ----
+    // ---- producer warpgroup: one thread loads, one writes dQ ----
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(bar_kv, 2 * T::KV_BYTES);
@@ -203,8 +268,8 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
       uint32_t phase = 1;                // a free stage passes at once
       for (int hh = 0; hh < group; ++hh) {
         const int h = hk * group + hh;
-        const float* src = stats + ((size_t)(b * hq + h) * n_mt + m0) * 2 * BM;
-        for (int m = m0; m < n_mt; ++m, src += 2 * BM) {
+        for (int m = n_mt - 1; m >= m0; --m) {   // the last tile first
+          const float* src = stats + ((size_t)(b * hq + h) * n_mt + m) * 2 * BM;
           const uint32_t full = bar_full + 8 * st;
           mbar_wait(bar_empty + 8 * st, phase);
           mbar_expect_tx(full, 2 * T::Q_BYTES + T::STAT_BYTES);
@@ -218,6 +283,29 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
           bulk_load(base + T::OFF_STAT + st * T::STAT_BYTES, src,
                     T::STAT_BYTES, full);
           if (++st == ST) st = 0, phase ^= 1;
+        }
+      }
+    } else if (threadIdx.x == 288) {
+      // the dQ writer: each tile's two pieces after every earlier key
+      // block's, the staging freed once read, the counter raised once the
+      // adds are complete
+      uint32_t phase = 0;
+      for (int hh = 0; hh < group; ++hh) {
+        const int h = hk * group + hh;
+        for (int m = n_mt - 1; m >= m0; --m, phase ^= 1) {
+          const size_t tile = (size_t)(b * hq + h) * n_mt + m;
+          dq_wait(dq_sem + tile, kb);
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            mbar_wait(bar_dq + 8 * w, phase);
+            bulk_reduce_add_f32(dq_acc + tile * BM * D + w * 4096,
+                                base + T::OFF_DQ + w * T::DQ_BYTES,
+                                T::DQ_BYTES);
+            bulk_commit();
+          }
+          bulk_wait_read<0>();       // the staging read: free it
+          mbar_arrive(bar_dq + 16);
+          dq_done(dq_sem + tile);
         }
       }
     }
@@ -237,9 +325,9 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
     mbar_wait(bar_kv, 0);
 
     int st = 0, it = 0;
-    uint32_t phase = 0;
+    uint32_t phase = 0, dq_phase = 1;   // the staging is free at first
     for (int hh = 0; hh < group; ++hh) {
-      for (int m = m0; m < n_mt; ++m, ++it) {
+      for (int m = n_mt - 1; m >= m0; --m, ++it) {
         const int h = hk * group + hh, q0 = m * BM;
         const uint32_t sQ = base + T::OFF_Q + st * T::Q_BYTES;
         const uint32_t sDO = base + T::OFF_DO + st * T::Q_BYTES;
@@ -352,27 +440,21 @@ __global__ void __launch_bounds__(384, 1) fa_bwd_main_bf16(
         wgmma_wait<0>();
         fence_regs(dqa);
 
-        // the piece to shared memory, each thread's 4 values of an 8-column
-        // chunk as one float4 (the accumulator's tile layout, which
-        // fa_bwd_post_bf16 reads back), then one bulk reduce-add
+        // the piece to shared memory once the writer is done with the
+        // previous tile's, each thread's 4 values of an 8-column chunk as
+        // one float4 (the accumulator's tile layout, which
+        // fa_bwd_post_bf16 reads back); the writer adds it
         const uint32_t stage_dq = base + T::OFF_DQ + wg * T::DQ_BYTES;
-        if (t == 0) bulk_wait_read<0>();   // the previous piece has been read
-        named_bar_sync(2 + wg, 128);
+        mbar_wait(bar_dq + 16, dq_phase);
+        dq_phase ^= 1;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           st_shared_f4(stage_dq + (j * 128 + t) * 16, dqa[4 * j],
                        dqa[4 * j + 1], dqa[4 * j + 2], dqa[4 * j + 3]);
         fence_proxy_async();
-        named_bar_sync(2 + wg, 128);
-        if (t == 0) {
-          bulk_reduce_add_f32(
-              dq_acc + ((size_t)(b * hq + h) * n_mt + m) * BM * D + wg * 4096,
-              stage_dq, T::DQ_BYTES);
-          bulk_commit();
-        }
+        mbar_arrive(bar_dq + 8 * wg);
       }
     }
-    if (t == 0) bulk_wait<0>();
 
     // dK / sqrt(D) and dV in bf16 through shared memory (K, V and the ring
     // are free once both warpgroups are past their last product)
@@ -668,7 +750,7 @@ static int launch_one(Kernel kernel, int smem, dim3 grid, cudaStream_t st,
 template <int D>
 static int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                        const bf16* o, const bf16* dout, const float* lse,
-                       float* stats, float* dq_acc, bf16* dq,
+                       float* stats, float* dq_acc, int* dq_sem, bf16* dq,
                        bf16* dk, bf16* dv, int b, int sq, int skv, int hq,
                        int hkv, int causal, int block_m, int smem,
                        cudaStream_t st) {
@@ -689,8 +771,8 @@ static int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
       (err = head_rows_map(&tv, "v", v, b, skv, hkv, D, T::BN)))
     return err;
   const dim3 rows(b * hq, (sq + T::BM - 1) / T::BM);
-  fa_bwd_pre_bf16<D><<<rows, 256, 0, st>>>(o, dout, lse, stats, dq_acc, sq,
-                                           hq);
+  fa_bwd_pre_bf16<D><<<rows, 256, 0, st>>>(o, dout, lse, stats, dq_acc,
+                                           dq_sem, sq, hq);
   if ((err = launch_check("preprocess launch"))) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_bwd_main_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -698,10 +780,14 @@ static int launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   if (attr != cudaSuccess)
     return launch_fail((int)attr, "main pass: %d bytes of shared memory "
                        "refused: %s", T::SMEM, cudaGetErrorString(attr));
-  fa_bwd_main_bf16<D><<<dim3((skv + T::BN - 1) / T::BN, b * hkv), T::THREADS,
-                        T::SMEM, st>>>(tq, tk, tv, tdo, stats, dq_acc, dk, dv,
-                                       sq, skv, hq, hkv, causal, scale_log2,
-                                       scale);
+  // a group's rows fastest, then its key blocks, then the groups
+  const int kv_rows = b * hkv;
+  const int per_group = kv_rows < T::GROUP ? kv_rows : T::GROUP;
+  fa_bwd_main_bf16<D><<<dim3(per_group, (skv + T::BN - 1) / T::BN,
+                             (kv_rows + per_group - 1) / per_group),
+                        T::THREADS, T::SMEM, st>>>(
+      tq, tk, tv, tdo, stats, dq_acc, dq_sem, dk, dv, kv_rows, sq, skv, hq,
+      hkv, causal, scale_log2, scale);
   if ((err = launch_check("main pass launch"))) return err;
   fa_bwd_post_bf16<D><<<rows, 256, 0, st>>>(dq_acc, dq, sq, hq, scale);
   return launch_check("dQ cast launch");
@@ -729,25 +815,27 @@ static int launch_f32(const float* q, const float* k, const float* v,
 // dtype 0: float32 (two launches: the dQ kernel, which also writes
 // `delta`, (B, Hq, Sq) float32 scratch, then the dK/dV kernel), 1:
 // bfloat16 (three launches; `delta` is the (B, Hq, Sq_pad / block_m, 2,
-// block_m) lse2 / Delta scratch and `dq_acc` the (B, Hq, Sq_pad, d)
-// float32 accumulator, Sq_pad = Sq rounded up to `block_m`); d in {64,
-// 128}.  q, o, dout, dq (B, Sq, Hq,
+// block_m) lse2 / Delta scratch, `dq_acc` the (B, Hq, Sq_pad, d) float32
+// accumulator and `dq_sem` the (B, Hq, Sq_pad / block_m) int32 counters
+// of its tiles, Sq_pad = Sq rounded up to `block_m`; float32 takes no
+// `dq_acc` or `dq_sem`); d in {64, 128}.  q, o, dout, dq (B, Sq, Hq,
 // d), k, v, dk, dv (B, Skv, Hkv, d) contiguous and 16-byte aligned, lse
 // (B, Hq, Sq) float32.  All on `stream`; returns 0 or a CUDA error (a
 // refused launch, a tensor map cuTensorMapEncodeTiled refuses, a plan
 // that disagrees; `launch_why` says which).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq_acc, void* dq,
-    void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+    const void* dout, const void* lse, void* delta, void* dq_acc,
+    void* dq_sem, void* dq, void* dk, void* dv, int b, int sq, int skv,
+    int hq, int hkv,
     int d, int causal, int dtype, int block_m, int smem, void* stream) {
   const LaunchScope scope;
   cudaStream_t st = (cudaStream_t)stream;
 #define FB_BF16                                                              \
   (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,            \
       (const bf16*)dout, (const float*)lse, (float*)delta, (float*)dq_acc,   \
-      (bf16*)dq, (bf16*)dk, (bf16*)dv, b, sq, skv, hq, hkv, causal, block_m, \
-      smem, st
+      (int*)dq_sem, (bf16*)dq, (bf16*)dk, (bf16*)dv, b, sq, skv, hq, hkv,    \
+      causal, block_m, smem, st
 #define FB_F32                                                               \
   (const float*)q, (const float*)k, (const float*)v, (const float*)o,        \
       (const float*)dout, (const float*)lse, (float*)delta, (float*)dq,      \

@@ -35,10 +35,15 @@ Training (the gradient of the same function):
   by TMA over (batch, KV head, 128 keys) blocks (``bwd_plan``,
   ``bwd_walk``) that sums dK and dV in registers and adds each tile's dQ
   into a float32 accumulator with bulk reduce-adds, then dQ in bfloat16.
-  dK and dV repeat bit for bit; dQ's float32 sum is taken in the order
-  the blocks finish, so it does not.  float32 runs two kernels (dQ, then
-  dK and dV), bit for bit.  Only head widths ``BWD_HEAD_DIMS`` have a
-  backward; any other raises ``ValueError`` under grad.
+  Each query tile takes its key blocks' dQ pieces in ascending key-block
+  order, a counter a tile (``bwd_counters``) keeping the order, so dQ,
+  dK and dV all repeat bit for bit, as the reference's gradients do; the
+  blocks launch in groups of ``bwd_plan(d).group_rows`` (batch, KV head)
+  rows, key block by key block, so that few of a row start together and
+  wait on each other.
+  float32 runs two kernels (dQ, then dK and dV), bit for bit.  Only head
+  widths ``BWD_HEAD_DIMS`` have a backward; any other raises
+  ``ValueError`` under grad.
 * ``flash_attention_bwd_plain`` is its plain twin: the same blocked
   recurrence in PyTorch, P recomputed from the saved log-sum-exp.  On CPU
   tensors autograd differentiates ``flash_attention_plain`` directly.
@@ -203,47 +208,65 @@ class BwdPlan(NamedTuple):
     stages: int           # Q/dO tiles in the TMA ring
     smem_bytes: int       # dynamic shared memory a block
     blocks_per_sm: int    # resident blocks an SM (shared memory bound)
+    group_rows: int       # (batch, KV head) rows a launch group
 
 
 def bwd_plan(d: int) -> BwdPlan:
     """The bfloat16 backward's tiles at head width ``d``: K and V tiles of
     128 keys, a 2-stage ring of Q and dO tiles with their rows' lse2 and
     Delta, two dS^T buffers (keys x queries, bf16) and each consumer's
-    64 x 64 float32 dQ piece, plus the barriers and 1,024 bytes to round
-    the base up to a 128-byte-swizzle atom."""
+    64 x 64 float32 dQ piece, plus the barriers (K/V; each stage's full
+    and empty; each piece in, and the pieces' staging free) and 1,024
+    bytes to round the base up to a 128-byte-swizzle atom."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: no kernel instance at head "
                          f"width {d}")
     bm, bn, stages = (64 if d == 128 else 128), 128, 2
     kv, qt, ds, dq = bn * d * 2, bm * d * 2, bn * bm * 2, 64 * 64 * 4
-    stat, bars = stages * 2 * bm * 4, 8 * (1 + 2 * stages)
+    stat, bars = stages * 2 * bm * 4, 8 * (1 + 2 * stages + 3)
     smem = 2 * kv + 2 * stages * qt + 2 * ds + 2 * dq + stat + bars + 1024
-    return BwdPlan(384, 2, bm, bn, stages, smem, SMEM_LIMIT // smem)
+    return BwdPlan(384, 2, bm, bn, stages, smem, SMEM_LIMIT // smem, 32)
 
 
 def bwd_walk(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
              causal: bool) -> list:
-    """The bfloat16 backward's main kernel in launch order (``blockIdx.x``
-    = key block fastest, then ``blockIdx.y`` = batch and KV head: a
-    (batch, KV head)'s key blocks one after another, the first keys, the
-    heaviest under ``causal``, first): ``(batch, KV head, first key,
-    [(query head, first query), ...])``, the block's Q/dO tiles in the
-    order its producer loads them: every head of the GQA group, each from
-    the first query tile with a row that sees one of the block's keys
-    (the diagonal at ``skv - sq``)."""
+    """The bfloat16 backward's main kernel in launch order: the (batch,
+    KV head) rows in groups of ``bwd_plan(d).group_rows`` (``blockIdx.z``),
+    in a group its rows' first key blocks (the first keys, the heaviest
+    under ``causal``), then their second, and so on (``blockIdx.y`` the
+    key block, ``blockIdx.x`` the row in the group, fastest):
+    ``(batch, KV head, first key, [(query head, first query, count),
+    ...])``, the block's Q/dO tiles in the order its producer loads them:
+    every head of the GQA group, each from the last query tile down to the
+    first with a row that sees one of the block's keys (the diagonal at
+    ``skv - sq``).  ``count`` is the value of the tile's counter
+    (``bwd_counters``) that the block's dQ writer waits for before it adds
+    the tile's two dQ pieces, and raises by one after them: the earlier
+    key blocks of the (batch, KV head), all of which see the tile too and
+    launch before it."""
     p = bwd_plan(d)
     bm, bn, group = p.block_m, p.block_n, hq // hkv
-    n_mt = -(-sq // bm)
+    n_mt, rows = -(-sq // bm), b * hkv
+    per_group = min(rows, p.group_rows)
     out = []
-    for y in range(b * hkv):
-        bb, hk = divmod(y, hkv)
+    for g0 in range(0, rows, per_group):
         for x in range(-(-skv // bn)):
             k0 = x * bn
             m0 = max(0, k0 - (skv - sq)) // bm if causal else 0
-            out.append((bb, hk, k0, [(hk * group + hh, m * bm)
-                                     for hh in range(group)
-                                     for m in range(m0, n_mt)]))
+            for y in range(g0, min(rows, g0 + per_group)):
+                bb, hk = divmod(y, hkv)
+                out.append((bb, hk, k0, [(hk * group + hh, m * bm, x)
+                                         for hh in range(group)
+                                         for m in range(n_mt - 1, m0 - 1,
+                                                        -1)]))
     return out
+
+
+def bwd_counters(b: int, sq: int, hq: int, d: int) -> tuple:
+    """The shape of the bfloat16 backward's dQ counters, int32, one a
+    (batch, query head, query tile of ``bwd_plan(d).block_m`` rows); the
+    preprocess zeroes them."""
+    return (b, hq, -(-sq // bwd_plan(d).block_m))
 
 
 def query_block_order(n_blocks: int) -> list:
@@ -464,14 +487,16 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool):
                             device=device)
         dq_acc = torch.empty((b, hq, n_mt * p.block_m, d), dtype=_F32,
                              device=device)
+        dq_sem = torch.empty(bwd_counters(b, sq, hq, d), dtype=torch.int32,
+                             device=device)
     else:
         delta = torch.empty((b, hq, sq), dtype=_F32, device=device)
-        dq_acc = None
+        dq_acc = dq_sem = None
     _build.launch("flash_attention_bwd", SOURCE_BWD,
-                  [_build.P] * 11 + [_build.I] * 10, device,
-                  q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, b, sq, skv,
-                  hq, hkv, d, int(causal), DTYPES[q.dtype], p.block_m,
-                  p.smem_bytes)
+                  [_build.P] * 12 + [_build.I] * 10, device,
+                  q, k, v, o, do, lse, delta, dq_acc, dq_sem, dq, dk, dv, b,
+                  sq, skv, hq, hkv, d, int(causal), DTYPES[q.dtype],
+                  p.block_m, p.smem_bytes)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -126,7 +126,7 @@ def kernel_flops(name: str, args) -> float:
         b, sq, skv, hq, d = args[5], args[6], args[7], args[8], args[10]
         return 4.0 * b * hq * sq * skv * d
     if name == "flash_attention_bwd":
-        b, sq, skv, hq, d = args[11], args[12], args[13], args[14], args[16]
+        b, sq, skv, hq, d = args[12], args[13], args[14], args[15], args[17]
         return 10.0 * b * hq * sq * skv * d
     if name == "decode_attention":
         b, hq, s, d = args[6], args[7], args[9], args[10]
