@@ -183,7 +183,12 @@ The paper's main path (kernels 7 and 1 on the DQN learner's path):
     budget (20 episodes, 2 seeds, 5 trials): every trial places or drops
     its 50 pods; then kube, SDQN and SDQN-n on recorded trial draws on the
     card and on the CPU port: identical experiment pods, metrics within
-    1e-5 relative.
+    1e-5 relative; and SDQN's and SDQN-n's whole ``train_and_select`` at
+    that cut (12 validation bursts) on draws recorded from CPU
+    ``TorchDraws``, on the card and on the CPU port: learner actions
+    identical up to the first near tie (printed with its gap), and with
+    none the same selected seed, validation metrics and Table 9/10 trials
+    (experiment pods identical, metrics within 1e-5 relative).
 
 The paper's baselines and SDQN-n over time (kernels 7 and 1):
 
@@ -321,10 +326,10 @@ chunk states, and their hand-written backwards,
     for bit the first "none" call's; then "full" once more with every
     recomputed launch of kernel 7 or 6 on autograd's device thread, its
     outputs bit for bit the first launch's;
-    then 12 steps of ``make_train_step`` a turn in turns full, none, dots,
-    dots, none, full: exact launches, ms a step, tokens/s, MFU, the share
-    of ``cell_flops``' hlo FLOPs, peak memory and, in a setting's first
-    turn, the busy share of two profiled steps.
+    then 12 steps of ``make_train_step`` a turn, one turn a setting
+    (full, none, dots): exact launches, ms a step, tokens/s, MFU, the
+    share of ``cell_flops``' hlo FLOPs, peak memory and the busy share of
+    two profiled steps.
     Timings of the backward at OLMo's shape and
     whisper's two (device time from a CUDA graph, 3 device kernels a call,
     each an ``fa_bwd`` one) beside its bound and SDPA's backward alone
@@ -3387,65 +3392,6 @@ STEP_TIMING_EPISODES = 3     # at the SDQN preset's (S, E, batch): 1 warm
 PAPER_CUT = dict(episodes=20, seeds=2, trials=5)
 
 
-def record_train_draws(draws, cfg, rl, n_seeds, device):
-    """What ``draws`` gives a ``train_carry`` run of (cfg, rl, n_seeds),
-    as the numpy arrays of ``ArrayDraws``; every add is ``n_envs`` rows,
-    so the replay sizes the indices are drawn against are known."""
-    from repro_torch.core import policy
-
-    spec = policy.get(rl.policy)
-
-    def host(x):
-        return x.detach().cpu().numpy()
-
-    params = draws.init_params(spec, n_seeds, device=device)
-    resets, tables, explore, noise, idx, size = [], [], [], [], [], 0
-    for ep in range(rl.episodes):
-        resets.append([host(x) for x in draws.reset(cfg, ep, device=device)])
-        tables.append(draws.pod_table(cfg, rl.pods_per_episode, ep,
-                                      device=device))
-        us, ns, ids = [], [], []
-        for t in range(rl.pods_per_episode):
-            step = draws.step(ep, t)
-            us.append(host(step.explore()))
-            ns.append(host(step.noise(cfg.n_nodes)))
-            size = min(size + rl.n_envs, rl.buffer_capacity)
-            ids.append(host(draws.replay_indices(ep, t, size,
-                                                 (n_seeds, rl.batch_size))))
-        explore.append(np.stack(us)), noise.append(np.stack(ns))
-        idx.append(np.stack(ids))
-    tree = {}
-
-    def walk(p, out):
-        for k, v in p.items():
-            if isinstance(v, dict):
-                out[k] = {}
-                walk(v, out[k])
-            else:
-                out[k] = host(v)
-
-    walk(params, tree)
-    return dict(params=tree,
-                reset=[np.stack(c) for c in zip(*resets)],
-                pod_tables=_stack_tables(tables),
-                explore=np.stack(explore), noise=np.stack(noise),
-                replay_idx=np.stack(idx))
-
-
-def _stack_tables(tables):
-    """Port ``PodTable``s as one of numpy arrays, stacked on a new axis."""
-    from repro_torch.core.types import PodSpec, PodTable
-
-    def stack(cols):
-        return np.stack([c.detach().cpu().numpy() for c in cols])
-
-    return PodTable(specs=PodSpec(*(stack(c) for c in
-                                    zip(*(t.specs for t in tables)))),
-                    dt_s=stack([t.dt_s for t in tables]),
-                    type_idx=stack([t.type_idx for t in tables]),
-                    lifetime_s=stack([t.lifetime_s for t in tables]))
-
-
 class ActionSpy:
     """Records every selection of ``module.masked_argmax`` (the learner's,
     ``train_rl``, by default; ``schedulers`` for episode selectors): the
@@ -3462,7 +3408,7 @@ class ActionSpy:
 
     def __enter__(self):
         mod = self._mod()
-        self.actions, self.near = [], []
+        self.actions, self.near, self.gaps = [], [], []
         self._orig = orig = mod.masked_argmax
 
         def spy(gen, scores, ok, epsilon=0.0, *, u=None, noise=None):
@@ -3475,6 +3421,7 @@ class ActionSpy:
                 greedy &= u >= epsilon
             gap = (top[..., 0] - top[..., -1])[greedy]
             self.near.append(bool((gap <= self.tie).any()))
+            self.gaps.append(float(gap.min()) if gap.numel() else None)
             self.actions.append(a.cpu())
             return a
 
@@ -3578,7 +3525,8 @@ def phase_learner(device):
     error at the learner's shapes})."""
     from repro_torch.core import presets, train_rl
     from repro_torch.core import env as kenv
-    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_train_draws)
     from repro_torch.core.schedulers import score_states
     from repro_torch.core.types import PodSpec, fleet_cluster, training_cluster
     from repro_torch.train import engine
@@ -3725,26 +3673,18 @@ def _load_paper_tables():
     return mod
 
 
-def record_trial_draws(draws, cfg, n_pods):
-    """A trial batch's draws as ``ArrayDraws`` arrays: the reset and each
-    arrival's kube tie-break row (greedy SDQN takes no draw)."""
-    device = draws.generator.device
-    reset = [x.cpu().numpy()[None] for x in draws.reset(cfg, device=device)]
-    tables = _stack_tables([draws.pod_table(cfg, n_pods, device=device)])
-    tie = np.stack([draws.step(0, t).tiebreak(cfg.n_nodes).cpu().numpy()
-                    for t in range(n_pods)])
-    return dict(reset=reset, pod_tables=tables, tiebreak=tie[None])
-
-
 def phase_paper_tables(device):
     """Tables 8-10 at a cut budget through ``scripts/paper_tables.py``'s
     functions (train SDQN and SDQN-n with the presets' widths, evaluate
     kube, SDQN and SDQN-n on 5 trials): every trial places or drops all 50
     pods, metrics finite; then the three schedulers on recorded trial
     draws, on the card and on the CPU port: identical experiment pods and
-    metrics within 1e-5 relative."""
+    metrics within 1e-5 relative; then SDQN's and SDQN-n's whole
+    ``train_and_select`` on recorded draws, card against CPU port
+    (``paired_train_and_select``)."""
     from repro_torch.core import schedulers
-    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_trial_draws)
     from repro_torch.eval import engine as eval_engine
     from repro_torch.optim import tree_map
 
@@ -3782,7 +3722,112 @@ def phase_paper_tables(device):
           + " ".join(f"{k}_mean={v['mean']}" for k, v in out["tables"].items())
           + " " + " ".join(f"{k}_train_s={v['seconds']}"
                            for k, v in out["train"].items()))
+    for name in ("sdqn", "sdqn_n"):
+        paired_train_and_select(device, pt, name)
     return out
+
+
+class SelectSpy:
+    """The per-candidate validation metrics ``train.engine.select_best``
+    gets."""
+
+    def __enter__(self):
+        from repro_torch.train import engine
+
+        self._orig = orig = engine.select_best
+
+        def spy(stacked, metrics):
+            self.metrics = metrics.detach().cpu().double()
+            return orig(stacked, metrics)
+
+        engine.select_best = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import engine
+
+        engine.select_best = self._orig
+
+
+def paired_train_and_select(device, pt, name):
+    """The whole ``train_and_select`` of ``name`` at ``PAPER_CUT`` (the
+    preset's widths, 12 validation bursts), on the card and on the CPU
+    port, from training, validation and trial draws recorded from CPU
+    ``TorchDraws``: learner actions identical up to the first near tie
+    (two best feasible Q values within ``ATOL``); with none, the same
+    selected seed, validation metrics within 1e-5 relative, and the
+    Table 9/10 trials' experiment pods identical and metrics within 1e-5
+    relative.  After a near tie, the step and its gap are printed."""
+    from repro_torch.core import schedulers
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_train_draws,
+                                        record_trial_draws)
+    from repro_torch.train import engine
+
+    cpu = torch.device("cpu")
+    rl = pt.preset(name, PAPER_CUT["episodes"])
+    n_seeds = PAPER_CUT["seeds"]
+    arrays = record_train_draws(TorchDraws(
+        torch.Generator().manual_seed(SEED + 30 + pt.TRAIN_SEEDS[name]),
+        (n_seeds, rl.n_envs)), pt.TCFG, rl, n_seeds, cpu)
+    val = record_trial_draws(TorchDraws(torch.Generator().manual_seed(
+        engine.VALIDATION_SEED), (12,)), pt.CFG, pt.N_PODS)
+    trials = record_trial_draws(TorchDraws(torch.Generator().manual_seed(
+        pt.TRIAL_SEED), (PAPER_CUT["trials"],)), pt.CFG, pt.N_PODS)
+    runs = []
+    for dev in (device, cpu):
+        t0 = time.perf_counter()
+        with ActionSpy() as spy, SelectSpy() as sel:
+            params, metric = engine.train_and_select(
+                ArrayDraws(**arrays, device=dev), pt.TCFG, pt.CFG, rl,
+                n_seeds=n_seeds, val_trials=12,
+                val_draws=ArrayDraws(**val, device=dev), device=dev)
+        res = eval_trials(dev, pt, schedulers.make_sdqn_selector(params,
+                                                                 pt.CFG),
+                          trials)
+        runs.append((spy, sel.metrics, metric, res,
+                     time.perf_counter() - t0))
+    (card, card_val, card_m, card_res, card_s), (host, host_val, host_m,
+                                                 host_res, host_s) = runs
+    steps = len(card.actions)
+    assert steps == len(host.actions) == rl.episodes * rl.pods_per_episode
+    tie = next((i for i in range(steps) if card.near[i] or host.near[i]),
+               None)
+    for i in range(steps if tie is None else tie):
+        assert torch.equal(card.actions[i], host.actions[i]), (
+            f"paired train_and_select {name}: pod step {i} differs before "
+            f"any near tie")
+    same = all(torch.equal(a, b) for a, b in zip(card.actions, host.actions))
+    line = (f"paired train_and_select {name} card vs CPU port (cut "
+            f"{PAPER_CUT}): pod_steps={steps} actions_identical={same} "
+            f"first_near_tie_step={tie}")
+    if tie is not None:
+        gaps = [g for g in (card.gaps[tie], host.gaps[tie]) if g is not None]
+        print(f"{line} gap={min(gaps)} (asserted up to that step) "
+              f"card_s={card_s} cpu_s={host_s}")
+        return
+    val_rel = float(((card_val - host_val) / host_val).abs().max())
+    assert int(torch.argmin(card_val)) == int(torch.argmin(host_val)), name
+    assert val_rel <= 1e-5 and abs(card_m / host_m - 1.0) <= 1e-5, (
+        name, val_rel, card_m, host_m)
+    assert torch.equal(card_res.exp_pods.cpu(), host_res.exp_pods), name
+    rel = float(((card_res.metric.cpu() - host_res.metric)
+                 / host_res.metric).abs().max())
+    assert rel <= 1e-5, (name, rel)
+    print(f"{line} selected_seed={int(torch.argmin(card_val))} "
+          f"val_metrics={card_val.tolist()} val_max_rel_diff={val_rel} "
+          f"trials_exp_pods_identical=True trials_metric_max_rel_diff={rel} "
+          f"trials_mean={float(card_res.metric.mean())} card_s={card_s} "
+          f"cpu_s={host_s}")
+
+
+def eval_trials(dev, pt, select, arrays):
+    from repro_torch.core.draws import ArrayDraws
+    from repro_torch.eval import engine as eval_engine
+
+    return eval_engine.make_batch_episode(pt.CFG, select, pt.N_PODS,
+                                          device=dev)(
+        ArrayDraws(**arrays, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -3795,31 +3840,6 @@ CHAOS_NAMES = ("preemptible-flaky", "batch-flaky", "train-flaky")
 SUPERVISED_RECORD = dict(episodes=2, pods_per_episode=25, n_envs=8)
 SCENARIO_CUT = dict(episodes=6, trials=3, pareto_weights=(0.0, 15.0))
 COC = dict(name="cluster-of-clusters-4k", trials=2, pods=32)
-
-
-def _host_tree(tree):
-    return {k: (_host_tree(v) if isinstance(v, dict)
-                else v.detach().cpu().numpy()) for k, v in tree.items()}
-
-
-def record_supervised_draws(draws, cfg, init_fn, episodes, pods, n_envs,
-                            device):
-    """What ``draws`` gives ``train_supervised_scorer``: the initial
-    params (a seed axis of 1), each episode's resets and each step's kube
-    tie-break rows, as ``ArrayDraws`` arrays."""
-    import types
-
-    params = draws.init_params(types.SimpleNamespace(init=init_fn), 1,
-                               device=device)
-    resets, ties = [], []
-    for ep in range(episodes):
-        resets.append([x.cpu().numpy() for x in draws.reset(cfg, ep,
-                                                            device=device)])
-        ties.append(np.stack([draws.step(ep, t).tiebreak(cfg.n_nodes).cpu()
-                              .numpy() for t in range(pods)]))
-    return dict(params=_host_tree(params),
-                reset=[np.stack(c) for c in zip(*resets)],
-                tiebreak=np.stack(ties))
 
 
 class KubeSpy:
@@ -3861,7 +3881,8 @@ def phase_baselines(device, tables):
     identical kube actions, params within 1e-5.  Returns the kernel
     launches of the run."""
     from repro_torch.core import baselines, train_rl
-    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_supervised_draws)
 
     pt = _load_paper_tables()
     t0 = time.perf_counter()
@@ -3978,7 +3999,8 @@ def phase_scenarios(device):
     the 4k episode's kernel launches."""
     from repro_torch import scenarios
     from repro_torch.core import dqn, schedulers
-    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_trial_draws)
     from repro_torch.eval import engine as eval_engine
     from repro_torch.sched import elastic
 
@@ -4197,7 +4219,8 @@ def phase_chaos_fleet(device):
     actions identical up to the first near tie.  Returns the launches."""
     from repro_torch import scenarios
     from repro_torch.core import dqn, env, schedulers
-    from repro_torch.core.draws import ArrayDraws, TorchDraws
+    from repro_torch.core.draws import (ArrayDraws, TorchDraws,
+                                        record_trial_draws)
 
     cfg = scenarios.make_env(COC_CHAOS["name"])
     params = dqn.init_qnet(torch.Generator().manual_seed(SEED + 32),
@@ -5213,10 +5236,10 @@ def _jamba_train(device):
 
 
 # rematerialization (``cfg.remat``): short runs of each setting through
-# ``steps.make_train_step``, in turns (each setting twice, "full" first and
-# last), at phase 22's widths and 8 x 512 tokens
+# ``steps.make_train_step``, one turn each ("full" first), at phase 22's
+# widths and 8 x 512 tokens
 REMAT_SETTINGS = ("none", "dots", "full")
-REMAT_TURNS = ("full", "none", "dots", "dots", "none", "full")
+REMAT_TURNS = ("full", "none", "dots")
 REMAT_STEPS = 12
 REMAT_TIMED = (2, 10)                 # ms a step: median of steps 2-9
 REMAT_PROFILED = (10, 11)             # then two steps under torch.profiler

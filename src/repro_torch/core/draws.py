@@ -301,3 +301,91 @@ class SegmentDraws:
                        shape) -> torch.Tensor:
         draws, ep = self._at(episode)
         return draws.replay_indices(ep, t, size, shape)
+
+
+# ---------------------------------------------------------------------------
+# recording: what a run would take from ``draws``, as ``ArrayDraws`` arrays,
+# so that one set of draws made on one device replays on any other
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _host_tree(tree):
+    return {k: (_host_tree(v) if isinstance(v, dict) else _host(v))
+            for k, v in tree.items()}
+
+
+def _stack_tables(tables) -> PodTable:
+    """Port ``PodTable``s as one of numpy arrays, stacked on a new axis."""
+    def stack(cols):
+        return np.stack([_host(c) for c in cols])
+
+    return PodTable(specs=PodSpec(*(stack(c) for c in
+                                    zip(*(t.specs for t in tables)))),
+                    dt_s=stack([t.dt_s for t in tables]),
+                    type_idx=stack([t.type_idx for t in tables]),
+                    lifetime_s=stack([t.lifetime_s for t in tables]))
+
+
+def record_train_draws(draws, cfg: EnvConfig, rl, n_seeds: int,
+                       device=None) -> dict:
+    """What ``draws`` gives a ``train_rl.train_carry`` run of (cfg, rl,
+    n_seeds), as the numpy arrays of ``ArrayDraws``; every add is
+    ``rl.n_envs`` rows, so the replay sizes the indices are drawn against
+    are known."""
+    from repro_torch.core import policy
+
+    params = draws.init_params(policy.get(rl.policy), n_seeds, device=device)
+    resets, tables, explore, noise, idx, size = [], [], [], [], [], 0
+    for ep in range(rl.episodes):
+        resets.append([_host(x) for x in draws.reset(cfg, ep, device=device)])
+        tables.append(draws.pod_table(cfg, rl.pods_per_episode, ep,
+                                      device=device))
+        us, ns, ids = [], [], []
+        for t in range(rl.pods_per_episode):
+            step = draws.step(ep, t)
+            us.append(_host(step.explore()))
+            ns.append(_host(step.noise(cfg.n_nodes)))
+            size = min(size + rl.n_envs, rl.buffer_capacity)
+            ids.append(_host(draws.replay_indices(ep, t, size,
+                                                  (n_seeds, rl.batch_size))))
+        explore.append(np.stack(us)), noise.append(np.stack(ns))
+        idx.append(np.stack(ids))
+    return dict(params=_host_tree(params),
+                reset=[np.stack(c) for c in zip(*resets)],
+                pod_tables=_stack_tables(tables),
+                explore=np.stack(explore), noise=np.stack(noise),
+                replay_idx=np.stack(idx))
+
+
+def record_trial_draws(draws: TorchDraws, cfg: EnvConfig,
+                       n_pods: int) -> dict:
+    """A trial batch's draws as ``ArrayDraws`` arrays: the reset and each
+    arrival's kube tie-break row (greedy SDQN takes no draw)."""
+    device = draws.generator.device
+    reset = [_host(x)[None] for x in draws.reset(cfg, device=device)]
+    tables = _stack_tables([draws.pod_table(cfg, n_pods, device=device)])
+    tie = np.stack([_host(draws.step(0, t).tiebreak(cfg.n_nodes))
+                    for t in range(n_pods)])
+    return dict(reset=reset, pod_tables=tables, tiebreak=tie[None])
+
+
+def record_supervised_draws(draws, cfg: EnvConfig, init_fn, episodes: int,
+                            pods: int, n_envs: int, device=None) -> dict:
+    """What ``draws`` gives ``train_rl.train_supervised_scorer``: the
+    initial params (a seed axis of 1), each episode's resets and each
+    step's kube tie-break rows, as ``ArrayDraws`` arrays."""
+    import types
+
+    params = draws.init_params(types.SimpleNamespace(init=init_fn), 1,
+                               device=device)
+    resets, ties = [], []
+    for ep in range(episodes):
+        resets.append([_host(x) for x in draws.reset(cfg, ep, device=device)])
+        ties.append(np.stack([_host(draws.step(ep, t).tiebreak(cfg.n_nodes))
+                              for t in range(pods)]))
+    return dict(params=_host_tree(params),
+                reset=[np.stack(c) for c in zip(*resets)],
+                tiebreak=np.stack(ties))

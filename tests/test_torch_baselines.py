@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import baselines as jbase, env as jenv
+from repro.core import baselines as jbase
 from repro.core import schedulers as jsched, train_rl as jtrain
 from repro.core import types as jtypes
 from repro.eval import engine as jeval
@@ -35,8 +35,8 @@ from repro_torch.core import train_rl as ttrain, types as ttypes
 from repro_torch.core.draws import ArrayDraws
 from repro_torch.eval import engine as teval
 from repro_torch.optim import adam_init
-from test_torch_train import (PARAM_TOL, _close_trees, _np, _record_port,
-                              reference_trial_draws)
+from test_torch_train import PARAM_TOL, _close_trees, _record_port
+from torch_parity import _np, reference_supervised_draws, reference_trial_draws
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -101,33 +101,6 @@ def test_regression_step_matches_reference(kind):
             assert float(got_opt["m"][k].abs().max()) == 0.0
             np.testing.assert_array_equal(got_p[k].numpy(),
                                           np.asarray(params[k]))
-
-
-def reference_supervised_draws(key, cfg, init_fn, episodes, pods, n_envs):
-    """Every draw of ``train_rl.train_supervised_scorer(key, cfg, init_fn,
-    ..., episodes, pods, n_envs)``: the initial params (a seed axis of 1),
-    each episode's resets and each step's kube tie-break rows."""
-    params = jax.tree.map(lambda x: np.asarray(x)[None], init_fn(key))
-
-    @jax.jit
-    def episode(ep):
-        key_ep = jax.random.fold_in(key, ep)
-        resets = jax.vmap(lambda k: jenv.reset(k, cfg))(
-            jax.random.split(key_ep, n_envs))
-
-        def tie(t):
-            kt = jax.random.split(jax.random.fold_in(key_ep, 1000 + t),
-                                  n_envs)
-            return jax.vmap(lambda k: jax.random.uniform(
-                k, (cfg.n_nodes,)))(kt)
-
-        return resets, jax.vmap(tie)(jnp.arange(pods))
-
-    out = [episode(ep) for ep in range(episodes)]
-    return dict(params=params,
-                reset=jtypes.ClusterState(*(np.stack(c) for c in zip(
-                    *[_np(r) for r, _ in out]))),
-                tiebreak=np.stack([np.asarray(t) for _, t in out]))
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,7 +29,7 @@ from repro_torch import convert, scenarios as tscn
 from repro_torch.core import dqn as tdqn, env as tenv, policy as tpol
 from repro_torch.core import schedulers as tsched, types as ttypes
 from repro_torch.core.draws import ArrayDraws, TorchDraws
-from test_torch_train import _np, reference_trial_draws
+from torch_parity import _np, reference_trial_draws
 
 CHAOS_SCENARIOS = ("preemptible-flaky", "batch-flaky", "train-flaky")
 RTOL = 1e-5

@@ -20,7 +20,7 @@ from repro_torch.core import presets as tpresets, schedulers as tsched
 from repro_torch.core.draws import ArrayDraws
 from repro_torch.eval import engine as teval
 from test_torch_chaos import reference_chaos_draws
-from test_torch_train import _np
+from torch_parity import _np
 
 
 @functools.lru_cache(maxsize=None)

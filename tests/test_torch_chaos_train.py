@@ -20,7 +20,8 @@ from repro_torch import scenarios as tscn
 from repro_torch.core import presets as tpresets, train_rl as ttrain
 from repro_torch.core.draws import ArrayDraws, SegmentDraws
 from test_torch_lifecycle import reference_mixture_draws
-from test_torch_train import _close_trees, _np, _record_port, _record_reference
+from test_torch_train import _close_trees, _record_port, _record_reference
+from torch_parity import _np
 
 TRAINER_TOL = 1e-6
 

@@ -36,9 +36,10 @@ from repro_torch.core import train_rl as ttrain, types as ttypes
 from repro_torch.core.draws import ArrayDraws, SegmentDraws, TorchDraws
 from repro_torch.eval import engine as teval
 from repro_torch.sched import elastic as telastic
-from test_torch_train import (PARAM_TOL, _close_trees, _key_bytes, _np,
-                              _record_port, _record_reference, _stack_tables,
-                              _step_draws, reference_trial_draws)
+from test_torch_train import (PARAM_TOL, _close_trees, _record_port,
+                              _record_reference)
+from torch_parity import (_key_bytes, _np, _stack_tables, _step_draws,
+                          reference_trial_draws)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -29,7 +29,7 @@ from repro_torch.core import env as tenv, schedulers as tsched
 from repro_torch.core import types as ttypes
 from repro_torch.core.draws import ArrayDraws
 from repro_torch.eval import engine as teval
-from test_torch_train import reference_trial_draws
+from torch_parity import reference_trial_draws
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 # every scenario up to one 4,096-node cluster (the larger cluster-of-

@@ -3,8 +3,8 @@
 reference's own draws.
 
 torch cannot reproduce JAX's threefry streams, so ``reference_train_draws``
-and ``reference_trial_draws`` rebuild every draw the reference takes from
-its key — resets, explore uniforms, noise rows, replay indices,
+and ``reference_trial_draws`` (``tests/torch_parity.py``) rebuild every
+draw the reference takes from its key — resets, explore uniforms, noise rows, replay indices,
 kube-scheduler tie-breaks — by calling the reference's own ``env.reset``,
 ``env.sample_pod_table`` and ``jax.random`` under the key derivation of
 ``repro/core/train_rl.py`` (``_init_carry``, ``_make_episode_fn``) and
@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import env as jenv, policy as jpol, schedulers as jsched
+from repro.core import policy as jpol, schedulers as jsched
 from repro.core import train_rl as jtrain, types as jtypes
 from repro.eval import engine as jeval
 from repro.train import engine as jengine
@@ -39,6 +39,8 @@ from repro_torch.core import types as ttypes
 from repro_torch.core.draws import ArrayDraws, TorchDraws
 from repro_torch.eval import engine as teval
 from repro_torch.train import engine as tengine
+from torch_parity import (_key_bytes, _np, reference_train_draws,
+                          reference_trial_draws, seeded_train_draws)
 
 PARAM_TOL = 1e-5
 TIE_TOL = 1e-5
@@ -49,103 +51,6 @@ ARMS = {"mlp": dict(policy="mlp"),
         "mlp-bandit": dict(policy="mlp", bootstrap=False),
         "attention": dict(policy="attention"),
         "mamba": dict(policy="mamba")}
-
-
-def _np(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _key_bytes(k) -> bytes:
-    return np.asarray(k, np.uint32).tobytes()
-
-
-@functools.partial(jax.jit, static_argnames=("n_envs", "n_nodes", "batch"))
-def _step_draws(k_steps, t, size, n_envs, n_nodes, batch):
-    """Arrival ``t``'s draws as ``_make_episode_fn.pod_step`` takes them:
-    per env ``split(key)`` -> explore uniform, noise row; the last key's
-    replay sample; and the per-env keys (to name recorded actions)."""
-    keys = jax.random.split(jax.random.fold_in(k_steps, t), n_envs + 2)
-
-    def env(k):
-        ke, kr = jax.random.split(k)
-        return jax.random.uniform(ke), jax.random.uniform(kr, (n_nodes,))
-
-    u, noise = jax.vmap(env)(keys[:n_envs])
-    idx = jax.random.randint(keys[-1], (batch,), 0, jnp.maximum(size, 1))
-    return u, noise, idx, keys[:n_envs]
-
-
-def reference_train_draws(key, cfg, rl):
-    """Every draw of ``train_rl.train(key, cfg, rl)``: a dict of numpy
-    arrays for ``ArrayDraws`` (batch ``(E,)``, params with a seed axis of
-    1) and ``{key bytes: (episode, step, env)}``."""
-    k_init, k_train = jax.random.split(key)
-    params = jpol.get(rl.policy).init(k_init)
-    e, t_n, n = rl.n_envs, rl.pods_per_episode, cfg.n_nodes
-    resets, tables, explore, noise, idx, names = [], [], [], [], [], {}
-    size = 0
-    for ep in range(rl.episodes):
-        key_ep = jax.random.fold_in(k_train, ep)
-        k_reset, k_pods, k_steps = jax.random.split(key_ep, 3)
-        resets.append(_np(jax.vmap(lambda k: jenv.reset(k, cfg))(
-            jax.random.split(k_reset, e))))
-        tables.append(_np(jax.vmap(
-            lambda k: jenv.sample_pod_table(k, cfg, t_n))(
-                jax.random.split(k_pods, e))))
-        us, ns, ids = [], [], []
-        for t in range(t_n):
-            size = min(size + e, rl.buffer_capacity)
-            u, nz, ix, keys = _step_draws(k_steps, t, jnp.int32(size), e, n,
-                                          rl.batch_size)
-            us.append(u), ns.append(nz), ids.append(ix)
-            for env_i, k in enumerate(np.asarray(keys)):
-                names[_key_bytes(k)] = (ep, t, env_i)
-        explore.append(np.stack(us)), noise.append(np.stack(ns))
-        idx.append(np.stack(ids))
-    reset = jtypes.ClusterState(*(np.stack(col) for col in zip(*resets)))
-    return dict(params=jax.tree.map(lambda x: np.asarray(x)[None], params),
-                reset=reset, pod_tables=_stack_tables(tables),
-                explore=np.stack(explore), noise=np.stack(noise),
-                replay_idx=np.stack(idx)), names
-
-
-def _stack_tables(tables, axis=0):
-    """Reference ``PodTable``s stacked on a new ``axis``."""
-    return jax.tree.map(lambda *x: np.stack(x, axis=axis), *tables)
-
-
-def seeded_train_draws(key, cfg, rl, n_seeds):
-    """``train_seeds``' draws: seed s is ``train(fold_in(key, s))``'s,
-    stacked behind the episode and step axes."""
-    per = [reference_train_draws(jax.random.fold_in(key, s), cfg, rl)[0]
-           for s in range(n_seeds)]
-    return dict(
-        params=jax.tree.map(lambda *x: np.concatenate(x), *[d["params"]
-                                                            for d in per]),
-        reset=jtypes.ClusterState(*(np.stack(c, axis=1) for c in
-                                    zip(*[d["reset"] for d in per]))),
-        pod_tables=_stack_tables([d["pod_tables"] for d in per], axis=1),
-        explore=np.stack([d["explore"] for d in per], axis=2),
-        noise=np.stack([d["noise"] for d in per], axis=2),
-        replay_idx=np.stack([d["replay_idx"] for d in per], axis=2))
-
-
-def reference_trial_draws(keys, cfg, n_pods):
-    """The draws of ``run_episode(k, ...)`` for each trial key: the reset
-    and, per arrival, the kube-scheduler's tie-break row (its step key's
-    ``uniform(key, (N,))``), batch ``(trials,)``."""
-    def one(k):
-        k_reset, k_pods, k_act = jax.random.split(k, 3)
-        steps = jax.random.split(k_act, n_pods)
-        tie = jax.vmap(lambda s: jax.random.uniform(s, (cfg.n_nodes,)))(steps)
-        return (jenv.reset(k_reset, cfg),
-                jenv.sample_pod_table(k_pods, cfg, n_pods), tie)
-
-    states, tables, tie = jax.jit(jax.vmap(one))(keys)
-    return dict(reset=jtypes.ClusterState(*(np.asarray(x)[None]
-                                            for x in states)),
-                pod_tables=jax.tree.map(lambda x: np.asarray(x)[None], tables),
-                tiebreak=np.swapaxes(np.asarray(tie), 0, 1)[None])
 
 
 def _record_reference(monkeypatch):

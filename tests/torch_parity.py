@@ -1,11 +1,27 @@
-"""Shared inputs and replay helpers of the port's daemon parity tests.
+"""Shared inputs and replay helpers of the port's parity tests.
 
 Fleets and request streams are made with numpy, so both packages get the
 same ones; the clock and the deadline stopwatch are injected so both
 daemons cut the same batches.
+
+torch cannot reproduce JAX's threefry streams, so ``reference_train_draws``,
+``seeded_train_draws``, ``reference_trial_draws`` and
+``reference_supervised_draws`` rebuild every draw the reference takes from
+its key (resets, arrival tables, explore uniforms, noise rows, replay
+indices, kube-scheduler tie-breaks) by calling the reference's own
+``env.reset``, ``env.sample_pod_table`` and ``jax.random`` under the key
+derivation of ``repro/core/train_rl.py`` and ``repro/core/env.py``, as
+numpy arrays for the port's ``core.draws.ArrayDraws``.  They are the one
+copy: the parity tests and ``scripts/trained_spread.py`` load them from
+here.
 """
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 
+from repro.core import env as jenv, policy as jpol, types as jtypes
 from repro_torch.core.types import NO_PLACEMENT
 
 
@@ -65,3 +81,133 @@ def drive(daemon, clock, t_s, reqs, fail_after=-1):
             daemon.fail_node(bound[0])
     clock.t = float(t_s[-1]) + 1.0
     daemon.drain()
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _key_bytes(k) -> bytes:
+    return np.asarray(k, np.uint32).tobytes()
+
+
+@functools.partial(jax.jit, static_argnames=("n_envs", "n_nodes", "batch"))
+def _step_draws(k_steps, t, size, n_envs, n_nodes, batch):
+    """Arrival ``t``'s draws as ``_make_episode_fn.pod_step`` takes them:
+    per env ``split(key)`` -> explore uniform, noise row; the last key's
+    replay sample; and the per-env keys (to name recorded actions)."""
+    keys = jax.random.split(jax.random.fold_in(k_steps, t), n_envs + 2)
+
+    def env(k):
+        ke, kr = jax.random.split(k)
+        return jax.random.uniform(ke), jax.random.uniform(kr, (n_nodes,))
+
+    u, noise = jax.vmap(env)(keys[:n_envs])
+    idx = jax.random.randint(keys[-1], (batch,), 0, jnp.maximum(size, 1))
+    return u, noise, idx, keys[:n_envs]
+
+
+def reference_train_draws(key, cfg, rl):
+    """Every draw of ``train_rl.train(key, cfg, rl)``: a dict of numpy
+    arrays for ``ArrayDraws`` (batch ``(E,)``, params with a seed axis of
+    1) and ``{key bytes: (episode, step, env)}``."""
+    k_init, k_train = jax.random.split(key)
+    params = jpol.get(rl.policy).init(k_init)
+    e, t_n, n = rl.n_envs, rl.pods_per_episode, cfg.n_nodes
+    resets, tables, explore, noise, idx, names = [], [], [], [], [], {}
+    size = 0
+    for ep in range(rl.episodes):
+        key_ep = jax.random.fold_in(k_train, ep)
+        k_reset, k_pods, k_steps = jax.random.split(key_ep, 3)
+        resets.append(_np(jax.vmap(lambda k: jenv.reset(k, cfg))(
+            jax.random.split(k_reset, e))))
+        tables.append(_np(jax.vmap(
+            lambda k: jenv.sample_pod_table(k, cfg, t_n))(
+                jax.random.split(k_pods, e))))
+        us, ns, ids = [], [], []
+        for t in range(t_n):
+            size = min(size + e, rl.buffer_capacity)
+            u, nz, ix, keys = _step_draws(k_steps, t, jnp.int32(size), e, n,
+                                          rl.batch_size)
+            us.append(u), ns.append(nz), ids.append(ix)
+            for env_i, k in enumerate(np.asarray(keys)):
+                names[_key_bytes(k)] = (ep, t, env_i)
+        explore.append(np.stack(us)), noise.append(np.stack(ns))
+        idx.append(np.stack(ids))
+    reset = jtypes.ClusterState(*(np.stack(col) for col in zip(*resets)))
+    return dict(params=jax.tree.map(lambda x: np.asarray(x)[None], params),
+                reset=reset, pod_tables=_stack_tables(tables),
+                explore=np.stack(explore), noise=np.stack(noise),
+                replay_idx=np.stack(idx)), names
+
+
+def _stack_tables(tables, axis=0):
+    """Reference ``PodTable``s stacked on a new ``axis``."""
+    return jax.tree.map(lambda *x: np.stack(x, axis=axis), *tables)
+
+
+def seeded_train_draws(key, cfg, rl, n_seeds, names=None):
+    """``train_seeds``' draws: seed s is ``train(fold_in(key, s))``'s,
+    stacked behind the episode and step axes.  A dict given as ``names``
+    is filled with ``{key bytes: (seed, episode, step, env)}``."""
+    per = []
+    for s in range(n_seeds):
+        draws, keys = reference_train_draws(jax.random.fold_in(key, s), cfg,
+                                            rl)
+        per.append(draws)
+        if names is not None:
+            names.update({k: (s,) + v for k, v in keys.items()})
+    return dict(
+        params=jax.tree.map(lambda *x: np.concatenate(x), *[d["params"]
+                                                            for d in per]),
+        reset=jtypes.ClusterState(*(np.stack(c, axis=1) for c in
+                                    zip(*[d["reset"] for d in per]))),
+        pod_tables=_stack_tables([d["pod_tables"] for d in per], axis=1),
+        explore=np.stack([d["explore"] for d in per], axis=2),
+        noise=np.stack([d["noise"] for d in per], axis=2),
+        replay_idx=np.stack([d["replay_idx"] for d in per], axis=2))
+
+
+def reference_trial_draws(keys, cfg, n_pods):
+    """The draws of ``run_episode(k, ...)`` for each trial key: the reset
+    and, per arrival, the kube-scheduler's tie-break row (its step key's
+    ``uniform(key, (N,))``), batch ``(trials,)``."""
+    def one(k):
+        k_reset, k_pods, k_act = jax.random.split(k, 3)
+        steps = jax.random.split(k_act, n_pods)
+        tie = jax.vmap(lambda s: jax.random.uniform(s, (cfg.n_nodes,)))(steps)
+        return (jenv.reset(k_reset, cfg),
+                jenv.sample_pod_table(k_pods, cfg, n_pods), tie)
+
+    states, tables, tie = jax.jit(jax.vmap(one))(keys)
+    return dict(reset=jtypes.ClusterState(*(np.asarray(x)[None]
+                                            for x in states)),
+                pod_tables=jax.tree.map(lambda x: np.asarray(x)[None], tables),
+                tiebreak=np.swapaxes(np.asarray(tie), 0, 1)[None])
+
+
+def reference_supervised_draws(key, cfg, init_fn, episodes, pods, n_envs):
+    """Every draw of ``train_rl.train_supervised_scorer(key, cfg, init_fn,
+    ..., episodes, pods, n_envs)``: the initial params (a seed axis of 1),
+    each episode's resets and each step's kube tie-break rows."""
+    params = jax.tree.map(lambda x: np.asarray(x)[None], init_fn(key))
+
+    @jax.jit
+    def episode(ep):
+        key_ep = jax.random.fold_in(key, ep)
+        resets = jax.vmap(lambda k: jenv.reset(k, cfg))(
+            jax.random.split(key_ep, n_envs))
+
+        def tie(t):
+            kt = jax.random.split(jax.random.fold_in(key_ep, 1000 + t),
+                                  n_envs)
+            return jax.vmap(lambda k: jax.random.uniform(
+                k, (cfg.n_nodes,)))(kt)
+
+        return resets, jax.vmap(tie)(jnp.arange(pods))
+
+    out = [episode(ep) for ep in range(episodes)]
+    return dict(params=params,
+                reset=jtypes.ClusterState(*(np.stack(c) for c in zip(
+                    *[_np(r) for r, _ in out]))),
+                tiebreak=np.stack([np.asarray(t) for _, t in out]))
