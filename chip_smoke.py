@@ -205,8 +205,13 @@ The paper's baselines and SDQN-n over time (kernels 7 and 1):
     a mixture-trained SDQN (the chaos ones with their pods evicted,
     rescheduled and lost, balanced), the four churn scenarios under kube,
     SDQN and SDQN-n with the consolidator (active nodes, energy, average
-    CPU, retired, moved) and their green Pareto rows (kube, TOPSIS and an
-    SDQN-n at energy weights 0 and 15).  Then a cluster-of-clusters-4k episode
+    CPU, retired, moved) and their green Pareto rows (kube, TOPSIS and
+    the SDQN-n of energy weight 15).  Then the lifecycle SDQN-n's
+    ``train_mixture`` cut to 4 episodes (one a churn scenario) on draws
+    recorded from a CPU generator, card against CPU port: actions
+    identical or stopped at a printed near tie
+    (``paired_train_mixture``).  Then a
+    cluster-of-clusters-4k episode
     (4,096 nodes, 32 pods, 2 trials) under SDQN-n with the consolidator
     every 30 s, through kernel 1 and through ``fused="plain"`` on the
     same recorded draws: exactly trials x (32 + 4 x 52) launches, every
@@ -326,7 +331,7 @@ chunk states, and their hand-written backwards,
     for bit the first "none" call's; then "full" once more with every
     recomputed launch of kernel 7 or 6 on autograd's device thread, its
     outputs bit for bit the first launch's;
-    then 12 steps of ``make_train_step`` a turn, one turn a setting
+    then 9 steps of ``make_train_step`` a turn, one turn a setting
     (full, none, dots): exact launches, ms a step, tokens/s, MFU, the
     share of ``cell_flops``' hlo FLOPs, peak memory and the busy share of
     two profiled steps.
@@ -375,7 +380,8 @@ The dry run for one card (kernel 7 and its backward at 4,096 tokens):
     backward.
 
 Each path zeroes every kernel's launch count just before it runs and
-reads the counts just after.  The line before last is the JSON kernel
+reads the counts just after.  Every phase prints its wall seconds
+(``phase <name> seconds=``).  The line before last is the JSON kernel
 table; the last line is
 ``{"ok": true, "device": {...}}``.  No CUDA device: exit 1, no result.
 """
@@ -3838,7 +3844,8 @@ def eval_trials(dev, pt, select, arrays):
 BASELINE_CUT = dict(episodes=3, seeds=2, trials=5)
 CHAOS_NAMES = ("preemptible-flaky", "batch-flaky", "train-flaky")
 SUPERVISED_RECORD = dict(episodes=2, pods_per_episode=25, n_envs=8)
-SCENARIO_CUT = dict(episodes=6, trials=3, pareto_weights=(0.0, 15.0))
+SCENARIO_CUT = dict(episodes=6, trials=3, pareto_weights=(15.0,))
+MIXTURE_CUT = dict(episodes=4, trials=3, scenario="short-job-burst")
 COC = dict(name="cluster-of-clusters-4k", trials=2, pods=32)
 
 
@@ -3995,8 +4002,10 @@ def phase_scenarios(device):
     kernel 1 (the selector's launch and the consolidator's four a step,
     one a cluster each) and through ``fused="plain"`` on the same recorded
     draws: every kernel-1 call held to its plain version on its inputs,
-    the selector's actions identical up to the first near tie.  Returns
-    the 4k episode's kernel launches."""
+    the selector's actions identical up to the first near tie.  Between
+    the two, the lifecycle SDQN-n's ``train_mixture`` card against CPU
+    port (``paired_train_mixture``).  Returns the 4k episode's kernel
+    launches."""
     from repro_torch import scenarios
     from repro_torch.core import dqn, schedulers
     from repro_torch.core.draws import (ArrayDraws, TorchDraws,
@@ -4045,6 +4054,7 @@ def phase_scenarios(device):
                   f"moved={vals[4]}")
     print(f"scenario tables (cut {SCENARIO_CUT}): seconds={secs} train_s="
           + " ".join(f"{k}={v['seconds']}" for k, v in out["train"].items()))
+    paired_train_mixture(device, st)
 
     cfg = dataclasses.replace(scenarios.make_env(COC["name"]),
                               consolidate_every_s=st.CONSOLIDATE_EVERY_S)
@@ -4093,6 +4103,85 @@ def phase_scenarios(device):
           f"{r2.metric.tolist()}")
     assert int(r1.moved.sum()) > 0
     return counts, check_err
+
+
+def paired_train_mixture(device, st):
+    """The lifecycle SDQN-n (``SDQN_N_LIFECYCLE_PRESET``, its
+    ``energy_weight``, over ``LIFECYCLE_MIX_NAMES``) trained by
+    ``train_mixture`` at ``MIXTURE_CUT``'s episodes on the card and on the
+    CPU port, from draws recorded from a CPU ``TorchDraws``
+    (``record_mixture_draws``, one block a segment): the learner's
+    actions identical up to the first near tie (two best feasible Q
+    values within ``ATOL``); with none, params within 1e-5 and the trained
+    policy with the consolidation pass every 30 s on recorded trials of
+    ``MIXTURE_CUT``'s scenario: experiment pods and pods moved identical,
+    metric and active nodes within 1e-5 relative.  After a near tie, its
+    step and gap are printed."""
+    from repro_torch import scenarios
+    from repro_torch.core import presets, schedulers, train_rl
+    from repro_torch.core.draws import (ArrayDraws, SegmentDraws, TorchDraws,
+                                        record_mixture_draws,
+                                        record_trial_draws)
+    from repro_torch.eval import engine as eval_engine
+    from repro_torch.sched import elastic
+
+    cpu = torch.device("cpu")
+    rl = dataclasses.replace(presets.SDQN_N_LIFECYCLE_PRESET,
+                             episodes=MIXTURE_CUT["episodes"])
+    cfgs = scenarios.training_mixture(presets.LIFECYCLE_MIX_NAMES)
+    blocks = record_mixture_draws(TorchDraws(
+        torch.Generator().manual_seed(SEED + 40), (rl.n_envs,)), cfgs, rl,
+        device=cpu)
+    cfg = dataclasses.replace(scenarios.make_env(MIXTURE_CUT["scenario"]),
+                              consolidate_every_s=st.CONSOLIDATE_EVERY_S)
+    n = cfg.scenario.n_pods
+    trials = record_trial_draws(TorchDraws(torch.Generator().manual_seed(
+        SEED + 41), (MIXTURE_CUT["trials"],)), cfg, n)
+    runs = []
+    for dev in (device, cpu):
+        t0 = time.perf_counter()
+        with ActionSpy() as spy:
+            params, _ = train_rl.train_mixture(
+                SegmentDraws([(ep0, ArrayDraws(**b, device=dev))
+                              for ep0, b in blocks]), cfgs, rl, device=dev)
+        res = eval_engine.make_batch_episode(
+            cfg, schedulers.make_sdqn_selector(params, cfg), n,
+            elastic.make_consolidator(params, cfg), device=dev)(
+                ArrayDraws(**trials, device=dev))
+        runs.append((spy, params, res, time.perf_counter() - t0))
+    (card, card_p, card_res, card_s), (host, host_p, host_res, host_s) = runs
+    steps = len(card.actions)
+    segments = train_rl.mixture_schedule(cfgs, rl.episodes)
+    assert steps == len(host.actions) == sum(
+        k for _, _, k in segments) * rl.pods_per_episode, steps
+    tie = next((i for i in range(steps) if card.near[i] or host.near[i]),
+               None)
+    for i in range(steps if tie is None else tie):
+        assert torch.equal(card.actions[i], host.actions[i]), (
+            f"paired train_mixture: pod step {i} differs before any near tie")
+    same = all(torch.equal(a, b) for a, b in zip(card.actions, host.actions))
+    line = (f"paired train_mixture lifecycle SDQN-n card vs CPU port (cut "
+            f"{MIXTURE_CUT}, {len(segments)} segments, energy_weight="
+            f"{rl.energy_weight}): pod_steps={steps} actions_identical="
+            f"{same} first_near_tie_step={tie}")
+    if tie is not None:
+        gaps = [g for g in (card.gaps[tie], host.gaps[tie]) if g is not None]
+        print(f"{line} gap={min(gaps)} (asserted up to that step) "
+              f"card_s={card_s} cpu_s={host_s}")
+        return
+    diff = _param_diff(card_p, host_p)
+    assert diff <= 1e-5, diff
+    assert torch.equal(card_res.exp_pods.cpu(), host_res.exp_pods)
+    assert torch.equal(card_res.moved.cpu(), host_res.moved)
+    rel = max(float(((x.cpu() - y) / y).abs().max()) for x, y in (
+        (card_res.metric, host_res.metric),
+        (card_res.nodes_active, host_res.nodes_active)))
+    assert rel <= 1e-5, rel
+    print(f"{line} params_max_abs_diff={diff} {MIXTURE_CUT['scenario']} "
+          f"with the pass: exp_pods_identical=True moved="
+          f"{card_res.moved.tolist()} metric_max_rel_diff={rel} "
+          f"nodes_active={card_res.nodes_active.tolist()} card_s={card_s} "
+          f"cpu_s={host_s}")
 
 
 # ---------------------------------------------------------------------------
@@ -5240,9 +5329,9 @@ def _jamba_train(device):
 # widths and 8 x 512 tokens
 REMAT_SETTINGS = ("none", "dots", "full")
 REMAT_TURNS = ("full", "none", "dots")
-REMAT_STEPS = 12
-REMAT_TIMED = (2, 10)                 # ms a step: median of steps 2-9
-REMAT_PROFILED = (10, 11)             # then two steps under torch.profiler
+REMAT_STEPS = 9
+REMAT_TIMED = (2, 7)                  # ms a step: median of steps 2-6
+REMAT_PROFILED = (7, 8)               # then two steps under torch.profiler
                                       # (a setting's first turn only)
 # each setting's backward peak on the card against the dry run's plan of it
 REMAT_PLAN_TOL = 0.05
@@ -6236,6 +6325,14 @@ def check_kernel8_build():
         assert not mma or (c["HMMA"] > 0 and c["LDSM"] > 0), (fn, c)
 
 
+def timed(phase, *args):
+    """``phase(*args)``, its wall seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {phase.__name__} seconds={time.perf_counter() - t0}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6274,46 +6371,47 @@ def main(argv=None) -> int:
     check_kernel7_bwd_build()
     check_kernel6_build()
 
-    max_err = phase_kernels(device)
-    errs = phase_new_kernels(device)
+    max_err = timed(phase_kernels, device)
+    errs = timed(phase_new_kernels, device)
     errs["sdqn_score_afterstate"] = max_err
-    for key, err in phase_plan_kernels(device).items():
+    for key, err in timed(phase_plan_kernels, device).items():
         errs[key] = max(errs[key], err)
     launches = {}
-    launches["sdqn_score_afterstate"], fill = phase_main_path(device)
-    phase_decision_parity(device)
-    launches["sdqn_score_afterstate_topk"] = phase_sharded_cluster(device)
-    phase_sharded_parity(device)
-    launches.update(phase_fleet(device))
-    launches["sdqn_score"] = phase_engine(device)
-    errs.update(phase_seq_kernels(device))
-    launches.update(phase_policy_paths(device))
-    phase_policy_parity(device)
-    phase_policy_arms(device)
-    lm_errs = phase_lm_kernels(device)
-    lm_counts, res = phase_lm_serve(device)
-    phase_lm_breakdown(device, res)
+    launches["sdqn_score_afterstate"], fill = timed(phase_main_path, device)
+    timed(phase_decision_parity, device)
+    launches["sdqn_score_afterstate_topk"] = timed(phase_sharded_cluster,
+                                                   device)
+    timed(phase_sharded_parity, device)
+    launches.update(timed(phase_fleet, device))
+    launches["sdqn_score"] = timed(phase_engine, device)
+    errs.update(timed(phase_seq_kernels, device))
+    launches.update(timed(phase_policy_paths, device))
+    timed(phase_policy_parity, device)
+    timed(phase_policy_arms, device)
+    lm_errs = timed(phase_lm_kernels, device)
+    lm_counts, res = timed(phase_lm_serve, device)
+    timed(phase_lm_breakdown, device, res)
     del res
     torch.cuda.empty_cache()
-    learner_counts, learner_errs, _ = phase_learner(device)
+    learner_counts, learner_errs, _ = timed(phase_learner, device)
     for key, err in learner_errs.items():
         errs[key] = max(errs[key], err)
-    tables = phase_paper_tables(device)
-    baseline_counts = phase_baselines(device, tables)
-    coc_counts, coc_err = phase_scenarios(device)
+    tables = timed(phase_paper_tables, device)
+    baseline_counts = timed(phase_baselines, device, tables)
+    coc_counts, coc_err = timed(phase_scenarios, device)
     errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"], coc_err)
-    rest_paths, chaos_err, drain_err = phase_rest(device)
+    rest_paths, chaos_err, drain_err = timed(phase_rest, device)
     errs["sdqn_score_afterstate"] = max(errs["sdqn_score_afterstate"],
                                         chaos_err)
     errs["sdqn_score_cols"] = max(errs["sdqn_score_cols"], drain_err)
-    family_paths, family_figures = phase_lm_families(device)
-    family_errs = phase_family_kernels(device)
-    granite_paths, granite_figures = phase_lm_granite(device)
+    family_paths, family_figures = timed(phase_lm_families, device)
+    family_errs = timed(phase_family_kernels, device)
+    granite_paths, granite_figures = timed(phase_lm_granite, device)
     family_figures.update(granite_figures)
     bwd_parents = ([parent_bwd_times(args.parent_src)] if args.parent_src
                    else [])
     (train_paths, train_errs, train_figures, train_rows, scan_err,
-     scan_rows) = phase_lm_train(device, name)
+     scan_rows) = timed(phase_lm_train, device, name)
     if args.parent_src:         # parent, this, parent: in turns on one card
         bwd_parents.append(parent_bwd_times(args.parent_src))
         for label in FA_BWD_TIMED:
@@ -6336,7 +6434,8 @@ def main(argv=None) -> int:
                   f"parent_ms={row['parent_ms']} (before, after) "
                   f"bound_ms={row['bound_ms']} kernel/parent="
                   f"{row['ms'] / statistics.mean(row['parent_ms'])}")
-    dry_paths, dry_errs, dry_rows, dry_figures = phase_dryrun(device, name)
+    dry_paths, dry_errs, dry_rows, dry_figures = timed(phase_dryrun, device,
+                                                       name)
     if args.parent_src:         # the parent's kernel 7b at train_4k, in turns
         row = dry_rows["backward"]
         row["parent_ms"] = [p["flash_attention_bwd"].get("train_4k", {})
@@ -6383,16 +6482,16 @@ def main(argv=None) -> int:
         lm_errs["flash_attention"]["bfloat16"], dry_errs["flash_attention"])
     errs["flash_attention_bwd"] = max(train_errs.values())
     lm_errs["flash_attention_bwd"] = train_errs
-    timing = phase_new_timings(device, name)
-    timing["sdqn_score_afterstate"] = phase_timings(device, name, fill)
-    timing.update(phase_seq_timings(device, name))
+    timing = timed(phase_new_timings, device, name)
+    timing["sdqn_score_afterstate"] = timed(phase_timings, device, name, fill)
+    timing.update(timed(phase_seq_timings, device, name))
     parents = ([parent_decode_times(args.parent_src)] if args.parent_src
                else [])
-    lm_timing = phase_lm_timings(device, name)
+    lm_timing = timed(phase_lm_timings, device, name)
     timing["decode_attention"] = dict(lm_timing["path"], other_shapes=[
         lm_timing[label] for label in PHASE14_DECODE[1:]])
     timing["flash_attention"]["other_shapes"] = [lm_timing["prefill"]]
-    for key, rows in phase_family_timings(device, name).items():
+    for key, rows in timed(phase_family_timings, device, name).items():
         timing[key].setdefault("other_shapes", []).extend(rows)
     timing["flash_attention"]["other_shapes"].extend(
         [train_rows["forward_lse"], dry_rows["forward"]])
@@ -6442,9 +6541,9 @@ def main(argv=None) -> int:
                   f"{row['parent_cold_ms']} bound_ms={row['bound_ms']} "
                   f"sdpa_ms="
                   f"{row.get('library_ms') or row.get('sdpa_on_bf16_cache_ms')}")
-    phase_breakdown(device)
-    phase_sharded_breakdown(device)
-    phase_policy_breakdown(device)
+    timed(phase_breakdown, device)
+    timed(phase_sharded_breakdown, device)
+    timed(phase_policy_breakdown, device)
 
     # (wrapper, CUDA source, the TPU kernel's function line; for kernels
     # 7's and 6's backwards, which no Pallas kernel has, the attention and

@@ -41,6 +41,21 @@ from ``3000 + d``:
   with the JAX package, which must import there); ``--trials port`` on
   bursts and trials recorded from CPU ``TorchDraws`` seeded 5000 and 100.
 
+``--study scenarios | lifecycle | pareto`` are the reference benches'
+scenario sweep, lifecycle rows and green Pareto rows
+(``benchmarks/scenario_bench.py``, ``lifecycle_bench.py``): each policy
+trained by ``train_mixture`` at their 120 episodes (``MIX_POLICIES``;
+draw ``d`` from ``PRNGKey(base + d)`` on the reference, a generator
+seeded ``base + d`` on the port), each cell scored on 3 trials of each
+scenario's own arrivals: the reference's ``trial_keys(PRNGKey(100),
+3)`` (``reference:100x3``, failure traces included) or recorded from a
+CPU ``TorchDraws`` seeded 100 (``port:100x3``).  Their ``--compare``
+holds kube and TOPSIS equal trial by trial and decides every trained
+(scenario, policy, metric) row by Welch and Brown-Forsythe, each
+family Holm-adjusted over the study's rows; their paired arm also
+follows both learners' ReLU gates, params and bootstrap argmax margin
+step by step (``_GateDrift``).
+
 Every line and every JSON names its trial set (``reference:100x5`` or
 ``port:100x5``).  ``--compare`` refuses two files scored on different
 trials; otherwise, per scheduler, it prints Welch's t-test on the draws'
@@ -60,6 +75,7 @@ then on the card ``--device cuda --trials port`` beside ``--device cpu
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import importlib.util
@@ -74,13 +90,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import scenarios  # noqa: E402
 from repro_torch.core import baselines, presets, schedulers  # noqa: E402
-from repro_torch.core import train_rl  # noqa: E402
-from repro_torch.core.draws import (ArrayDraws, TorchDraws,  # noqa: E402
+from repro_torch.core import env as kenv, train_rl  # noqa: E402
+from repro_torch.core.draws import (ArrayDraws, SegmentDraws,  # noqa: E402
+                                    TorchDraws, record_mixture_draws,
                                     record_supervised_draws,
                                     record_train_draws, record_trial_draws)
 from repro_torch.core.types import paper_cluster, training_cluster  # noqa: E402
 from repro_torch.eval import engine as eval_engine  # noqa: E402
+from repro_torch.sched import elastic, topsis  # noqa: E402
 from repro_torch.train import engine as train_engine  # noqa: E402
 
 ALPHA = 0.01                 # the decision level, fixed before any run
@@ -95,9 +114,50 @@ BASELINES = dict(sup_seeds=presets.N_SUPERVISED_SEEDS,
                  sup_episodes=presets.SUPERVISED_EPISODES, sup_envs=8,
                  sup_val_trials=6, literal_seeds=3, literal_episodes=None,
                  trials=5, val_trials=12)
+# the scenario studies (benchmarks/scenario_bench.py, lifecycle_bench.py):
+# 120 training episodes a policy, 3 trials a cell, the draws a side
+MIX = dict(episodes=120, trials=3)
+MIX_DRAWS = {"scenarios": 16, "lifecycle": 16, "pareto": 8}
+FIXED_ARMS = ("kube", "topsis")      # no training: the trials alone decide
+
+
+def _load(name: str, path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the port's scenario tables: the pass period, the Pareto weights, the
+# dominance rule and the weights' tags, as benchmarks/lifecycle_bench.py
+ST = _load("scenario_tables", ROOT / "scripts" / "scenario_tables.py")
+# a trained policy: (mixture, preset, energy weight, seed base); every
+# Pareto weight trains from the lifecycle SDQN-n's seed, as the bench's 43
+MIX_POLICIES = {
+    "scenarios": {"sdqn": ("SCENARIO_MIX_NAMES", "SDQN_SCENARIO_MIX_PRESET",
+                           None, "mixture")},
+    "lifecycle": {"sdqn": ("LIFECYCLE_MIX_NAMES", "SDQN_LIFECYCLE_PRESET",
+                           None, "lifecycle_sdqn"),
+                  "sdqnn": ("LIFECYCLE_MIX_NAMES", "SDQN_N_LIFECYCLE_PRESET",
+                            None, "lifecycle_sdqnn")},
+    "pareto": {f"sdqnn_{ST._wtag(w)}": ("LIFECYCLE_MIX_NAMES",
+                                        "SDQN_N_LIFECYCLE_PRESET", w,
+                                        "lifecycle_sdqnn")
+               for w in ST.PARETO_ENERGY_WEIGHTS}}
+MIX_METRICS = {"scenarios": ("avg_cpu", "placed", "dropped"),
+               "lifecycle": ("nodes_active", "energy_wh", "avg_cpu",
+                             "retired", "moved"),
+               "pareto": ("avg_cpu", "energy_wh", "dropped")}
+CHAOS_METRICS = ("evicted", "rescheduled", "lost")
+FLOAT_METRICS = ("avg_cpu", "nodes_active", "energy_wh")
 STUDIES = {"tables": ("default", "sdqn", "sdqn_n"),
-           "baselines": ("default", "lstm", "transformer", "literal")}
-SEED_BASE = {"sdqn": 0, "sdqn_n": 1000, "scorers": 2000, "literal": 3000}
+           "baselines": ("default", "lstm", "transformer", "literal"),
+           "scenarios": ("kube", "sdqn"),
+           "lifecycle": ("kube", "sdqn", "sdqnn"),
+           "pareto": ("kube", "topsis") + tuple(MIX_POLICIES["pareto"])}
+SEED_BASE = {"sdqn": 0, "sdqn_n": 1000, "scorers": 2000, "literal": 3000,
+             "mixture": 4000, "lifecycle_sdqn": 4100,
+             "lifecycle_sdqnn": 4200}
 SALT = {"lstm": 70, "transformer": 90}
 RL_PRESET = {"sdqn": "SDQN_PRESET", "sdqn_n": "SDQN_N_PRESET",
              "literal": "SDQN_LITERAL_PRESET"}
@@ -132,13 +192,6 @@ def _n_seeds(name: str, budget: dict) -> int:
 def _scorer_seed(d: int, name: str, s: int) -> int:
     """The port's generator seed of scorer candidate ``s`` in draw ``d``."""
     return 100 * (SEED_BASE["scorers"] + d) + SALT[name] + s
-
-
-def _load(name: str, path: pathlib.Path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _host(x) -> np.ndarray:
@@ -370,6 +423,7 @@ class _ReferenceActions:
             return a
 
         jtrain.masked_argmax = spy
+        self.restore = lambda: setattr(jtrain, "masked_argmax", orig)
 
 
 def paired_draw(d: int, study: str, budget: dict, ref=None,
@@ -481,6 +535,17 @@ def _paired_scorer(ref, tp, name, d, trials) -> dict:
 # the port alone, on the CPU or the card
 # ---------------------------------------------------------------------------
 
+def _need_jax():
+    """JAX, which rebuilding the reference's trials needs."""
+    try:
+        import jax
+    except ImportError:
+        raise SystemExit("--trials reference rebuilds the reference's trials "
+                         "with the JAX package, which does not import here; "
+                         "give --trials port") from None
+    return jax
+
+
 def _recorded_bursts(kind: str, seed: int, trials: int):
     """``trials`` episodes' draws from ``seed`` as numpy arrays: the
     reference's (``fixed_trial_keys(seed, trials)``, rebuilt with the JAX
@@ -489,12 +554,7 @@ def _recorded_bursts(kind: str, seed: int, trials: int):
         return record_trial_draws(TorchDraws(
             torch.Generator().manual_seed(seed), (trials,)), paper_cluster(),
             N_PODS)
-    try:
-        import jax  # noqa: F401
-    except ImportError:
-        raise SystemExit("--trials reference rebuilds the reference's trials "
-                         "with the JAX package, which does not import here; "
-                         "give --trials port") from None
+    _need_jax()
     from repro.core.types import paper_cluster as jpaper
     from repro.eval import engine as jeval
 
@@ -585,11 +645,654 @@ def port_draw(d: int, study: str, budget: dict, port: _Port) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the scenario studies: the sweep, the lifecycle rows, the green Pareto rows
+# ---------------------------------------------------------------------------
+
+def mix_cells(study: str) -> list:
+    """``[(scenario, arm, consolidating)]`` of a scenario study, in its
+    bench's order: every scenario but the scoring-only family under kube
+    and the mixture SDQN; or each churn scenario under its arms, the
+    SDQN-n arms with the pass every ``ST.CONSOLIDATE_EVERY_S``."""
+    if study == "scenarios":
+        return [(n, arm, False) for n in scenarios.scenario_names()
+                if n not in scenarios.SCORING_ONLY for arm in STUDIES[study]]
+    return [(n, arm, arm.startswith("sdqnn"))
+            for n in presets.LIFECYCLE_MIX_NAMES for arm in STUDIES[study]]
+
+
+def mix_metrics(study: str, scenario: str) -> tuple:
+    """The metrics of a study's rows on ``scenario``; the scenario sweep
+    adds the chaos counts where nodes fail."""
+    extra = (CHAOS_METRICS if study == "scenarios"
+             and kenv.has_chaos(scenarios.make_env(scenario)) else ())
+    return MIX_METRICS[study] + extra
+
+
+def _mix_rl(study: str, name: str, budget: dict, pkg=presets):
+    """(the mixture's scenario names, the RL config) of a trained policy,
+    from ``pkg``'s presets at the budget's episodes."""
+    mix, preset, weight, _ = MIX_POLICIES[study][name]
+    rl = dataclasses.replace(getattr(pkg, preset),
+                             episodes=budget["episodes"])
+    if weight is not None:
+        rl = dataclasses.replace(rl, energy_weight=float(weight))
+    return getattr(pkg, mix), rl
+
+
+def _mix_seed(study: str, name: str, d: int) -> int:
+    return SEED_BASE[MIX_POLICIES[study][name][3]] + d
+
+
+def _episode_row(metric, dropped, n, stats: dict, exp_pods) -> dict:
+    """A cell's per-trial numbers (lists over trials)."""
+    row = {"avg_cpu": _host(metric).astype(float).tolist(),
+           "dropped": _host(dropped).astype(int).tolist(),
+           "placed": (n - _host(dropped).astype(int)).tolist(),
+           "exp_pods": _host(exp_pods).tolist()}
+    for k, v in stats.items():
+        row[k] = _host(v).tolist()
+    return row
+
+
+def _mix_cfg(pkg_scenarios, scenario: str, consolidating: bool):
+    cfg = pkg_scenarios.make_env(scenario)
+    if consolidating:
+        cfg = dataclasses.replace(cfg,
+                                  consolidate_every_s=ST.CONSOLIDATE_EVERY_S)
+    return cfg
+
+
+class _MixReference:
+    """The JAX package's side of a scenario study: its trials
+    (``trial_keys(PRNGKey(100), 3)``, the keys ``evaluate_scenario`` and
+    the lifecycle bench fold in), its trainers and its cells."""
+
+    def __init__(self, budget: dict):
+        import jax
+
+        from repro import scenarios as jscn
+        from repro.core import env as jenv, presets as jpresets
+        from repro.core import schedulers as jsched, train_rl as jtrain
+        from repro.eval import engine as jeval
+        from repro.sched import elastic as jelastic, topsis as jtopsis
+
+        self.jax, self.jscn, self.jenv, self.jpresets = jax, jscn, jenv, \
+            jpresets
+        self.jsched, self.jtrain, self.jeval = jsched, jtrain, jeval
+        self.jelastic, self.jtopsis = jelastic, jtopsis
+        self.budget = budget
+        self.keys = jeval.trial_keys(jax.random.PRNGKey(TRIAL_SEED),
+                                     budget["trials"])
+
+    def train(self, study: str, name: str, d: int):
+        """``train_mixture`` of a study's policy for draw ``d``: (params,
+        seconds)."""
+        mix, rl = _mix_rl(study, name, self.budget, self.jpresets)
+        t0 = time.perf_counter()
+        params, _ = self.jtrain.train_mixture(
+            self.jax.random.PRNGKey(_mix_seed(study, name, d)),
+            self.jscn.training_mixture(mix), rl)
+        params = self.jax.block_until_ready(params)
+        return params, time.perf_counter() - t0
+
+    def cell(self, scenario: str, arm: str, consolidating: bool,
+             params=None, count_moved: bool = False) -> dict:
+        """One cell on the reference's trials, every trial one batch (the
+        benches' ``make_batch_episode`` body, its episode statistics
+        kept).  ``count_moved``: the pods the pass moved, which the
+        reference's episode drops, counted from a callback in the pass on
+        each trial run alone."""
+        jax, jenv = self.jax, self.jenv
+        cfg = _mix_cfg(self.jscn, scenario, consolidating)
+        n = cfg.scenario.n_pods
+        if arm == "kube":
+            select = self.jsched.make_kube_selector(cfg)
+        elif arm == "topsis":
+            select = self.jtopsis.make_topsis_selector(cfg)
+        else:
+            select = self.jsched.make_sdqn_selector(params, cfg)
+        cons = (self.jelastic.make_consolidator(params, cfg)
+                if consolidating else None)
+        res = jax.jit(jax.vmap(lambda k: jenv.run_episode(
+            k, cfg, select, n, consolidate=cons)))(self.keys)
+        st = res.stats
+        row = _episode_row(res.metric, res.dropped, n, dict(
+            nodes_active=st.nodes_active_mean, energy_wh=st.energy_wh,
+            retired=st.retired, evicted=st.evicted,
+            rescheduled=st.rescheduled, lost=st.lost), res.state.exp_pods)
+        row["moved"] = [0] * len(row["avg_cpu"])
+        if cons is not None and count_moved:
+            row["moved"], alone = self._moved(cfg, select, n, cons)
+            row["moved_run_max_rel"] = float(np.max(np.abs(
+                np.asarray(alone) / np.asarray(row["avg_cpu"]) - 1.0)))
+        return row
+
+    def _moved(self, cfg, select, n, cons):
+        jax, seen = self.jax, []
+
+        def counting(st, led):
+            out = cons(st, led)
+            jax.debug.callback(lambda m: seen.append(int(m)), out[2])
+            return out
+
+        one = jax.jit(lambda k: self.jenv.run_episode(
+            k, cfg, select, n, consolidate=counting))
+        moved, metric = [], []
+        for k in self.keys:
+            seen.clear()
+            res = jax.block_until_ready(one(k))
+            jax.effects_barrier()
+            moved.append(sum(seen))
+            metric.append(float(res.metric))
+        return moved, metric
+
+
+QNET_KEYS = ("w1", "b1", "w2", "b2")
+PARAM_PART = 1e-5            # params apart by more than float error
+
+
+class _GateDrift:
+    """The two learners' discrete choices and params, step by step.  On
+    equal actions the Q-nets can part only where a discrete choice
+    differs: an action (``TIE_TOL``), a hidden unit's ReLU gate on a
+    replay row that carries weight (its pre-activation on the other side
+    of zero passes a gradient on one side only), or Double DQN's
+    bootstrap argmax (``train_rl._bootstrap_bonus``).  The reference's
+    learner step (``repro.core.policy.make_train_step``, the Table-4 net)
+    reports its gates and its params after the step through a callback;
+    the port's step compares its own at the same step, and the port's
+    bootstrap reports the gap of its two best feasible online Q values."""
+
+    def __init__(self, ref):
+        import repro.core.policy as jpol
+
+        jax, jnp = ref.jax, ref.jax.numpy
+        self.steps = []
+        orig = jpol.make_train_step
+
+        def make(spec):
+            step = orig(spec)
+
+            def wrapped(params, opt_state, feats, targets, weights=None):
+                gate = (feats @ params["w1"] + params["b1"]) > 0
+                if weights is not None:
+                    gate &= (weights > 0)[:, None]
+                out = step(params, opt_state, feats, targets, weights)
+                flat = jnp.concatenate([out[0][k].ravel() for k in QNET_KEYS])
+                jax.debug.callback(lambda g, f: self.steps.append(
+                    (np.packbits(np.asarray(g)), np.asarray(f))), gate, flat,
+                    ordered=True)
+                return out
+
+            return wrapped
+
+        jpol.make_train_step = make
+        self.restore = lambda: setattr(jpol, "make_train_step", orig)
+
+    def __enter__(self):
+        from repro_torch.core import dqn, policy as tpol
+
+        self.i, self.first_flip, self.flip_pre = 0, None, None
+        self.diffs, self.boot_gaps, self.parted = [], [], False
+        self.flips = []           # (step, largest |pre|) before the params part
+        self._orig = orig = tpol.make_train_step
+        self._orig_boot = boot = train_rl._bootstrap_bonus
+
+        def bootstrap(online, target, state, pod, cfg, rl, spec=None,
+                      embed=None, fused="auto"):
+            ok = kenv.feasible(state, train_rl.pod_rows(pod, state.base_cpu),
+                               cfg)
+            q = train_rl.score_states(online, state, pod, cfg, fused=fused,
+                                      policy=spec, embed=embed)
+            top = torch.topk(torch.where(ok, q, torch.full_like(q, -torch.inf)),
+                             min(2, q.shape[-1]), dim=-1).values
+            gap = (top[..., 0] - top[..., -1])[torch.isfinite(top[..., -1])]
+            self.boot_gaps.append(float(gap.min()) if gap.numel() else None)
+            return boot(online, target, state, pod, cfg, rl, spec, embed,
+                        fused)
+
+        train_rl._bootstrap_bonus = bootstrap
+
+        def make(spec):
+            step = orig(spec)
+
+            def wrapped(params, opt_state, feats, targets, weights=None):
+                pre = dqn.linear(feats, params["w1"], params["b1"])
+                gate = pre > 0
+                if weights is not None:
+                    gate &= (weights > 0)[..., None]
+                out = step(params, opt_state, feats, targets, weights)
+                ref_gate, ref_flat = self.steps[self.i]
+                g = gate.reshape(-1).cpu().numpy()
+                flip = np.unpackbits(ref_gate)[:g.size].astype(bool) != g
+                if flip.any():
+                    event = (self.i, float(pre.reshape(-1).cpu()[
+                        torch.from_numpy(flip)].abs().max()))
+                    if self.first_flip is None:
+                        self.first_flip, self.flip_pre = event
+                    if not self.parted:
+                        self.flips.append(event)
+                flat = torch.cat([out[0][k].reshape(-1) for k in QNET_KEYS])
+                self.diffs.append(float(np.abs(flat.detach().cpu().numpy()
+                                               - ref_flat).max()))
+                self.parted |= self.diffs[-1] > PARAM_PART
+                self.i += 1
+                return out
+
+            return wrapped
+
+        tpol.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import policy as tpol
+
+        tpol.make_train_step = self._orig
+        train_rl._bootstrap_bonus = self._orig_boot
+
+    def record(self) -> dict:
+        """The first gate flip and bootstrap near tie, and where the params
+        first part by more than ``PARAM_PART``: the last of either event
+        at or before that step (its kind, step and size), the discrete
+        choice the parting starts from."""
+        part = next((i for i, d in enumerate(self.diffs) if d > PARAM_PART),
+                    None)
+        ties = [(i, g) for i, g in enumerate(self.boot_gaps)
+                if g is not None and g <= TIE_TOL]
+        tie = ties[0][0] if ties else None
+        last = None
+        if part is not None:
+            events = ([("gate", i, m) for i, m in self.flips if i <= part]
+                      + [("bootstrap", i, g) for i, g in ties if i <= part])
+            last = max(events, key=lambda e: e[1], default=None)
+        return {"last_event_before_part": last,
+                "first_gate_flip": self.first_flip,
+                "gate_flip_pre": self.flip_pre,
+                "first_bootstrap_near_tie": tie,
+                "bootstrap_gap": None if tie is None else self.boot_gaps[tie],
+                "params_part_step": part}
+
+
+def _port_cell(scenario: str, arm: str, consolidating: bool, params,
+               arrays: dict, device) -> dict:
+    """One cell on the port, on ``arrays`` (a scenario's trial draws)."""
+    cfg = _mix_cfg(scenarios, scenario, consolidating)
+    n = cfg.scenario.n_pods
+    if arm == "kube":
+        select = schedulers.make_kube_selector(cfg)
+    elif arm == "topsis":
+        select = topsis.make_topsis_selector(cfg)
+    else:
+        select = schedulers.make_sdqn_selector(params, cfg)
+    cons = elastic.make_consolidator(params, cfg) if consolidating else None
+    res = eval_engine.make_batch_episode(cfg, select, n, cons,
+                                         device=device)(
+        ArrayDraws(**arrays, device=device))
+    return _episode_row(res.metric, res.dropped, n, dict(
+        nodes_active=res.nodes_active, energy_wh=res.energy_wh,
+        retired=res.retired, evicted=res.evicted,
+        rescheduled=res.rescheduled, lost=res.lost, moved=res.moved),
+        res.exp_pods)
+
+
+def _mix_trials(kind: str, trials: int, names) -> dict:
+    """{scenario: its trial draws as ``ArrayDraws`` arrays} of each of
+    ``names``: the reference's own (``trial_keys(PRNGKey(100), trials)``,
+    rebuilt with the JAX package, failure traces included) or recorded
+    from a CPU ``TorchDraws`` seeded 100."""
+    if kind == "port":
+        return {n: record_trial_draws(TorchDraws(
+            torch.Generator().manual_seed(TRIAL_SEED), (trials,)),
+            scenarios.make_env(n), scenarios.make_env(n).scenario.n_pods)
+            for n in names}
+    jax = _need_jax()
+    from repro import scenarios as jscn
+    from repro.eval import engine as jeval
+
+    keys = jeval.trial_keys(jax.random.PRNGKey(TRIAL_SEED), trials)
+    tp = _parity()
+    return {n: tp.reference_scenario_trial_draws(
+        keys, jscn.make_env(n), jscn.make_env(n).scenario.n_pods)
+        for n in names}
+
+
+def _tree_diff(port: dict, ref) -> float:
+    return max(float(np.max(np.abs(_host(port[k]) - np.asarray(ref[k]))))
+               for k in port)
+
+
+class _MixRun:
+    """One arm of a scenario study: the fixed arms' rows (kube, TOPSIS)
+    once, then per draw its trained policies and their rows."""
+
+    def __init__(self, side: str, study: str, budget: dict, device, trials):
+        self.side, self.study, self.budget = side, study, budget
+        self.device = torch.device(device)
+        self.cells = mix_cells(study)
+        self.ref = _MixReference(budget) if side != "port" else None
+        if side == "paired":
+            self.recorder = _ReferenceActions(self.ref)
+            self.drift = _GateDrift(self.ref)
+            self.tp = _parity()
+        self.arrays = (_mix_trials(trials, budget["trials"],
+                                   dict.fromkeys(c[0] for c in self.cells))
+                       if side != "reference" else None)
+        self.fixed = {}
+        for scenario, arm, cons in self.cells:
+            if arm in FIXED_ARMS:
+                self.fixed.setdefault(scenario, {})[arm] = self._row(
+                    scenario, arm, cons, None, None)
+
+    def close(self):
+        """Undo the paired arm's patches of the reference's learner."""
+        if self.side == "paired":
+            self.recorder.restore()
+            self.drift.restore()
+
+    def _row(self, scenario, arm, cons, jparams, params):
+        count = self.study == "lifecycle"
+        if self.side == "reference":
+            return self.ref.cell(scenario, arm, cons, jparams, count)
+        got = _port_cell(scenario, arm, cons, params, self.arrays[scenario],
+                         self.device)
+        if self.side == "port":
+            return got
+        return {"reference": self.ref.cell(scenario, arm, cons, jparams,
+                                           count), "port": got}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def _train_port(self, name, d, blocks=None, drift=None):
+        mix, rl = _mix_rl(self.study, name, self.budget)
+        cfgs = scenarios.training_mixture(mix)
+        if blocks is None:
+            blocks = record_mixture_draws(TorchDraws(
+                torch.Generator().manual_seed(_mix_seed(self.study, name, d)),
+                (rl.n_envs,)), cfgs, rl, device=CPU)
+        draws = SegmentDraws([(ep0, ArrayDraws(**b, device=self.device))
+                              for ep0, b in blocks])
+        t0 = time.perf_counter()
+        with _LearnerSpy() as spy, (drift or contextlib.nullcontext()):
+            params, _ = train_rl.train_mixture(draws, cfgs, rl,
+                                               device=self.device)
+            self._sync()
+        return params, spy, time.perf_counter() - t0, rl
+
+    def _train(self, name, d):
+        """(reference params, port params, the policy's record)."""
+        if self.side == "reference":
+            jparams, secs = self.ref.train(self.study, name, d)
+            return jparams, None, {"train_seconds": secs}
+        if self.side == "port":
+            params, spy, secs, _ = self._train_port(name, d)
+            return None, params, {
+                "train_seconds": secs, "actions": spy.digests(),
+                "min_gaps": spy.min_gaps(),
+                "first_near_tie": spy.first_near_tie()}
+        self.recorder.seen.clear()
+        self.drift.steps.clear()
+        jparams, ref_secs = self.ref.train(self.study, name, d)
+        self.ref.jax.effects_barrier()
+        mix, jrl = _mix_rl(self.study, name, self.budget,
+                           self.ref.jpresets)
+        blocks, names = self.tp.reference_mixture_draws(
+            self.ref.jax.random.PRNGKey(_mix_seed(self.study, name, d)),
+            self.ref.jscn.training_mixture(mix), jrl, 4)
+        ref_actions = {(0,) + names[k]: a for k, a in self.recorder.seen}
+        params, spy, secs, rl = self._train_port(name, d, blocks, self.drift)
+        assert len(ref_actions) == len(spy.actions) * rl.n_envs, (
+            len(ref_actions), len(spy.actions))
+        return jparams, params, dict(
+            first_diff=_first_diff(spy, ref_actions, rl.pods_per_episode),
+            first_near_tie=spy.first_near_tie(), pod_steps=len(spy.actions),
+            params_max_abs_diff=_tree_diff(params, jparams),
+            train_seconds=[ref_secs, secs], **self.drift.record())
+
+    def draw(self, d: int) -> dict:
+        policies, trained = {}, {}
+        for name in MIX_POLICIES[self.study]:
+            jparams, params, policies[name] = self._train(name, d)
+            trained[name] = (jparams, params)
+        rows = {}
+        for scenario, arm, cons in self.cells:
+            rows.setdefault(scenario, {})[arm] = (
+                self.fixed[scenario][arm] if arm in FIXED_ARMS
+                else self._row(scenario, arm, cons, *trained[arm]))
+        return {"policies": policies, "rows": rows}
+
+
+def mix_samples(out: dict, side: str = "port") -> dict:
+    """``{(scenario, arm, metric): [a draw's trial mean, ...]}`` of a
+    scenario study's run (a paired run: ``side``'s rows); the Pareto
+    study adds ``(scenario, "sdqnn", "dominates")``, the SDQN-n points
+    that dominate or match TOPSIS."""
+    study, samples = out["study"], {}
+    for r in out["per_draw"]:
+        for scenario, arms in r["rows"].items():
+            means = {}
+            for arm, row in arms.items():
+                row = row[side] if "port" in row else row
+                means[arm] = {m: float(np.mean(row[m]))
+                              for m in mix_metrics(study, scenario)}
+                for m, v in means[arm].items():
+                    samples.setdefault((scenario, arm, m), []).append(v)
+            if study == "pareto":
+                point = {a: {"metric_mean": v["avg_cpu"],
+                             "energy_wh_mean": v["energy_wh"],
+                             "dropped_mean": v["dropped"]}
+                         for a, v in means.items()}
+                samples.setdefault((scenario, "sdqnn", "dominates"), []).append(
+                    float(sum(ST.dominates_or_matches(v, point["topsis"])
+                              for a, v in point.items()
+                              if a.startswith("sdqnn"))))
+    return samples
+
+
+def holm(pvalues) -> list:
+    """Holm's step-down adjustment: the i-th smallest of m p-values times
+    (m - i), running maximum, capped at 1; in the given order."""
+    p = np.asarray(pvalues, np.float64)
+    order = np.argsort(p, kind="stable")
+    adj = np.minimum(1.0, np.maximum.accumulate(
+        p[order] * (len(p) - np.arange(len(p)))))
+    out = np.empty_like(p)
+    out[order] = adj
+    return out.tolist()
+
+
+def _same_row(a: dict, b: dict, metrics) -> tuple:
+    """(the per-trial numbers of two rows equal: counts exactly, floats
+    within ``METRIC_RTOL``; their largest relative difference)."""
+    rel = 0.0
+    for m in metrics:
+        x, y = np.asarray(a[m], np.float64), np.asarray(b[m], np.float64)
+        if m in FLOAT_METRICS:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                d = np.where(y == x, 0.0, np.abs(x / y - 1.0))
+            rel = max(rel, float(d.max()))
+        elif not np.array_equal(x, y):
+            rel = float("inf")
+    return rel <= METRIC_RTOL, rel
+
+
+def compare_mix(a: dict, b: dict, log=print) -> dict:
+    """A scenario study's rows, A against B: the fixed arms (kube, TOPSIS)
+    equal trial by trial; each trained row by Welch and Brown-Forsythe,
+    each family Holm-adjusted over the study's rows, decided at
+    ``ALPHA``; two port runs of the same draws also by their actions."""
+    study, tset = a["study"], a["trials"]
+    sa, sb = mix_samples(a), mix_samples(b)
+    rows = {key: compare_samples(sa[key], sb[key]) for key in sa
+            if key[1] not in FIXED_ARMS}
+    for key, res in rows.items():      # the draws above kube, each side
+        kube = (key[0], "kube", key[2])
+        if kube in sa:
+            res["above_kube"] = [int(sum(x > s[kube][0] for x in s[key]))
+                                 for s in (sa, sb)]
+    fixed = {}
+    for r in a["per_draw"] + b["per_draw"]:
+        for scenario, arms in r["rows"].items():
+            for arm in FIXED_ARMS:
+                if arm in arms:
+                    row = arms[arm]
+                    row = row["port"] if "port" in row else row
+                    first = fixed.setdefault((scenario, arm), {
+                        "row": row, "equal": True, "max_rel": 0.0})
+                    ok, rel = _same_row(row, first["row"],
+                                        mix_metrics(study, scenario))
+                    first["equal"] &= ok
+                    first["max_rel"] = max(first["max_rel"], rel)
+    keys = list(rows)
+    for test in ("welch", "bf"):
+        for key, p in zip(keys, holm([rows[k][f"{test}_p"] for k in keys])):
+            rows[key][f"{test}_holm"] = p
+    for key in keys:
+        res = rows[key]
+        res["reject"] = min(res["welch_holm"], res["bf_holm"]) < ALPHA
+        log(f"compare {study} {'/'.join(key)} [{tset} episodes="
+            f"{a['budget']['episodes']}] {a['side']}/{a['device']} vs "
+            f"{b['side']}/{b['device']}: n={res['n']} mean={res['mean']} "
+            f"std={res['std']} welch_p={res['welch_p']} bf_p={res['bf_p']} "
+            f"welch_holm={res['welch_holm']} bf_holm={res['bf_holm']} "
+            f"sd_ratio={res['sd_ratio']} ci95={res['sd_ratio_ci95']} "
+            f"above_kube={res.get('above_kube')} "
+            f"reject={res['reject']} (alpha {ALPHA}, Holm over "
+            f"{len(keys)} rows)")
+    n_fixed = sum(v["equal"] for v in fixed.values())
+    log(f"compare {study} fixed arms {FIXED_ARMS} [{tset}]: {n_fixed} of "
+        f"{len(fixed)} cells equal trial by trial in every draw of both "
+        f"sides, max_rel={max(v['max_rel'] for v in fixed.values())}")
+    for key, v in fixed.items():
+        v.pop("row")
+        if not v["equal"]:
+            log(f"  fixed cell {'/'.join(key)} differs: max_rel="
+                f"{v['max_rel']}")
+    n_rej = sum(r["reject"] for r in rows.values())
+    log(f"compare {study} [{tset}]: {n_rej} of {len(rows)} rows rejected "
+        f"after Holm at alpha {ALPHA}")
+    out = {"a": a.get("spec"), "b": b.get("spec"), "study": study,
+           "trials": tset, "alpha": ALPHA,
+           "rows": {"/".join(k): v for k, v in rows.items()},
+           "fixed": {"/".join(k): v for k, v in fixed.items()},
+           "rejected": n_rej}
+    if a["side"] == b["side"] == "port":
+        out["actions"] = _compare_mix_runs(a, b, log)
+    return out
+
+
+def _compare_mix_runs(a: dict, b: dict, log) -> dict:
+    """Two port runs of the same draws: per draw and trained policy, the
+    actions up to the first near tie, and its cells' trials."""
+    rows_b = {r["draw"]: r for r in b["per_draw"]}
+    per = {}
+    for ra in a["per_draw"]:
+        rb = rows_b.get(ra["draw"])
+        if rb is None:
+            continue
+        for name, pa in ra["policies"].items():
+            m = _action_match(pa, rb["policies"][name])
+            same, rel = True, 0.0
+            for scenario, arms in ra["rows"].items():
+                if name in arms:
+                    ok, r = _same_row(arms[name], rb["rows"][scenario][name],
+                                      mix_metrics(a["study"], scenario))
+                    same, rel = same and ok, max(rel, r)
+            m.update(trials_identical=same, trials_max_rel=rel,
+                     train_seconds=[pa["train_seconds"],
+                                    rb["policies"][name]["train_seconds"]])
+            per.setdefault(name, {})[ra["draw"]] = m
+    for name, rows in per.items():
+        secs = np.asarray([m["train_seconds"] for m in rows.values()])
+        log(f"paired runs {name}: draws={len(rows)} equal_to_first_near_tie="
+            f"{sum(m['equal_to_first_near_tie'] for m in rows.values())} "
+            f"identical={sum(m['identical'] for m in rows.values())} "
+            f"trials_identical="
+            f"{sum(m['trials_identical'] for m in rows.values())} "
+            f"train_seconds_mean a={secs[:, 0].mean()} b={secs[:, 1].mean()}")
+        for d, m in rows.items():
+            if not m["identical"]:
+                log(f"  draw {d} {name}: first_diff_step="
+                    f"{m['first_diff_step']} first_near_tie="
+                    f"{m['first_near_tie']} gaps_at_first_diff="
+                    f"{m['gaps_at_first_diff']} trials_identical="
+                    f"{m['trials_identical']} trials_max_rel="
+                    f"{m['trials_max_rel']}")
+    return per
+
+
+def _mix_paired_lines(study: str, row: dict) -> list:
+    """A paired draw's lines: each policy's first parting from the
+    reference and its first near tie, and how many of its cells' trials
+    equal the reference's."""
+    lines = []
+    for name, pol in row["policies"].items():
+        n_same, n = 0, 0
+        for scenario, arms in row["rows"].items():
+            if name in arms:
+                n += 1
+                n_same += _same_row(arms[name]["port"],
+                                    arms[name]["reference"],
+                                    mix_metrics(study, scenario))[0]
+        lines.append(f"paired {name}: first_diff={pol['first_diff']} "
+                     f"first_near_tie={pol['first_near_tie']} "
+                     f"first_gate_flip={pol['first_gate_flip']} "
+                     f"gate_flip_pre={pol['gate_flip_pre']} "
+                     f"first_bootstrap_near_tie="
+                     f"{pol['first_bootstrap_near_tie']} bootstrap_gap="
+                     f"{pol['bootstrap_gap']} last_event_before_part="
+                     f"{pol['last_event_before_part']} params_part_step="
+                     f"{pol['params_part_step']} pod_steps="
+                     f"{pol['pod_steps']} params_max_abs_diff="
+                     f"{pol['params_max_abs_diff']} cells_equal={n_same}/{n}")
+    return lines
+
+
+# ---------------------------------------------------------------------------
 # running and comparing
 # ---------------------------------------------------------------------------
 
 def budget_of(study: str) -> dict:
+    if study in MIX_POLICIES:
+        return dict(MIX)
     return dict(TABLES if study == "tables" else BASELINES)
+
+
+def run_mix(side: str, study: str, draws: int, first: int, device: str,
+            trials: str, budget: dict, log=print) -> dict:
+    """Draws ``first .. first + draws - 1`` of one arm of a scenario
+    study; the JSON's contents."""
+    tset = trial_set(trials, budget["trials"])
+    tag = f"[{tset} episodes={budget['episodes']}]"
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    runner = _MixRun(side, study, budget, device, trials)
+    out = {"side": side, "study": study, "trials": tset, "validation": None,
+           "device": device, "budget": budget, "first": first,
+           "per_draw": []}
+    if torch.device(device).type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(0)
+    t_all = time.perf_counter()
+    for d in range(first, first + draws):
+        t0 = time.perf_counter()
+        row = runner.draw(d)
+        secs = time.perf_counter() - t0
+        out["per_draw"].append(dict(draw=d, seconds=secs, **row))
+        train_s = {k: v["train_seconds"] for k, v in row["policies"].items()}
+        log(f"{side} {study} draw {d} {tag} seconds={secs} "
+            f"train_seconds={train_s}")
+        for name in row["policies"]:
+            cpu = {sc: float(np.mean((arms[name]["port"] if side == "paired"
+                                      else arms[name])["avg_cpu"]))
+                   for sc, arms in row["rows"].items() if name in arms}
+            log(f"  {name} avg_cpu {tag}: " + " ".join(
+                f"{k}={v}" for k, v in cpu.items()))
+        if side == "paired":
+            for line in _mix_paired_lines(study, row):
+                log(f"  {line} {tag}")
+    out["seconds"] = time.perf_counter() - t_all
+    return out
 
 
 def run(side: str, study: str = "tables", draws: int = 1, first: int = 0,
@@ -601,6 +1304,8 @@ def run(side: str, study: str = "tables", draws: int = 1, first: int = 0,
     if side != "port" and (device != "cpu" or trials != "reference"):
         raise SystemExit(f"--side {side} runs on the CPU, on the "
                          f"reference's trials")
+    if study in MIX_POLICIES:
+        return run_mix(side, study, draws, first, device, trials, budget, log)
     tset = trial_set(trials, budget["trials"])
     if side == "reference":
         ref = _Reference(budget)
@@ -699,7 +1404,9 @@ def compare_samples(a, b, seed: int = 0) -> dict:
     ib = rng.integers(0, len(b), (BOOTSTRAP, len(b)))
     with np.errstate(divide="ignore", invalid="ignore"):
         boot = a[ia].std(axis=1, ddof=1) / b[ib].std(axis=1, ddof=1)
-    lo, hi = np.percentile(boot[np.isfinite(boot)], [2.5, 97.5])
+    finite = boot[np.isfinite(boot)]
+    lo, hi = (np.percentile(finite, [2.5, 97.5]) if finite.size
+              else (float("nan"), float("nan")))
     return {"n": [len(a), len(b)], "mean": [float(a.mean()), float(b.mean())],
             "std": [float(sa), float(sb)], "welch_p": p_t, "bf_p": p_bf,
             "sd_ratio": float(sa / sb) if sb > 0 else float("inf"),
@@ -729,12 +1436,19 @@ def _action_match(ra: dict, rb: dict):
 def compare(spec_a: str, spec_b: str, log=print) -> dict:
     a, b = load(spec_a), load(spec_b)
     if a["study"] != b["study"]:
-        raise SystemExit(f"studies differ: {a['study']} / {b['study']}")
+        raise SystemExit(f"refused: {spec_a} is study {a['study']}, {spec_b} "
+                         f"study {b['study']}; compare runs of one study")
     for key in ("trials", "validation"):
         if a[key] != b[key]:
             raise SystemExit(
                 f"refused: {spec_a} was scored on {key} {a[key]}, {spec_b} "
                 f"on {b[key]}; compare runs scored on the same {key}")
+    if a["study"] in MIX_POLICIES:
+        if a["budget"] != b["budget"]:
+            raise SystemExit(f"refused: {spec_a} ran at {a['budget']}, "
+                             f"{spec_b} at {b['budget']}")
+        a["spec"], b["spec"] = spec_a, spec_b
+        return compare_mix(a, b, log)
     tset = a["trials"]
     out = {"a": spec_a, "b": spec_b, "trials": tset, "alpha": ALPHA,
            "schedulers": {}}
@@ -790,7 +1504,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--side", choices=("reference", "paired", "port"))
     ap.add_argument("--study", choices=tuple(STUDIES), default="tables")
-    ap.add_argument("--draws", type=int, default=32)
+    ap.add_argument("--draws", type=int, default=None,
+                    help="32; a scenario study's MIX_DRAWS")
     ap.add_argument("--first", type=int, default=0)
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
     ap.add_argument("--trials", choices=("reference", "port"),
@@ -801,7 +1516,9 @@ def main(argv=None) -> int:
     if args.compare:
         out = compare(*args.compare)
     elif args.side:
-        out = run(args.side, args.study, args.draws, args.first, args.device,
+        draws = (args.draws if args.draws is not None
+                 else MIX_DRAWS.get(args.study, 32))
+        out = run(args.side, args.study, draws, args.first, args.device,
                   args.trials)
     else:
         ap.error("give --side or --compare")

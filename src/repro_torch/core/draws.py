@@ -360,16 +360,64 @@ def record_train_draws(draws, cfg: EnvConfig, rl, n_seeds: int,
                 replay_idx=np.stack(idx))
 
 
+def record_mixture_draws(draws, env_cfgs, rl, rounds: int = 4,
+                         device=None) -> list:
+    """What ``draws`` (batch ``(rl.n_envs,)``) gives a
+    ``train_rl.train_mixture`` run of (env_cfgs, rl, rounds), one
+    ``ArrayDraws`` block of arrays a segment of ``mixture_schedule``, as
+    ``[(ep0, arrays), ...]`` for ``SegmentDraws``; the first block holds
+    the initial params (a seed axis of 1).  The replay size runs on across
+    segments, as the trainer's one carry does."""
+    from repro_torch.core import policy, train_rl
+
+    params = draws.init_params(policy.get(rl.policy), 1, device=device)
+    blocks, size = [], 0
+    for cfg, ep0, n_eps in train_rl.mixture_schedule(env_cfgs, rl.episodes,
+                                                     rounds):
+        resets, tables, explore, noise, idx = [], [], [], [], []
+        for ep in range(ep0, ep0 + n_eps):
+            resets.append([_host(x) for x in draws.reset(cfg, ep,
+                                                         device=device)])
+            tables.append(draws.pod_table(cfg, rl.pods_per_episode, ep,
+                                          device=device))
+            us, ns, ids = [], [], []
+            for t in range(rl.pods_per_episode):
+                step = draws.step(ep, t)
+                us.append(_host(step.explore()))
+                ns.append(_host(step.noise(cfg.n_nodes)))
+                size = min(size + rl.n_envs, rl.buffer_capacity)
+                ids.append(_host(draws.replay_indices(ep, t, size,
+                                                      (rl.batch_size,))))
+            explore.append(np.stack(us)), noise.append(np.stack(ns))
+            idx.append(np.stack(ids))
+        block = dict(reset=[np.stack(c) for c in zip(*resets)],
+                     pod_tables=_stack_tables(tables),
+                     explore=np.stack(explore), noise=np.stack(noise),
+                     replay_idx=np.stack(idx))
+        if not blocks:
+            block["params"] = _host_tree(params)
+        blocks.append((ep0, block))
+    return blocks
+
+
 def record_trial_draws(draws: TorchDraws, cfg: EnvConfig,
                        n_pods: int) -> dict:
     """A trial batch's draws as ``ArrayDraws`` arrays: the reset and each
-    arrival's kube tie-break row (greedy SDQN takes no draw)."""
+    arrival's kube tie-break row (greedy SDQN takes no draw); where the
+    config's nodes fail (``env.has_chaos``), also the failure trace's
+    exponentials and each arrival's re-placement tie-break row."""
     device = draws.generator.device
     reset = [_host(x)[None] for x in draws.reset(cfg, device=device)]
     tables = _stack_tables([draws.pod_table(cfg, n_pods, device=device)])
     tie = np.stack([_host(draws.step(0, t).tiebreak(cfg.n_nodes))
                     for t in range(n_pods)])
-    return dict(reset=reset, pod_tables=tables, tiebreak=tie[None])
+    out = dict(reset=reset, pod_tables=tables, tiebreak=tie[None])
+    if kenv.has_chaos(cfg):
+        out["failure"] = _host(draws.failure(cfg, device=device))[None]
+        again = np.stack([_host(draws.step(0, t).reschedule().tiebreak(
+            cfg.n_nodes)) for t in range(n_pods)])
+        out["reschedule"] = {"tiebreak": again[None]}
+    return out
 
 
 def record_supervised_draws(draws, cfg: EnvConfig, init_fn, episodes: int,

@@ -29,42 +29,11 @@ from repro_torch import convert, scenarios as tscn
 from repro_torch.core import dqn as tdqn, env as tenv, policy as tpol
 from repro_torch.core import schedulers as tsched, types as ttypes
 from repro_torch.core.draws import ArrayDraws, TorchDraws
-from torch_parity import _np, reference_trial_draws
+from torch_parity import (_np, reference_chaos_draws,  # noqa: F401
+                          reference_failure_units, reference_trial_draws)
 
 CHAOS_SCENARIOS = ("preemptible-flaky", "batch-flaky", "train-flaky")
 RTOL = 1e-5
-
-
-def reference_failure_units(key, cfg, cycles=None):
-    """The unit exponentials ``repro.core.env.sample_failure_trace(key,
-    cfg)`` draws, in ``env.failure_draws``' layout ``(cycles, 2, N)``."""
-    cycles = cfg.chaos_cycles if cycles is None else cycles
-    n = cfg.n_nodes
-    return jnp.stack([jnp.stack([
-        jax.random.exponential(jax.random.fold_in(key, 2 * c), (n,),
-                               jnp.float32),
-        jax.random.exponential(jax.random.fold_in(key, 2 * c + 1), (n,),
-                               jnp.float32)]) for c in range(cycles)])
-
-
-def reference_chaos_draws(keys, cfg, n_pods):
-    """``reference_trial_draws`` plus what a chaos episode of
-    ``run_episode(k, ...)`` draws: the trace's exponentials from
-    ``fold_in(k, 13)`` and, per arrival, the re-placement attempt's kube
-    tie-break row from ``fold_in(step_key, 17)``."""
-    base = reference_trial_draws(keys, cfg, n_pods)
-
-    def one(k):
-        _, _, k_act = jax.random.split(k, 3)
-        steps = jax.random.split(k_act, n_pods)
-        tie = jax.vmap(lambda s: jax.random.uniform(
-            jax.random.fold_in(s, 17), (cfg.n_nodes,)))(steps)
-        return reference_failure_units(jax.random.fold_in(k, 13), cfg), tie
-
-    e, tie = jax.jit(jax.vmap(one))(keys)
-    base["failure"] = np.asarray(e)[None]
-    base["reschedule"] = {"tiebreak": np.swapaxes(np.asarray(tie), 0, 1)[None]}
-    return base
 
 
 def flaky_cfgs(**overrides):

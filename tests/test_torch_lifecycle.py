@@ -38,8 +38,7 @@ from repro_torch.eval import engine as teval
 from repro_torch.sched import elastic as telastic
 from test_torch_train import (PARAM_TOL, _close_trees, _record_port,
                               _record_reference)
-from torch_parity import (_key_bytes, _np, _stack_tables, _step_draws,
-                          reference_trial_draws)
+from torch_parity import _np, reference_mixture_draws, reference_trial_draws
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -283,49 +282,6 @@ MIX = dict(episodes=9, pods_per_episode=24, n_envs=2, batch_size=8,
            energy_weight=15.0)
 MIX_NAMES = ("paper-burst", "short-job-burst")   # 4 and 8 nodes; pods retire
 ROUNDS = 2
-
-
-def reference_mixture_draws(key, cfgs, rl, rounds):
-    """Every draw of ``train_rl.train_mixture(key, cfgs, rl, rounds)``, one
-    ``ArrayDraws`` block a segment (each with its own config's node count),
-    indexed by the global episode the reference folds into its key; and
-    ``{key bytes: (episode, step, env)}``."""
-    k_init, k_train = jax.random.split(key)
-    params = jax.tree.map(lambda x: np.asarray(x)[None],
-                          jdqn.init_qnet(k_init))
-    e, t_n = rl.n_envs, rl.pods_per_episode
-    chunk = max(rl.episodes // (len(cfgs) * rounds), 1)
-    blocks, names, size, ep0 = [], {}, 0, 0
-    cycle = 0
-    while ep0 < rl.episodes:
-        cfg = cfgs[cycle % len(cfgs)]
-        cycle += 1
-        resets, tables, explore, noise, idx = [], [], [], [], []
-        for ep in range(ep0, ep0 + chunk):
-            k_reset, k_pods, k_steps = jax.random.split(
-                jax.random.fold_in(k_train, ep), 3)
-            resets.append(_np(jax.vmap(lambda k: jenv.reset(k, cfg))(
-                jax.random.split(k_reset, e))))
-            tables.append(_np(jax.vmap(
-                lambda k: jenv.sample_pod_table(k, cfg, t_n))(
-                    jax.random.split(k_pods, e))))
-            us, ns, ids = [], [], []
-            for t in range(t_n):
-                size = min(size + e, rl.buffer_capacity)
-                u, nz, ix, keys = _step_draws(k_steps, t, jnp.int32(size), e,
-                                              cfg.n_nodes, rl.batch_size)
-                us.append(u), ns.append(nz), ids.append(ix)
-                for env_i, k in enumerate(np.asarray(keys)):
-                    names[_key_bytes(k)] = (ep, t, env_i)
-            explore.append(np.stack(us)), noise.append(np.stack(ns))
-            idx.append(np.stack(ids))
-        blocks.append((ep0, dict(
-            params=params,
-            reset=jtypes.ClusterState(*(np.stack(c) for c in zip(*resets))),
-            pod_tables=_stack_tables(tables), explore=np.stack(explore),
-            noise=np.stack(noise), replay_idx=np.stack(idx))))
-        ep0 += chunk
-    return blocks, names
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,10 +5,12 @@ same ones; the clock and the deadline stopwatch are injected so both
 daemons cut the same batches.
 
 torch cannot reproduce JAX's threefry streams, so ``reference_train_draws``,
-``seeded_train_draws``, ``reference_trial_draws`` and
-``reference_supervised_draws`` rebuild every draw the reference takes from
-its key (resets, arrival tables, explore uniforms, noise rows, replay
-indices, kube-scheduler tie-breaks) by calling the reference's own
+``seeded_train_draws``, ``reference_mixture_draws``,
+``reference_trial_draws``, ``reference_chaos_draws``,
+``reference_scenario_trial_draws`` and ``reference_supervised_draws``
+rebuild every draw the reference takes from its key (resets, arrival
+tables, explore uniforms, noise rows, replay indices, kube-scheduler
+tie-breaks, failure traces) by calling the reference's own
 ``env.reset``, ``env.sample_pod_table`` and ``jax.random`` under the key
 derivation of ``repro/core/train_rl.py`` and ``repro/core/env.py``, as
 numpy arrays for the port's ``core.draws.ArrayDraws``.  They are the one
@@ -21,7 +23,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from repro.core import env as jenv, policy as jpol, types as jtypes
+from repro.core import dqn as jdqn, env as jenv, policy as jpol
+from repro.core import types as jtypes
 from repro_torch.core.types import NO_PLACEMENT
 
 
@@ -184,6 +187,93 @@ def reference_trial_draws(keys, cfg, n_pods):
                                             for x in states)),
                 pod_tables=jax.tree.map(lambda x: np.asarray(x)[None], tables),
                 tiebreak=np.swapaxes(np.asarray(tie), 0, 1)[None])
+
+
+def reference_failure_units(key, cfg, cycles=None):
+    """The unit exponentials ``repro.core.env.sample_failure_trace(key,
+    cfg)`` draws, in ``env.failure_draws``' layout ``(cycles, 2, N)``."""
+    cycles = cfg.chaos_cycles if cycles is None else cycles
+    n = cfg.n_nodes
+    return jnp.stack([jnp.stack([
+        jax.random.exponential(jax.random.fold_in(key, 2 * c), (n,),
+                               jnp.float32),
+        jax.random.exponential(jax.random.fold_in(key, 2 * c + 1), (n,),
+                               jnp.float32)]) for c in range(cycles)])
+
+
+def reference_chaos_draws(keys, cfg, n_pods):
+    """``reference_trial_draws`` plus what a chaos episode of
+    ``run_episode(k, ...)`` draws: the trace's exponentials from
+    ``fold_in(k, 13)`` and, per arrival, the re-placement attempt's kube
+    tie-break row from ``fold_in(step_key, 17)``."""
+    base = reference_trial_draws(keys, cfg, n_pods)
+
+    def one(k):
+        _, _, k_act = jax.random.split(k, 3)
+        steps = jax.random.split(k_act, n_pods)
+        tie = jax.vmap(lambda s: jax.random.uniform(
+            jax.random.fold_in(s, 17), (cfg.n_nodes,)))(steps)
+        return reference_failure_units(jax.random.fold_in(k, 13), cfg), tie
+
+    e, tie = jax.jit(jax.vmap(one))(keys)
+    base["failure"] = np.asarray(e)[None]
+    base["reschedule"] = {"tiebreak": np.swapaxes(np.asarray(tie), 0, 1)[None]}
+    return base
+
+
+def reference_scenario_trial_draws(keys, cfg, n_pods):
+    """The draws of ``run_episode(k, cfg, ...)`` for each trial key:
+    ``reference_chaos_draws`` where the config's nodes fail (a node class
+    of finite MTBF), else ``reference_trial_draws``."""
+    chaos = cfg.scenario is not None and any(
+        np.isfinite(c.mtbf_s) for c in cfg.scenario.node_classes)
+    return (reference_chaos_draws if chaos else reference_trial_draws)(
+        keys, cfg, n_pods)
+
+
+def reference_mixture_draws(key, cfgs, rl, rounds):
+    """Every draw of ``train_rl.train_mixture(key, cfgs, rl, rounds)``, one
+    ``ArrayDraws`` block a segment (each with its own config's node count),
+    indexed by the global episode the reference folds into its key; and
+    ``{key bytes: (episode, step, env)}``."""
+    k_init, k_train = jax.random.split(key)
+    params = jax.tree.map(lambda x: np.asarray(x)[None],
+                          jdqn.init_qnet(k_init))
+    e, t_n = rl.n_envs, rl.pods_per_episode
+    chunk = max(rl.episodes // (len(cfgs) * rounds), 1)
+    blocks, names, size, ep0 = [], {}, 0, 0
+    cycle, fns = 0, {}
+    while ep0 < rl.episodes:
+        cfg = cfgs[cycle % len(cfgs)]
+        cycle += 1
+        if cfg not in fns:
+            fns[cfg] = (jax.jit(jax.vmap(lambda k, c=cfg: jenv.reset(k, c))),
+                        jax.jit(jax.vmap(lambda k, c=cfg: jenv.sample_pod_table(
+                            k, c, t_n))))
+        reset_fn, table_fn = fns[cfg]
+        resets, tables, explore, noise, idx = [], [], [], [], []
+        for ep in range(ep0, ep0 + chunk):
+            k_reset, k_pods, k_steps = jax.random.split(
+                jax.random.fold_in(k_train, ep), 3)
+            resets.append(_np(reset_fn(jax.random.split(k_reset, e))))
+            tables.append(_np(table_fn(jax.random.split(k_pods, e))))
+            us, ns, ids = [], [], []
+            for t in range(t_n):
+                size = min(size + e, rl.buffer_capacity)
+                u, nz, ix, keys = _step_draws(k_steps, t, jnp.int32(size), e,
+                                              cfg.n_nodes, rl.batch_size)
+                us.append(u), ns.append(nz), ids.append(ix)
+                for env_i, k in enumerate(np.asarray(keys)):
+                    names[_key_bytes(k)] = (ep, t, env_i)
+            explore.append(np.stack(us)), noise.append(np.stack(ns))
+            idx.append(np.stack(ids))
+        blocks.append((ep0, dict(
+            params=params,
+            reset=jtypes.ClusterState(*(np.stack(c) for c in zip(*resets))),
+            pod_tables=_stack_tables(tables), explore=np.stack(explore),
+            noise=np.stack(noise), replay_idx=np.stack(idx))))
+        ep0 += chunk
+    return blocks, names
 
 
 def reference_supervised_draws(key, cfg, init_fn, episodes, pods, n_envs):
